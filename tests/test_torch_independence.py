@@ -1,0 +1,96 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor
+``bitmagic_tpu``, and without a card its default device raises instead of
+running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import bitmagic_tpu_torch as tbm
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "bitmagic_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "bitmagic_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_import_with_jax_and_reference_blocked():
+    code = textwrap.dedent("""
+        import sys
+        BLOCK = ("jax", "jaxlib", "bitmagic_tpu")
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCK):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        import bitmagic_tpu_torch as bt
+        from bitmagic_tpu_torch import interop
+        import bitmagic_tpu_torch.ops.cuda_kernels
+        v = bt.BitVector.from_indices([3, 70000], 1 << 20, device="cpu")
+        w = bt.BitVector.from_indices([3, 9], 1 << 20, device="cpu")
+        assert (v & w).count() == 1 and bt.count_or(v, w) == 3
+        assert v.select(2) == 70000
+        bad = [m for m in sys.modules
+               if any(m == b or m.startswith(b + ".") for b in BLOCK)]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(_port_files()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_imports_jax_or_reference(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert not _forbidden(name), f"{path} imports {name}"
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tbm.config, "device", "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.BitVector(1 << 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.BitVector.from_indices([1, 2], 1 << 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.BitVector.from_words([1, 2, 3])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.simd_version()
+    # asking for the CPU explicitly runs the plain versions
+    v = tbm.BitVector.from_indices([1, 2], 1 << 20, device="cpu")
+    assert v.count() == 2 and v.device.type == "cpu"
+    monkeypatch.setattr(tbm.config, "device", "cpu")
+    assert tbm.simd_version() == "cpu:torch"
