@@ -33,8 +33,9 @@ from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
 from ..ops.blockops import to_device_words, to_host_words
 from .blocks import (RUN_MIN, Structure, descriptor, expand_gap_operand,
-                     plan_binary, points_in_runs, runs_clip,
-                     runs_overlap_bits, runs_subtract_points, runs_union)
+                     operand_args, plan_binary, points_in_runs, runs_clip,
+                     runs_diff, runs_normalize, runs_overlap_bits,
+                     runs_subtract_points, runs_union, split_runs)
 from .gapstore import GapStore, from_positions, gap_binary_op
 
 _I64 = np.int64
@@ -68,6 +69,17 @@ def _block_index(ids: np.ndarray):
     return blocks[new], np.cumsum(new) - 1
 
 
+class ReadOnlyError(RuntimeError):
+    pass
+
+
+def check_writable(obj, what: str = "container"):
+    """Shared eager read-only guard: every frozen container rejects writes
+    at the call site (reference RO semantics)."""
+    if getattr(obj, "_ro", False):
+        raise ReadOnlyError(f"{what} is read-only (frozen)")
+
+
 class BitVector:
     """Block-structured succinct bit-vector (bm::bvector equivalent)."""
 
@@ -79,6 +91,7 @@ class BitVector:
         self._pool = blockops.zero_pool(0, self._device)
         self._gaps = None         # GapStore for CLS_GAP entries (nb order)
         self._staged: dict[int, bool] = {}
+        self._ro = False
         self._rs = None           # cached RSIndex
         self._glevel = tuple(config.gap_levels)
         self.strategy = strategy
@@ -102,6 +115,7 @@ class BitVector:
         bv._pool = pool
         bv._gaps = gaps
         bv._staged = {}
+        bv._ro = False
         bv._rs = None
         bv._glevel = tuple(config.gap_levels)
         bv.strategy = C.BM_BIT
@@ -188,6 +202,18 @@ class BitVector:
     @property
     def size(self) -> int:
         return self._size
+
+    def resize(self, new_size: int):
+        """Reference resize (src/bm.h:1306): bits at and above a smaller
+        size are dropped."""
+        self._check_writable()
+        self._flush()
+        new_size = int(new_size)
+        if new_size < self._size:
+            self._drop_trailing(new_size)
+        self._size = new_size
+        self._dirty()
+        return self
 
     def _pool_host(self) -> np.ndarray:
         """Host uint32 copy of the dense rows."""
@@ -310,10 +336,14 @@ class BitVector:
     # ------------------------------------------------------------------
     # single-bit mutation (staged; reference set_bit src/bm.h:1074)
     # ------------------------------------------------------------------
+    def _check_writable(self):
+        check_writable(self, "bit-vector")
+
     def _dirty(self):
         self._rs = None
 
     def set(self, i, val: bool = True):
+        self._check_writable()
         i = int(i)
         if not (0 <= i < self._size):
             raise IndexError(f"bit {i} out of range [0, {self._size})")
@@ -328,6 +358,20 @@ class BitVector:
 
     def __setitem__(self, i, val):
         self.set(i, val)
+
+    def _flat_nb(self) -> np.ndarray:
+        """Sorted per-block ids including run-covered blocks (the flat
+        candidate list of aggregator arenas and SV planes); very wide runs
+        raise MemoryError instead of expanding."""
+        if not self._struct.has_runs:
+            return self._struct.nb
+        return self._struct.materialized().nb
+
+    def _materialize_runs(self):
+        """Replace runs with flat per-block FULL entries (bounded)."""
+        if self._struct.has_runs:
+            self._struct = self._struct.materialized()
+            self._dirty()
 
     def _flush(self):
         if not self._staged:
@@ -348,10 +392,33 @@ class BitVector:
                                               device=self._device))
 
     # ------------------------------------------------------------------
+    # bulk mutation
+    # ------------------------------------------------------------------
+    def _bulk_operand(self, ids) -> "BitVector":
+        strat = self.strategy if self.strategy == C.BM_GAP else None
+        return BitVector.from_indices(ids, self._size, strategy=strat,
+                                      device=self._device)
+
+    def set_many(self, ids):
+        """Bulk OR of bit ids (reference set(ids,n), src/bm.h:1133)."""
+        self._check_writable()
+        self._flush()
+        self._ior(self._bulk_operand(ids))
+        return self
+
+    def clear_many(self, ids):
+        """Bulk clear of bit ids (reference clear(ids,n), src/bm.h:1161)."""
+        self._check_writable()
+        self._flush()
+        self._isub(self._bulk_operand(ids))
+        return self
+
+    # ------------------------------------------------------------------
     # range mutation
     # ------------------------------------------------------------------
     def set_range(self, lo, hi, val: bool = True):
         """Set/clear inclusive bit range (reference src/bm.h:1201)."""
+        self._check_writable()
         self._flush()
         lo, hi = int(lo), int(hi)
         if hi < lo:
@@ -374,6 +441,7 @@ class BitVector:
     def copy_range(self, other: "BitVector", lo, hi):
         """Copy bits [lo, hi] from other, zero everything else
         (reference src/bm.h:1238)."""
+        self._check_writable()
         other._flush()
         lo, hi = int(lo), int(hi)
         if lo > hi:
@@ -382,6 +450,54 @@ class BitVector:
                             within=other._struct)
         self._adopt(_binary(other, rng, "and"))
         return self
+
+    def clear(self, free_mem: bool = True):
+        self._check_writable()
+        self._staged = {}
+        self._struct = Structure.empty()
+        self._pool = blockops.zero_pool(0, self._device)
+        self._gaps = None
+        self._dirty()
+        return self
+
+    def reset(self):
+        return self.clear()
+
+    def invert(self):
+        """Flip all bits in [0, size) (reference src/bm.h:1837).
+        O(own structure) for any address span: absent spans become FULL
+        runs, FULL entries and runs drop, BIT rows complement on the
+        device, GAP blocks complement their run lists on the host."""
+        self._check_writable()
+        self._flush()
+        nblk = C.blocks_for_bits(self._size)
+        st = self._struct
+        pts_iv = (np.stack([st.nb, st.nb + 1], axis=1)
+                  if st.nb.size else np.zeros((0, 2), _I64))
+        present = runs_normalize(np.concatenate([pts_iv, st.runs]))
+        absent = runs_diff(np.asarray([[0, nblk]], _I64), present)
+        new_runs, full_pts = split_runs(absent, RUN_MIN)
+        bitm = st.cls == C.CLS_BIT
+        gapm = st.cls == C.CLS_GAP
+        rows = st.slots()[bitm]
+        pool = (~self._pool[_index(rows, self._device)] if rows.size
+                else blockops.zero_pool(0, self._device))
+        gaps = None
+        if self._gaps is not None and gapm.any():
+            gaps = self._gaps.complement()
+        nb = np.concatenate([st.nb[bitm | gapm], full_pts])
+        cls = np.concatenate([st.cls[bitm | gapm],
+                              np.full(full_pts.size, C.CLS_FULL, np.uint8)])
+        order = np.argsort(nb, kind="stable")
+        self._struct = Structure(nb[order], cls[order], new_runs)
+        self._pool = pool
+        self._gaps = gaps
+        self._drop_trailing(self._size)
+        self._dirty()
+        return self
+
+    def __invert__(self):
+        return self.copy().invert()
 
     # ------------------------------------------------------------------
     # queries
@@ -698,6 +814,7 @@ class BitVector:
 
     def _op3(self, op, a, b, opt_mode):
         """2-op (self OP= a) or 3-op (self = a OP b) form."""
+        self._check_writable()
         self._flush()
         if b is None:
             self._adopt(_binary(self, a, op))
@@ -745,6 +862,29 @@ class BitVector:
 
     def __hash__(self):
         return id(self)
+
+    # ------------------------------------------------------------------
+    # shift / keep_range (reference src/bm.h:1514, keep_range)
+    # ------------------------------------------------------------------
+    def shift_right(self):
+        """Shift the whole vector one position up (bit i -> i+1)."""
+        self._check_writable()
+        self._flush()
+        self._adopt(_shifted_up(self))
+        return self
+
+    def keep_range(self, lo, hi):
+        """Clear every bit outside the closed range [lo, hi]."""
+        self._check_writable()     # reference keep_range asserts !is_ro()
+        self._flush()
+        lo, hi = int(lo), int(hi)
+        if lo > hi:                # reference xor_swap (bm.h keep_range)
+            lo, hi = hi, lo
+        self._iand(_range_vector(lo, hi, self._size, self._device,
+                                 within=self._struct))
+        return self
+
+    keep_range_struct = keep_range
 
     # ------------------------------------------------------------------
     # export
@@ -827,6 +967,7 @@ class BitVector:
         host-resident GAP store — classified exactly as the reference
         (optimize, src/bm.h:1942; optimize_bit_block src/bmblocks.h:1414).
         Per-block counts come from K3 on the device."""
+        self._check_writable()
         self._flush()
 
         def _in_range_mask():
@@ -937,6 +1078,15 @@ class BitVector:
         covered = points_in_runs(st.nb, new_runs)
         self._struct = Structure(st.nb[~covered].copy(),
                                  st.cls[~covered].copy(), new_runs)
+
+    def freeze(self):
+        """Make immutable (reference READONLY finalization src/bm.h:1057)."""
+        self._flush()
+        self._ro = True
+        return self
+
+    def is_ro(self) -> bool:
+        return self._ro
 
     # rank/select via cached RS index ------------------------------------
     def _rs_index(self):
@@ -1173,6 +1323,47 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
     keep = ~drop
     return BitVector._from_parts(
         Structure(nb_all[keep], cls_all[keep], plan.runs), pool, size, gaps)
+
+
+def _assemble_shifted(nbs, rows_dev, new_nb, new_rows, size) -> BitVector:
+    if new_nb.size:
+        all_nb = np.concatenate([nbs, new_nb])
+        order = np.argsort(all_nb, kind="stable")
+        rows_dev = torch.cat([rows_dev, to_device_words(
+            new_rows, rows_dev.device)])[_index(order, rows_dev.device)]
+        nbs = all_nb[order]
+    return BitVector._from_parts(
+        Structure(nbs.copy(), np.full(nbs.size, C.CLS_BIT, np.uint8)),
+        rows_dev, size)
+
+
+def _shifted_up(bv: BitVector) -> BitVector:
+    """bv shifted one bit towards higher indices (whole vector).  The rows
+    shift on the device (per-row shift); the host sees only the 8 B/block
+    edge bits to stitch cross-block carries: a block's carry-out lands in
+    the adjacent successor when present, else becomes a new 1-bit block.
+    O(own blocks) for any address span."""
+    bv._flush()
+    bv._materialize_runs()       # flat per-block view (bounded) + _dirty
+    nbs = bv._struct.nb
+    if len(nbs) == 0:
+        return bv
+    rows = blockops.gather_rows(*operand_args(bv, nbs))  # present only
+    _, top_dev = blockops.edge_bits(rows)
+    top = top_dev.cpu().numpy().astype(np.uint32)        # tiny fetch
+    succ_present = np.append(nbs[1:] == nbs[:-1] + 1, False)
+    carry = np.zeros(nbs.size, np.int32)
+    recv = np.flatnonzero(np.concatenate([[False], succ_present[:-1]]))
+    carry[recv] = top[recv - 1]
+    out = blockops.shift_rows_up1(rows, torch.from_numpy(carry).to(
+        rows.device))
+    make = (top == 1) & ~succ_present
+    new_nb = nbs[make] + 1
+    new_rows = np.zeros((new_nb.size, C.SET_BLOCK_SIZE), np.uint32)
+    new_rows[:, 0] = 1
+    res = _assemble_shifted(nbs, out, new_nb, new_rows, bv._size)
+    res._drop_trailing(bv._size)
+    return res
 
 
 def _count_range_rows_dev(rows, lo_rel, hi_rel):

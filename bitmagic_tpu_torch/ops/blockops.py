@@ -172,14 +172,20 @@ def count_op(op, a, b):
 def gather_rows(pool, slot, full, aux=None, aux_slot=None):
     """Aligned operand rows: the pool row where slot >= 0, all ones where
     full, zero otherwise; the ``aux`` row where aux_slot >= 0 overrides
-    (expanded GAP blocks).  Semantics of bitmagic_tpu gather_operand."""
-    k = slot.shape[0]
-    if pool.shape[0] == 0:
-        rows = torch.zeros((k, SET_BLOCK_SIZE), dtype=_I32, device=slot.device)
+    (expanded GAP blocks).  Semantics of bitmagic_tpu gather_operand.
+    ``slot=None`` is the aligned form (row i of the pool), ``full=None``
+    means no FULL rows."""
+    if slot is None:
+        rows = pool
+    elif pool.shape[0] == 0:
+        rows = torch.zeros((slot.shape[0], SET_BLOCK_SIZE), dtype=_I32,
+                           device=slot.device)
     else:
         rows = pool[slot.clamp(min=0).to(_I64)]
-    rows = torch.where((slot < 0)[:, None], 0, rows)
-    rows = torch.where(full.to(torch.bool)[:, None], -1, rows)
+    if slot is not None:
+        rows = torch.where((slot < 0)[:, None], 0, rows)
+    if full is not None:
+        rows = torch.where(full.to(torch.bool)[:, None], -1, rows)
     if aux is not None and aux.shape[0]:
         arows = aux[aux_slot.clamp(min=0).to(_I64)]
         rows = torch.where((aux_slot >= 0)[:, None], arows, rows)
@@ -220,6 +226,111 @@ def count_metrics(metrics, a_desc, b_desc):
         raise ValueError("no metrics requested")
     return torch.stack([block_counts(_metric_rows(m, a, b))
                         for m in metrics])
+
+
+# ---------------------------------------------------------------------------
+# K-way aggregator sweep, batched pipeline counts, bit-sliced equality scan
+# (plain versions of kernels B4, B5 and B6)
+# ---------------------------------------------------------------------------
+def _desc_cols(desc) -> int:
+    pool, slot = desc[0], desc[1]
+    return pool.shape[0] if slot is None else slot.shape[0]
+
+
+def agg_and_sub(n_and, descs, or_mode=False, rows=True, counts=False):
+    """Plain version of kernel B4 over K gather descriptors aligned on the
+    same k columns: AND of the first ``n_and`` operands' rows AND-NOT the
+    rest's (``or_mode``: OR of every operand's rows, the ``n_and = 0``
+    case of bitmagic_tpu's ``_agg_kernel``).  Returns ``(rows int32[k,
+    2048] or None, per-column popcounts int32[k] or None)``; the result is
+    the same whether or not a sweep stops early at an all-zero column."""
+    if not descs:
+        raise ValueError("agg_and_sub: no operands")
+    k = _desc_cols(descs[0])
+    dev = descs[0][0].device
+    acc = torch.full((k, SET_BLOCK_SIZE), 0 if or_mode else -1, dtype=_I32,
+                     device=dev)
+    for j, d in enumerate(descs):
+        r = gather_rows(*d)
+        if or_mode:
+            acc |= r
+        elif j < n_and:
+            acc &= r
+        else:
+            acc &= ~r
+    return (acc if rows else None), (block_counts(acc) if counts else None)
+
+
+def arena_descriptors(n_and, slots, pool):
+    """The arena form of B4 as gather descriptors: operand k reads
+    ``pool[slots[k, i]]``; a slot of -1 is the identity, passed as FULL for
+    an AND operand and left zero for a SUB operand (the rule of
+    bitmagic_tpu agg_and_sub_pallas, pallas_kernels.py:221-228)."""
+    full = slots < 0
+    return [(pool, slots[k], full[k] if k < n_and else None, None, None)
+            for k in range(slots.shape[0])]
+
+
+def agg_and_sub_arena(n_and, n_sub, slots, pool):
+    """Plain version of B4 in the signature of bitmagic_tpu
+    ``agg_and_sub_pallas``: slots int32[n_and + n_sub, nb] into ``pool``
+    -> int32[nb, 2048]."""
+    if slots.shape[0] != n_and + n_sub:
+        raise ValueError("agg_and_sub_arena: slots rows != n_and + n_sub")
+    return agg_and_sub(n_and, arena_descriptors(n_and, slots, pool))[0]
+
+
+def pipeline_codes(selectors) -> tuple[np.ndarray, np.ndarray]:
+    """Selector rows int[V, S] (1 AND, -1 AND-NOT, 0 skip) compacted to
+    CSR: ``(offs int32[V + 1], codes int32[n])`` with code ``(s << 1) |
+    (select == -1)`` for each non-zero select of row v in
+    ``codes[offs[v]:offs[v + 1]]``."""
+    sel = np.asarray(selectors)
+    if sel.ndim != 2:
+        raise ValueError("selectors must be [V, S]")
+    bad = (sel != 0) & (sel != 1) & (sel != -1)
+    if bad.any():
+        raise ValueError("selectors hold only 1, -1 and 0")
+    rows, cols = np.nonzero(sel)
+    codes = (cols.astype(np.int32) << 1) | (sel[rows, cols] == -1)
+    offs = np.zeros(sel.shape[0] + 1, np.int32)
+    np.cumsum(np.count_nonzero(sel, axis=1), out=offs[1:])
+    return offs, codes.astype(np.int32)
+
+
+def pipeline_counts(planes, selectors):
+    """Plain version of kernel B5: hit count per selector row over the plane
+    stack ``planes`` int32[S, nb, 2048]; ``selectors`` int[V, S] with 1 =
+    AND, -1 = AND-NOT, 0 = skip -> int64[V].  Unlike bitmagic_tpu
+    ``pipeline_counts`` nothing is padded, so an all-zero row counts
+    exactly the nb * 65536 bits of the stack."""
+    sel = selectors.detach().cpu().numpy() if torch.is_tensor(selectors) \
+        else np.asarray(selectors)
+    offs, codes = pipeline_codes(sel)
+    S, nb = planes.shape[0], planes.shape[1]
+    if planes.shape[2:] != (SET_BLOCK_SIZE,):
+        raise ValueError("planes must be [S, nb, 2048]")
+    out = torch.zeros(sel.shape[0], dtype=_I64, device=planes.device)
+    for v in range(sel.shape[0]):
+        acc = torch.full((nb, SET_BLOCK_SIZE), -1, dtype=_I32,
+                         device=planes.device)
+        for c in codes[offs[v]:offs[v + 1]].tolist():
+            p = planes[c >> 1]
+            acc &= ~p if c & 1 else p
+        out[v] = popcount(acc).sum(dtype=_I64)
+    return out
+
+
+def scan_eq(n_planes, planes, value):
+    """Plain version of kernel B6 (bitmagic_tpu ``scan_eq_pallas``): the hit
+    mask int32[nb, 2048] of ``value`` over the first ``n_planes`` planes of
+    ``planes`` int32[S, nb, 2048] (value bits at s >= 32 read as 0)."""
+    value = int(value) & 0xFFFFFFFF
+    acc = torch.full(planes.shape[1:], -1, dtype=_I32, device=planes.device)
+    for s in range(int(n_planes)):
+        p = planes[s]
+        acc &= p if (s < 32 and (value >> s) & 1) else ~p
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Wrappers of the three hand-written Hopper kernels (``ops/csrc``).
+"""Wrappers of the six hand-written Hopper kernels (``ops/csrc``).
 
 =====================  ===========================  =========================
 wrapper                kernel (source)              replaces (TPU kernel)
@@ -8,6 +8,10 @@ count_op,              K2 count_op.cu               pallas_kernels.py:118,
 count_metrics                                       setops.py:39 (_metric_kernel)
 logical_op_digest,     K1 logical_op_digest.cu      pallas_kernels.py:73,
 binary_op_digest                                    bitvector.py:43 (_binary_kernel)
+agg_and_sub,           B4 agg_sub.cu                pallas_kernels.py:270,
+agg_and_sub_arena                                   aggregator.py:80/108/875
+pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
+scan_eq                B6 scan_eq.cu                pallas_kernels.py:309
 =====================  ===========================  =========================
 
 Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``,
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..constants import BLOCK_WAVES, SET_BLOCK_SIZE
@@ -37,7 +42,14 @@ _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _OPERAND = [_VP, _INT, _VP, _VP, _VP, _INT, _VP]
 
-launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0}
+_I64 = torch.int64
+_LL = ctypes.c_longlong
+
+launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
+            "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0}
+# most planes B5 stages per CTA (pipeline_counts.cu: 200 KiB of shared
+# memory at 512 bytes per plane and tile)
+PIPELINE_MAX_PLANES = 400
 
 _SIGNATURES = {
     "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP]),
@@ -46,6 +58,11 @@ _SIGNATURES = {
     "bm_logical_op_digest": ("logical_op_digest.cu",
                              [_INT] + _OPERAND + _OPERAND
                              + [_INT, _VP, _VP, _VP]),
+    "bm_agg_and_sub": ("agg_sub.cu",
+                       [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP]),
+    "bm_pipeline_counts": ("pipeline_counts.cu",
+                           [_VP, _INT, _LL, _VP, _VP, _INT, _VP, _VP]),
+    "bm_scan_eq": ("scan_eq.cu", [_VP, _INT, _INT, ctypes.c_uint, _VP, _VP]),
 }
 
 
@@ -81,7 +98,7 @@ def _on_cuda(*tensors) -> bool:
     raise ValueError(f"operands on mixed or unsupported devices: {kinds}")
 
 
-def _check(t, name, dtype, shape_tail=()):
+def _check(t, name, dtype, shape_tail=(), align=16):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape[1:]) != tuple(shape_tail):
@@ -89,8 +106,8 @@ def _check(t, name, dtype, shape_tail=()):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
-    if t.numel() and t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+    if t.numel() and t.data_ptr() % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")
 
 
 def _rows(t, name):
@@ -212,3 +229,131 @@ def binary_op_digest(op, a_desc, b_desc):
     k = a_desc[1].shape[0]
     return _digest_launch(op, _operand(a_desc, k, "a"),
                           _operand(b_desc, k, "b"), k, a_desc[0].device)
+
+
+# ---------------------------------------------------------------------------
+# B4: K-way AND-SUB sweep with early exit (OR mode, rows-off counts)
+# ---------------------------------------------------------------------------
+def _descriptor_table(descs, k, device):
+    """The bm::Operand table of ``descs`` (agg_sub.cu: 7 x 8 bytes each,
+    ints in the low half), on ``device``.  ``slot``, ``full``, ``aux`` and
+    ``aux_slot`` may be None."""
+    table = []
+    for j, (pool, slot, full, aux, aux_slot) in enumerate(descs):
+        name = f"operand {j}"
+        _rows(pool, f"{name}.pool")
+        if slot is None and pool.shape[0] < k:
+            raise ValueError(f"{name}: aligned pool has fewer than {k} rows")
+        for t, what, dt in ((slot, "slot", _I32), (full, "full", torch.bool),
+                            (aux_slot, "aux_slot", _I32)):
+            if t is None:
+                continue
+            # index arrays may be rows of a matrix: element alignment
+            _check(t, f"{name}.{what}", dt, align=t.element_size())
+            if t.shape[0] != k:
+                raise ValueError(f"{name}.{what}: expected {k} entries")
+        aux_rows = 0
+        if aux is not None and aux_slot is not None:
+            _rows(aux, f"{name}.aux")
+            aux_rows = aux.shape[0]
+        table.append([_ptr(pool) or 0, pool.shape[0], _ptr(slot) or 0,
+                      _ptr(full) or 0, (_ptr(aux) or 0) if aux_rows else 0,
+                      aux_rows, (_ptr(aux_slot) or 0) if aux_rows else 0])
+    return torch.tensor(table, dtype=_I64).to(device)
+
+
+def agg_and_sub(n_and, descs, or_mode=False, rows=True, counts=False):
+    """AND of the first ``n_and`` operands' rows AND-NOT the others' (or,
+    with ``or_mode``, the OR of all), per column of K gather descriptors
+    ``(pool, slot, full, aux, aux_slot)`` aligned on k columns -> ``(rows
+    int32[k, 2048] or None, popcounts int32[k] or None)``.  ``slot=None``
+    is the aligned form (row i of the pool); ``full``, ``aux`` and
+    ``aux_slot`` may be None."""
+    if not descs:
+        raise ValueError("agg_and_sub: no operands")
+    if not rows and not counts:
+        raise ValueError("agg_and_sub: nothing to compute")
+    if not 0 <= n_and <= len(descs):
+        raise ValueError("agg_and_sub: n_and out of range")
+    if not _on_cuda(*(t for d in descs for t in d)):
+        return blockops.agg_and_sub(n_and, descs, or_mode, rows, counts)
+    k = blockops._desc_cols(descs[0])
+    device = descs[0][0].device
+    out = (torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=device)
+           if rows else None)
+    cnt = torch.empty(k, dtype=_I32, device=device) if counts else None
+    if k:
+        table = _descriptor_table(descs, k, device)
+        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(table),
+                len(descs), int(n_and), int(bool(or_mode)), k, _ptr(out),
+                _ptr(cnt))
+    return out, cnt
+
+
+def agg_and_sub_arena(n_and, n_sub, slots, pool):
+    """B4 in the signature of bitmagic_tpu ``agg_and_sub_pallas``: slots
+    int32[n_and + n_sub, nb] into the combined ``pool`` (slot -1 = the
+    identity) -> int32[nb, 2048]."""
+    if not _on_cuda(slots, pool):
+        return blockops.agg_and_sub_arena(n_and, n_sub, slots, pool)
+    if slots.dim() != 2 or slots.shape[0] != n_and + n_sub:
+        raise ValueError("agg_and_sub_arena: slots must be [n_and + n_sub, "
+                         "nb]")
+    _check(slots, "slots", _I32, (slots.shape[1],))
+    return agg_and_sub(n_and, blockops.arena_descriptors(n_and, slots,
+                                                         pool))[0]
+
+
+# ---------------------------------------------------------------------------
+# B5: batched pipeline counts
+# ---------------------------------------------------------------------------
+def pipeline_counts(planes, selectors):
+    """Hit counts of V selector rows (1 AND / -1 AND-NOT / 0 skip, int[V,
+    S]) over the plane stack int32[S, nb, 2048] -> int64[V] (the signature
+    of bitmagic_tpu ``pipeline_counts``; that one sums in int32)."""
+    if not _on_cuda(planes):
+        return blockops.pipeline_counts(planes, selectors)
+    if planes.dim() != 3 or planes.shape[2] != SET_BLOCK_SIZE:
+        raise ValueError("pipeline_counts: planes must be [S, nb, 2048]")
+    S, nb = planes.shape[0], planes.shape[1]
+    if S > PIPELINE_MAX_PLANES:
+        raise ValueError(f"pipeline_counts: {S} planes; the kernel stages "
+                         f"at most {PIPELINE_MAX_PLANES}")
+    _check(planes, "planes", _I32, (nb, SET_BLOCK_SIZE))
+    sel = (selectors.detach().cpu().numpy() if torch.is_tensor(selectors)
+           else np.asarray(selectors))
+    if sel.ndim != 2 or sel.shape[1] != S:
+        raise ValueError(f"pipeline_counts: selectors must be [V, {S}]")
+    out = torch.zeros(sel.shape[0], dtype=_I64, device=planes.device)
+    if sel.shape[0] == 0 or nb == 0:
+        return out
+    offs, codes = blockops.pipeline_codes(sel)
+    offs_d = torch.from_numpy(offs).to(planes.device)
+    codes_d = torch.from_numpy(codes).to(planes.device)
+    _launch("bm_pipeline_counts", "pipeline_counts", planes.device,
+            _ptr(planes), S, nb * SET_BLOCK_SIZE, _ptr(offs_d),
+            _ptr(codes_d), sel.shape[0], _ptr(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B6: bit-sliced equality scan
+# ---------------------------------------------------------------------------
+def scan_eq(n_planes, planes, value):
+    """Hit mask int32[nb, 2048] of ``value`` (uint32) over the first
+    ``n_planes`` planes of the aligned stack int32[S, nb, 2048] (the
+    signature of bitmagic_tpu ``scan_eq_pallas``)."""
+    if not _on_cuda(planes):
+        return blockops.scan_eq(n_planes, planes, value)
+    n_planes = int(n_planes)
+    if planes.dim() != 3 or planes.shape[2] != SET_BLOCK_SIZE:
+        raise ValueError("scan_eq: planes must be [S, nb, 2048]")
+    if not 0 <= n_planes <= planes.shape[0]:
+        raise ValueError("scan_eq: n_planes out of range")
+    nb = planes.shape[1]
+    _check(planes, "planes", _I32, (nb, SET_BLOCK_SIZE))
+    out = torch.empty((nb, SET_BLOCK_SIZE), dtype=_I32, device=planes.device)
+    if nb:
+        _launch("bm_scan_eq", "scan_eq", planes.device, _ptr(planes),
+                n_planes, nb, int(value) & 0xFFFFFFFF, _ptr(out))
+    return out

@@ -8,21 +8,44 @@ Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
 
  1. probe   — require CUDA; print the card's name and power limit;
- 2. build   — compile the three kernels from ``ops/csrc`` with nvcc;
+ 2. build   — compile the six kernels from ``ops/csrc`` with nvcc, all at
+              once;
  3. kernels — each kernel against its plain PyTorch version on the card,
               bit for bit: all four ops, all seven metrics, 0 / 13 / 1536
-              rows, descriptors with -1 slots, FULL rows and aux rows;
+              rows, descriptors with -1 slots, FULL rows and aux rows; the
+              K-way sweep (B4) in arena and descriptor form, with -1 slots
+              on both sides, early-dying and never-dying columns, an empty
+              pool, OR mode and rows-off counts; the pipeline counts (B5)
+              for 1 / 7 / 256 values over 21 / 33 / 200 planes, with and
+              without skipped planes; the equality scan (B6) at config 4;
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
               count_and/or/xor/sub, 64 count_range calls, build_rs_index
               plus 1M select and 1M rank; every answer against numpy;
- 5. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
- 6. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+ 5. agg     — config 3 (bench.py:225): 200 vectors x 128 blocks mixing
+              dense, GAP and FULL-run blocks; combine_and_sub with 100 AND /
+              100 SUB and with 3 / 2, combine_and, combine_or,
+              find_first_and_sub, combine_and_sub_arena over one arena of
+              all 200, and a 64-request pipeline in counts and in result
+              mode; every answer against numpy;
+ 6. scan    — config 4b (bench.py:280): a nullable 16M-element uint32
+              SparseVector (values < 2^20, ~1 % NULL); a prepared pipeline
+              counting 256 values, pipeline_find_eq of 8 values, find_eq,
+              find_first_eq, find_ne and find_nonzero against numpy;
+ 7. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+ 8. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
- 7. timing  — each kernel, its plain version and the nearest single PyTorch
-              call at the config-1 shapes (CUDA events, L2 flushed before
-              each launch), beside the bound from bytes and popcounts.
+              then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
+              combine_and_sub pair of phase 5 and a 64-request counts
+              pipeline;
+ 9. timing  — each kernel, its plain version and the nearest single PyTorch
+              call at the main paths' shapes (CUDA events, L2 flushed
+              before each launch), beside the bound from bytes and integer
+              operations.
+
+Each path (4, 5, 6) is driven with the launch counts set to 0 just before
+and read just after; a kernel of the path launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -56,6 +79,13 @@ DUNDER = {"and": "__and__", "or": "__or__", "xor": "__xor__",
 PEAK_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
            "H100": 3.35e12}
 POPC_PER_CLK_PER_SM = 16        # __popc throughput, compute capability 9.0
+LOP_PER_CLK_PER_SM = 64         # 32-bit logic ops (LOP3), compute cap. 9.0
+AGG_K, AGG_BLOCKS = 200, 128    # config 3: 200 vectors x 8.4M bits
+AGG_SCALE_BLOCKS = 1536         # 200 x 1536 blocks = 2.5 GB of rows
+N_REQUESTS = 64                 # aggregator pipeline batch
+SV_N, SV_BITS = 16_000_000, 20  # config 4b: 16M values < 2^20
+SV_QUERIES, SV_EQ = 256, 8
+SCAN_PLANES, SCAN_BLOCKS = 32, 512   # config 4 (bench.py:255)
 
 KERNELS = {
     "block_counts": dict(
@@ -67,7 +97,17 @@ KERNELS = {
     "logical_op_digest": dict(
         source="bitmagic_tpu_torch/ops/csrc/logical_op_digest.cu",
         replaces="bitmagic_tpu/ops/pallas_kernels.py:73"),
+    "agg_and_sub": dict(
+        source="bitmagic_tpu_torch/ops/csrc/agg_sub.cu",
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:270"),
+    "pipeline_counts": dict(
+        source="bitmagic_tpu_torch/ops/csrc/pipeline_counts.cu",
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:428"),
+    "scan_eq": dict(
+        source="bitmagic_tpu_torch/ops/csrc/scan_eq.cu",
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:309"),
 }
+FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
 
 
 def log(msg):
@@ -203,10 +243,80 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
         sub = ("count_b", "count_sub_ba", "count_and")
         cmp("count_op", ck.count_metrics(sub, da, db),
             blockops.count_metrics(sub, da, db))
+    search_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
     return err, cases
+
+
+def _bits_pool(rng, n, or_k, device):
+    """n rows whose bits are set with probability 1 - 2^-or_k (the OR of
+    or_k uniform random words)."""
+    w = np.zeros((n, 2048), np.uint32)
+    for _ in range(or_k):
+        w |= rng.integers(0, 2**32, (n, 2048), dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+def search_kernels_vs_plain(rng, device, cmp):
+    """B4, B5 and B6 against their plain versions at sizes 0, 13 and the
+    config shapes (config 3: K = 200 over 128 columns; config 4b: 21 planes
+    x 245 blocks x 256 values; config 4: 32 planes x 512 blocks)."""
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    i32 = torch.int32
+    # B4, arena form: -1 slots on both sides; at config 3 random rows die
+    # after ~17 ANDs while dense rows (density 0.97) never die
+    for K, n_and, nb, rows, dens in ((7, 4, 0, 20, 1), (7, 4, 13, 20, 1),
+                                     (AGG_K, AGG_K // 2, AGG_BLOCKS,
+                                      AGG_K * 4, 1),
+                                     (5, 3, AGG_BLOCKS, 64, 5),
+                                     (21, 13, 245, 21 * 8, 4)):
+        pool = _bits_pool(rng, rows, dens, device)
+        slots = rng.integers(0, rows, (K, nb)).astype(np.int32)
+        slots[rng.random((K, nb)) < 0.1] = -1
+        sl = torch.from_numpy(slots).to(device)
+        cmp("agg_and_sub", ck.agg_and_sub_arena(n_and, K - n_and, sl, pool),
+            blockops.agg_and_sub_arena(n_and, K - n_and, sl, pool))
+    # an empty pool: every slot -1
+    empty = torch.full((3, 13), -1, dtype=i32, device=device)
+    cmp("agg_and_sub", ck.agg_and_sub_arena(2, 1, empty, pool[:0]),
+        blockops.agg_and_sub_arena(2, 1, empty, pool[:0]))
+    # descriptor form: FULL rows, aux rows, OR mode, rows-off counts
+    for k, K in ((13, 6), (AGG_BLOCKS, 40)):
+        pool = _bits_pool(rng, 64, 4, device)
+        descs = [_descriptor(rng, pool, k, 3 if j % 2 else 0, device)
+                 for j in range(K)]
+        for n_and, or_mode in ((K // 2, False), (K, False), (0, True)):
+            r, c = ck.agg_and_sub(n_and, descs, or_mode=or_mode, counts=True)
+            wr, wc = blockops.agg_and_sub(n_and, descs, or_mode=or_mode,
+                                          counts=True)
+            cmp("agg_and_sub", r, wr)
+            cmp("agg_and_sub", c, wc)
+            cmp("agg_and_sub", ck.agg_and_sub(n_and, descs, or_mode=or_mode,
+                                              rows=False, counts=True)[1], wc)
+    # B5: 1 / 7 / 256 values over 21 / 33 planes, with and without skips;
+    # the config-4b and config-3 pipeline shapes
+    for S, nb, V in ((21, 13, 1), (21, 13, 7), (33, 13, 256), (21, 0, 7),
+                     (SV_BITS + 1, 245, SV_QUERIES),
+                     (AGG_K, AGG_BLOCKS, N_REQUESTS)):
+        planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
+        for skip in (False, True):
+            sel = rng.choice(np.asarray([-1, 1], np.int32), (V, S))
+            if skip:
+                sel[rng.random((V, S)) < 0.5] = 0
+                sel[0] = 0                       # a row of skips only
+            st = torch.from_numpy(sel).to(device)
+            cmp("pipeline_counts", ck.pipeline_counts(planes, st),
+                blockops.pipeline_counts(planes, sel))
+    # B6: config 4, and 0 / 13 blocks
+    for S, nb in ((SCAN_PLANES, 0), (SCAN_PLANES, 13),
+                  (SCAN_PLANES, SCAN_BLOCKS)):
+        planes = _rand_pool(rng, S * nb, device).reshape(S, nb, 2048)
+        for value in (0, 123456789, 0xFFFFFFFF):
+            cmp("scan_eq", ck.scan_eq(S, planes, value),
+                blockops.scan_eq(S, planes, value))
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +489,15 @@ def device_busy(fn):
     return wall, busy, {k[:60]: round(v / 1e3, 4) for k, v in top}
 
 
+def profile(what, fn):
+    wall, busy, top = device_busy(fn)
+    log(f"profile: {what}: host wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} % busy); device ms by "
+        f"kernel {json.dumps(top)}" if busy else
+        f"profile: {what}: host wall {wall:.3f} ms; device busy not "
+        f"measured (the profiler recorded no device events)")
+
+
 def fixtures_path(tbm, device):
     """The reference C++ fixtures through the port (as
     tests/test_reference_parity.py)."""
@@ -439,7 +558,213 @@ def scale_path(tbm, device, n_blocks=SCALE_BLOCKS):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing
+# phases 5, 6 and the search scale phase: the aggregator and the scanner
+# ---------------------------------------------------------------------------
+def agg_words(rng, k, n_blocks):
+    """Word images uint32[k, n_blocks * 2048] of config 3's vectors: uniform
+    random words (bench.py:227) in the first 3/4 of the blocks; in the last
+    quarter vector j is all ones (j % 5 == 0: a FULL run once 32 blocks or
+    more), absent (j % 5 == 1) or ten word runs per block (GAP after
+    optimize)."""
+    w = rng.integers(0, 2**32, (k, n_blocks * 2048), dtype=np.uint32)
+    q = (3 * n_blocks // 4) * 2048
+    idx = np.arange(2048)
+    for j in range(k):
+        w[j, q:] = 0xFFFFFFFF if j % 5 == 0 else 0
+        if j % 5 < 2:
+            continue
+        tail = w[j, q:].reshape(-1, 2048)
+        starts = rng.integers(0, 2048 - 40, (tail.shape[0], 10))
+        lens = rng.integers(1, 40, (tail.shape[0], 10))
+        on = ((idx[None, None] >= starts[..., None])
+              & (idx[None, None] < (starts + lens)[..., None])).any(axis=1)
+        tail[on] = 0xFFFFFFFF
+    return w
+
+
+def oracle_and_sub(W, and_idx, sub_idx):
+    acc = np.bitwise_and.reduce(W[and_idx], axis=0)
+    if len(sub_idx):
+        acc &= ~np.bitwise_or.reduce(W[sub_idx], axis=0)
+    return acc
+
+
+def _popcount(words) -> int:
+    return int(np.bitwise_count(words).sum(dtype=np.int64))
+
+
+def agg_requests(rng, k, n):
+    """n pipeline requests of 1-4 AND and 0-3 SUB vector indices."""
+    reqs = []
+    for _ in range(n):
+        a = rng.choice(k, int(rng.integers(1, 5)), replace=False)
+        s = rng.choice(np.setdiff1d(np.arange(k), a), int(rng.integers(0, 4)),
+                       replace=False)
+        reqs.append((a.tolist(), s.tolist()))
+    return reqs
+
+
+def agg_path(tbm, device, n_blocks=AGG_BLOCKS):
+    """Config 3 through the aggregator's entry points; every answer against
+    numpy.  Returns the phase times (ms) and the state of the steady pass."""
+    from bitmagic_tpu_torch import constants as C
+    from bitmagic_tpu_torch.agg.arena import OperandArena
+    times = {}
+    rng = np.random.default_rng(SEED + 5)
+    W = agg_words(rng, AGG_K, n_blocks)
+    with Clock("build_200_optimize_ms", times):
+        vecs = [tbm.BitVector.from_words(W[j], device=device).optimize()
+                for j in range(AGG_K)]
+    cls = set()
+    for v in vecs:
+        cls |= set(np.unique(v._struct.cls).tolist())
+    check({C.CLS_BIT, C.CLS_GAP} <= cls, f"config 3 block mix {cls}")
+    if n_blocks // 4 >= 32:
+        check(any(v._struct.has_runs for v in vecs), "config 3 FULL runs")
+    agg = tbm.Aggregator()
+    big = (list(range(AGG_K // 2)), list(range(AGG_K // 2, AGG_K)))
+    small = ([0, 2, 3], [7, 12])
+    for name, (a, sb) in (("and_sub_100_100", big), ("and_sub_3_2", small)):
+        with Clock(f"{name}_ms", times):
+            r = agg.combine_and_sub([vecs[i] for i in a],
+                                    [vecs[i] for i in sb])
+        want = oracle_and_sub(W, a, sb)
+        check(np.array_equal(r.to_words().ravel(), want), f"config 3 {name}")
+        if name == "and_sub_3_2":
+            check(want.any(), "config 3: the 3 / 2 result is not empty")
+            with Clock("find_first_and_sub_ms", times):
+                ff = agg.find_first_and_sub([vecs[i] for i in a],
+                                            [vecs[i] for i in sb])
+            bits = np.unpackbits(want.view(np.uint8), bitorder="little")
+            check(ff == int(np.flatnonzero(bits)[0]), "find_first_and_sub")
+    with Clock("combine_and_4_ms", times):
+        r = agg.combine_and([vecs[i] for i in (0, 2, 5, 8)])
+    check(np.array_equal(r.to_words().ravel(),
+                         oracle_and_sub(W, [0, 2, 5, 8], [])), "combine_and")
+    # the vectors without FULL runs (a run sends combine_or to the
+    # run-aware left fold instead of the K-way kernel)
+    no_run = [j for j in range(AGG_K) if j % 5]
+    with Clock("combine_or_160_ms", times):
+        r = agg.combine_or([vecs[j] for j in no_run])
+    check(np.array_equal(r.to_words().ravel(),
+                         np.bitwise_or.reduce(W[no_run], axis=0)),
+          "combine_or")
+    with Clock("arena_build_ms", times):
+        arena = OperandArena(vecs)
+        arena.pool
+    for name, (a, sb) in (("arena_100_100", big), ("arena_3_2", small)):
+        with Clock(f"{name}_ms", times):
+            r = agg.combine_and_sub_arena(arena, a, sb)
+        check(np.array_equal(r.to_words().ravel(), oracle_and_sub(W, a, sb)),
+              f"config 3 {name}")
+    reqs = agg_requests(rng, AGG_K, N_REQUESTS)
+    groups = [([vecs[i] for i in a], [vecs[i] for i in sb]) for a, sb in reqs]
+    wants = [oracle_and_sub(W, a, sb) for a, sb in reqs]
+    with Clock("pipeline_64_counts_ms", times):
+        out = agg.pipeline(groups, tbm.AggOptions().set_compute_count())
+    check([o["count"] for o in out] == [_popcount(w) for w in wants],
+          "pipeline counts")
+    with Clock("pipeline_64_results_ms", times):
+        out = agg.pipeline(groups, tbm.AggOptions(compute_counts=True))
+    for o, w in zip(out, wants):
+        check(o["count"] == _popcount(w), "pipeline result count")
+        check(np.array_equal(o["bv"].to_words().ravel(), w),
+              "pipeline result rows")
+    return times, (agg, vecs, big, small, groups)
+
+
+def agg_steady_pass(tbm, agg, vecs, big, small, groups):
+    for a, sb in (big, small):
+        agg.combine_and_sub([vecs[i] for i in a], [vecs[i] for i in sb])
+    agg.pipeline(groups, tbm.AggOptions().set_compute_count())
+
+
+def scan_path(tbm, device):
+    """Config 4b through the scanner's entry points: a nullable 16M-element
+    uint32 SparseVector with values < 2^20 and ~1 % NULL; answers against
+    np.bincount and ==."""
+    times = {}
+    rng = np.random.default_rng(SEED + 6)
+    vals = rng.integers(0, 1 << SV_BITS, SV_N).astype(np.uint32)
+    nm = rng.random(SV_N) < 0.01
+    live = np.where(nm, np.uint32(0), vals)
+    with Clock("from_array_16M_ms", times):
+        sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
+                                         device=device)
+    check(sv.size == SV_N and sv.effective_slices() == SV_BITS,
+          "config 4b planes")
+    ids = rng.integers(0, SV_N, 100_000)
+    check(np.array_equal(sv.gather(ids), live[ids]), "config 4b gather")
+    counts = np.bincount(vals[~nm], minlength=1 << SV_BITS)
+    queries = rng.integers(1, 1 << SV_BITS, SV_QUERIES)
+    queries[0] = 0                              # the find_zero route
+    # values that occur, for the searches that return positions
+    queries[1:1 + SV_EQ] = vals[rng.choice(np.flatnonzero(live), SV_EQ)]
+    sc = tbm.scanner
+    with Clock("prepare_pipeline_ms", times):
+        prep = sc.prepare_pipeline(sv)
+    with Clock("pipeline_counts_256_ms", times):
+        got = prep.counts(queries.tolist())
+    check(got == counts[queries].tolist(), "config 4b pipeline counts")
+    eqv = queries[1:1 + SV_EQ].tolist()
+    with Clock("pipeline_find_eq_8_ms", times):
+        res = sc.pipeline_find_eq(sv, eqv)
+    for v, bv in zip(eqv, res):
+        check(np.array_equal(bv.indices(), np.flatnonzero((vals == v) & ~nm)),
+              f"pipeline_find_eq({v})")
+    v0 = eqv[0]
+    want0 = np.flatnonzero((vals == v0) & ~nm)
+    with Clock("find_eq_ms", times):
+        r = sc.find_eq(sv, v0)
+    check(np.array_equal(r.indices(), want0), "find_eq")
+    with Clock("find_first_eq_ms", times):
+        ff = sc.find_first_eq(sv, v0)
+    check(ff == int(want0[0]), "find_first_eq")
+    with Clock("find_ne_ms", times):
+        ne = sc.find_ne(sv, v0)
+    check(ne.count() == int((~nm).sum()) - want0.size, "find_ne")
+    with Clock("find_nonzero_ms", times):
+        nz = sc.find_nonzero(sv)
+    check(np.array_equal(nz.indices(), np.flatnonzero(live != 0)),
+          "find_nonzero")
+    return times, (prep, sv, queries.tolist(), eqv)
+
+
+def scan_steady_pass(tbm, prep, sv, queries, eqv):
+    prep.counts(queries)
+    tbm.scanner.pipeline_find_eq(sv, eqv)
+
+
+def agg_scale_path(tbm, device, n_blocks=AGG_SCALE_BLOCKS):
+    """200 vectors x 1536 dense blocks (2.5 GB of operand rows) from seeded
+    word images: the combine_and_sub pair of phase 5 and a 64-request
+    counts pipeline, against numpy."""
+    times = {}
+    rng = np.random.default_rng(SEED + 7)
+    W = rng.integers(0, 2**32, (AGG_K, n_blocks * 2048), dtype=np.uint32)
+    with Clock("from_words_200_ms", times):
+        vecs = [tbm.BitVector.from_words(W[j], device=device)
+                for j in range(AGG_K)]
+    agg = tbm.Aggregator()
+    big = (list(range(AGG_K // 2)), list(range(AGG_K // 2, AGG_K)))
+    small = ([0, 2, 3], [7, 12])
+    for name, (a, sb) in (("and_sub_100_100", big), ("and_sub_3_2", small)):
+        with Clock(f"{name}_ms", times):
+            cnt = agg.combine_and_sub([vecs[i] for i in a],
+                                      [vecs[i] for i in sb]).count()
+        check(cnt == _popcount(oracle_and_sub(W, a, sb)), f"scale {name}")
+    reqs = agg_requests(rng, AGG_K, N_REQUESTS)
+    groups = [([vecs[i] for i in a], [vecs[i] for i in sb]) for a, sb in reqs]
+    with Clock("pipeline_64_counts_ms", times):
+        out = agg.pipeline(groups, tbm.AggOptions().set_compute_count())
+    check([o["count"] for o in out]
+          == [_popcount(oracle_and_sub(W, a, sb)) for a, sb in reqs],
+          "scale pipeline counts")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -459,6 +784,23 @@ def time_ms(fn, flush, reps=25):
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return float(np.median(ts))
+
+
+def record(out, key, card, flush, kern, plain, lib, nbytes, lops, popcs):
+    """Time ``kern``, its plain version and the library call (or None)
+    into ``out[key]``, beside the bound: the larger of ``nbytes`` over the
+    card's bandwidth and ``lops`` logic ops / ``popcs`` popcounts over
+    their peak rates."""
+    ms = time_ms(kern, flush)
+    pms = time_ms(plain, flush, reps=5)
+    lms = time_ms(lib, flush) if lib is not None else None
+    bytes_ms = nbytes / card["peak_bw"] * 1e3
+    ops_ms = max(lops / card["lop_rate"], popcs / card["popc_rate"]) * 1e3
+    out[key] = dict(
+        ms=ms, plain_ms=pms, library_ms=lms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
 def timings(device, card):
@@ -486,17 +828,107 @@ def timings(device, card):
                 3 * n * row + n * 256, 0),
         }
         for name, (kern, plain, lib, nbytes, popc) in cases.items():
-            ms = time_ms(kern, flush)
-            pms = time_ms(plain, flush, reps=5)
-            lms = time_ms(lib, flush) if lib is not None else None
-            bytes_ms = nbytes / card["peak_bw"] * 1e3
-            ops_ms = popc / card["popc_rate"] * 1e3
-            out[(name, n)] = dict(
-                ms=ms, plain_ms=pms, library_ms=lms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes, gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+            record(out, (name, n), card, flush, kern, plain, lib, nbytes, 0,
+                   popc)
         del a, b
+    return out
+
+
+def _needed_reads(rows_by_operand, n_and):
+    """Operand rows a sweep must read: per column, every operand up to and
+    including the one that zeroes its accumulator."""
+    acc = torch.full_like(rows_by_operand[0], -1)
+    reads = 0
+    for k, r in enumerate(rows_by_operand):
+        alive = (acc != 0).any(dim=1)
+        reads += int(alive.sum())
+        acc = acc & (r if k < n_and else ~r)
+    return reads
+
+
+def search_timings(device, card):
+    """B4, B5 and B6 at the config-3, config-4b and config-4 shapes.  The
+    kernels are launched directly with inputs prepared on the card (the
+    wrappers' descriptor and selector uploads are host work, counted in
+    the paths' phase times)."""
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(SEED + 8)
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
+    ptr = ck._ptr
+    row = 8192
+    out = {}
+
+    def rec(key, kern, plain, nbytes, lops, popcs):
+        record(out, key, card, flush, kern, plain, None, nbytes, lops, popcs)
+
+    # B4, arena form: config 3 (200 operands, 100 AND / 100 SUB, 128
+    # columns of uniform random rows) and config 4b's find_eq (20 planes
+    # + the NULL plane over 245 columns, 11 AND / 10 SUB)
+    for key, K, n_and, nb, or_k in (("config3", AGG_K, AGG_K // 2,
+                                     AGG_BLOCKS, 1),
+                                    ("config4b", SV_BITS + 1, 11, 245, 1)):
+        pool = _bits_pool(rng, K * nb, or_k, device)
+        slots = torch.arange(K * nb, dtype=torch.int32,
+                             device=device).reshape(K, nb)
+        descs = blockops.arena_descriptors(n_and, slots, pool)
+        res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
+        table = ck._descriptor_table(descs, nb, device)
+        reads = _needed_reads(list(pool.reshape(K, nb, 2048)), n_and)
+        rec(("agg_and_sub", key),
+            lambda: ck._launch("bm_agg_and_sub", "agg_and_sub", device,
+                               ptr(table), K, n_and, 0, nb, ptr(res),
+                               None),
+            lambda: blockops.agg_and_sub(n_and, descs),
+            reads * row + nb * row + K * nb * 4, reads * 2048, 0)
+        out[("agg_and_sub", key)]["rows_read"] = reads
+        out[("agg_and_sub", key)]["rows_total"] = K * nb
+    # B5: config 4b (21 planes x 245 blocks, 256 values) and config 3's
+    # counts pipeline (200 planes x 128 blocks, 64 requests)
+    for key, S, nb, V in (("config4b", SV_BITS + 1, 245, SV_QUERIES),
+                          ("config3", AGG_K, AGG_BLOCKS, N_REQUESTS)):
+        planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
+        if key == "config4b":
+            vals = rng.integers(1, 1 << SV_BITS, V)
+            bits = (vals[:, None] >> np.arange(SV_BITS)) & 1
+            sel = np.concatenate([np.where(bits == 1, 1, -1),
+                                  np.ones((V, 1), np.int64)], axis=1)
+        else:
+            sel = np.zeros((V, S), np.int64)
+            for i, (a, sb) in enumerate(agg_requests(rng, S, V)):
+                sel[i, a] = 1
+                sel[i, sb] = -1
+        sel = sel.astype(np.int32)
+        offs, codes = blockops.pipeline_codes(sel)
+        offs_d = torch.from_numpy(offs).to(device)
+        codes_d = torch.from_numpy(codes).to(device)
+        cnt = torch.zeros(V, dtype=torch.int64, device=device)
+
+        def kern(planes=planes, S=S, nb=nb, V=V, offs_d=offs_d,
+                 codes_d=codes_d, cnt=cnt):
+            cnt.zero_()
+            ck._launch("bm_pipeline_counts", "pipeline_counts", device,
+                       ptr(planes), S, nb * 2048, ptr(offs_d), ptr(codes_d),
+                       V, ptr(cnt))
+
+        words = nb * 2048
+        rec(("pipeline_counts", key), kern,
+            lambda planes=planes, sel=sel: blockops.pipeline_counts(
+                planes, sel),
+            S * nb * row + (V + 1 + codes.size) * 4 + V * 8,
+            codes.size * words, V * words)
+    # B6: config 4 (32 planes x 512 blocks) and config 4b's planes
+    for key, S, nb in (("config4", SCAN_PLANES, SCAN_BLOCKS),
+                       ("config4b", SV_BITS, 245)):
+        planes = _rand_pool(rng, S * nb, device).reshape(S, nb, 2048)
+        res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
+        rec(("scan_eq", key),
+            lambda planes=planes, S=S, nb=nb, res=res: ck._launch(
+                "bm_scan_eq", "scan_eq", device, ptr(planes), S, nb,
+                123456789, ptr(res)),
+            lambda planes=planes, S=S: blockops.scan_eq(S, planes,
+                                                        123456789),
+            (S + 1) * nb * row, S * nb * 2048, 0)
     return out
 
 
@@ -529,6 +961,8 @@ def main():
                    PEAK_BW["H100"])
     card = dict(name=name, smi=smi, peak_bw=peak_bw,
                 popc_rate=props.multi_processor_count * POPC_PER_CLK_PER_SM
+                * max_clk_mhz * 1e6,
+                lop_rate=props.multi_processor_count * LOP_PER_CLK_PER_SM
                 * max_clk_mhz * 1e6)
     log(f"probe: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{props.multi_processor_count} SMs, max SM clock {max_clk_mhz} MHz; "
@@ -559,51 +993,87 @@ def main():
     main_launches = dict(ck.launches)
     log(f"main: configs 1-2 passed in {time.perf_counter() - t0:.1f} s; "
         f"launches {main_launches}; phase ms {json.dumps(main_times)}")
-    for k in KERNELS:
+    for k in FIRST_SLICE:
         check(main_launches[k] > 0, f"main path never launched {k}")
-    wall, busy, top = device_busy(lambda: steady_pass(tbm, *state))
-    log(f"profile: steady pass (4 ops + counts, distance_operation, 1M "
-        f"select) host wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.1f} % busy); device ms by kernel "
-        f"{json.dumps(top)}" if busy else
-        f"profile: steady pass host wall {wall:.3f} ms; device busy not "
-        f"measured (the profiler recorded no device events)")
+    profile("steady pass (4 ops + counts, distance_operation, 1M select)",
+            lambda: steady_pass(tbm, *state))
     del state
 
-    # 5. reference fixtures
+    # 5-6. the search paths: config 3 (aggregator), config 4b (scanner)
+    path_launches = {}
+    for path, run, steady, what in (
+            ("agg", agg_path, agg_steady_pass,
+             "the 100/100 and 3/2 combine_and_sub + a 64-request counts "
+             "pipeline"),
+            ("scan", scan_path, scan_steady_pass,
+             "prepared counts of 256 values + pipeline_find_eq of 8")):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        times, state = run(tbm, device)
+        path_launches[path] = dict(ck.launches)
+        log(f"{path}: config {'3' if path == 'agg' else '4b'} passed in "
+            f"{time.perf_counter() - t0:.1f} s; launches "
+            f"{path_launches[path]}; phase ms {json.dumps(times)}")
+        for k in ("agg_and_sub", "pipeline_counts"):
+            check(path_launches[path][k] > 0,
+                  f"{path} path never launched {k}")
+        profile(f"{path} steady pass ({what})",
+                lambda: steady(tbm, *state))
+        del state
+    search_launches = {k: path_launches["agg"][k] + path_launches["scan"][k]
+                       for k in KERNELS}
+
+    # 7. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 6. 2^30-bit scale phase
+    # 8. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
     log(f"scale: 2^30 bits passed in {time.perf_counter() - t0:.1f} s; "
         f"launches {dict(ck.launches)}; phase ms {json.dumps(scale_times)}")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    scale_times = agg_scale_path(tbm, device)
+    log(f"scale: 200 x {AGG_SCALE_BLOCKS} blocks passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches {dict(ck.launches)}; "
+        f"phase ms {json.dumps(scale_times)}")
+    check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
+          > 0, "search scale phase launched B4 and B5")
 
-    # 7. timing
+    # 9. timing
     tm = timings(device, card)
+    tm.update(search_timings(device, card))
     kernels = []
+    shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
+    shapes.update(agg_and_sub=("config3", "config4b"),
+                  pipeline_counts=("config4b", "config3"),
+                  scan_eq=("config4", "config4b"))
     for k, meta in KERNELS.items():
-        for n in (N_BLOCKS, SCALE_BLOCKS):
-            t = tm[(k, n)]
-            log(json.dumps({"kernel": k, "rows": n, **{
+        launches = (main_launches[k] if k in FIRST_SLICE
+                    else search_launches[k])
+        for shape in shapes[k]:
+            t = tm[(k, shape)]
+            log(json.dumps({"kernel": k, "shape": shape, **{
                 x: t[x] for x in ("ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by", "bytes",
-                                  "gb_per_s")},
-                "main_path_launches": main_launches[k],
+                                  "gb_per_s", "rows_read", "rows_total")
+                if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
-        t = tm[(k, N_BLOCKS)]
-        kernels.append({"name": k, "route": "cuda", **meta,
-                        "launches": main_launches[k],
-                        "max_abs_err": err[k], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
-    log(f"card: {nvidia_smi('name,power.limit')}")
+        t = tm[(k, shapes[k][0])]
+        entry = {"name": k, "route": "cuda", **meta, "launches": launches,
+                 "max_abs_err": err[k], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if k == "scan_eq":
+            entry["note"] = ("no entry point of either package calls it; "
+                             "driven by the kernel phase only")
+        kernels.append(entry)
+    # the card's name and power limit, exactly as nvidia-smi prints them
+    log(nvidia_smi("name,power.limit"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

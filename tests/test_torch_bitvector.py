@@ -332,3 +332,53 @@ def test_id_helpers_match_numpy_unique(ids):
     want_ub, want_inv = np.unique(want >> 16, return_inverse=True)
     np.testing.assert_array_equal(ub, want_ub)
     np.testing.assert_array_equal(inv, want_inv)
+
+
+# ---------------------------------------------------------------------------
+# the BitVector methods the search path calls (resize, clear, invert,
+# keep_range, shift_right, set_many/clear_many, freeze/is_ro, _flat_nb)
+# ---------------------------------------------------------------------------
+def _mutate(v, how):
+    if how == "invert":
+        v.invert()
+    elif how == "keep_range":
+        v.keep_range(70 * BPB + 9, 12 * BPB - 5)          # swapped bounds
+    elif how == "shift_right":
+        v.shift_right()
+        v.shift_right()
+    elif how == "resize":
+        v.resize(30 * BPB + 77)
+        v.resize(SIZE)
+    elif how == "set_clear_many":
+        v.set_many(np.arange(3, 40 * BPB, 997))
+        v.clear_many(np.arange(5, 30 * BPB, 13))
+    elif how == "clear":
+        v.clear()
+    return v
+
+
+@pytest.mark.parametrize("how", ["invert", "keep_range", "shift_right",
+                                 "resize", "set_clear_many", "clear"])
+def test_search_path_methods(pairs, how):
+    for j, t in zip(*pairs):
+        jr, tr = _mutate(j.copy(), how), _mutate(t.copy(), how)
+        assert_same_state(jr, tr)
+        np.testing.assert_array_equal(tr._flat_nb(), jr._flat_nb())
+    inv = ~pairs[1][0]
+    assert inv.count() == SIZE - pairs[1][0].count()
+
+
+def test_freeze_guards_writes():
+    v = tbm.BitVector.from_indices([1, 70000], 1 << 20, device="cpu")
+    assert not v.is_ro()
+    v.freeze()
+    assert v.is_ro()
+    from bitmagic_tpu_torch.core.bitvector import ReadOnlyError
+    for call in (lambda: v.set(3), lambda: v.set_range(0, 9),
+                 lambda: v.resize(10), lambda: v.invert(),
+                 lambda: v.shift_right(), lambda: v.keep_range(0, 5),
+                 lambda: v.clear(), lambda: v.set_many([4]),
+                 lambda: v.bit_or(v), lambda: v.optimize()):
+        with pytest.raises(ReadOnlyError):
+            call()
+    assert v.count() == 2 and not v.copy().is_ro()

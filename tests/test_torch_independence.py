@@ -50,6 +50,11 @@ def test_import_with_jax_and_reference_blocked():
         w = bt.BitVector.from_indices([3, 9], 1 << 20, device="cpu")
         assert (v & w).count() == 1 and bt.count_or(v, w) == 3
         assert v.select(2) == 70000
+        assert bt.Aggregator().combine_and_sub([v], [w]).indices().tolist() \\
+            == [70000]
+        sv = bt.SparseVector.from_array([5, 0, 5, 7], device="cpu")
+        assert bt.scanner.find_eq(sv, 5).indices().tolist() == [0, 2]
+        assert bt.scanner.prepare_pipeline(sv).counts([5, 7]) == [2, 1]
         bad = [m for m in sys.modules
                if any(m == b or m.startswith(b + ".") for b in BLOCK)]
         assert not bad, bad
@@ -89,6 +94,12 @@ def test_default_device_raises_without_card(monkeypatch):
         tbm.BitVector.from_words([1, 2, 3])
     with pytest.raises(RuntimeError, match="cuda"):
         tbm.simd_version()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.SparseVector()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.SparseVector.from_array([1, 2])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbm.Aggregator().combine_or([])
     # asking for the CPU explicitly runs the plain versions
     v = tbm.BitVector.from_indices([1, 2], 1 << 20, device="cpu")
     assert v.count() == 2 and v.device.type == "cpu"

@@ -1,4 +1,4 @@
-"""The three hand-written Hopper kernels against their plain PyTorch
+"""The six hand-written Hopper kernels against their plain PyTorch
 versions, on the card.  Every test here needs CUDA (marker ``cuda``) and
 skips without it.  On a machine with an H100 and no JAX, run them without
 the suite's conftest (which imports JAX):
@@ -103,8 +103,9 @@ def test_gather_fused_kernels(dev, rng, with_aux, pool_rows):
     sub = ("count_b", "count_sub_ba")
     assert torch.equal(ck.count_metrics(sub, da, db).cpu(),
                        blockops.count_metrics(sub, _cpu(da), _cpu(db)))
-    assert ck.launches == {"block_counts": 0, "count_op": 2,
-                           "logical_op_digest": 4}
+    assert {k: ck.launches[k] for k in ("block_counts", "count_op",
+                                        "logical_op_digest")} == {
+        "block_counts": 0, "count_op": 2, "logical_op_digest": 4}
 
 
 def test_bitvector_on_card_matches_cpu(dev, rng):
@@ -127,4 +128,118 @@ def test_bitvector_on_card_matches_cpu(dev, rng):
             np.testing.assert_array_equal(g[key], w[key], err_msg=key)
     assert out["cuda"][4] == out["cpu"][4]
     np.testing.assert_array_equal(out["cuda"][5], out["cpu"][5])
-    assert all(ck.launches.values()), ck.launches
+    assert all(ck.launches[k] for k in ("block_counts", "count_op",
+                                        "logical_op_digest")), ck.launches
+
+
+# ---------------------------------------------------------------------------
+# B4: K-way AND-SUB sweep
+# ---------------------------------------------------------------------------
+def _dense_pool(rng, n, dev, density=0.5):
+    """Rows whose AND over ~-log2(density^-1) operands goes to zero, so the
+    sweep's early exit triggers on some columns and not on others."""
+    bits = rng.random((n, 2048, 32)) < density
+    w = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    return torch.from_numpy(w.view(np.int32).copy()).to(dev)
+
+
+@pytest.mark.parametrize("or_mode", [False, True])
+@pytest.mark.parametrize("k_ops,n_and", [(1, 1), (5, 3), (5, 0), (40, 40),
+                                         (300, 150)])
+@pytest.mark.parametrize("cols", [1, 13])
+def test_agg_and_sub_kernel(dev, rng, or_mode, k_ops, n_and, cols):
+    pool = _dense_pool(rng, 37, dev, density=0.85)
+    descs = [_desc(rng, pool, cols, dev, with_aux=(j % 3 == 0))
+             for j in range(k_ops)]
+    rows, cnt = ck.agg_and_sub(n_and, descs, or_mode=or_mode, counts=True)
+    cdescs = [_cpu(d) for d in descs]
+    w_rows, w_cnt = blockops.agg_and_sub(n_and, cdescs, or_mode=or_mode,
+                                         counts=True)
+    only, none_rows = ck.agg_and_sub(n_and, descs, or_mode=or_mode,
+                                     rows=False, counts=True)[::-1]
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), w_rows)
+    assert torch.equal(cnt.cpu(), w_cnt)
+    assert none_rows is None and torch.equal(only.cpu(), w_cnt)
+    assert ck.launches["agg_and_sub"] == 2
+
+
+def test_agg_and_sub_kernel_early_exit_oracle(dev, rng):
+    """Columns that die early and columns that never do, held against a
+    numpy fold (not only against the plain version)."""
+    n_and, n_sub, nb = 100, 100, 9
+    pool_np = rng.integers(0, 2**32, (n_and + n_sub, 2048),
+                           dtype=np.uint64).astype(np.uint32)
+    pool_np[-1] = 0                                   # a zero SUB row
+    slots = rng.integers(0, n_and + n_sub - 1, (n_and + n_sub, nb)
+                         ).astype(np.int32)
+    slots[:, 0] = -1                                  # never dies: all -1
+    slots[0, 1] = n_and + n_sub - 1                   # dies at operand 0
+    slots[:n_and, 2] = -1
+    slots[n_and:, 2] = n_and + n_sub - 1              # SUB of zero rows
+    want = np.full((nb, 2048), 0xFFFFFFFF, np.uint32)
+    for k in range(n_and + n_sub):
+        for i in range(nb):
+            if slots[k, i] >= 0:
+                r = pool_np[slots[k, i]]
+                want[i] &= r if k < n_and else ~r
+    pool = torch.from_numpy(pool_np.view(np.int32)).to(dev)
+    got = ck.agg_and_sub_arena(n_and, n_sub,
+                               torch.from_numpy(slots).to(dev), pool)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(blockops.to_host_words(got), want)
+    assert (want[0] == 0xFFFFFFFF).all() and (want[1] == 0).all()
+    assert (want[3:] == 0).all()
+
+
+@pytest.mark.parametrize("nb", [0, 1, 13])
+def test_agg_and_sub_arena_kernel(dev, rng, nb):
+    pool = _dense_pool(rng, 20, dev, density=0.9)
+    slots = rng.integers(-1, 20, (7, nb)).astype(np.int32)
+    sl = torch.from_numpy(slots).to(dev)
+    got = ck.agg_and_sub_arena(4, 3, sl, pool)
+    empty = ck.agg_and_sub_arena(2, 1, torch.full((3, nb), -1,
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                                 pool[:0])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(),
+                       blockops.agg_and_sub_arena(4, 3, sl.cpu(), pool.cpu()))
+    # an empty pool: AND identity all ones, SUB identity zero
+    assert empty.shape == (nb, 2048) and bool((empty == -1).all())
+
+
+# ---------------------------------------------------------------------------
+# B5: batched pipeline counts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 21, 33, 65, 200])
+@pytest.mark.parametrize("V", [1, 7, 256])
+def test_pipeline_counts_kernel(dev, rng, S, V):
+    nb = 3
+    planes = _dense_pool(rng, S * nb, dev, density=0.6).reshape(S, nb, 2048)
+    sel = rng.integers(-1, 2, (V, S)).astype(np.int32)
+    sel[0] = 0                                         # all skip
+    if V > 1:
+        sel[1] = np.where(sel[1] == 0, 1, sel[1])      # no skip
+    st = torch.from_numpy(sel).to(dev)
+    got = ck.pipeline_counts(planes, st)
+    torch.cuda.synchronize()
+    want = blockops.pipeline_counts(planes.cpu(), sel)
+    assert got.dtype == torch.int64
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0]) == nb * 65536
+    assert ck.launches["pipeline_counts"] == 1
+
+
+# ---------------------------------------------------------------------------
+# B6: bit-sliced equality scan
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_planes,nb", [(0, 2), (8, 3), (32, 13), (33, 2)])
+def test_scan_eq_kernel(dev, rng, n_planes, nb):
+    planes = _dense_pool(rng, max(n_planes, 1) * nb, dev).reshape(
+        max(n_planes, 1), nb, 2048)
+    for value in (0, 42, 0xFFFFFFFF, int(rng.integers(0, 2**32))):
+        got = ck.scan_eq(n_planes, planes, value)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           blockops.scan_eq(n_planes, planes.cpu(), value))
