@@ -17,7 +17,7 @@ digest narrowing (combine_and_sub :1719-1790).  Here:
 
 The pipeline API (reference :223) batches many AND-SUB searches: counts-only
 batches are one launch of kernel B5 over a dense operand stack, result
-batches one B4 launch per request over the same stack.
+batches one launch of B4's batched form over the same stack.
 """
 
 from __future__ import annotations
@@ -609,7 +609,7 @@ class Aggregator:
         and/or counts (compute_counts).  Counts-only batches run as one B5
         launch over the dense operand stack (the reference pipeline's shared
         block cache, src/bmaggregator.h:197, as a kernel); result batches as
-        one B4 launch per request over the same stack; the rest as
+        one launch of B4's batched form over the same stack; the rest as
         per-request combines."""
         norm = [((*req, ())[:2] if isinstance(req, tuple) else (req, ()))
                 for req in requests]
@@ -675,8 +675,9 @@ class Aggregator:
     def _pipeline_results_fused(self, norm, options):
         """Result-producing pipeline over one shared dense operand stack
         (reference agg_run_options result mode, src/bmaggregator.h:65-103):
-        one B4 launch per request writes its AND-SUB rows and their
-        per-block counts.  Returns None when the fused path does not apply
+        one launch of B4's batched form (bitmagic_tpu
+        ``_pipeline_results_kernel``) writes every request's AND-SUB rows
+        and their per-block counts from one uploaded request table.  Returns None when the fused path does not apply
         (no payload, or output over budget)."""
         from .arena import (OperandArena, build_dense_stack,
                             build_dense_stack_host, narrowed_union,
@@ -711,16 +712,11 @@ class Aggregator:
             if V * nb_union.size * C.SET_BLOCK_SIZE * 4 \
                     > self._PIPE_RESULT_BUDGET_BYTES:
                 return None
-        rows, counts = [], []
-        for i in range(V):
-            ands = np.flatnonzero(sels[i] == 1)
-            subs = np.flatnonzero(sels[i] == -1)
-            descs = [(planes[k], None, None, None, None)
-                     for k in (*ands, *subs)]
-            r, c = ck.agg_and_sub(ands.size, descs, counts=True)
-            rows.append(r)
-            counts.append(c.sum(dtype=torch.int64))
-        counts = torch.stack(counts).cpu().numpy()
+        rows, counts = ck.agg_and_sub_batch(
+            [(planes[k], None, None, None, None)
+             for k in range(planes.shape[0])],
+            *blockops.selector_requests(sels), counts=True)
+        counts = counts.sum(dim=1, dtype=torch.int64).cpu().numpy()
         size = max(v.size for v in operands)
         out = []
         cls = np.full(nb_union.size, C.CLS_BIT, np.uint8)

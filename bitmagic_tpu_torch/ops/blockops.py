@@ -1,13 +1,14 @@
 """Block-level ops over dense pools ``int32[n_blocks, 2048]`` — plain
 PyTorch versions (port of ``bitmagic_tpu/ops/blockops.py``).
 
-These are the canonical semantics.  Three families also have a hand-written
+These are the canonical semantics.  Six families also have a hand-written
 Hopper kernel in ``cuda_kernels.py`` with the same signature:
-``block_counts``, ``count_op`` / ``count_metrics`` and
-``logical_op_digest`` / ``binary_op_digest``.  The wrappers there run the
-plain version below only for tensors on the CPU; on the card they launch
-the kernel.  The other functions here have no kernel in the JAX package
-either and stay plain PyTorch on every device.
+``block_counts``, ``count_op`` / ``count_metrics``, ``logical_op_digest`` /
+``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
+``pipeline_counts`` and ``scan_eq``.  The wrappers there run the plain
+version below only for tensors on the CPU; on the card they launch the
+kernel.  The other functions here have no kernel in the JAX package either
+and stay plain PyTorch on every device.
 
 Conventions:
   * words are int32 tensors holding the reference's uint32 bits;
@@ -261,6 +262,56 @@ def agg_and_sub(n_and, descs, or_mode=False, rows=True, counts=False):
     return (acc if rows else None), (block_counts(acc) if counts else None)
 
 
+def agg_and_sub_batch(descs, index, offs, n_and, rows=True, counts=False):
+    """Plain version of the batched form of kernel B4: request r sweeps the
+    operands ``descs[index[offs[r]:offs[r + 1]]]`` (gather descriptors
+    aligned on k columns), ANDing the first ``n_and[r]`` and AND-NOTing the
+    rest; ``n_and[r] = 0`` is the complement of the OR of its operands (the
+    all-ones start of bitmagic_tpu ``_pipeline_results_kernel``) and a
+    request with no operands is all ones.  Returns ``(rows int32[V, k,
+    2048] or None, per-column popcounts int32[V, k] or None)``."""
+    if not descs:
+        raise ValueError("agg_and_sub_batch: no operands")
+    index, offs, n_and = (np.asarray(x).astype(np.int64)
+                          for x in (index, offs, n_and))
+    k = _desc_cols(descs[0])
+    dev = descs[0][0].device
+    out_rows, out_cnt = [], []
+    for r in range(offs.size - 1):
+        ops = [descs[j] for j in index[offs[r]:offs[r + 1]].tolist()]
+        if ops:
+            acc = agg_and_sub(int(n_and[r]), ops)[0]
+        else:
+            acc = torch.full((k, SET_BLOCK_SIZE), -1, dtype=_I32, device=dev)
+        out_rows.append(acc)
+        out_cnt.append(block_counts(acc))
+    shape = (0, k)
+    rows_t = (torch.stack(out_rows) if out_rows else
+              torch.zeros(shape + (SET_BLOCK_SIZE,), dtype=_I32, device=dev))
+    cnt_t = (torch.stack(out_cnt) if out_cnt else
+             torch.zeros(shape, dtype=_I32, device=dev))
+    return (rows_t if rows else None), (cnt_t if counts else None)
+
+
+def selector_requests(selectors):
+    """Selector rows int[V, K] (1 AND, -1 AND-NOT, 0 skip) as the request
+    table of the batched B4: ``(index int32[n], offs int32[V + 1], n_and
+    int32[V])``, each request's AND operands first, then its AND-NOT ones,
+    each in operand order."""
+    sel = _checked_selectors(selectors)
+    ra, ca = np.nonzero(sel == 1)
+    rs, cs = np.nonzero(sel == -1)
+    rows = np.concatenate([ra, rs])
+    cols = np.concatenate([ca, cs])
+    role = np.concatenate([np.zeros(ra.size, np.int8), np.ones(rs.size,
+                                                               np.int8)])
+    order = np.lexsort((cols, role, rows))
+    offs = np.zeros(sel.shape[0] + 1, np.int32)
+    np.cumsum(np.count_nonzero(sel, axis=1), out=offs[1:])
+    return (cols[order].astype(np.int32), offs,
+            np.count_nonzero(sel == 1, axis=1).astype(np.int32))
+
+
 def arena_descriptors(n_and, slots, pool):
     """The arena form of B4 as gather descriptors: operand k reads
     ``pool[slots[k, i]]``; a slot of -1 is the identity, passed as FULL for
@@ -280,22 +331,51 @@ def agg_and_sub_arena(n_and, n_sub, slots, pool):
     return agg_and_sub(n_and, arena_descriptors(n_and, slots, pool))[0]
 
 
-def pipeline_codes(selectors) -> tuple[np.ndarray, np.ndarray]:
-    """Selector rows int[V, S] (1 AND, -1 AND-NOT, 0 skip) compacted to
-    CSR: ``(offs int32[V + 1], codes int32[n])`` with code ``(s << 1) |
-    (select == -1)`` for each non-zero select of row v in
-    ``codes[offs[v]:offs[v + 1]]``."""
+def _checked_selectors(selectors) -> np.ndarray:
     sel = np.asarray(selectors)
     if sel.ndim != 2:
         raise ValueError("selectors must be [V, S]")
     bad = (sel != 0) & (sel != 1) & (sel != -1)
     if bad.any():
         raise ValueError("selectors hold only 1, -1 and 0")
+    return sel
+
+
+def pipeline_codes(selectors) -> tuple[np.ndarray, np.ndarray]:
+    """Selector rows int[V, S] (1 AND, -1 AND-NOT, 0 skip) compacted to
+    CSR: ``(offs int32[V + 1], codes int32[n])`` with code ``(s << 1) |
+    (select == -1)`` for each non-zero select of row v in
+    ``codes[offs[v]:offs[v + 1]]``."""
+    sel = _checked_selectors(selectors)
     rows, cols = np.nonzero(sel)
     codes = (cols.astype(np.int32) << 1) | (sel[rows, cols] == -1)
     offs = np.zeros(sel.shape[0] + 1, np.int32)
     np.cumsum(np.count_nonzero(sel, axis=1), out=offs[1:])
     return offs, codes.astype(np.int32)
+
+
+def pipeline_planes(selectors) -> tuple[np.ndarray, np.ndarray]:
+    """The planes some row of ``selectors`` int[V, S] selects: ``(plane_idx
+    int32[n], compact int32[V, n])``, ``compact[:, j]`` being the column of
+    plane ``plane_idx[j]``.  Counting ``planes[plane_idx]`` under
+    ``compact`` gives the counts of ``planes`` under ``selectors``."""
+    sel = _checked_selectors(selectors)
+    idx = np.flatnonzero((sel != 0).any(axis=0)).astype(np.int32)
+    return idx, np.ascontiguousarray(sel[:, idx], dtype=np.int32)
+
+
+def pipeline_masks(selectors) -> np.ndarray:
+    """Selector rows int[V, S] as bit masks uint32[V, 2, ceil(S / 32)]:
+    bit ``s % 32`` of word ``s // 32`` is set in row 0 where plane s is
+    selected (1 or -1) and in row 1 where it is AND-NOTed (-1)."""
+    sel = _checked_selectors(selectors)
+    V, S = sel.shape
+    nw = (S + 31) // 32
+    bits = np.zeros((V, 2, nw * 32), bool)
+    bits[:, 0, :S] = sel != 0
+    bits[:, 1, :S] = sel == -1
+    packed = np.packbits(bits, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32)
 
 
 def pipeline_counts(planes, selectors):

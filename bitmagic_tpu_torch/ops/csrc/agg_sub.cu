@@ -1,33 +1,56 @@
-// B4: K-way AND-SUB sweep with early exit (the aggregator's device pass).
+// B4: K-way AND-SUB sweep with early exit (the aggregator's device pass),
+// one request or a batch of requests per launch.
 //
 // Replaces agg_and_sub_pallas (bitmagic_tpu/ops/pallas_kernels.py:270-289,
 // call :241-267, body _agg_sweep_body :171-238) and, on the card, the XLA
 // fusions _agg_kernel / _agg_any_kernel (bitmagic_tpu/agg/aggregator.py:80,
-// :108) and the per-request vmap of _pipeline_results_kernel (:875).
+// :108) and the vmapped _pipeline_results_kernel (:875), which is the
+// batched form below.
 //
-// Per result column i (one 8 KiB block row):
+// Per request r and result column i (one 8 KiB block row):
 //   AND/SUB mode: acc = ~0; acc &= row_k (k < n_and); acc &= ~row_k (k >= n_and)
 //   OR mode:      acc =  0; acc |= row_k for every k
-// Each operand comes as the gather descriptor of bm_common.cuh (pool, slot,
-// full, aux, aux_slot) in a device table of n_ops entries, so one kernel
-// serves the per-vector descriptors of the aggregator's combine_* calls and
-// the arena form (one pool, a slot matrix; an AND operand's slot -1 is
-// passed as `full`, a SUB operand's stays zero: the identity rule of
-// pallas_kernels.py:221-228).  An absent or FULL row is never read.
+// so n_and = 0 in AND/SUB mode is the complement of the OR of the SUB rows
+// (the all-ones start of _pipeline_results_kernel), and a request with no
+// operands gives all ones.  Each operand comes as the gather descriptor of
+// bm_common.cuh (pool, slot, full, aux, aux_slot) in a device table; request
+// r reads ops[begin_r .. begin_r + n_ops_r).  One kernel so serves the
+// per-vector descriptors of the aggregator's combine_* calls, the arena form
+// (one pool, a slot matrix; an AND operand's slot -1 is passed as `full`, a
+// SUB operand's stays zero: the identity rule of pallas_kernels.py:221-228)
+// and the pipeline's dense stack.  An absent or FULL row is never read.
 //
-// Bound: the operand rows read until the column's accumulator is zero, and
-// the result rows written.  Design: one CTA per column, the accumulator in
-// registers (256 threads x 2 uint4).  The CTA first resolves up to 256
-// operand sources at once (one thread each) into shared memory, so the
-// descriptor reads are not serialised behind the row loads; it then loads
-// four operands' rows before folding them (8 independent 16-byte loads in
-// flight per thread) and takes one block-wide vote (__syncthreads_or) per
-// four operands: once the column is zero the remaining loads are skipped
-// (in OR mode: once it is all ones).  Loads are plain __ldg, so no copy is
-// in flight when the CTA leaves (the Pallas body issues copy k+1 before its
-// zero test and never waits on it, :210-233).  A 0-row pool is legal: every
-// slot must then be -1.  Either output may be omitted: `counts` alone is
-// the rows-off form (per-column popcount, _agg_any_kernel).
+// Bound: the operand rows read until a column's accumulator is zero, and
+// the result rows written.  On the card a sweep at config 3 (128 columns,
+// ~17 operands each) moves ~20 MB, so its time is a fixed cost of launch
+// and first round trip plus the rows read at the card's rate; every row
+// read past a column's death costs as much as the latency it might hide.
+// Design:
+//  - A column is cut into slices, one CTA per (request, column, slice), one
+//    16-byte vector per thread and operand.  Each slice keeps its own early
+//    exit, and a slice dies no later than its column (4096 bits against
+//    65536): fewer rows are read than with a column-wide exit.  One request
+//    takes 16 slices of 512 B (32 threads; config 3's 128 columns give 2048
+//    CTAs instead of 128); a batch takes 8 of 1 KiB (64 threads), since its
+//    many requests fill the card anyway and its rows rarely die, where
+//    fewer, larger CTAs measured faster (chip_smoke.py --compare).
+//  - A CTA resolves the descriptors of up to 32 (64) operands at once, one
+//    thread each, into shared memory (bm::resolve issues a descriptor's
+//    index reads together), so a chunk costs two round trips.
+//  - kGroup = 4 operands are loaded (four 16-byte loads per thread in
+//    flight), folded, and voted on (__syncthreads_or); the next group is
+//    issued after the vote.  kDepth > 0 issues kDepth groups ahead of the
+//    vote instead: measured on the card (chip_smoke.py --compare), one
+//    group ahead is slower at configs 3 and 4b, because the extra rows read
+//    past each slice's death cost more than the round trip they hide.  With
+//    kDepth = 0 no load is in flight at a CTA's exit (the Pallas body leaves
+//    copy k+1 unawaited, :210-233); with kDepth > 0 a CTA may leave with
+//    plain register loads outstanding, which need no wait or cancel.
+//  - Rows-off counts (per-column popcount, _agg_any_kernel): each warp adds
+//    its slice's popcount atomically into counts, which the caller zeroes.
+// A 0-row pool is legal: every slot must then be -1.  Either output may be
+// omitted.  BM_AGG_SLICES, BM_AGG_GROUP and BM_AGG_DEPTH override the three
+// constants at build time (chip_smoke.py --compare times such variants).
 #include <cstddef>
 
 #include "bm_common.cuh"
@@ -42,100 +65,155 @@ static_assert(offsetof(bm::Operand, aux_slot) == 48, "descriptor layout");
 
 namespace {
 
-constexpr int kChunk = bm::kThreads;   // operands resolved per pass
-constexpr int kGroup = 4;              // operands folded between two votes
+#ifndef BM_AGG_GROUP
+#define BM_AGG_GROUP 4
+#endif
+#ifndef BM_AGG_DEPTH
+#define BM_AGG_DEPTH 0
+#endif
+// slices per column: 16 of 512 B for one request, 8 of 1 KiB for a batch
+#ifdef BM_AGG_SLICES
+constexpr int kSlicesSingle = BM_AGG_SLICES;
+constexpr int kSlicesBatch = BM_AGG_SLICES;
+#else
+constexpr int kSlicesSingle = 16;
+constexpr int kSlicesBatch = 8;
+#endif
+constexpr int kGroup = BM_AGG_GROUP;                   // operands per vote
+constexpr int kDepth = BM_AGG_DEPTH;                   // groups in flight
 
-__global__ void __launch_bounds__(bm::kThreads)
-agg_sweep_kernel(const bm::Operand* __restrict__ ops, int n_ops, int n_and,
-                 int or_mode, uint4* __restrict__ out,
+// One request of the batched form: its operands are
+// ops[begin .. begin + n_ops), the first n_and of them ANDed.
+struct Request {
+  int begin;
+  int n_ops;
+  int n_and;
+  int pad;
+};
+static_assert(sizeof(Request) == 16, "request table: 4 x int32");
+
+__device__ __forceinline__ void load_group(uint4 (&r)[kGroup],
+                                           const bm::RowSrc* src, int j,
+                                           int n, int t) {
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    r[g] = j + g < n ? bm::load(src[j + g], t) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// One CTA per (request, column, slice): one 16-byte vector per thread and
+// operand, so a CTA has as many threads as its slice has vectors.
+template <int SLICES>
+__global__ void __launch_bounds__(bm::kBlockVec / SLICES)
+agg_sweep_kernel(const bm::Operand* __restrict__ ops,
+                 const Request* __restrict__ reqs, int n_ops, int n_and,
+                 int or_mode, int k, uint4* __restrict__ out,
                  int32_t* __restrict__ counts) {
-  const int i = blockIdx.x;
+  constexpr int kSliceVec = bm::kBlockVec / SLICES;    // = threads
+  constexpr int kChunk = kSliceVec;                    // operands resolved
+  const int i = blockIdx.x / SLICES;
+  const int slice = blockIdx.x % SLICES;
+  const int t = threadIdx.x;
+  int begin = 0;
+  if (reqs != nullptr) {
+    const Request q = reqs[blockIdx.y];
+    begin = q.begin;
+    n_ops = q.n_ops;
+    n_and = q.n_and;
+  }
   __shared__ bm::RowSrc src[kChunk];
   const uint32_t init = or_mode ? 0u : 0xFFFFFFFFu;
-  uint4 acc[bm::kVecPerThread];
-#pragma unroll
-  for (int v = 0; v < bm::kVecPerThread; ++v) {
-    acc[v] = make_uint4(init, init, init, init);
-  }
+  uint4 acc = make_uint4(init, init, init, init);
   bool live = true;
   for (int k0 = 0; k0 < n_ops && live; k0 += kChunk) {
     const int n = min(kChunk, n_ops - k0);
     __syncthreads();                    // the previous chunk's src is read
-    if (static_cast<int>(threadIdx.x) < n) {
-      src[threadIdx.x] = bm::resolve(ops[k0 + threadIdx.x], i);
+    if (t < n) {
+      bm::RowSrc r = bm::resolve(ops[begin + k0 + t], i);
+      if (r.ptr != nullptr) r.ptr += slice * kSliceVec;
+      src[t] = r;
     }
     __syncthreads();
-    for (int j = 0; j < n && live; j += kGroup) {
-      uint4 r[kGroup][bm::kVecPerThread];
+    // buf[0] is the group being folded, buf[1..kDepth] are in flight
+    uint4 buf[kDepth + 1][kGroup];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const bm::RowSrc s = src[min(j + g, n - 1)];
-#pragma unroll
-        for (int v = 0; v < bm::kVecPerThread; ++v) {
-          r[g][v] = bm::load(s, threadIdx.x + v * bm::kThreads);
-        }
-      }
+    for (int d = 0; d < kDepth; ++d) load_group(buf[d], src, d * kGroup, n, t);
+    for (int j = 0; j < n; j += kGroup) {
+      load_group(buf[kDepth], src, j + kDepth * kGroup, n, t);
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
         if (j + g >= n) break;
-        const int k = k0 + j + g;
-#pragma unroll
-        for (int v = 0; v < bm::kVecPerThread; ++v) {
-          const uint4 x = r[g][v];
-          uint4& a = acc[v];
-          if (or_mode) {
-            a.x |= x.x; a.y |= x.y; a.z |= x.z; a.w |= x.w;
-          } else if (k < n_and) {
-            a.x &= x.x; a.y &= x.y; a.z &= x.z; a.w &= x.w;
-          } else {
-            a.x &= ~x.x; a.y &= ~x.y; a.z &= ~x.z; a.w &= ~x.w;
-          }
+        const uint4 x = buf[0][g];
+        if (or_mode) {
+          acc.x |= x.x; acc.y |= x.y; acc.z |= x.z; acc.w |= x.w;
+        } else if (k0 + j + g < n_and) {
+          acc.x &= x.x; acc.y &= x.y; acc.z &= x.z; acc.w &= x.w;
+        } else {
+          acc.x &= ~x.x; acc.y &= ~x.y; acc.z &= ~x.z; acc.w &= ~x.w;
         }
       }
-      int mine = 0;
-#pragma unroll
-      for (int v = 0; v < bm::kVecPerThread; ++v) {
-        const uint4 a = acc[v];
-        mine |= or_mode ? ((a.x & a.y & a.z & a.w) != 0xFFFFFFFFu)
-                        : ((a.x | a.y | a.z | a.w) != 0u);
-      }
-      // AND/SUB: go on while some word is nonzero; OR: while some word
-      // is not yet all ones
+      // AND/SUB: go on while some word is nonzero; OR: while some word is
+      // not yet all ones
+      const int mine = or_mode
+          ? (acc.x & acc.y & acc.z & acc.w) != 0xFFFFFFFFu
+          : (acc.x | acc.y | acc.z | acc.w) != 0u;
       live = __syncthreads_or(mine) != 0;
+      if (!live) break;
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) buf[d][g] = buf[d + 1][g];
+      }
     }
   }
+  const size_t col = static_cast<size_t>(blockIdx.y) * k + i;
   if (out != nullptr) {
-#pragma unroll
-    for (int v = 0; v < bm::kVecPerThread; ++v) {
-      out[static_cast<size_t>(i) * bm::kBlockVec + threadIdx.x +
-          v * bm::kThreads] = acc[v];
-    }
+    out[col * bm::kBlockVec + slice * kSliceVec + t] = acc;
   }
   if (counts != nullptr) {
-    uint32_t c[1] = {0u};
-#pragma unroll
-    for (int v = 0; v < bm::kVecPerThread; ++v) c[0] += bm::popc4(acc[v]);
-    __shared__ uint32_t total[1];
-    bm::block_sum(c, total);
-    if (threadIdx.x == 0) counts[i] = static_cast<int32_t>(total[0]);
+    const uint32_t c = __reduce_add_sync(0xFFFFFFFFu, bm::popc4(acc));
+    if ((t & 31) == 0 && c != 0u) {
+      atomicAdd(counts + col, static_cast<int32_t>(c));
+    }
   }
+}
+
+template <int SLICES>
+int launch(const void* ops, const void* reqs, int n_req, int n_ops,
+           int n_and, int or_mode, int k, void* out, void* counts,
+           cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(k) * SLICES,
+                  static_cast<unsigned>(n_req));
+  agg_sweep_kernel<SLICES><<<grid, bm::kBlockVec / SLICES, 0, stream>>>(
+      static_cast<const bm::Operand*>(ops),
+      static_cast<const Request*>(reqs), n_ops, n_and, or_mode, k,
+      static_cast<uint4*>(out), static_cast<int32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ops: device table of n_ops bm::Operand descriptors (n_ops >= 1), all
-// aligned on k columns (k >= 1).  out: int32[k, 2048] or null; counts:
-// int32[k] or null.  Returns the CUDA error of the launch (0 = launched).
-extern "C" int bm_agg_and_sub(const void* ops, int n_ops, int n_and,
-                              int or_mode, int k, void* out, void* counts,
-                              void* stream) {
-  if (k <= 0 || n_ops <= 0 || n_and < 0 || n_and > n_ops ||
-      (out == nullptr && counts == nullptr)) {
+// ops: device table of bm::Operand descriptors, all aligned on k columns
+// (k >= 1).  reqs: null for one request of n_ops operands (n_ops >= 1, 0 <=
+// n_and <= n_ops, or_mode 0 or 1), else a device table of n_req Requests
+// (n_ops and n_and then come from the table; or_mode must be 0).
+// out: int32[n_req, k, 2048] or null; counts: int32[n_req, k], zeroed by
+// the caller, or null.  Returns the CUDA error of the launch (0 = launched).
+extern "C" int bm_agg_and_sub(const void* ops, const void* reqs, int n_req,
+                              int n_ops, int n_and, int or_mode, int k,
+                              void* out, void* counts, void* stream) {
+  if (k <= 0 || (out == nullptr && counts == nullptr) || n_req <= 0 ||
+      n_req > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  agg_sweep_kernel<<<k, bm::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bm::Operand*>(ops), n_ops, n_and, or_mode,
-      static_cast<uint4*>(out), static_cast<int32_t*>(counts));
-  return static_cast<int>(cudaGetLastError());
+  if (reqs == nullptr ? (n_req != 1 || n_ops <= 0 || n_and < 0 ||
+                         n_and > n_ops)
+                      : or_mode != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return reqs == nullptr
+      ? launch<kSlicesSingle>(ops, reqs, 1, n_ops, n_and, or_mode, k, out,
+                              counts, s)
+      : launch<kSlicesBatch>(ops, reqs, n_req, 0, 0, 0, k, out, counts, s);
 }

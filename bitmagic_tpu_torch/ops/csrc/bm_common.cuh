@@ -1,11 +1,12 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a).
 //
-// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  Every
-// kernel here gives one CTA of 256 threads to one row: each thread moves
-// two 16-byte vectors, neighbouring threads on neighbouring addresses, so a
-// warp's load is 512 contiguous bytes.  All three kernels read each input
-// byte once and write each output byte once; they are bound by device
-// memory bandwidth, not by the popcount / logic instructions.
+// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1-K3
+// and B6 give one CTA of 256 threads to one row: each thread moves two
+// 16-byte vectors, neighbouring threads on neighbouring addresses, so a
+// warp's load is 512 contiguous bytes.  They read each input byte once and
+// write each output byte once; they are bound by device memory bandwidth,
+// not by the popcount / logic instructions.  B4 and B5 cut rows
+// differently (agg_sub.cu, pipeline_counts.cu).
 //
 // Words arrive as the int32 storage of PyTorch tensors and are treated as
 // uint32_t: the bits are the reference's uint32 words.
@@ -47,22 +48,19 @@ struct RowSrc {
 };
 
 // Resolved once per row by every thread of the CTA (one broadcast read of
-// the descriptor), so the branch on the source is uniform in the CTA.
+// the descriptor), so the branch on the source is uniform in the CTA.  The
+// aux-slot, FULL and slot reads are issued together: one round trip after
+// the descriptor, not up to three in a row.
 __device__ __forceinline__ RowSrc resolve(const Operand& o, int i) {
-  RowSrc s{nullptr, 0u};
-  if (o.aux_rows > 0 && o.aux_slot != nullptr) {
-    const int r = o.aux_slot[i];
-    if (r >= 0) {
-      s.ptr = o.aux + static_cast<size_t>(r) * kBlockVec;
-      return s;
-    }
-  }
-  if (o.full != nullptr && o.full[i]) {
-    s.fill = 0xFFFFFFFFu;
-    return s;
-  }
+  const int ar = o.aux_rows > 0 && o.aux_slot != nullptr ? o.aux_slot[i] : -1;
+  const bool full = o.full != nullptr && o.full[i] != 0;
   const int r = o.slot != nullptr ? o.slot[i] : i;
-  if (r >= 0 && o.pool_rows > 0) {
+  RowSrc s{nullptr, 0u};
+  if (ar >= 0) {
+    s.ptr = o.aux + static_cast<size_t>(ar) * kBlockVec;
+  } else if (full) {
+    s.fill = 0xFFFFFFFFu;
+  } else if (r >= 0 && o.pool_rows > 0) {
     s.ptr = o.pool + static_cast<size_t>(r) * kBlockVec;
   }
   return s;

@@ -9,7 +9,8 @@ count_metrics                                       setops.py:39 (_metric_kernel
 logical_op_digest,     K1 logical_op_digest.cu      pallas_kernels.py:73,
 binary_op_digest                                    bitvector.py:43 (_binary_kernel)
 agg_and_sub,           B4 agg_sub.cu                pallas_kernels.py:270,
-agg_and_sub_arena                                   aggregator.py:80/108/875
+agg_and_sub_arena,                                  aggregator.py:80/108/875
+agg_and_sub_batch
 pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
 scan_eq                B6 scan_eq.cu                pallas_kernels.py:309
 =====================  ===========================  =========================
@@ -47,9 +48,12 @@ _LL = ctypes.c_longlong
 
 launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
             "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0}
-# most planes B5 stages per CTA (pipeline_counts.cu: 200 KiB of shared
-# memory at 512 bytes per plane and tile)
+# most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
+# memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
+# most staged planes B5 keeps in registers (pipeline_counts.cu register
+# path); above it the shared-memory path runs
+PIPELINE_REG_PLANES = 72
 
 _SIGNATURES = {
     "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP]),
@@ -59,9 +63,11 @@ _SIGNATURES = {
                              [_INT] + _OPERAND + _OPERAND
                              + [_INT, _VP, _VP, _VP]),
     "bm_agg_and_sub": ("agg_sub.cu",
-                       [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP]),
+                       [_VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP, _VP,
+                        _VP]),
     "bm_pipeline_counts": ("pipeline_counts.cu",
-                           [_VP, _INT, _LL, _VP, _VP, _INT, _VP, _VP]),
+                           [_VP, _LL, _VP, _INT, _VP, _INT, _VP, _VP, _INT,
+                            _VP, _VP]),
     "bm_scan_eq": ("scan_eq.cu", [_VP, _INT, _INT, ctypes.c_uint, _VP, _VP]),
 }
 
@@ -234,11 +240,11 @@ def binary_op_digest(op, a_desc, b_desc):
 # ---------------------------------------------------------------------------
 # B4: K-way AND-SUB sweep with early exit (OR mode, rows-off counts)
 # ---------------------------------------------------------------------------
-def _descriptor_table(descs, k, device):
-    """The bm::Operand table of ``descs`` (agg_sub.cu: 7 x 8 bytes each,
-    ints in the low half), on ``device``.  ``slot``, ``full``, ``aux`` and
-    ``aux_slot`` may be None."""
-    table = []
+def _descriptor_rows(descs, k):
+    """The bm::Operand table of ``descs`` as int64[n, 7] on the host
+    (agg_sub.cu: 7 x 8 bytes each, ints in the low half).  ``slot``,
+    ``full``, ``aux`` and ``aux_slot`` may be None."""
+    table = np.zeros((len(descs), 7), np.int64)
     for j, (pool, slot, full, aux, aux_slot) in enumerate(descs):
         name = f"operand {j}"
         _rows(pool, f"{name}.pool")
@@ -256,10 +262,23 @@ def _descriptor_table(descs, k, device):
         if aux is not None and aux_slot is not None:
             _rows(aux, f"{name}.aux")
             aux_rows = aux.shape[0]
-        table.append([_ptr(pool) or 0, pool.shape[0], _ptr(slot) or 0,
-                      _ptr(full) or 0, (_ptr(aux) or 0) if aux_rows else 0,
-                      aux_rows, (_ptr(aux_slot) or 0) if aux_rows else 0])
-    return torch.tensor(table, dtype=_I64).to(device)
+        table[j] = (_ptr(pool) or 0, pool.shape[0], _ptr(slot) or 0,
+                    _ptr(full) or 0, (_ptr(aux) or 0) if aux_rows else 0,
+                    aux_rows, (_ptr(aux_slot) or 0) if aux_rows else 0)
+    return table
+
+
+def _descriptor_table(descs, k, device):
+    """``_descriptor_rows`` of ``descs`` on ``device``."""
+    return torch.from_numpy(_descriptor_rows(descs, k)).to(device)
+
+
+def _sweep_outputs(shape, device, rows, counts):
+    out = (torch.empty(shape + (SET_BLOCK_SIZE,), dtype=_I32, device=device)
+           if rows else None)
+    # the kernel adds each slice's popcount into its column's counter
+    cnt = torch.zeros(shape, dtype=_I32, device=device) if counts else None
+    return out, cnt
 
 
 def agg_and_sub(n_and, descs, or_mode=False, rows=True, counts=False):
@@ -279,13 +298,54 @@ def agg_and_sub(n_and, descs, or_mode=False, rows=True, counts=False):
         return blockops.agg_and_sub(n_and, descs, or_mode, rows, counts)
     k = blockops._desc_cols(descs[0])
     device = descs[0][0].device
-    out = (torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=device)
-           if rows else None)
-    cnt = torch.empty(k, dtype=_I32, device=device) if counts else None
+    out, cnt = _sweep_outputs((k,), device, rows, counts)
     if k:
         table = _descriptor_table(descs, k, device)
-        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(table),
-                len(descs), int(n_and), int(bool(or_mode)), k, _ptr(out),
+        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(table), None,
+                1, len(descs), int(n_and), int(bool(or_mode)), k, _ptr(out),
+                _ptr(cnt))
+    return out, cnt
+
+
+def agg_and_sub_batch(descs, index, offs, n_and, rows=True, counts=False):
+    """B4 over a batch of requests in one launch (bitmagic_tpu
+    ``_pipeline_results_kernel``): request r sweeps the operands
+    ``descs[index[offs[r]:offs[r + 1]]]`` (gather descriptors aligned on k
+    columns), ANDing the first ``n_and[r]`` and AND-NOTing the rest;
+    ``n_and[r] = 0`` is the complement of the OR of its operands, a request
+    with no operands is all ones -> ``(rows int32[V, k, 2048] or None,
+    popcounts int32[V, k] or None)``.  The wrapper uploads one table: the
+    operand descriptors of every request in order, then the requests."""
+    if not descs:
+        raise ValueError("agg_and_sub_batch: no operands")
+    if not rows and not counts:
+        raise ValueError("agg_and_sub_batch: nothing to compute")
+    index = np.asarray(index, np.int64)
+    offs = np.asarray(offs, np.int64)
+    n_and = np.asarray(n_and, np.int64)
+    V = offs.size - 1
+    n_ops = np.diff(offs)
+    if (V < 0 or n_and.shape != (V,) or offs[0] != 0 or (n_ops < 0).any()
+            or offs[-1] != index.size or (n_and < 0).any()
+            or (n_and > n_ops).any()
+            or ((index < 0) | (index >= len(descs))).any()):
+        raise ValueError("agg_and_sub_batch: malformed request table")
+    if not _on_cuda(*(t for d in descs for t in d)):
+        return blockops.agg_and_sub_batch(descs, index, offs, n_and, rows,
+                                          counts)
+    if V > 65535:
+        raise ValueError("agg_and_sub_batch: at most 65535 requests")
+    k = blockops._desc_cols(descs[0])
+    device = descs[0][0].device
+    out, cnt = _sweep_outputs((V, k), device, rows, counts)
+    if k and V:
+        reqs = np.zeros((V, 4), np.int32)
+        reqs[:, 0], reqs[:, 1], reqs[:, 2] = offs[:-1], n_ops, n_and
+        ops = _descriptor_rows(descs, k)[index]
+        buf = torch.from_numpy(np.concatenate(
+            [ops.ravel(), reqs.view(np.int64).ravel()])).to(device)
+        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(buf),
+                buf.data_ptr() + ops.nbytes, V, 0, 0, 0, k, _ptr(out),
                 _ptr(cnt))
     return out, cnt
 
@@ -307,6 +367,18 @@ def agg_and_sub_arena(n_and, n_sub, slots, pool):
 # ---------------------------------------------------------------------------
 # B5: batched pipeline counts
 # ---------------------------------------------------------------------------
+def pipeline_inputs(selectors):
+    """The kernel's selector input for ``selectors`` int[V, S]: ``(plane_idx
+    int32[n], masks uint32[V, 2, ceil(n / 32)] or None, offs int32[V + 1]
+    or None, codes int32[m] or None)``.  Only the n planes some row selects
+    are staged; up to ``PIPELINE_REG_PLANES`` of them the register path
+    takes bit masks, above it the shared path CSR codes."""
+    idx, compact = blockops.pipeline_planes(selectors)
+    if idx.size <= PIPELINE_REG_PLANES:
+        return idx, blockops.pipeline_masks(compact), None, None
+    return (idx, None, *blockops.pipeline_codes(compact))
+
+
 def pipeline_counts(planes, selectors):
     """Hit counts of V selector rows (1 AND / -1 AND-NOT / 0 skip, int[V,
     S]) over the plane stack int32[S, nb, 2048] -> int64[V] (the signature
@@ -327,13 +399,29 @@ def pipeline_counts(planes, selectors):
     out = torch.zeros(sel.shape[0], dtype=_I64, device=planes.device)
     if sel.shape[0] == 0 or nb == 0:
         return out
-    offs, codes = blockops.pipeline_codes(sel)
-    offs_d = torch.from_numpy(offs).to(planes.device)
-    codes_d = torch.from_numpy(codes).to(planes.device)
-    _launch("bm_pipeline_counts", "pipeline_counts", planes.device,
-            _ptr(planes), S, nb * SET_BLOCK_SIZE, _ptr(offs_d),
-            _ptr(codes_d), sel.shape[0], _ptr(out))
+    buf, args = pipeline_prepare(planes, sel)
+    _launch("bm_pipeline_counts", "pipeline_counts", planes.device, *args,
+            _ptr(out))
     return out
+
+
+def pipeline_prepare(planes, selectors):
+    """Upload B5's input for ``selectors`` int[V, S] over ``planes`` as one
+    int32 buffer (the staged plane list, then the masks or the CSR codes of
+    ``pipeline_inputs``) -> ``(buffer, C arguments of bm_pipeline_counts up
+    to n_values)``; keep the buffer alive until the launch has run."""
+    idx, masks, offs, codes = pipeline_inputs(selectors)
+    parts = [idx] + [a.view(np.int32).ravel() for a in (masks, offs, codes)
+                     if a is not None]
+    buf = torch.from_numpy(np.concatenate(parts)).to(planes.device)
+    at = [int(x) for x in np.cumsum([0] + [p.size * 4 for p in parts])
+          + buf.data_ptr()]
+    nw = masks.shape[2] if masks is not None else 0
+    p_masks = at[1] if masks is not None and masks.size else None
+    p_offs, p_codes = (at[1], at[2]) if offs is not None else (None, None)
+    return buf, [_ptr(planes), planes.shape[1] * SET_BLOCK_SIZE,
+                 at[0] if idx.size else None, idx.size, p_masks, nw, p_offs,
+                 p_codes, len(np.asarray(selectors))]
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,12 @@
 and check it.
 
     python3 chip_smoke.py            # from the repository root, on the card
+    python3 chip_smoke.py --compare DIR
+
+With ``--compare DIR`` the script builds, checks the kernels (phases 1-3)
+and then times the B4 and B5 sources in DIR (an earlier ``agg_sub.cu`` and
+``pipeline_counts.cu``, with the C interfaces of that version) against the
+current kernels in turns, and stops without the last line.
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -15,9 +21,13 @@ only when every phase passed):
               rows, descriptors with -1 slots, FULL rows and aux rows; the
               K-way sweep (B4) in arena and descriptor form, with -1 slots
               on both sides, early-dying and never-dying columns, an empty
-              pool, OR mode and rows-off counts; the pipeline counts (B5)
-              for 1 / 7 / 256 values over 21 / 33 / 200 planes, with and
-              without skipped planes; the equality scan (B6) at config 4;
+              pool, OR mode, rows-off counts summed over the slices of
+              a column, slices dying at different operands, and the
+              batched form with 1 and 64 requests (one launch each); the
+              pipeline counts (B5) for 1 / 7 / 130 / 256 values over 0 to
+              400 planes (every ceiling of the register path, the shared
+              path at its edges), with and without skipped planes; the
+              equality scan (B6) at config 4;
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
@@ -28,7 +38,8 @@ only when every phase passed):
               100 SUB and with 3 / 2, combine_and, combine_or,
               find_first_and_sub, combine_and_sub_arena over one arena of
               all 200, and a 64-request pipeline in counts and in result
-              mode; every answer against numpy;
+              mode (one B4 launch for the batch); every answer against
+              numpy;
  6. scan    — config 4b (bench.py:280): a nullable 16M-element uint32
               SparseVector (values < 2^20, ~1 % NULL); a prepared pipeline
               counting 256 values, pipeline_find_eq of 8 values, find_eq,
@@ -296,17 +307,63 @@ def search_kernels_vs_plain(rng, device, cmp):
             cmp("agg_and_sub", c, wc)
             cmp("agg_and_sub", ck.agg_and_sub(n_and, descs, or_mode=or_mode,
                                               rows=False, counts=True)[1], wc)
+    # the four slices of one column die at different operands (0, 5,
+    # never, 9); rows and rows-off counts summed over the slices
+    srows = np.full((16, 2048), 0xFFFFFFFF, np.uint32)
+    srows[:, 512:1536] = rng.integers(0, 2**32, (16, 1024), dtype=np.uint32
+                                      ) | np.uint32(1)
+    srows[0, :512] = 0
+    srows[5, 512:1024] = 0
+    srows[1:12, 1024:1536] = 0xFFFFFFFF
+    srows[12:, 1024:1536] = 0
+    srows[9, 1536:] = 0
+    spool = torch.from_numpy(srows.view(np.int32).copy()).to(device)
+    descs = [(spool[j:j + 1], None, None, None, None) for j in range(16)]
+    r, c = ck.agg_and_sub(12, descs, counts=True)
+    wr, wc = blockops.agg_and_sub(12, descs, counts=True)
+    check(bool((wr[0, :512] == 0).all()) and bool(wr[0, 1024:1536].any()),
+          "B4 slice case: slices die at different operands")
+    cmp("agg_and_sub", r, wr)
+    cmp("agg_and_sub", c, wc)
+    cmp("agg_and_sub", ck.agg_and_sub(12, descs, rows=False,
+                                      counts=True)[1], wc)
+    # the batched form: 1 request and 64 (n_and = 0, no SUB, no operands),
+    # one launch each
+    stack = _bits_pool(rng, 12 * AGG_BLOCKS, 3, device).reshape(
+        12, AGG_BLOCKS, 2048)
+    sdescs = [(stack[j], None, None, None, None) for j in range(12)]
+    for V in (1, N_REQUESTS):
+        sel = rng.integers(-1, 2, (V, 12)).astype(np.int32)
+        sel[0, 0] = 1
+        if V > 3:
+            sel[1] = 0
+            sel[2] = -np.abs(sel[2])
+            sel[3] = np.abs(sel[3])
+        req = blockops.selector_requests(sel)
+        n0 = ck.launches["agg_and_sub"]
+        r, c = ck.agg_and_sub_batch(sdescs, *req, counts=True)
+        check(ck.launches["agg_and_sub"] == n0 + 1, "batched B4: one launch")
+        wr, wc = blockops.agg_and_sub_batch(sdescs, *req, counts=True)
+        cmp("agg_and_sub", r, wr)
+        cmp("agg_and_sub", c, wc)
     # B5: 1 / 7 / 256 values over 21 / 33 planes, with and without skips;
-    # the config-4b and config-3 pipeline shapes
-    for S, nb, V in ((21, 13, 1), (21, 13, 7), (33, 13, 256), (21, 0, 7),
-                     (SV_BITS + 1, 245, SV_QUERIES),
-                     (AGG_K, AGG_BLOCKS, N_REQUESTS)):
+    # the config-4b and config-3 pipeline shapes; every ceiling of the
+    # register path and the shared path at its edges (0 .. 400 planes)
+    b5_cases = [(21, 13, 1), (21, 13, 7), (33, 13, 256), (21, 0, 7),
+                (SV_BITS + 1, 245, SV_QUERIES),
+                (AGG_K, AGG_BLOCKS, N_REQUESTS)]
+    b5_cases += [(S, 2, 130 if S <= ck.PIPELINE_REG_PLANES else 9)
+                 for S in (0, 1, 8, 16, 24, 32, 33, 40, 48, 56, 64, 65, 72,
+                           73, 144, 145, 200, 400)]
+    for S, nb, V in b5_cases:
         planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
         for skip in (False, True):
             sel = rng.choice(np.asarray([-1, 1], np.int32), (V, S))
             if skip:
                 sel[rng.random((V, S)) < 0.5] = 0
                 sel[0] = 0                       # a row of skips only
+                if S > 2:
+                    sel[:, S // 2] = 0           # a plane never staged
             st = torch.from_numpy(sel).to(device)
             cmp("pipeline_counts", ck.pipeline_counts(planes, st),
                 blockops.pipeline_counts(planes, sel))
@@ -664,8 +721,13 @@ def agg_path(tbm, device, n_blocks=AGG_BLOCKS):
         out = agg.pipeline(groups, tbm.AggOptions().set_compute_count())
     check([o["count"] for o in out] == [_popcount(w) for w in wants],
           "pipeline counts")
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    n0 = ck.launches["agg_and_sub"]
     with Clock("pipeline_64_results_ms", times):
         out = agg.pipeline(groups, tbm.AggOptions(compute_counts=True))
+    check(ck.launches["agg_and_sub"] == n0 + 1,
+          "the 64-request result pipeline made one B4 launch, not "
+          f"{ck.launches['agg_and_sub'] - n0}")
     for o, w in zip(out, wants):
         check(o["count"] == _popcount(w), "pipeline result count")
         check(np.array_equal(o["bv"].to_words().ravel(), w),
@@ -834,16 +896,89 @@ def timings(device, card):
     return out
 
 
-def _needed_reads(rows_by_operand, n_and):
-    """Operand rows a sweep must read: per column, every operand up to and
-    including the one that zeroes its accumulator."""
+def _sweep_reads(rows_by_operand, n_and, slices, group=4):
+    """(rows needed, rows fetched) of one AND-SUB sweep.  Needed: per
+    column, every operand up to and including the one that zeroes its
+    accumulator (the bound counts these).  Fetched: what agg_sub.cu reads,
+    per slice (16 per column for one request, 8 in a batch) every operand
+    of the groups of four up to the one whose vote finds the slice zero, in
+    units of whole rows."""
+    K = len(rows_by_operand)
     acc = torch.full_like(rows_by_operand[0], -1)
-    reads = 0
-    for k, r in enumerate(rows_by_operand):
-        alive = (acc != 0).any(dim=1)
-        reads += int(alive.sum())
-        acc = acc & (r if k < n_and else ~r)
-    return reads
+    nb = acc.shape[0]
+    needed = fetched = 0
+    for g0 in range(0, K, group):
+        alive = (acc.reshape(nb, slices, -1) != 0).any(dim=2)
+        fetched += int(alive.sum()) * min(group, K - g0)
+        for k in range(g0, min(g0 + group, K)):
+            needed += int((acc != 0).any(dim=1).sum())
+            r = rows_by_operand[k]
+            acc = acc & (r if k < n_and else ~r)
+    return needed, fetched / slices
+
+
+def _b4_single(ck, device, table, K, n_and, nb, res):
+    return lambda: ck._launch("bm_agg_and_sub", "agg_and_sub", device,
+                              ck._ptr(table), None, 1, K, n_and, 0, nb,
+                              ck._ptr(res), None)
+
+
+def _b4_batch_inputs(ck, blockops, rng, device):
+    """Config 3's 64-request result pipeline over its 200-plane stack, as
+    the batched B4 takes it: (stack, descriptors, index, offs, n_and,
+    descriptor rows, uploaded table, request-table pointer, output)."""
+    stack = _bits_pool(rng, AGG_K * AGG_BLOCKS, 1, device).reshape(
+        AGG_K, AGG_BLOCKS, 2048)
+    sel = np.zeros((N_REQUESTS, AGG_K), np.int32)
+    for i, (a, sb) in enumerate(agg_requests(rng, AGG_K, N_REQUESTS)):
+        sel[i, a] = 1
+        sel[i, sb] = -1
+    index, offs, n_and = blockops.selector_requests(sel)
+    descs = [(stack[k], None, None, None, None) for k in range(AGG_K)]
+    rows = ck._descriptor_rows(descs, AGG_BLOCKS)
+    reqs = np.zeros((N_REQUESTS, 4), np.int32)
+    reqs[:, 0], reqs[:, 1], reqs[:, 2] = offs[:-1], np.diff(offs), n_and
+    buf = torch.from_numpy(np.concatenate(
+        [rows[index].ravel(), reqs.view(np.int64).ravel()])).to(device)
+    out = torch.empty((N_REQUESTS, AGG_BLOCKS, 2048), dtype=torch.int32,
+                      device=device)
+    return (stack, descs, index, offs, n_and, rows, buf,
+            buf.data_ptr() + rows[index].nbytes, out)
+
+
+def _b4_batch_case(ck, blockops, rng, device):
+    """Config 3's 64-request result pipeline: (one batched launch, the 64
+    single launches, plain, bytes, word-ops, needed rows, fetched rows)."""
+    (stack, descs, index, offs, n_and, rows, buf, req_ptr,
+     out) = _b4_batch_inputs(ck, blockops, rng, device)
+
+    def batch():
+        ck._launch("bm_agg_and_sub", "agg_and_sub", device, ck._ptr(buf),
+                   req_ptr, N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ck._ptr(out),
+                   None)
+
+    singles = []
+    needed = fetched = 0
+    for r in range(N_REQUESTS):
+        ops = index[offs[r]:offs[r + 1]]
+        table = torch.from_numpy(rows[ops]).to(device)
+        singles.append(_b4_single(ck, device, table, ops.size, int(n_and[r]),
+                                  AGG_BLOCKS, out[r]))
+        singles[-1].table = table
+        nd, ft = _sweep_reads([stack[k] for k in ops], int(n_and[r]), 8)
+        needed += nd
+        fetched += ft
+
+    def all_singles():
+        for f in singles:
+            f()
+
+    def plain():
+        blockops.agg_and_sub_batch(descs, index, offs, n_and)
+
+    row = 8192
+    nbytes = (needed * row + N_REQUESTS * AGG_BLOCKS * row + buf.numel() * 8)
+    return batch, all_singles, plain, nbytes, needed * 2048, needed, fetched
 
 
 def search_timings(device, card):
@@ -874,49 +1009,49 @@ def search_timings(device, card):
         descs = blockops.arena_descriptors(n_and, slots, pool)
         res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
         table = ck._descriptor_table(descs, nb, device)
-        reads = _needed_reads(list(pool.reshape(K, nb, 2048)), n_and)
+        reads, fetched = _sweep_reads(list(pool.reshape(K, nb, 2048)), n_and,
+                                      16)
         rec(("agg_and_sub", key),
-            lambda: ck._launch("bm_agg_and_sub", "agg_and_sub", device,
-                               ptr(table), K, n_and, 0, nb, ptr(res),
-                               None),
+            _b4_single(ck, device, table, K, n_and, nb, res),
             lambda: blockops.agg_and_sub(n_and, descs),
             reads * row + nb * row + K * nb * 4, reads * 2048, 0)
-        out[("agg_and_sub", key)]["rows_read"] = reads
-        out[("agg_and_sub", key)]["rows_total"] = K * nb
+        out[("agg_and_sub", key)].update(rows_read=reads,
+                                         rows_fetched=fetched,
+                                         rows_total=K * nb)
+    # B4 batched: config 3's 64-request result pipeline in one launch,
+    # against the 64 single launches it replaces
+    batch, singles, plain, nbytes, lops, reads, fetched = _b4_batch_case(
+        ck, blockops, rng, device)
+    rec(("agg_and_sub", "config3_batch64"), batch, plain, nbytes, lops, 0)
+    out[("agg_and_sub", "config3_batch64")].update(
+        singles_ms=time_ms(singles, flush), rows_read=reads,
+        rows_fetched=fetched)
     # B5: config 4b (21 planes x 245 blocks, 256 values) and config 3's
     # counts pipeline (200 planes x 128 blocks, 64 requests)
     for key, S, nb, V in (("config4b", SV_BITS + 1, 245, SV_QUERIES),
                           ("config3", AGG_K, AGG_BLOCKS, N_REQUESTS)):
         planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
-        if key == "config4b":
-            vals = rng.integers(1, 1 << SV_BITS, V)
-            bits = (vals[:, None] >> np.arange(SV_BITS)) & 1
-            sel = np.concatenate([np.where(bits == 1, 1, -1),
-                                  np.ones((V, 1), np.int64)], axis=1)
-        else:
-            sel = np.zeros((V, S), np.int64)
-            for i, (a, sb) in enumerate(agg_requests(rng, S, V)):
-                sel[i, a] = 1
-                sel[i, sb] = -1
-        sel = sel.astype(np.int32)
-        offs, codes = blockops.pipeline_codes(sel)
-        offs_d = torch.from_numpy(offs).to(device)
-        codes_d = torch.from_numpy(codes).to(device)
+        sel = _b5_selectors(rng, key, S, V)
+        buf, args = ck.pipeline_prepare(planes, sel)
         cnt = torch.zeros(V, dtype=torch.int64, device=device)
 
-        def kern(planes=planes, S=S, nb=nb, V=V, offs_d=offs_d,
-                 codes_d=codes_d, cnt=cnt):
+        def kern(args=args, cnt=cnt):
             cnt.zero_()
             ck._launch("bm_pipeline_counts", "pipeline_counts", device,
-                       ptr(planes), S, nb * 2048, ptr(offs_d), ptr(codes_d),
-                       V, ptr(cnt))
+                       *args, ptr(cnt))
 
         words = nb * 2048
+        n_sel = int((sel != 0).any(axis=0).sum())
+        n_codes = int((sel != 0).sum())
+        # bytes: the staged planes once, the selector input, the counts
         rec(("pipeline_counts", key), kern,
             lambda planes=planes, sel=sel: blockops.pipeline_counts(
                 planes, sel),
-            S * nb * row + (V + 1 + codes.size) * 4 + V * 8,
-            codes.size * words, V * words)
+            n_sel * nb * row + buf.numel() * 4 + V * 8,
+            n_codes * words, V * words)
+        out[("pipeline_counts", key)].update(planes_staged=n_sel,
+                                             planes_total=S)
+        del buf
     # B6: config 4 (32 planes x 512 blocks) and config 4b's planes
     for key, S, nb in (("config4", SCAN_PLANES, SCAN_BLOCKS),
                        ("config4b", SV_BITS, 245)):
@@ -932,6 +1067,194 @@ def search_timings(device, card):
     return out
 
 
+def _b5_selectors(rng, key, S, V):
+    """Config 4b: V values' 20 bits plus the NULL plane; config 3: the 64
+    requests of 1-4 AND and 0-3 SUB operands."""
+    if key == "config4b":
+        vals = rng.integers(1, 1 << SV_BITS, V)
+        bits = (vals[:, None] >> np.arange(SV_BITS)) & 1
+        sel = np.concatenate([np.where(bits == 1, 1, -1),
+                              np.ones((V, 1), np.int64)], axis=1)
+    else:
+        sel = np.zeros((V, S), np.int64)
+        for i, (a, sb) in enumerate(agg_requests(rng, S, V)):
+            sel[i, a] = 1
+            sel[i, sb] = -1
+    return sel.astype(np.int32)
+
+
+# build-time variants of the current B4 (agg_sub.cu's BM_AGG_* constants)
+B4_VARIANTS = {
+    "lookahead1": ("-DBM_AGG_DEPTH=1",),
+    "slices4_lookahead1": ("-DBM_AGG_SLICES=4", "-DBM_AGG_DEPTH=1"),
+    "slices8": ("-DBM_AGG_SLICES=8",),
+    "slices16": ("-DBM_AGG_SLICES=16",),
+}
+
+
+def _nvcc(src, so, defs=()):
+    from bitmagic_tpu_torch.ops import _build
+    return subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, *defs, "-I", _build.CSRC,
+         "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def compare_timings(device, card, old_dir):
+    """An earlier B4 and B5 (``agg_sub.cu`` and ``pipeline_counts.cu`` in
+    ``old_dir``, with the C interfaces ``bm_agg_and_sub(ops, n_ops, n_and,
+    or_mode, k, out, counts, stream)`` and ``bm_pipeline_counts(planes,
+    n_planes, plane_words, offs, codes, n_values, out, stream)``), built
+    here with the same flags, against the current kernels at B4 @ config 3
+    / 4b and B5 @ config 4b / 3, timed in turns on the same inputs: old,
+    new, new, old.  B4's build-time variants (``B4_VARIANTS``) are timed
+    twice between them."""
+    import ctypes
+
+    from bitmagic_tpu_torch.ops import _build, blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    VP, INT = ctypes.c_void_p, ctypes.c_int
+    jobs = [(src, os.path.join(old_dir, f"old_{src[:-3]}.so"),
+             os.path.join(old_dir, src), ())
+            for src in ("agg_sub.cu", "pipeline_counts.cu")]
+    jobs += [(name, os.path.join(old_dir, f"b4_{name}.so"),
+              os.path.join(_build.CSRC, "agg_sub.cu"), defs)
+             for name, defs in B4_VARIANTS.items()]
+    procs = [(name, so, _nvcc(src, so, defs)) for name, so, src, defs in jobs]
+    libs = {}
+    for name, so, p in procs:
+        text, _ = p.communicate()
+        check(p.returncode == 0, f"compare build of {name}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"compare: {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(so)
+    old_b4 = libs["agg_sub.cu"].bm_agg_and_sub
+    old_b4.argtypes = [VP, INT, INT, INT, INT, VP, VP, VP]
+    old_b5 = libs["pipeline_counts.cu"].bm_pipeline_counts
+    old_b5.argtypes = [VP, INT, ctypes.c_longlong, VP, VP, INT, VP, VP]
+    variants = {}
+    for name in B4_VARIANTS:
+        f = libs[name].bm_agg_and_sub
+        f.argtypes = ck._SIGNATURES["bm_agg_and_sub"][1]
+        variants[name] = f
+    for f in (old_b4, old_b5, *variants.values()):
+        f.restype = INT
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rng = np.random.default_rng(SEED + 9)
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
+    ptr = ck._ptr
+    def b4_case(K, n_and, nb):
+        pool = _bits_pool(rng, K * nb, 1, device)
+        slots = torch.arange(K * nb, dtype=torch.int32,
+                             device=device).reshape(K, nb)
+        # the table points into descs' slot and FULL rows: keep them
+        descs = blockops.arena_descriptors(n_and, slots, pool)
+        table = ck._descriptor_table(descs, nb, device)
+        res = [torch.empty((nb, 2048), dtype=torch.int32, device=device)
+               for _ in range(2 + len(variants))]
+        others = {
+            name: (lambda f=f, r=r: check(
+                f(ptr(table), None, 1, K, n_and, 0, nb, ptr(r), None,
+                  stream) == 0, "B4 variant launch"))
+            for (name, f), r in zip(variants.items(), res[2:])}
+        return (lambda: check(old_b4(ptr(table), K, n_and, 0, nb,
+                                     ptr(res[0]), None, stream) == 0,
+                              "old B4 launch"),
+                _b4_single(ck, device, table, K, n_and, nb, res[1]),
+                others, (res, table, descs))
+
+    def b5_case(key, S, nb, V):
+        planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
+        sel = _b5_selectors(rng, key, S, V)
+        offs, codes = (torch.from_numpy(x).to(device)
+                       for x in blockops.pipeline_codes(sel))
+        buf, args = ck.pipeline_prepare(planes, sel)
+        res = [torch.zeros(V, dtype=torch.int64, device=device)
+               for _ in range(2)]
+
+        def old():
+            res[0].zero_()
+            check(old_b5(ptr(planes), S, nb * 2048, ptr(offs), ptr(codes), V,
+                         ptr(res[0]), stream) == 0, "old B5 launch")
+
+        def new():
+            res[1].zero_()
+            ck._launch("bm_pipeline_counts", "pipeline_counts", device,
+                       *args, ptr(res[1]))
+
+        return old, new, {}, (res, buf, planes)
+
+    # each case's inputs are made just before it is timed and freed after
+    cases = {
+        ("agg_and_sub", "config3"): lambda: b4_case(AGG_K, AGG_K // 2,
+                                                    AGG_BLOCKS),
+        ("agg_and_sub", "config4b"): lambda: b4_case(SV_BITS + 1, 11, 245),
+        ("pipeline_counts", "config4b"): lambda: b5_case(
+            "config4b", SV_BITS + 1, 245, SV_QUERIES),
+        ("pipeline_counts", "config3"): lambda: b5_case(
+            "config3", AGG_K, AGG_BLOCKS, N_REQUESTS)}
+    result = {}
+    for key, make in cases.items():
+        old, new, others, keep = make()
+        old()
+        new()
+        for f in others.values():
+            f()
+        sync()
+        for r in keep[0][1:]:
+            check(torch.equal(keep[0][0], r), f"{key}: versions agree")
+        t = {"old_ms": [time_ms(old, flush)], "new_ms": [time_ms(new, flush)]}
+        for _ in range(2):
+            for name, f in others.items():
+                t.setdefault(f"{name}_ms", []).append(time_ms(f, flush))
+        t["new_ms"].append(time_ms(new, flush))
+        t["old_ms"].append(time_ms(old, flush))
+        result[key] = t
+        log(json.dumps({"compare": key[0], "shape": key[1], **t,
+                        "card": card["smi"]}))
+        del old, new, others, keep
+    # the batched B4 (config 3's 64 requests) against its variants
+    # (the stack must outlive the timed launches: the table points into it)
+    (stack, _, _, _, _, _, buf, req_ptr,
+     out) = _b4_batch_inputs(ck, blockops, rng, device)
+    fns = {"new": lambda: ck._launch(
+        "bm_agg_and_sub", "agg_and_sub", device, ptr(buf), req_ptr,
+        N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ptr(out), None)}
+    fns.update({name: (lambda f=f: check(
+        f(ptr(buf), req_ptr, N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ptr(out),
+          None, stream) == 0, "B4 variant launch"))
+        for name, f in variants.items() if "lookahead" not in name})
+    t = {f"{name}_ms": time_ms(f, flush) for name, f in fns.items()}
+    result[("agg_and_sub", "config3_batch64")] = t
+    log(json.dumps({"compare": "agg_and_sub", "shape": "config3_batch64",
+                    **t, "card": card["smi"]}))
+    del stack, buf, out
+    # B4 over 128 columns that never die: the time at 1 and at 32 operands
+    # gives each version's fixed cost and its cost per operand row
+    pool = _bits_pool(rng, 32 * AGG_BLOCKS, 6, device)
+    out = torch.empty((AGG_BLOCKS, 2048), dtype=torch.int32, device=device)
+    for K in (1, 32):
+        slots = torch.arange(K * AGG_BLOCKS, dtype=torch.int32,
+                             device=device).reshape(K, AGG_BLOCKS)
+        descs = blockops.arena_descriptors(K, slots, pool)
+        table = ck._descriptor_table(descs, AGG_BLOCKS, device)
+        fns = {"old": lambda: check(old_b4(ptr(table), K, K, 0, AGG_BLOCKS,
+                                           ptr(out), None, stream) == 0,
+                                    "old B4 launch"),
+               "new": _b4_single(ck, device, table, K, K, AGG_BLOCKS, out)}
+        fns.update({name: (lambda f=f: check(
+            f(ptr(table), None, 1, K, K, 0, AGG_BLOCKS, ptr(out), None,
+              stream) == 0, "B4 variant launch"))
+            for name, f in variants.items()})
+        t = {f"{name}_ms": time_ms(f, flush) for name, f in fns.items()}
+        result[("agg_and_sub", f"dense{K}")] = t
+        log(json.dumps({"compare": "agg_and_sub", "shape":
+                        f"{K} never-dying operands x {AGG_BLOCKS} columns",
+                        **t, "card": card["smi"]}))
+    return result
+
+
 # ---------------------------------------------------------------------------
 def nvidia_smi(fields):
     r = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
@@ -940,7 +1263,13 @@ def nvidia_smi(fields):
     return r.stdout.strip().splitlines()[0]
 
 
-def main():
+def main(argv):
+    compare_dir = None
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        compare_dir = os.path.abspath(argv[1])
+    elif argv:
+        print("usage: chip_smoke.py [--compare DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on an NVIDIA card and has nothing to run "
@@ -985,6 +1314,10 @@ def main():
     err, cases = kernels_vs_plain(device)
     log(f"kernels: bit-identical to the plain versions: {cases} cases, "
         f"max abs err {err}")
+    if compare_dir is not None:
+        compare_timings(device, card, compare_dir)
+        log(nvidia_smi("name,power.limit"))
+        return 0
 
     # 4. main path: counts read just before and just after
     ck.reset_launches()
@@ -1049,7 +1382,7 @@ def main():
     tm.update(search_timings(device, card))
     kernels = []
     shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
-    shapes.update(agg_and_sub=("config3", "config4b"),
+    shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"))
     for k, meta in KERNELS.items():
@@ -1060,7 +1393,9 @@ def main():
             log(json.dumps({"kernel": k, "shape": shape, **{
                 x: t[x] for x in ("ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by", "bytes",
-                                  "gb_per_s", "rows_read", "rows_total")
+                                  "gb_per_s", "rows_read",
+                                  "rows_fetched", "rows_total", "singles_ms",
+                                  "planes_staged", "planes_total")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -1082,4 +1417,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -209,6 +209,59 @@ def test_agg_and_sub_arena_kernel(dev, rng, nb):
     assert empty.shape == (nb, 2048) and bool((empty == -1).all())
 
 
+def test_agg_and_sub_kernel_slices(dev):
+    """The four 2 KiB slices of one column die at different operands (0, 5,
+    never, 9): rows and rows-off counts (summed over the slices) against a
+    numpy fold."""
+    rng = np.random.default_rng(7)
+    K, n_and = 16, 12
+    rows = np.full((K, 2048), 0xFFFFFFFF, np.uint32)
+    rows[:, 512:1536] = rng.integers(0, 2**32, (K, 1024), dtype=np.uint64
+                                     ).astype(np.uint32) | np.uint32(1)
+    rows[0, :512] = 0                                  # slice 0 dies at 0
+    rows[5, 512:1024] = 0                              # slice 1 dies at 5
+    rows[1:, 1024:1536] = 0xFFFFFFFF                   # slice 2 never dies
+    rows[9, 1536:] = 0                                 # slice 3 dies at 9
+    rows[n_and:, 1024:1536] = 0
+    want = np.full(2048, 0xFFFFFFFF, np.uint32)
+    for k in range(K):
+        want &= rows[k] if k < n_and else ~rows[k]
+    assert (want[:512] == 0).all() and want[1024:1536].any()
+    pool = torch.from_numpy(rows.view(np.int32).copy()).to(dev)
+    descs = [(pool[k:k + 1], None, None, None, None) for k in range(K)]
+    r, c = ck.agg_and_sub(n_and, descs, counts=True)
+    only = ck.agg_and_sub(n_and, descs, rows=False, counts=True)[1]
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(blockops.to_host_words(r)[0], want)
+    assert int(c[0]) == int(only[0]) == int(np.bitwise_count(want).sum())
+    w_r, w_c = blockops.agg_and_sub(n_and, descs, counts=True)
+    assert torch.equal(r, w_r) and torch.equal(c, w_c)
+
+
+@pytest.mark.parametrize("V", [1, 64])
+def test_agg_and_sub_batch_kernel(dev, rng, V):
+    """The batched form, one launch, against the plain version: requests
+    with n_and = 0, without SUB operands, without operands, and columns
+    that die early and never."""
+    K, nb = 12, 13
+    stack = _dense_pool(rng, K * nb, dev, density=0.85).reshape(K, nb, 2048)
+    sel = rng.integers(-1, 2, (V, K)).astype(np.int32)
+    if V > 3:
+        sel[1] = 0                                     # no operands
+        sel[2] = -np.abs(sel[2])                       # n_and = 0
+        sel[3] = np.abs(sel[3])                        # no SUB
+    index, offs, n_and = blockops.selector_requests(sel)
+    descs = [(stack[k], None, None, None, None) for k in range(K)]
+    rows, cnt = ck.agg_and_sub_batch(descs, index, offs, n_and, counts=True)
+    torch.cuda.synchronize()
+    assert ck.launches["agg_and_sub"] == 1
+    w_rows, w_cnt = blockops.agg_and_sub_batch(descs, index, offs, n_and,
+                                               counts=True)
+    assert torch.equal(rows, w_rows) and torch.equal(cnt, w_cnt)
+    assert torch.equal(cnt, blockops.block_counts(
+        rows.reshape(-1, 2048)).reshape(V, nb))
+
+
 # ---------------------------------------------------------------------------
 # B5: batched pipeline counts
 # ---------------------------------------------------------------------------
@@ -228,6 +281,33 @@ def test_pipeline_counts_kernel(dev, rng, S, V):
     assert got.dtype == torch.int64
     assert torch.equal(got.cpu(), want)
     assert int(want[0]) == nb * 65536
+    assert ck.launches["pipeline_counts"] == 1
+
+
+# every ceiling of the register path (8 .. 72 staged planes) and the
+# shared path at its edges (73, 144 | 145, 200, 400); 130 values cross a
+# 128-value chunk
+@pytest.mark.parametrize("S", [0, 1, 8, 9, 16, 24, 32, 33, 40, 48, 56, 64,
+                               65, 72, 73, 144, 145, 200, 400])
+@pytest.mark.parametrize("skip", [False, True])
+def test_pipeline_counts_kernel_paths(dev, rng, S, skip):
+    nb = 2
+    V = 130 if S <= ck.PIPELINE_REG_PLANES else 9
+    planes = _dense_pool(rng, S * nb, dev, density=0.9).reshape(S, nb, 2048)
+    sel = rng.choice(np.asarray([-1, 1], np.int32), (V, S))
+    if skip:
+        sel[rng.random((V, S)) < 0.5] = 0
+    if V > 2 and S:
+        sel[2] = 0
+        sel[2, S - 1] = 1                              # one plane only
+    if V > 1:
+        sel[1] = 0                                     # all skip
+    got = ck.pipeline_counts(planes, sel)
+    torch.cuda.synchronize()
+    want = blockops.pipeline_counts(planes, sel)       # plain, on the card
+    assert torch.equal(got.cpu(), want.cpu())
+    if V > 1:
+        assert int(got[1]) == nb * 65536
     assert ck.launches["pipeline_counts"] == 1
 
 
