@@ -33,24 +33,23 @@
 //    takes 16 slices of 512 B (32 threads; config 3's 128 columns give 2048
 //    CTAs instead of 128); a batch takes 8 of 1 KiB (64 threads), since its
 //    many requests fill the card anyway and its rows rarely die, where
-//    fewer, larger CTAs measured faster (chip_smoke.py --compare).
+//    fewer, larger CTAs measured faster.
+//  - In a batch the request index varies fastest over the grid, so the CTAs
+//    of one column run together for every request, and a row that several
+//    requests select is read again from L2 rather than from memory.
 //  - A CTA resolves the descriptors of up to 32 (64) operands at once, one
 //    thread each, into shared memory (bm::resolve issues a descriptor's
 //    index reads together), so a chunk costs two round trips.
 //  - kGroup = 4 operands are loaded (four 16-byte loads per thread in
 //    flight), folded, and voted on (__syncthreads_or); the next group is
-//    issued after the vote.  kDepth > 0 issues kDepth groups ahead of the
-//    vote instead: measured on the card (chip_smoke.py --compare), one
-//    group ahead is slower at configs 3 and 4b, because the extra rows read
-//    past each slice's death cost more than the round trip they hide.  With
-//    kDepth = 0 no load is in flight at a CTA's exit (the Pallas body leaves
-//    copy k+1 unawaited, :210-233); with kDepth > 0 a CTA may leave with
-//    plain register loads outstanding, which need no wait or cancel.
+//    issued after the vote.  Issuing the next group before the vote measured
+//    slower at configs 3 and 4b: a row read past a slice's death costs more
+//    than the round trip it hides.  So no load is in flight at a CTA's exit
+//    (the Pallas body leaves copy k+1 unawaited, :210-233).
 //  - Rows-off counts (per-column popcount, _agg_any_kernel): each warp adds
 //    its slice's popcount atomically into counts, which the caller zeroes.
 // A 0-row pool is legal: every slot must then be -1.  Either output may be
-// omitted.  BM_AGG_SLICES, BM_AGG_GROUP and BM_AGG_DEPTH override the three
-// constants at build time (chip_smoke.py --compare times such variants).
+// omitted.
 #include <cstddef>
 
 #include "bm_common.cuh"
@@ -65,22 +64,9 @@ static_assert(offsetof(bm::Operand, aux_slot) == 48, "descriptor layout");
 
 namespace {
 
-#ifndef BM_AGG_GROUP
-#define BM_AGG_GROUP 4
-#endif
-#ifndef BM_AGG_DEPTH
-#define BM_AGG_DEPTH 0
-#endif
-// slices per column: 16 of 512 B for one request, 8 of 1 KiB for a batch
-#ifdef BM_AGG_SLICES
-constexpr int kSlicesSingle = BM_AGG_SLICES;
-constexpr int kSlicesBatch = BM_AGG_SLICES;
-#else
-constexpr int kSlicesSingle = 16;
-constexpr int kSlicesBatch = 8;
-#endif
-constexpr int kGroup = BM_AGG_GROUP;                   // operands per vote
-constexpr int kDepth = BM_AGG_DEPTH;                   // groups in flight
+constexpr int kSlicesSingle = 16;                     // 512 B slices
+constexpr int kSlicesBatch = 8;                       // 1 KiB slices
+constexpr int kGroup = 4;                             // operands per vote
 
 // One request of the batched form: its operands are
 // ops[begin .. begin + n_ops), the first n_and of them ANDed.
@@ -92,31 +78,26 @@ struct Request {
 };
 static_assert(sizeof(Request) == 16, "request table: 4 x int32");
 
-__device__ __forceinline__ void load_group(uint4 (&r)[kGroup],
-                                           const bm::RowSrc* src, int j,
-                                           int n, int t) {
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-    r[g] = j + g < n ? bm::load(src[j + g], t) : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // One CTA per (request, column, slice): one 16-byte vector per thread and
-// operand, so a CTA has as many threads as its slice has vectors.
+// operand, so a CTA has as many threads as its slice has vectors.  The
+// grid is linear, the request index fastest: b = (i * SLICES + slice) *
+// n_req + request.
 template <int SLICES>
 __global__ void __launch_bounds__(bm::kBlockVec / SLICES)
 agg_sweep_kernel(const bm::Operand* __restrict__ ops,
-                 const Request* __restrict__ reqs, int n_ops, int n_and,
-                 int or_mode, int k, uint4* __restrict__ out,
+                 const Request* __restrict__ reqs, int n_req, int n_ops,
+                 int n_and, int or_mode, int k, uint4* __restrict__ out,
                  int32_t* __restrict__ counts) {
   constexpr int kSliceVec = bm::kBlockVec / SLICES;    // = threads
   constexpr int kChunk = kSliceVec;                    // operands resolved
-  const int i = blockIdx.x / SLICES;
-  const int slice = blockIdx.x % SLICES;
+  const int req = static_cast<int>(blockIdx.x % n_req);
+  const int cs = static_cast<int>(blockIdx.x / n_req);
+  const int i = cs / SLICES;
+  const int slice = cs % SLICES;
   const int t = threadIdx.x;
   int begin = 0;
   if (reqs != nullptr) {
-    const Request q = reqs[blockIdx.y];
+    const Request q = reqs[req];
     begin = q.begin;
     n_ops = q.n_ops;
     n_and = q.n_and;
@@ -134,22 +115,23 @@ agg_sweep_kernel(const bm::Operand* __restrict__ ops,
       src[t] = r;
     }
     __syncthreads();
-    // buf[0] is the group being folded, buf[1..kDepth] are in flight
-    uint4 buf[kDepth + 1][kGroup];
-#pragma unroll
-    for (int d = 0; d < kDepth; ++d) load_group(buf[d], src, d * kGroup, n, t);
     for (int j = 0; j < n; j += kGroup) {
-      load_group(buf[kDepth], src, j + kDepth * kGroup, n, t);
+      uint4 x[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        x[g] = j + g < n ? bm::load(src[j + g], t)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
         if (j + g >= n) break;
-        const uint4 x = buf[0][g];
         if (or_mode) {
-          acc.x |= x.x; acc.y |= x.y; acc.z |= x.z; acc.w |= x.w;
+          acc.x |= x[g].x; acc.y |= x[g].y; acc.z |= x[g].z; acc.w |= x[g].w;
         } else if (k0 + j + g < n_and) {
-          acc.x &= x.x; acc.y &= x.y; acc.z &= x.z; acc.w &= x.w;
+          acc.x &= x[g].x; acc.y &= x[g].y; acc.z &= x[g].z; acc.w &= x[g].w;
         } else {
-          acc.x &= ~x.x; acc.y &= ~x.y; acc.z &= ~x.z; acc.w &= ~x.w;
+          acc.x &= ~x[g].x; acc.y &= ~x[g].y; acc.z &= ~x[g].z;
+          acc.w &= ~x[g].w;
         }
       }
       // AND/SUB: go on while some word is nonzero; OR: while some word is
@@ -159,14 +141,9 @@ agg_sweep_kernel(const bm::Operand* __restrict__ ops,
           : (acc.x | acc.y | acc.z | acc.w) != 0u;
       live = __syncthreads_or(mine) != 0;
       if (!live) break;
-#pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) buf[d][g] = buf[d + 1][g];
-      }
     }
   }
-  const size_t col = static_cast<size_t>(blockIdx.y) * k + i;
+  const size_t col = static_cast<size_t>(req) * k + i;
   if (out != nullptr) {
     out[col * bm::kBlockVec + slice * kSliceVec + t] = acc;
   }
@@ -182,11 +159,13 @@ template <int SLICES>
 int launch(const void* ops, const void* reqs, int n_req, int n_ops,
            int n_and, int or_mode, int k, void* out, void* counts,
            cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(k) * SLICES,
-                  static_cast<unsigned>(n_req));
+  if (static_cast<long long>(n_req) * k * SLICES > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = static_cast<unsigned>(n_req) * k * SLICES;
   agg_sweep_kernel<SLICES><<<grid, bm::kBlockVec / SLICES, 0, stream>>>(
       static_cast<const bm::Operand*>(ops),
-      static_cast<const Request*>(reqs), n_ops, n_and, or_mode, k,
+      static_cast<const Request*>(reqs), n_req, n_ops, n_and, or_mode, k,
       static_cast<uint4*>(out), static_cast<int32_t*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
@@ -198,12 +177,13 @@ int launch(const void* ops, const void* reqs, int n_req, int n_ops,
 // n_and <= n_ops, or_mode 0 or 1), else a device table of n_req Requests
 // (n_ops and n_and then come from the table; or_mode must be 0).
 // out: int32[n_req, k, 2048] or null; counts: int32[n_req, k], zeroed by
-// the caller, or null.  Returns the CUDA error of the launch (0 = launched).
+// the caller, or null.  n_req * k * 16 (one request) or n_req * k * 8 (a
+// batch) must not pass 2^31 - 1.  Returns the CUDA error of the launch (0 =
+// launched).
 extern "C" int bm_agg_and_sub(const void* ops, const void* reqs, int n_req,
                               int n_ops, int n_and, int or_mode, int k,
                               void* out, void* counts, void* stream) {
-  if (k <= 0 || (out == nullptr && counts == nullptr) || n_req <= 0 ||
-      n_req > 65535) {
+  if (k <= 0 || (out == nullptr && counts == nullptr) || n_req <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reqs == nullptr ? (n_req != 1 || n_ops <= 0 || n_and < 0 ||

@@ -333,21 +333,30 @@ def agg_and_sub_batch(descs, index, offs, n_and, rows=True, counts=False):
     if not _on_cuda(*(t for d in descs for t in d)):
         return blockops.agg_and_sub_batch(descs, index, offs, n_and, rows,
                                           counts)
-    if V > 65535:
-        raise ValueError("agg_and_sub_batch: at most 65535 requests")
     k = blockops._desc_cols(descs[0])
     device = descs[0][0].device
     out, cnt = _sweep_outputs((V, k), device, rows, counts)
     if k and V:
-        reqs = np.zeros((V, 4), np.int32)
-        reqs[:, 0], reqs[:, 1], reqs[:, 2] = offs[:-1], n_ops, n_and
-        ops = _descriptor_rows(descs, k)[index]
-        buf = torch.from_numpy(np.concatenate(
-            [ops.ravel(), reqs.view(np.int64).ravel()])).to(device)
-        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(buf),
-                buf.data_ptr() + ops.nbytes, V, 0, 0, 0, k, _ptr(out),
-                _ptr(cnt))
+        buf, req_ptr = _batch_table(descs, index, offs, n_and, k, device)
+        _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(buf), req_ptr,
+                V, 0, 0, 0, k, _ptr(out), _ptr(cnt))
     return out, cnt
+
+
+def _batch_table(descs, index, offs, n_and, k, device):
+    """The one upload of a batched B4 launch: the descriptors of every
+    request's operands in order (``descs[index]``), then one agg_sub.cu
+    Request ``(begin, n_ops, n_and, 0)`` per request -> ``(table on
+    device, address of its first Request)``.  The table points into the
+    descriptors' pools and index tensors: keep ``descs`` alive while a
+    launch may read it."""
+    offs = np.asarray(offs, np.int64)
+    reqs = np.zeros((offs.size - 1, 4), np.int32)
+    reqs[:, 0], reqs[:, 1], reqs[:, 2] = offs[:-1], np.diff(offs), n_and
+    ops = _descriptor_rows(descs, k)[np.asarray(index, np.int64)]
+    buf = torch.from_numpy(np.concatenate(
+        [ops.ravel(), reqs.view(np.int64).ravel()])).to(device)
+    return buf, buf.data_ptr() + ops.nbytes
 
 
 def agg_and_sub_arena(n_and, n_sub, slots, pool):

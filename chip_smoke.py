@@ -3,12 +3,6 @@
 and check it.
 
     python3 chip_smoke.py            # from the repository root, on the card
-    python3 chip_smoke.py --compare DIR
-
-With ``--compare DIR`` the script builds, checks the kernels (phases 1-3)
-and then times the B4 and B5 sources in DIR (an earlier ``agg_sub.cu`` and
-``pipeline_counts.cu``, with the C interfaces of that version) against the
-current kernels in turns, and stops without the last line.
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -897,24 +891,25 @@ def timings(device, card):
 
 
 def _sweep_reads(rows_by_operand, n_and, slices, group=4):
-    """(rows needed, rows fetched) of one AND-SUB sweep.  Needed: per
-    column, every operand up to and including the one that zeroes its
-    accumulator (the bound counts these).  Fetched: what agg_sub.cu reads,
-    per slice (16 per column for one request, 8 in a batch) every operand
-    of the groups of four up to the one whose vote finds the slice zero, in
-    units of whole rows."""
+    """(rows needed, rows fetched, bool[K, nb] needed) of one AND-SUB
+    sweep.  Needed: per column, every operand up to and including the one
+    that zeroes its accumulator (the bound counts these).  Fetched: what
+    agg_sub.cu reads, per slice (16 per column for one request, 8 in a
+    batch) every operand of the groups of four up to the one whose vote
+    finds the slice zero, in units of whole rows."""
     K = len(rows_by_operand)
     acc = torch.full_like(rows_by_operand[0], -1)
     nb = acc.shape[0]
-    needed = fetched = 0
+    used = torch.zeros((K, nb), dtype=torch.bool, device=acc.device)
+    fetched = 0
     for g0 in range(0, K, group):
         alive = (acc.reshape(nb, slices, -1) != 0).any(dim=2)
         fetched += int(alive.sum()) * min(group, K - g0)
         for k in range(g0, min(g0 + group, K)):
-            needed += int((acc != 0).any(dim=1).sum())
+            used[k] = (acc != 0).any(dim=1)
             r = rows_by_operand[k]
             acc = acc & (r if k < n_and else ~r)
-    return needed, fetched / slices
+    return int(used.sum()), fetched / slices, used
 
 
 def _b4_single(ck, device, table, K, n_and, nb, res):
@@ -923,10 +918,11 @@ def _b4_single(ck, device, table, K, n_and, nb, res):
                               ck._ptr(res), None)
 
 
-def _b4_batch_inputs(ck, blockops, rng, device):
-    """Config 3's 64-request result pipeline over its 200-plane stack, as
-    the batched B4 takes it: (stack, descriptors, index, offs, n_and,
-    descriptor rows, uploaded table, request-table pointer, output)."""
+def _b4_batch_case(ck, blockops, rng, device):
+    """Config 3's 64-request result pipeline over its 200-plane stack:
+    (one batched launch as ``cuda_kernels.agg_and_sub_batch`` makes it, the
+    64 single launches, plain, bytes, word-ops, rows needed per request
+    summed, distinct rows needed, rows fetched, the plain rows, output)."""
     stack = _bits_pool(rng, AGG_K * AGG_BLOCKS, 1, device).reshape(
         AGG_K, AGG_BLOCKS, 2048)
     sel = np.zeros((N_REQUESTS, AGG_K), np.int32)
@@ -935,50 +931,46 @@ def _b4_batch_inputs(ck, blockops, rng, device):
         sel[i, sb] = -1
     index, offs, n_and = blockops.selector_requests(sel)
     descs = [(stack[k], None, None, None, None) for k in range(AGG_K)]
-    rows = ck._descriptor_rows(descs, AGG_BLOCKS)
-    reqs = np.zeros((N_REQUESTS, 4), np.int32)
-    reqs[:, 0], reqs[:, 1], reqs[:, 2] = offs[:-1], np.diff(offs), n_and
-    buf = torch.from_numpy(np.concatenate(
-        [rows[index].ravel(), reqs.view(np.int64).ravel()])).to(device)
+    buf, req_ptr = ck._batch_table(descs, index, offs, n_and, AGG_BLOCKS,
+                                   device)
     out = torch.empty((N_REQUESTS, AGG_BLOCKS, 2048), dtype=torch.int32,
                       device=device)
-    return (stack, descs, index, offs, n_and, rows, buf,
-            buf.data_ptr() + rows[index].nbytes, out)
-
-
-def _b4_batch_case(ck, blockops, rng, device):
-    """Config 3's 64-request result pipeline: (one batched launch, the 64
-    single launches, plain, bytes, word-ops, needed rows, fetched rows)."""
-    (stack, descs, index, offs, n_and, rows, buf, req_ptr,
-     out) = _b4_batch_inputs(ck, blockops, rng, device)
 
     def batch():
         ck._launch("bm_agg_and_sub", "agg_and_sub", device, ck._ptr(buf),
                    req_ptr, N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ck._ptr(out),
                    None)
 
+    rows = ck._descriptor_rows(descs, AGG_BLOCKS)
     singles = []
     needed = fetched = 0
+    used = torch.zeros((AGG_K, AGG_BLOCKS), dtype=torch.bool, device=device)
     for r in range(N_REQUESTS):
         ops = index[offs[r]:offs[r + 1]]
         table = torch.from_numpy(rows[ops]).to(device)
         singles.append(_b4_single(ck, device, table, ops.size, int(n_and[r]),
                                   AGG_BLOCKS, out[r]))
         singles[-1].table = table
-        nd, ft = _sweep_reads([stack[k] for k in ops], int(n_and[r]), 8)
+        nd, ft, u = _sweep_reads([stack[k] for k in ops], int(n_and[r]), 8)
         needed += nd
         fetched += ft
+        used[torch.from_numpy(ops).to(device)] |= u
 
     def all_singles():
         for f in singles:
             f()
 
     def plain():
-        blockops.agg_and_sub_batch(descs, index, offs, n_and)
+        return blockops.agg_and_sub_batch(descs, index, offs, n_and)[0]
 
     row = 8192
-    nbytes = (needed * row + N_REQUESTS * AGG_BLOCKS * row + buf.numel() * 8)
-    return batch, all_singles, plain, nbytes, needed * 2048, needed, fetched
+    distinct = int(used.sum())
+    # bytes: each needed row once (a row several requests select is
+    # counted once), the rows written, the uploaded table
+    nbytes = (distinct * row + N_REQUESTS * AGG_BLOCKS * row
+              + buf.numel() * 8)
+    return (batch, all_singles, plain, nbytes, needed * 2048, needed,
+            distinct, fetched, plain(), out)
 
 
 def search_timings(device, card):
@@ -1009,8 +1001,8 @@ def search_timings(device, card):
         descs = blockops.arena_descriptors(n_and, slots, pool)
         res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
         table = ck._descriptor_table(descs, nb, device)
-        reads, fetched = _sweep_reads(list(pool.reshape(K, nb, 2048)), n_and,
-                                      16)
+        reads, fetched, _ = _sweep_reads(list(pool.reshape(K, nb, 2048)),
+                                         n_and, 16)
         rec(("agg_and_sub", key),
             _b4_single(ck, device, table, K, n_and, nb, res),
             lambda: blockops.agg_and_sub(n_and, descs),
@@ -1020,12 +1012,18 @@ def search_timings(device, card):
                                          rows_total=K * nb)
     # B4 batched: config 3's 64-request result pipeline in one launch,
     # against the 64 single launches it replaces
-    batch, singles, plain, nbytes, lops, reads, fetched = _b4_batch_case(
-        ck, blockops, rng, device)
+    (batch, singles, plain, nbytes, lops, reads, distinct, fetched, want,
+     res) = _b4_batch_case(ck, blockops, rng, device)
+    batch()
+    sync()
+    check(torch.equal(res, want), "timed batched B4 launch = plain")
     rec(("agg_and_sub", "config3_batch64"), batch, plain, nbytes, lops, 0)
+    sync()
+    check(torch.equal(res, want), "timed batched B4 launch = plain")
     out[("agg_and_sub", "config3_batch64")].update(
         singles_ms=time_ms(singles, flush), rows_read=reads,
-        rows_fetched=fetched)
+        rows_distinct=distinct, rows_fetched=fetched)
+    del res, want
     # B5: config 4b (21 planes x 245 blocks, 256 values) and config 3's
     # counts pipeline (200 planes x 128 blocks, 64 requests)
     for key, S, nb, V in (("config4b", SV_BITS + 1, 245, SV_QUERIES),
@@ -1083,178 +1081,6 @@ def _b5_selectors(rng, key, S, V):
     return sel.astype(np.int32)
 
 
-# build-time variants of the current B4 (agg_sub.cu's BM_AGG_* constants)
-B4_VARIANTS = {
-    "lookahead1": ("-DBM_AGG_DEPTH=1",),
-    "slices4_lookahead1": ("-DBM_AGG_SLICES=4", "-DBM_AGG_DEPTH=1"),
-    "slices8": ("-DBM_AGG_SLICES=8",),
-    "slices16": ("-DBM_AGG_SLICES=16",),
-}
-
-
-def _nvcc(src, so, defs=()):
-    from bitmagic_tpu_torch.ops import _build
-    return subprocess.Popen(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, *defs, "-I", _build.CSRC,
-         "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
-
-
-def compare_timings(device, card, old_dir):
-    """An earlier B4 and B5 (``agg_sub.cu`` and ``pipeline_counts.cu`` in
-    ``old_dir``, with the C interfaces ``bm_agg_and_sub(ops, n_ops, n_and,
-    or_mode, k, out, counts, stream)`` and ``bm_pipeline_counts(planes,
-    n_planes, plane_words, offs, codes, n_values, out, stream)``), built
-    here with the same flags, against the current kernels at B4 @ config 3
-    / 4b and B5 @ config 4b / 3, timed in turns on the same inputs: old,
-    new, new, old.  B4's build-time variants (``B4_VARIANTS``) are timed
-    twice between them."""
-    import ctypes
-
-    from bitmagic_tpu_torch.ops import _build, blockops
-    from bitmagic_tpu_torch.ops import cuda_kernels as ck
-    VP, INT = ctypes.c_void_p, ctypes.c_int
-    jobs = [(src, os.path.join(old_dir, f"old_{src[:-3]}.so"),
-             os.path.join(old_dir, src), ())
-            for src in ("agg_sub.cu", "pipeline_counts.cu")]
-    jobs += [(name, os.path.join(old_dir, f"b4_{name}.so"),
-              os.path.join(_build.CSRC, "agg_sub.cu"), defs)
-             for name, defs in B4_VARIANTS.items()]
-    procs = [(name, so, _nvcc(src, so, defs)) for name, so, src, defs in jobs]
-    libs = {}
-    for name, so, p in procs:
-        text, _ = p.communicate()
-        check(p.returncode == 0, f"compare build of {name}:\n{text}")
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"compare: {name}: {line.strip()}")
-        libs[name] = ctypes.CDLL(so)
-    old_b4 = libs["agg_sub.cu"].bm_agg_and_sub
-    old_b4.argtypes = [VP, INT, INT, INT, INT, VP, VP, VP]
-    old_b5 = libs["pipeline_counts.cu"].bm_pipeline_counts
-    old_b5.argtypes = [VP, INT, ctypes.c_longlong, VP, VP, INT, VP, VP]
-    variants = {}
-    for name in B4_VARIANTS:
-        f = libs[name].bm_agg_and_sub
-        f.argtypes = ck._SIGNATURES["bm_agg_and_sub"][1]
-        variants[name] = f
-    for f in (old_b4, old_b5, *variants.values()):
-        f.restype = INT
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rng = np.random.default_rng(SEED + 9)
-    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
-    ptr = ck._ptr
-    def b4_case(K, n_and, nb):
-        pool = _bits_pool(rng, K * nb, 1, device)
-        slots = torch.arange(K * nb, dtype=torch.int32,
-                             device=device).reshape(K, nb)
-        # the table points into descs' slot and FULL rows: keep them
-        descs = blockops.arena_descriptors(n_and, slots, pool)
-        table = ck._descriptor_table(descs, nb, device)
-        res = [torch.empty((nb, 2048), dtype=torch.int32, device=device)
-               for _ in range(2 + len(variants))]
-        others = {
-            name: (lambda f=f, r=r: check(
-                f(ptr(table), None, 1, K, n_and, 0, nb, ptr(r), None,
-                  stream) == 0, "B4 variant launch"))
-            for (name, f), r in zip(variants.items(), res[2:])}
-        return (lambda: check(old_b4(ptr(table), K, n_and, 0, nb,
-                                     ptr(res[0]), None, stream) == 0,
-                              "old B4 launch"),
-                _b4_single(ck, device, table, K, n_and, nb, res[1]),
-                others, (res, table, descs))
-
-    def b5_case(key, S, nb, V):
-        planes = _bits_pool(rng, S * nb, 1, device).reshape(S, nb, 2048)
-        sel = _b5_selectors(rng, key, S, V)
-        offs, codes = (torch.from_numpy(x).to(device)
-                       for x in blockops.pipeline_codes(sel))
-        buf, args = ck.pipeline_prepare(planes, sel)
-        res = [torch.zeros(V, dtype=torch.int64, device=device)
-               for _ in range(2)]
-
-        def old():
-            res[0].zero_()
-            check(old_b5(ptr(planes), S, nb * 2048, ptr(offs), ptr(codes), V,
-                         ptr(res[0]), stream) == 0, "old B5 launch")
-
-        def new():
-            res[1].zero_()
-            ck._launch("bm_pipeline_counts", "pipeline_counts", device,
-                       *args, ptr(res[1]))
-
-        return old, new, {}, (res, buf, planes)
-
-    # each case's inputs are made just before it is timed and freed after
-    cases = {
-        ("agg_and_sub", "config3"): lambda: b4_case(AGG_K, AGG_K // 2,
-                                                    AGG_BLOCKS),
-        ("agg_and_sub", "config4b"): lambda: b4_case(SV_BITS + 1, 11, 245),
-        ("pipeline_counts", "config4b"): lambda: b5_case(
-            "config4b", SV_BITS + 1, 245, SV_QUERIES),
-        ("pipeline_counts", "config3"): lambda: b5_case(
-            "config3", AGG_K, AGG_BLOCKS, N_REQUESTS)}
-    result = {}
-    for key, make in cases.items():
-        old, new, others, keep = make()
-        old()
-        new()
-        for f in others.values():
-            f()
-        sync()
-        for r in keep[0][1:]:
-            check(torch.equal(keep[0][0], r), f"{key}: versions agree")
-        t = {"old_ms": [time_ms(old, flush)], "new_ms": [time_ms(new, flush)]}
-        for _ in range(2):
-            for name, f in others.items():
-                t.setdefault(f"{name}_ms", []).append(time_ms(f, flush))
-        t["new_ms"].append(time_ms(new, flush))
-        t["old_ms"].append(time_ms(old, flush))
-        result[key] = t
-        log(json.dumps({"compare": key[0], "shape": key[1], **t,
-                        "card": card["smi"]}))
-        del old, new, others, keep
-    # the batched B4 (config 3's 64 requests) against its variants
-    # (the stack must outlive the timed launches: the table points into it)
-    (stack, _, _, _, _, _, buf, req_ptr,
-     out) = _b4_batch_inputs(ck, blockops, rng, device)
-    fns = {"new": lambda: ck._launch(
-        "bm_agg_and_sub", "agg_and_sub", device, ptr(buf), req_ptr,
-        N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ptr(out), None)}
-    fns.update({name: (lambda f=f: check(
-        f(ptr(buf), req_ptr, N_REQUESTS, 0, 0, 0, AGG_BLOCKS, ptr(out),
-          None, stream) == 0, "B4 variant launch"))
-        for name, f in variants.items() if "lookahead" not in name})
-    t = {f"{name}_ms": time_ms(f, flush) for name, f in fns.items()}
-    result[("agg_and_sub", "config3_batch64")] = t
-    log(json.dumps({"compare": "agg_and_sub", "shape": "config3_batch64",
-                    **t, "card": card["smi"]}))
-    del stack, buf, out
-    # B4 over 128 columns that never die: the time at 1 and at 32 operands
-    # gives each version's fixed cost and its cost per operand row
-    pool = _bits_pool(rng, 32 * AGG_BLOCKS, 6, device)
-    out = torch.empty((AGG_BLOCKS, 2048), dtype=torch.int32, device=device)
-    for K in (1, 32):
-        slots = torch.arange(K * AGG_BLOCKS, dtype=torch.int32,
-                             device=device).reshape(K, AGG_BLOCKS)
-        descs = blockops.arena_descriptors(K, slots, pool)
-        table = ck._descriptor_table(descs, AGG_BLOCKS, device)
-        fns = {"old": lambda: check(old_b4(ptr(table), K, K, 0, AGG_BLOCKS,
-                                           ptr(out), None, stream) == 0,
-                                    "old B4 launch"),
-               "new": _b4_single(ck, device, table, K, K, AGG_BLOCKS, out)}
-        fns.update({name: (lambda f=f: check(
-            f(ptr(table), None, 1, K, K, 0, AGG_BLOCKS, ptr(out), None,
-              stream) == 0, "B4 variant launch"))
-            for name, f in variants.items()})
-        t = {f"{name}_ms": time_ms(f, flush) for name, f in fns.items()}
-        result[("agg_and_sub", f"dense{K}")] = t
-        log(json.dumps({"compare": "agg_and_sub", "shape":
-                        f"{K} never-dying operands x {AGG_BLOCKS} columns",
-                        **t, "card": card["smi"]}))
-    return result
-
-
 # ---------------------------------------------------------------------------
 def nvidia_smi(fields):
     r = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
@@ -1263,13 +1089,7 @@ def nvidia_smi(fields):
     return r.stdout.strip().splitlines()[0]
 
 
-def main(argv):
-    compare_dir = None
-    if argv[:1] == ["--compare"] and len(argv) == 2:
-        compare_dir = os.path.abspath(argv[1])
-    elif argv:
-        print("usage: chip_smoke.py [--compare DIR]", file=sys.stderr)
-        return 2
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on an NVIDIA card and has nothing to run "
@@ -1314,10 +1134,6 @@ def main(argv):
     err, cases = kernels_vs_plain(device)
     log(f"kernels: bit-identical to the plain versions: {cases} cases, "
         f"max abs err {err}")
-    if compare_dir is not None:
-        compare_timings(device, card, compare_dir)
-        log(nvidia_smi("name,power.limit"))
-        return 0
 
     # 4. main path: counts read just before and just after
     ck.reset_launches()
@@ -1394,7 +1210,7 @@ def main(argv):
                 x: t[x] for x in ("ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by", "bytes",
                                   "gb_per_s", "rows_read",
-                                  "rows_fetched", "rows_total", "singles_ms",
+                                  "rows_distinct", "rows_fetched", "rows_total", "singles_ms",
                                   "planes_staged", "planes_total")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
@@ -1417,4 +1233,4 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())
