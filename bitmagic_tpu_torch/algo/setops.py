@@ -5,14 +5,13 @@ Equivalents of `src/bmalgo.h:49-165` (count_and/or/xor/sub, any_*) and the
 batched distance pipeline of `src/bmalgo_impl.h:57-600`
 (distance_metric_descriptor / distance_operation): N metrics computed in ONE
 pass over aligned block pairs.  On the card the pass is one launch of the
-gather-fused multi-metric kernel K2; all requested metrics share the same
-reads of device memory.
+gather-fused multi-metric kernel K2, totals included; all requested metrics
+share the same reads of device memory.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .. import constants as C
 from ..core.blocks import (operand_args, runs_diff, runs_intersect,
@@ -87,12 +86,13 @@ def distance_operation(a: BitVector, b: BitVector, metrics) -> dict:
         for i, m in enumerate(metrics):
             vals[i] += int(mc[_GAP_NAME[m]].sum())
         kern = kern & ~gap_elig
-    # device part: rows where at least one side is a dense BIT row (K2)
+    # device part: rows where at least one side is a dense BIT row (K2,
+    # which sums each metric's per-block counts into int64 in its launch)
     if kern.any():
-        per_block = ck.count_metrics(
+        totals, _ = ck.count_metrics_total(
             tuple(metrics), operand_args(a, cand[kern]),
             operand_args(b, cand[kern]))
-        vals += per_block.sum(dim=1, dtype=torch.int64).cpu().numpy()
+        vals += totals.cpu().numpy()
     return {m: int(v) + table[m] for m, v in zip(metrics, vals)}
 
 

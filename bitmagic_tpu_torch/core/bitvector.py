@@ -561,9 +561,8 @@ class BitVector:
         full += int(self._gap_bc().sum())     # GAP blocks answer on host
         if not (self._struct.cls == C.CLS_BIT).any():
             return full
-        # per-block counts are int32; the 64-bit total is taken in int64
-        per_block = ck.block_counts(self._pool)
-        return full + int(per_block.sum(dtype=torch.int64))
+        # K3 sums the int32 per-block counts into one int64 in its launch
+        return full + int(ck.block_counts_total(self._pool)[0])
 
     def count_blocks(self) -> np.ndarray:
         """Running (cumulative) per-block popcounts up to the last present

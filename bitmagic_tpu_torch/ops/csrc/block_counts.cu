@@ -1,37 +1,113 @@
-// K3: per-block popcount, int32[n] from a pool int32[n, 2048].
+// K3: per-block popcount of a pool int32[n, 2048]: the counts int32[n],
+// their int64 total, or both.
 //
 // Replaces block_counts_pallas (bitmagic_tpu/ops/pallas_kernels.py:146-161,
 // body _popcount_body :140-143).  Bound: the 8 KiB read of each row (the
-// 4-byte count written per row is 1/2048 of that).  Design: one CTA per
-// row, two 16-byte loads per thread, __popc, a warp reduction with
-// __reduce_add_sync and the eight warp sums through shared memory.  The
-// TPU kernel's 8-row tiles and sequential grid become 132 SMs each running
-// many independent one-row CTAs.
+// 4-byte count written per row is 1/2048 of that).  Design: one warp per
+// row, the row's bytes in flight before the first popcount.  A lane loads
+// the 16 16-byte vectors it owns (bm_common.cuh kLaneVec) as two halves of
+// eight, all issued before its first __popc, and the warp's count is one
+// __reduce_add_sync: no shared memory, no barrier.  The grid is sized to
+// the CTAs the card holds resident (bm::resident_grid), so when the rows
+// fit every row is requested in the first round trip; when they do not,
+// each warp strides over rows and issues the next row's half as soon as it
+// has counted the same half of the current one, so a row stays in flight
+// while the warp reduces.  The total leaves with one 64-bit atomicAdd per
+// warp into a counter the launcher zeroes on the same stream.  The TPU
+// kernel's 8-row tiles and sequential grid become 132 SMs of warps that
+// each own whole rows.
 #include "bm_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(bm::kThreads)
-block_counts_kernel(const uint4* __restrict__ pool, int32_t* __restrict__ out) {
-  const uint4* row = pool + static_cast<size_t>(blockIdx.x) * bm::kBlockVec;
-  uint32_t c[1] = {0u};
+constexpr int kWarpsPerCta = 4;
+constexpr int kCtaThreads = 32 * kWarpsPerCta;
+
+// kWholeRow: the next row's 16 vectors per lane are loaded while the
+// current row is counted (128 registers of row data per lane); otherwise
+// the ring holds two halves (64 registers).
+template <bool kWholeRow, bool kStream>
+__global__ void __launch_bounds__(kCtaThreads)
+block_counts_kernel(const uint4* __restrict__ pool, int n,
+                    int32_t* __restrict__ out,
+                    unsigned long long* __restrict__ total) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarpsPerCta;
+  int row = blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (row >= n) return;
+  bm::RowSrc s{pool + static_cast<size_t>(row) * bm::kBlockVec, 0u};
+  uint4 h0[bm::kHalfVec], h1[bm::kHalfVec];
+  bm::load_half<kStream>(h0, s, 0, lane);
+  bm::load_half<kStream>(h1, s, 1, lane);
+  unsigned long long sum = 0ull;
+  for (;;) {
+    const int next = row + stride;
+    const bool more = next < n;
+    s.ptr = pool + static_cast<size_t>(more ? next : row) * bm::kBlockVec;
+    uint32_t c;
+    if constexpr (kWholeRow) {
+      uint4 n0[bm::kHalfVec], n1[bm::kHalfVec];
+      if (more) {
+        bm::load_half<kStream>(n0, s, 0, lane);
+        bm::load_half<kStream>(n1, s, 1, lane);
+      }
+      c = bm::popc_half(h0) + bm::popc_half(h1);
+      if (more) {
 #pragma unroll
-  for (int j = 0; j < bm::kVecPerThread; ++j) {
-    c[0] += bm::popc4(__ldg(row + threadIdx.x + j * bm::kThreads));
+        for (int j = 0; j < bm::kHalfVec; ++j) {
+          h0[j] = n0[j];
+          h1[j] = n1[j];
+        }
+      }
+    } else {
+      c = bm::popc_half(h0);
+      if (more) bm::load_half<kStream>(h0, s, 0, lane);
+      c += bm::popc_half(h1);
+      if (more) bm::load_half<kStream>(h1, s, 1, lane);
+    }
+    c = __reduce_add_sync(0xFFFFFFFFu, c);
+    if (out != nullptr && lane == 0) out[row] = static_cast<int32_t>(c);
+    sum += c;
+    if (!more) break;
+    row = next;
   }
-  __shared__ uint32_t total[1];
-  bm::block_sum(c, total);
-  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<int32_t>(total[0]);
+  if (total != nullptr && lane == 0) atomicAdd(total, sum);
+}
+
+template <bool kWholeRow, bool kStream>
+int launch(const void* pool, int n, void* out, void* total, void* stream) {
+  if (n <= 0 || (out == nullptr && total == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (total != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(total, 0, 8, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const auto kernel = block_counts_kernel<kWholeRow, kStream>;
+  const int grid = bm::resident_grid(kernel, kCtaThreads, kWarpsPerCta, n);
+  kernel<<<grid, kCtaThreads, 0, st>>>(
+      static_cast<const uint4*>(pool), n, static_cast<int32_t*>(out),
+      static_cast<unsigned long long*>(total));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 = launched).  n >= 1.
+// out: int32[n] per-block counts or null; total: one int64, zeroed here on
+// the stream and then summed into, or null; not both null.  Returns the
+// CUDA error of the launch (0 = launched).  n >= 1.
 extern "C" int bm_block_counts(const void* pool, int n, void* out,
-                               void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  block_counts_kernel<<<n, bm::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(pool), static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+                               void* total, void* stream) {
+  return launch<false, false>(pool, n, out, total, stream);
+}
+
+// Variants beside the half-row ring, to compare them on the card:
+// 1 = the whole-row ring (16 loads at once, the next row prefetched),
+// 2 = the half-row ring with evict-first loads.
+extern "C" int bm_block_counts_variant(const void* pool, int n, void* out,
+                                       void* total, int variant,
+                                       void* stream) {
+  if (variant == 1) return launch<true, false>(pool, n, out, total, stream);
+  return launch<false, true>(pool, n, out, total, stream);
 }

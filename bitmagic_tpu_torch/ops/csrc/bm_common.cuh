@@ -1,12 +1,13 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a).
 //
-// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1-K3
-// and B6 give one CTA of 256 threads to one row: each thread moves two
-// 16-byte vectors, neighbouring threads on neighbouring addresses, so a
-// warp's load is 512 contiguous bytes.  They read each input byte once and
-// write each output byte once; they are bound by device memory bandwidth,
-// not by the popcount / logic instructions.  B4 and B5 cut rows
-// differently (agg_sub.cu, pipeline_counts.cu).
+// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1 and
+// B6 give one CTA of 256 threads to one row: each thread moves two 16-byte
+// vectors, neighbouring threads on neighbouring addresses, so a warp's load
+// is 512 contiguous bytes.  K2 and K3 give one warp to a row (RowLanes
+// below).  All of them read each input byte once and write each output
+// byte once; they are bound by device memory bandwidth, not by the
+// popcount / logic instructions.  B4 and B5 cut rows differently
+// (agg_sub.cu, pipeline_counts.cu).
 //
 // Words arrive as the int32 storage of PyTorch tensors and are treated as
 // uint32_t: the bits are the reference's uint32 words.
@@ -75,30 +76,101 @@ __device__ __forceinline__ uint32_t popc4(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
 
-// Sum N per-thread counters over the CTA: a warp reduction, then the eight
-// warp partials through shared memory.  total (shared, N entries) holds the
-// sums for every thread on return.
-template <int N>
-__device__ __forceinline__ void block_sum(const uint32_t (&v)[N],
-                                          uint32_t* total) {
-  __shared__ uint32_t part[kWarps][N];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// A warp's share of a row: lane l holds vectors l, l + 32, ..., l + 480,
+// so each warp-wide load is 512 contiguous bytes; a row is two halves of
+// kHalfVec vectors per lane.
+constexpr int kLaneVec = kBlockVec / 32;              // 16
+constexpr int kHalfVec = kLaneVec / 2;                // 8
+
+// Loads of half h (0 or 1) of a row into v (s is uniform in the warp).
+// kStream: evict-first loads (ld.global.cs), which replace each other in
+// L2 before they replace other lines.
+template <bool kStream = false>
+__device__ __forceinline__ void load_half(uint4 (&v)[kHalfVec],
+                                          const RowSrc& s, int h, int lane) {
+  if (s.ptr != nullptr) {
+    const uint4* p = s.ptr + h * kHalfVec * 32 + lane;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const uint32_t s = __reduce_add_sync(0xFFFFFFFFu, v[n]);
-    if (lane == 0) part[warp][n] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
+    for (int j = 0; j < kHalfVec; ++j) {
+      v[j] = kStream ? __ldcs(p + j * 32) : __ldg(p + j * 32);
+    }
+  } else {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const uint32_t s = __reduce_add_sync(
-          0xFFFFFFFFu, lane < kWarps ? part[lane][n] : 0u);
-      if (lane == 0) total[n] = s;
+    for (int j = 0; j < kHalfVec; ++j) {
+      v[j] = make_uint4(s.fill, s.fill, s.fill, s.fill);
     }
   }
-  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t popc_half(const uint4 (&v)[kHalfVec]) {
+  uint32_t c = 0u;
+#pragma unroll
+  for (int j = 0; j < kHalfVec; ++j) c += popc4(v[j]);
+  return c;
+}
+
+// The source of a row from its three descriptor words (see resolve): the
+// aux slot, the FULL flag and the pool slot.
+__device__ __forceinline__ RowSrc row_source(const Operand& o, int ar,
+                                             int full, int r) {
+  RowSrc s{nullptr, 0u};
+  if (ar >= 0) {
+    s.ptr = o.aux + static_cast<size_t>(ar) * kBlockVec;
+  } else if (full) {
+    s.fill = 0xFFFFFFFFu;
+  } else if (r >= 0 && o.pool_rows > 0) {
+    s.ptr = o.pool + static_cast<size_t>(r) * kBlockVec;
+  }
+  return s;
+}
+
+// One descriptor word of row i for a warp that resolves two operands:
+// lanes 0-2 read a's aux slot, FULL flag and pool slot, lanes 3-5 b's, so
+// the six reads are one round trip; warp_sources broadcasts them.
+__device__ __forceinline__ int desc_word(const Operand& a, const Operand& b,
+                                         int i, int lane) {
+  const bool is_a = lane < 3;
+  const int f = is_a ? lane : lane - 3;
+  const int32_t* aux_slot = is_a ? a.aux_slot : b.aux_slot;
+  const int aux_rows = is_a ? a.aux_rows : b.aux_rows;
+  const uint8_t* full = is_a ? a.full : b.full;
+  const int32_t* slot = is_a ? a.slot : b.slot;
+  if (lane >= 6) return 0;
+  if (f == 0) return aux_rows > 0 && aux_slot != nullptr ? aux_slot[i] : -1;
+  if (f == 1) return full != nullptr ? full[i] : 0;
+  return slot != nullptr ? slot[i] : i;
+}
+
+__device__ __forceinline__ void warp_sources(const Operand& a,
+                                             const Operand& b, int w,
+                                             RowSrc& sa, RowSrc& sb) {
+  const unsigned all = 0xFFFFFFFFu;
+  sa = row_source(a, __shfl_sync(all, w, 0), __shfl_sync(all, w, 1),
+                  __shfl_sync(all, w, 2));
+  sb = row_source(b, __shfl_sync(all, w, 3), __shfl_sync(all, w, 4),
+                  __shfl_sync(all, w, 5));
+}
+
+// Grid of a grid-stride launch of `kernel` (`threads` per CTA, `per_cta`
+// rows per CTA) over n rows: one CTA per per_cta rows while they fit in
+// the CTAs the card holds resident at once, else exactly those (cached per
+// device), so every row is requested in the first round trip when it can
+// be.
+template <typename Kernel>
+inline int resident_grid(Kernel kernel, int threads, int per_cta, int n) {
+  static int resident[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& cap = resident[dev & 63];
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int need = (n + per_cta - 1) / per_cta;
+  return need < cap ? need : cap;
 }
 
 }  // namespace bm

@@ -4,18 +4,34 @@
 // body _count_body :100-115) and, on the card, the XLA fusion
 // _metric_kernel (bitmagic_tpu/algo/setops.py:39-67) that
 // distance_operation runs.  The result rows are never written: the output
-// is int32[n_metrics, k].  Bound: reading both operands' 8 KiB rows (rows
-// that are FULL or absent are not read at all).  Design: one CTA per
-// aligned block; each operand's source (pool row, aux row, all ones or
-// zero) is resolved once per CTA, so the branch is uniform; two 16-byte
-// loads per operand and thread; every requested metric of
-// setops.py:25-36 is counted from the same registers in one pass and
-// reduced with __reduce_add_sync and shared memory.
+// is the per-block counts int32[n_metrics, k], their int64 totals
+// int64[n_metrics], or both.  Bound: reading both operands' 8 KiB rows
+// (rows that are FULL or absent are not read at all).  Design: one warp per
+// aligned block, K3's shape for two operands (block_counts.cu).  Lanes 0-5
+// read the six descriptor words of the block (aux slot, FULL flag, pool
+// slot of each operand) in one round trip and shuffles broadcast them, so
+// the branch on each source is uniform in the warp; each lane then issues
+// both halves of both operands (32 16-byte loads, the block's 16 KiB in
+// flight) before its first popcount.  With more blocks than resident warps
+// a warp strides over blocks: the next block's descriptor words are read
+// while the current block streams, and each half of the next block is
+// issued as soon as the same half of the current one is counted.
+//
+// Popcounts: `want` names the metrics counted directly (codes of
+// setops.py:25-36).  The caller (cuda_kernels.count_plan) asks for the
+// requested metrics themselves or, when fewer, for the base counts |a&b|,
+// |a| and |b| they need; the others follow exactly per block in 32 bits
+// (counts <= 65536): or = a + b - and, xor = a + b - 2 and, sub_ab = a -
+// and, sub_ba = b - and.  So the seven metrics of distance_operation take
+// three popcounts per word pair, count_and one.
 #include "bm_common.cuh"
 
 namespace {
 
 constexpr int kMetrics = 7;
+constexpr int kWarpsPerCta = 4;
+constexpr int kCtaThreads = 32 * kWarpsPerCta;
+constexpr uint32_t kAnd = 0, kA = 5, kB = 6;
 
 // metric codes: the index in blockops.METRICS
 __device__ __forceinline__ uint4 metric(int c, uint4 a, uint4 b) {
@@ -32,48 +48,128 @@ __device__ __forceinline__ uint4 metric(int c, uint4 a, uint4 b) {
   }
 }
 
-__global__ void __launch_bounds__(bm::kThreads)
-count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t codes,
-                     int n_metrics, int k, int32_t* __restrict__ out) {
-  const int i = blockIdx.x;
-  const bm::RowSrc sa = bm::resolve(a, i);
-  const bm::RowSrc sb = bm::resolve(b, i);
-  uint32_t want = 0u;
-  for (int j = 0; j < n_metrics; ++j) want |= 1u << ((codes >> (3 * j)) & 7u);
-  uint32_t cnt[kMetrics] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
+__device__ __forceinline__ void count_half(const uint4 (&x)[bm::kHalfVec],
+                                           const uint4 (&y)[bm::kHalfVec],
+                                           uint32_t want,
+                                           uint32_t (&cnt)[kMetrics]) {
 #pragma unroll
-  for (int v = 0; v < bm::kVecPerThread; ++v) {
-    const int idx = threadIdx.x + v * bm::kThreads;
-    const uint4 x = bm::load(sa, idx);
-    const uint4 y = bm::load(sb, idx);
+  for (int j = 0; j < bm::kHalfVec; ++j) {
 #pragma unroll
     for (int c = 0; c < kMetrics; ++c) {
-      if (want & (1u << c)) cnt[c] += bm::popc4(metric(c, x, y));
+      if (want & (1u << c)) cnt[c] += bm::popc4(metric(c, x[j], y[j]));
     }
-  }
-  __shared__ uint32_t total[kMetrics];
-  bm::block_sum(cnt, total);
-  const int j = static_cast<int>(threadIdx.x);
-  if (j < n_metrics) {
-    out[static_cast<size_t>(j) * k + i] =
-        static_cast<int32_t>(total[(codes >> (3 * j)) & 7u]);
   }
 }
 
-}  // namespace
+// The block's count of metric c from the warp sums s of the counted
+// metrics: counted directly, or derived from |a&b|, |a| and |b|.
+__device__ __forceinline__ uint32_t metric_count(
+    uint32_t c, uint32_t want, const uint32_t (&s)[kMetrics]) {
+  if (want & (1u << c)) {
+    switch (c) {
+      case 0: return s[0];
+      case 1: return s[1];
+      case 2: return s[2];
+      case 3: return s[3];
+      case 4: return s[4];
+      case 5: return s[5];
+      default: return s[6];
+    }
+  }
+  const uint32_t n = s[kAnd], x = s[kA], y = s[kB];
+  switch (c) {
+    case 1: return x + y - 2u * n;
+    case 2: return x + y - n;
+    case 3: return x - n;
+    default: return y - n;
+  }
+}
 
-// codes: n_metrics metric codes, 3 bits each (metric j at bits 3j..3j+2).
-// Returns the CUDA error of the launch (0 = launched).  k >= 1.
-extern "C" int bm_count_metrics(
+template <bool kStream>
+__global__ void __launch_bounds__(kCtaThreads, 3)
+count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t codes,
+                     int n_metrics, uint32_t want, int k,
+                     int32_t* __restrict__ out,
+                     unsigned long long* __restrict__ total) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarpsPerCta;
+  int i = blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (i >= k) return;
+  bm::RowSrc sa, sb;
+  bm::warp_sources(a, b, bm::desc_word(a, b, i, lane), sa, sb);
+  uint4 a0[bm::kHalfVec], b0[bm::kHalfVec], a1[bm::kHalfVec],
+      b1[bm::kHalfVec];
+  bm::load_half<kStream>(a0, sa, 0, lane);
+  bm::load_half<kStream>(b0, sb, 0, lane);
+  bm::load_half<kStream>(a1, sa, 1, lane);
+  bm::load_half<kStream>(b1, sb, 1, lane);
+  // the next block's descriptor word, read while this block streams
+  int w = i + stride < k ? bm::desc_word(a, b, i + stride, lane) : 0;
+  // lane j < n_metrics: metric j's code and its running total
+  const uint32_t code = (codes >> (3 * (lane < n_metrics ? lane : 0))) & 7u;
+  unsigned long long sum = 0ull;
+  for (;;) {
+    const int next = i + stride;
+    const bool more = next < k;
+    bm::RowSrc na = sa, nb = sb;
+    if (more) bm::warp_sources(a, b, w, na, nb);
+    uint32_t cnt[kMetrics] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    count_half(a0, b0, want, cnt);
+    if (more) {
+      bm::load_half<kStream>(a0, na, 0, lane);
+      bm::load_half<kStream>(b0, nb, 0, lane);
+    }
+    count_half(a1, b1, want, cnt);
+    if (more) {
+      bm::load_half<kStream>(a1, na, 1, lane);
+      bm::load_half<kStream>(b1, nb, 1, lane);
+      if (next + stride < k) w = bm::desc_word(a, b, next + stride, lane);
+    }
+    uint32_t s[kMetrics];
+#pragma unroll
+    for (int c = 0; c < kMetrics; ++c) {
+      s[c] = (want & (1u << c)) ? __reduce_add_sync(0xFFFFFFFFu, cnt[c])
+                                : 0u;
+    }
+    if (lane < n_metrics) {
+      const uint32_t v = metric_count(code, want, s);
+      if (out != nullptr) {
+        out[static_cast<size_t>(lane) * k + i] = static_cast<int32_t>(v);
+      }
+      sum += v;
+    }
+    if (!more) break;
+    i = next;
+    sa = na;
+    sb = nb;
+  }
+  if (total != nullptr && lane < n_metrics) atomicAdd(total + lane, sum);
+}
+
+// codes: n_metrics metric codes, 3 bits each (metric j at bits 3j..3j+2);
+// want: bit c set for each metric counted directly (every requested metric
+// is counted or derivable from the counted |a&b|, |a| and |b|).  out:
+// int32[n_metrics, k] or null; total: int64[n_metrics], zeroed here on the
+// stream and then summed into, or null; not both null.  Returns the CUDA
+// error of the launch (0 = launched).  k >= 1.
+template <bool kStream>
+int launch(
     const void* a_pool, int a_pool_rows, const void* a_slot,
     const void* a_full, const void* a_aux, int a_aux_rows,
     const void* a_aux_slot,
     const void* b_pool, int b_pool_rows, const void* b_slot,
     const void* b_full, const void* b_aux, int b_aux_rows,
     const void* b_aux_slot,
-    int codes, int n_metrics, int k, void* out, void* stream) {
-  if (k <= 0 || n_metrics < 1 || n_metrics > kMetrics) {
+    int codes, int n_metrics, int want, int k, void* out, void* total,
+    void* stream) {
+  if (k <= 0 || n_metrics < 1 || n_metrics > kMetrics || want <= 0 ||
+      want >= (1 << kMetrics) || (out == nullptr && total == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (total != nullptr) {
+    const cudaError_t e = cudaMemsetAsync(total, 0, 8 * n_metrics, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   const bm::Operand a{static_cast<const uint4*>(a_pool), a_pool_rows,
                       static_cast<const int32_t*>(a_slot),
@@ -85,9 +181,34 @@ extern "C" int bm_count_metrics(
                       static_cast<const uint8_t*>(b_full),
                       static_cast<const uint4*>(b_aux), b_aux_rows,
                       static_cast<const int32_t*>(b_aux_slot)};
-  count_metrics_kernel<<<k, bm::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      a, b, static_cast<uint32_t>(codes), n_metrics, k,
-      static_cast<int32_t*>(out));
+  const auto kernel = count_metrics_kernel<kStream>;
+  const int grid = bm::resident_grid(kernel, kCtaThreads, kWarpsPerCta, k);
+  kernel<<<grid, kCtaThreads, 0, st>>>(
+      a, b, static_cast<uint32_t>(codes), n_metrics,
+      static_cast<uint32_t>(want), k, static_cast<int32_t*>(out),
+      static_cast<unsigned long long*>(total));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define BM_K2_ARGS                                                          \
+  const void* a_pool, int a_pool_rows, const void* a_slot,                 \
+      const void* a_full, const void* a_aux, int a_aux_rows,               \
+      const void* a_aux_slot, const void* b_pool, int b_pool_rows,         \
+      const void* b_slot, const void* b_full, const void* b_aux,           \
+      int b_aux_rows, const void* b_aux_slot, int codes, int n_metrics,    \
+      int want, int k, void* out, void* total, void* stream
+#define BM_K2_PASS                                                          \
+  a_pool, a_pool_rows, a_slot, a_full, a_aux, a_aux_rows, a_aux_slot,      \
+      b_pool, b_pool_rows, b_slot, b_full, b_aux, b_aux_rows, b_aux_slot,  \
+      codes, n_metrics, want, k, out, total, stream
+
+extern "C" int bm_count_metrics(BM_K2_ARGS) {
+  return launch<false>(BM_K2_PASS);
+}
+
+// The same with evict-first loads, to compare the two on the card.
+extern "C" int bm_count_metrics_stream(BM_K2_ARGS) {
+  return launch<true>(BM_K2_PASS);
 }

@@ -3,9 +3,11 @@
 =====================  ===========================  =========================
 wrapper                kernel (source)              replaces (TPU kernel)
 =====================  ===========================  =========================
-block_counts           K3 block_counts.cu           pallas_kernels.py:146
+block_counts,          K3 block_counts.cu           pallas_kernels.py:146
+block_counts_total
 count_op,              K2 count_op.cu               pallas_kernels.py:118,
-count_metrics                                       setops.py:39 (_metric_kernel)
+count_metrics,                                      setops.py:39 (_metric_kernel)
+count_metrics_total
 logical_op_digest,     K1 logical_op_digest.cu      pallas_kernels.py:73,
 binary_op_digest                                    bitvector.py:43 (_binary_kernel)
 agg_and_sub,           B4 agg_sub.cu                pallas_kernels.py:270,
@@ -56,9 +58,15 @@ PIPELINE_MAX_PLANES = 400
 PIPELINE_REG_PLANES = 72
 
 _SIGNATURES = {
-    "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP]),
+    "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP, _VP]),
+    "bm_block_counts_variant": ("block_counts.cu",
+                                [_VP, _INT, _VP, _VP, _INT, _VP]),
     "bm_count_metrics": ("count_op.cu",
-                         _OPERAND + _OPERAND + [_INT, _INT, _INT, _VP, _VP]),
+                         _OPERAND + _OPERAND
+                         + [_INT, _INT, _INT, _INT, _VP, _VP, _VP]),
+    "bm_count_metrics_stream": ("count_op.cu",
+                                _OPERAND + _OPERAND
+                                + [_INT, _INT, _INT, _INT, _VP, _VP, _VP]),
     "bm_logical_op_digest": ("logical_op_digest.cu",
                              [_INT] + _OPERAND + _OPERAND
                              + [_INT, _VP, _VP, _VP]),
@@ -149,19 +157,36 @@ def _aligned(t, name):
 
 
 # ---------------------------------------------------------------------------
-# K3: per-block popcount
+# K3: per-block popcount, its total
 # ---------------------------------------------------------------------------
+def _block_counts_launch(pool, per_block, total):
+    _rows(pool, "pool")
+    n = pool.shape[0]
+    out = torch.empty(n, dtype=_I32, device=pool.device) if per_block \
+        else None
+    # the launcher zeroes the total on the stream before the kernel
+    tot = torch.empty((), dtype=_I64, device=pool.device) if total else None
+    if n:
+        _launch("bm_block_counts", "block_counts", pool.device, _ptr(pool),
+                n, _ptr(out), _ptr(tot))
+    elif total:
+        tot.zero_()
+    return tot, out
+
+
 def block_counts(pool):
     """Per-block popcount -> int32[n]."""
     if not _on_cuda(pool):
         return blockops.block_counts(pool)
-    _rows(pool, "pool")
-    n = pool.shape[0]
-    out = torch.empty(n, dtype=_I32, device=pool.device)
-    if n:
-        _launch("bm_block_counts", "block_counts", pool.device,
-                _ptr(pool), n, _ptr(out))
-    return out
+    return _block_counts_launch(pool, True, False)[1]
+
+
+def block_counts_total(pool, per_block=False):
+    """``(int64`` 0-d sum of the per-block popcounts, ``int32[n]``
+    per-block popcounts or None), in one launch."""
+    if not _on_cuda(pool):
+        return blockops.block_counts_total(pool, per_block)
+    return _block_counts_launch(pool, per_block, True)
 
 
 # ---------------------------------------------------------------------------
@@ -176,13 +201,23 @@ def _metric_codes(metrics):
     return codes
 
 
-def _count_launch(metrics, a_args, b_args, k, device):
+def _count_launch(metrics, a_args, b_args, k, device, per_block=True,
+                  total=False):
+    """-> (int64[m] totals or None, int32[m, k] per-block counts or None)."""
     codes = _metric_codes(metrics)
-    out = torch.empty((len(metrics), k), dtype=_I32, device=device)
+    want = sum(1 << blockops.METRICS.index(m)
+               for m in blockops.count_plan(metrics))
+    m = len(metrics)
+    out = torch.empty((m, k), dtype=_I32, device=device) if per_block \
+        else None
+    # the launcher zeroes the totals on the stream before the kernel
+    tot = torch.empty(m, dtype=_I64, device=device) if total else None
     if k:
         _launch("bm_count_metrics", "count_op", device, *a_args, *b_args,
-                codes, len(metrics), k, _ptr(out))
-    return out
+                codes, m, want, k, _ptr(out), _ptr(tot))
+    elif total:
+        tot.zero_()
+    return tot, out
 
 
 def count_op(op, a, b):
@@ -192,7 +227,7 @@ def count_op(op, a, b):
     if a.shape != b.shape:
         raise ValueError("count_op: operands differ in shape")
     return _count_launch((blockops.OP_METRIC[op],), _aligned(a, "a"),
-                         _aligned(b, "b"), a.shape[0], a.device)[0]
+                         _aligned(b, "b"), a.shape[0], a.device)[1][0]
 
 
 def count_metrics(metrics, a_desc, b_desc):
@@ -202,7 +237,20 @@ def count_metrics(metrics, a_desc, b_desc):
         return blockops.count_metrics(metrics, a_desc, b_desc)
     k = a_desc[1].shape[0]
     return _count_launch(tuple(metrics), _operand(a_desc, k, "a"),
-                         _operand(b_desc, k, "b"), k, a_desc[0].device)
+                         _operand(b_desc, k, "b"), k, a_desc[0].device)[1]
+
+
+def count_metrics_total(metrics, a_desc, b_desc, per_block=False):
+    """``(int64[len(metrics)]`` sums of the per-block popcounts of every
+    requested metric, ``int32[len(metrics), k]`` per-block popcounts or
+    None) over gather-described operands, in one launch."""
+    if not _on_cuda(*a_desc, *b_desc):
+        return blockops.count_metrics_total(metrics, a_desc, b_desc,
+                                            per_block)
+    k = a_desc[1].shape[0]
+    return _count_launch(tuple(metrics), _operand(a_desc, k, "a"),
+                         _operand(b_desc, k, "b"), k, a_desc[0].device,
+                         per_block, True)
 
 
 # ---------------------------------------------------------------------------

@@ -248,11 +248,80 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
         sub = ("count_b", "count_sub_ba", "count_and")
         cmp("count_op", ck.count_metrics(sub, da, db),
             blockops.count_metrics(sub, da, db))
+    count_kernels_vs_plain(rng, device, cmp)
     search_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
     return err, cases
+
+
+def count_kernels_vs_plain(rng, device, cmp):
+    """K3 and K2 in both grid regimes (rows that fit the resident warps,
+    one row per warp, and 16384 rows, a grid-stride over them), at row
+    counts that are no multiple of the warps per CTA; every subset of the
+    seven metrics in a random order, counted or derived from |a&b|, |a|
+    and |b|, over rows of all ones and zeros, FULL, aux and -1 rows; the
+    total forms with and without the per-block output."""
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+
+    def cmp_total(name, got, want):
+        cmp(name, got[0], want[0])
+        check((got[1] is None) == (want[1] is None), f"{name}: per-block")
+        if want[1] is not None:
+            cmp(name, got[1], want[1])
+
+    for n in (1, 31, 32, 33, 4097, SCALE_BLOCKS):
+        a, b = _rand_pool(rng, n, device), _rand_pool(rng, n, device)
+        cmp("block_counts", ck.block_counts(a), blockops.block_counts(a))
+        for per_block in (False, True):
+            cmp_total("block_counts", ck.block_counts_total(a, per_block),
+                      blockops.block_counts_total(a, per_block))
+        for op in OPS:
+            cmp("count_op", ck.count_op(op, a, b),
+                blockops.count_op(op, a, b))
+        del a, b
+    for n in (0, N_BLOCKS):
+        a = _rand_pool(rng, n, device)
+        for per_block in (False, True):
+            cmp_total("block_counts", ck.block_counts_total(a, per_block),
+                      blockops.block_counts_total(a, per_block))
+    # every subset of the metrics, in a random order, at 301 blocks; all
+    # seven and one metric, per block and in total, in both regimes
+    subsets = [tuple(rng.permutation([m for j, m in enumerate(METRICS)
+                                      if mask >> j & 1]).tolist())
+               for mask in range(1, 1 << len(METRICS))]
+    for k, ra, rb, aux_a, aux_b in ((301, 64, 90, 5, 3), (33, 40, 0, 0, 4),
+                                    (N_BLOCKS, N_BLOCKS, 900, 16, 8),
+                                    (SCALE_BLOCKS, 2048, 2048, 32, 0)):
+        da = _descriptor(rng, _rand_pool(rng, ra, device), k, aux_a, device)
+        db = _descriptor(rng, _rand_pool(rng, rb, device), k, aux_b, device)
+        for ms in (subsets if k == 301 else [METRICS, ("count_and",),
+                                              ("count_sub_ba", "count_or")]):
+            cmp("count_op", ck.count_metrics(ms, da, db),
+                blockops.count_metrics(ms, da, db))
+            for per_block in (False, True):
+                cmp_total("count_op",
+                          ck.count_metrics_total(ms, da, db, per_block),
+                          blockops.count_metrics_total(ms, da, db,
+                                                       per_block))
+        del da, db
+    # rows of all ones against rows of zeros and against themselves
+    ones = torch.full((40, 2048), -1, dtype=torch.int32, device=device)
+    zeros = torch.zeros_like(ones)
+    for x, y in ((ones, zeros), (zeros, ones), (ones, ones)):
+        dx, dy = _aligned_desc(x), _aligned_desc(y)
+        cmp("count_op", ck.count_metrics(METRICS, dx, dy),
+            blockops.count_metrics(METRICS, dx, dy))
+
+
+def _aligned_desc(pool):
+    """The gather descriptor of an aligned pool: row i at slot i."""
+    k, dev = pool.shape[0], pool.device
+    return (pool, torch.arange(k, dtype=torch.int32, device=dev),
+            torch.zeros(k, dtype=torch.bool, device=dev), pool[:0],
+            torch.full((k,), -1, dtype=torch.int32, device=dev))
 
 
 def _bits_pool(rng, n, or_k, device):
@@ -456,13 +525,17 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     check(np.array_equal(a.to_words().ravel(), wa), "A word image")
     check(np.array_equal(b.to_words().ravel(), wb), "B word image")
 
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
     rng = np.random.default_rng(SEED + 2)
     results = {}
     for op in OPS:
         with Clock(f"{op}_ms", times):
             r = getattr(a, DUNDER[op])(b)
+        n0 = ck.launches["block_counts"]
         with Clock(f"{op}_count_ms", times):
             cnt = r.count()
+        check(ck.launches["block_counts"] == n0 + 1,
+              f"count({op}) launched K3 once")
         results[op] = (r, cnt)
     for op, (r, cnt) in results.items():
         want = oracle_op(op, wa, wb)
@@ -470,8 +543,11 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
               f"count({op})")
         check(np.array_equal(r.to_words().ravel(), want), f"{op} words")
 
+    n0 = ck.launches["count_op"]
     with Clock("distance_operation_ms", times):
         dist = tbm.distance_operation(a, b, list(METRICS))
+    check(ck.launches["count_op"] == n0 + 1,
+          "distance_operation launched K2 once")
     for m in METRICS:
         check(dist[m] == oracle_metric(m, wa, wb), f"distance {m}")
     with Clock("count_and_or_xor_sub_ms", times):
@@ -538,6 +614,33 @@ def device_busy(fn):
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return wall, busy, {k[:60]: round(v / 1e3, 4) for k, v in top}
+
+
+def device_kernels(fn):
+    """Names of the kernels one run of ``fn`` put on the card (copies and
+    memsets left out), from a torch.profiler trace after a warm-up run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def k2_operands(a, b):
+    """The gather descriptors distance_operation hands K2 for vectors a and
+    b: the candidate blocks where at least one side is a BIT row."""
+    from bitmagic_tpu_torch.core.blocks import operand_args
+    cand = np.union1d(a._struct.nb, b._struct.nb)
+    st_a, _ = a._struct.lookup(cand)
+    st_b, _ = b._struct.lookup(cand)
+    rows = cand[(st_a == 2) | (st_b == 2)]
+    return operand_args(a, rows), operand_args(b, rows)
 
 
 def profile(what, fn):
@@ -822,16 +925,21 @@ def agg_scale_path(tbm, device, n_blocks=AGG_SCALE_BLOCKS):
 # ---------------------------------------------------------------------------
 # phase 9: timing
 # ---------------------------------------------------------------------------
-def time_ms(fn, flush, reps=25):
+def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
     Before each run a 512 MiB memset evicts the 50 MB L2 and keeps the
     stream busy while the host enqueues the run, so the events bracket the
-    device work and not the host's launch overhead."""
+    device work and not the host's launch overhead.  The memset leaves L2
+    full of dirty lines, which the run's reads write back; with ``clean``
+    (a second buffer) a read-only pass over it follows the memset and
+    leaves L2 holding clean lines instead."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         flush.zero_()
+        if clean is not None:
+            clean.max()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -859,15 +967,31 @@ def record(out, key, card, flush, kern, plain, lib, nbytes, lops, popcs):
         bytes=nbytes, gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
-def timings(device, card):
+def desc_rows_read(desc) -> int:
+    """Rows one gather descriptor makes a kernel read: aux rows and pool
+    rows; FULL and absent rows are not read."""
+    pool, slot, full, aux, aux_slot = desc
+    on_aux = aux_slot >= 0
+    on_pool = (~on_aux) & (~full) & (slot >= 0) & (pool.shape[0] > 0)
+    return int(on_aux.sum()) + int(on_pool.sum())
+
+
+def timings(device, card, cfg1):
+    """K1-K3 at 1536 and 16384 rows; K3 and K2 at config 1's own shapes
+    (``cfg1``: A's pool and the descriptors distance_operation hands K2),
+    per block and in total form; the floor of a timed launch; K3 at 1536
+    rows after a flush that leaves L2 clean."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     rng = np.random.default_rng(SEED + 4)
     flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
+    row = 8192
     out = {}
+    one = torch.empty(1, dtype=torch.int32, device=device)
+    out["floor"] = time_ms(one.zero_, flush)
     for n in (N_BLOCKS, SCALE_BLOCKS):
         a, b = _rand_pool(rng, n, device), _rand_pool(rng, n, device)
-        row, words = 8192, n * 2048
+        words = n * 2048
         cases = {
             # name: (kernel, plain, library call or None,
             #        bytes read + written, popcounts)
@@ -883,11 +1007,102 @@ def timings(device, card):
                 lambda: torch.bitwise_and(a, b),
                 3 * n * row + n * 256, 0),
         }
+        if n == N_BLOCKS:
+            cases["block_counts", "total_1536"] = (
+                lambda: ck.block_counts_total(a),
+                lambda: blockops.block_counts_total(a), None,
+                n * row + 8, words)
+        for v, vname in ((1, "whole_rows"), (2, "evict_first")):
+            cases["block_counts", f"{vname}_{n}"] = (
+                _k3_variant(ck, blockops, a, v),
+                lambda: blockops.block_counts(a), None, n * row + n * 4,
+                words)
+        cases["count_op", f"evict_first_{n}"] = (
+            _k2_stream(ck, blockops, ("count_and",), ck._aligned(a, "a"),
+                       ck._aligned(b, "b"), n,
+                       blockops.count_op("and", a, b)[None]),
+            lambda: blockops.count_op("and", a, b), None,
+            2 * n * row + n * 4, words)
         for name, (kern, plain, lib, nbytes, popc) in cases.items():
-            record(out, (name, n), card, flush, kern, plain, lib, nbytes, 0,
-                   popc)
+            key = name if isinstance(name, tuple) else (name, n)
+            record(out, key, card, flush, kern, plain, lib, nbytes, 0, popc)
+        clean = torch.empty_like(flush)
+        out["block_counts", f"{n}_clean_l2"] = dict(
+            out["block_counts", n],
+            ms=time_ms(lambda: ck.block_counts(a), flush, clean=clean),
+            plain_ms=None)
+        del clean
         del a, b
+    # config 1's shapes: count() on A's pool; distance_operation's 7
+    # metrics and count_and's 1 over the candidate blocks
+    pool, da, db = cfg1
+    n = pool.shape[0]
+    for key, per_block in (("config1_A", True), ("total_config1_A", False)):
+        record(out, ("block_counts", key), card, flush,
+               (lambda: ck.block_counts(pool)) if per_block
+               else (lambda: ck.block_counts_total(pool)),
+               lambda: blockops.block_counts_total(pool, per_block), None,
+               n * row + (n * 4 if per_block else 8), 0, n * 2048)
+    k = da[1].shape[0]
+    reads = desc_rows_read(da) + desc_rows_read(db)
+    for ms_name, ms in (("7", METRICS), ("1", ("count_and",))):
+        n_popc = len(blockops.count_plan(ms))
+        for form in ("config1_", "total_config1_"):
+            per_block = form == "config1_"
+            nbytes = (reads * row + 2 * k * 9
+                      + (len(ms) * k * 4 if per_block else len(ms) * 8))
+            if per_block:
+                record(out, ("count_op", "evict_first_config1_" + ms_name),
+                       card, flush, _k2_stream(
+                           ck, blockops, ms, ck._operand(da, k, "a"),
+                           ck._operand(db, k, "b"), k,
+                           blockops.count_metrics(ms, da, db)),
+                       lambda ms=ms: blockops.count_metrics(ms, da, db),
+                       None, nbytes, 0, n_popc * k * 2048)
+            record(out, ("count_op", form + ms_name), card, flush,
+                   (lambda ms=ms: ck.count_metrics(ms, da, db)) if per_block
+                   else (lambda ms=ms: ck.count_metrics_total(ms, da, db)),
+                   lambda ms=ms, per_block=per_block:
+                       blockops.count_metrics_total(ms, da, db, per_block),
+                   None, nbytes, 0, n_popc * k * 2048)
+            out["count_op", form + ms_name].update(
+                rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
     return out
+
+
+def _k3_variant(ck, blockops, a, variant):
+    """A variant of K3 on ``a`` (block_counts.cu bm_block_counts_variant:
+    1 = the whole-row ring, 2 = evict-first loads), checked once against
+    the plain version."""
+    res = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
+
+    def run():
+        ck._launch("bm_block_counts_variant", "block_counts", a.device,
+                   ck._ptr(a), a.shape[0], ck._ptr(res), None, variant)
+
+    run()
+    sync()
+    check(torch.equal(res, blockops.block_counts(a)), f"K3 variant {variant}")
+    return run
+
+
+def _k2_stream(ck, blockops, metrics, a_args, b_args, k, want):
+    """K2 with evict-first loads on the C arguments of two operands
+    (per-block form), checked once against ``want``."""
+    res = torch.empty((len(metrics), k), dtype=torch.int32,
+                      device=want.device)
+    mask = sum(1 << blockops.METRICS.index(m)
+               for m in blockops.count_plan(metrics))
+    args = (a_args + b_args + [ck._metric_codes(metrics), len(metrics), mask,
+                               k, ck._ptr(res), None])
+
+    def run():
+        ck._launch("bm_count_metrics_stream", "count_op", want.device, *args)
+
+    run()
+    sync()
+    check(torch.equal(res, want), "K2 evict-first variant")
+    return run
 
 
 def _sweep_reads(rows_by_operand, n_and, slices, group=4):
@@ -1144,6 +1359,18 @@ def main():
         f"launches {main_launches}; phase ms {json.dumps(main_times)}")
     for k in FIRST_SLICE:
         check(main_launches[k] > 0, f"main path never launched {k}")
+    a, b = state[0], state[1]
+    r = a & b
+    for what, fn, kernel in (
+            ("count()", r.count, "block_counts_kernel"),
+            ("distance_operation", lambda: tbm.distance_operation(
+                a, b, list(METRICS)), "count_metrics_kernel")):
+        names = device_kernels(fn)
+        log(f"main: {what} put these kernels on the card: {names}")
+        check(len(names) == 1 and kernel in names[0],
+              f"{what}: one launch of {kernel} and no sum kernel after it")
+    cfg1 = (a._pool, *k2_operands(a, b))
+    del a, b, r
     profile("steady pass (4 ops + counts, distance_operation, 1M select)",
             lambda: steady_pass(tbm, *state))
     del state
@@ -1194,10 +1421,21 @@ def main():
           > 0, "search scale phase launched B4 and B5")
 
     # 9. timing
-    tm = timings(device, card)
+    tm = timings(device, card, cfg1)
+    del cfg1
+    log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
+                    "timed like every kernel", "card": card["smi"]}))
     tm.update(search_timings(device, card))
     kernels = []
     shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
+    shapes["block_counts"] += ("1536_clean_l2", "16384_clean_l2",
+                               "whole_rows_1536", "whole_rows_16384",
+                               "evict_first_1536", "evict_first_16384",
+                               "config1_A", "total_1536", "total_config1_A")
+    shapes["count_op"] += ("evict_first_1536", "evict_first_16384",
+                           "config1_7", "config1_1", "total_config1_7",
+                           "total_config1_1", "evict_first_config1_7",
+                           "evict_first_config1_1")
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"))
@@ -1209,8 +1447,10 @@ def main():
             log(json.dumps({"kernel": k, "shape": shape, **{
                 x: t[x] for x in ("ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by", "bytes",
-                                  "gb_per_s", "rows_read",
-                                  "rows_distinct", "rows_fetched", "rows_total", "singles_ms",
+                                  "gb_per_s", "rows", "rows_read",
+                                  "rows_distinct", "rows_fetched",
+                                  "rows_total", "singles_ms",
+                                  "popcounts_per_word_pair",
                                   "planes_staged", "planes_total")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))

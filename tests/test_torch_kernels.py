@@ -1,5 +1,5 @@
 """The six hand-written Hopper kernels against their plain PyTorch
-versions, on the card.  Every test here needs CUDA (marker ``cuda``) and
+versions (or hand-worked counts), on the card.  Every test here needs CUDA (marker ``cuda``) and
 skips without it.  On a machine with an H100 and no JAX, run them without
 the suite's conftest (which imports JAX):
 
@@ -130,6 +130,115 @@ def test_bitvector_on_card_matches_cpu(dev, rng):
     np.testing.assert_array_equal(out["cuda"][5], out["cpu"][5])
     assert all(ck.launches[k] for k in ("block_counts", "count_op",
                                         "logical_op_digest")), ck.launches
+
+
+# ---------------------------------------------------------------------------
+# K3 and K2 on a warp per row: both grid regimes (rows that fit the
+# resident warps, and a grid-stride over 16384 rows), row counts that are
+# no multiple of the warps per CTA, the total forms, derived metrics
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("per_block", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1536, 4097, 16384])
+def test_block_counts_total_kernel(dev, rng, n, per_block):
+    p = _pool(rng, n, dev)
+    tot, per = ck.block_counts_total(p, per_block)
+    torch.cuda.synchronize()
+    want_tot, want_per = blockops.block_counts_total(p, per_block)
+    assert tot.dtype == torch.int64 and tot.shape == ()
+    assert int(tot) == int(want_tot)
+    assert (per is None) == (not per_block)
+    if per_block:
+        assert torch.equal(per, want_per)
+    assert torch.equal(ck.block_counts(p), blockops.block_counts(p))
+    assert ck.launches["block_counts"] == (2 if n else 0)
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("n", [31, 33, 4097, 16384])
+def test_count_op_kernel_regimes(dev, rng, op, n):
+    a, b = _pool(rng, n, dev), _pool(rng, n, dev)
+    got = ck.count_op(op, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blockops.count_op(op, a, b))
+
+
+def test_count_metrics_every_subset(dev, rng):
+    """Every subset of the seven metrics in a random order: counted
+    directly or derived from |a&b|, |a| and |b| (blockops.count_plan)."""
+    da = _desc(rng, _pool(rng, 13, dev), 301, dev, True)
+    db = _desc(rng, _pool(rng, 7, dev), 301, dev, False)
+    n = 0
+    for mask in range(1, 1 << 7):
+        ms = tuple(rng.permutation([m for j, m in enumerate(blockops.METRICS)
+                                    if mask >> j & 1]).tolist())
+        got = ck.count_metrics(ms, da, db)
+        tot, per = ck.count_metrics_total(ms, da, db, per_block=True)
+        n += 2
+        torch.cuda.synchronize()
+        want = blockops.count_metrics(ms, da, db)
+        assert torch.equal(got, want), ms
+        assert torch.equal(per, want), ms
+        assert torch.equal(tot, want.sum(dim=1, dtype=torch.int64)), ms
+    assert ck.launches["count_op"] == n
+
+
+@pytest.mark.parametrize("per_block", [False, True])
+@pytest.mark.parametrize("k", [1, 33, 1536, 16384])
+def test_count_metrics_total_kernel(dev, rng, k, per_block):
+    da = _desc(rng, _pool(rng, 2048, dev), k, dev, True)
+    db = _desc(rng, _pool(rng, 900, dev), k, dev, False)
+    for ms in (tuple(blockops.METRICS), ("count_and",),
+               ("count_sub_ba", "count_or", "count_a")):
+        tot, per = ck.count_metrics_total(ms, da, db, per_block)
+        torch.cuda.synchronize()
+        want_tot, want_per = blockops.count_metrics_total(ms, da, db, True)
+        assert tot.dtype == torch.int64 and torch.equal(tot, want_tot)
+        assert (per is None) == (not per_block)
+        if per_block:
+            assert torch.equal(per, want_per)
+    assert ck.launches["count_op"] == 3
+
+
+def test_count_metrics_ones_and_zeros(dev):
+    """Derived metrics on rows of all ones against zeros and themselves,
+    against counts worked out by hand."""
+    k = 5
+    ones = torch.full((k, 2048), -1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(ones)
+    B = 65536
+    want = {(1, 0): [0, B, B, B, 0, B, 0], (0, 1): [0, B, B, 0, B, 0, B],
+            (1, 1): [B, 0, B, 0, 0, B, B]}
+    for (x, y), w in want.items():
+        d = [(p, torch.arange(k, dtype=torch.int32, device=dev),
+              torch.zeros(k, dtype=torch.bool, device=dev), p[:0],
+              torch.full((k,), -1, dtype=torch.int32, device=dev))
+             for p in ((ones if x else zeros), (ones if y else zeros))]
+        tot, per = ck.count_metrics_total(blockops.METRICS, *d,
+                                          per_block=True)
+        torch.cuda.synchronize()
+        assert per.cpu().tolist() == [[v] * k for v in w]
+        assert tot.cpu().tolist() == [v * k for v in w]
+
+
+def test_count_and_distance_one_launch_each(dev, rng):
+    ids_a = rng.integers(0, 40 * 65536, 300000)
+    ids_b = np.concatenate([rng.integers(0, 40 * 65536, 200000),
+                            np.arange(65536 * 3, 65536 * 9)])
+    a = tbm.BitVector.from_indices(ids_a, 40 * 65536, device="cuda")
+    b = tbm.BitVector.from_indices(ids_b, 40 * 65536, device="cuda",
+                                   strategy=1)
+    b.optimize()
+    ck.reset_launches()
+    assert a.count() == np.unique(ids_a).size
+    assert ck.launches["block_counts"] == 1
+    dist = tbm.distance_operation(a, b, list(blockops.METRICS))
+    assert ck.launches["count_op"] == 1
+    ua, ub = set(np.unique(ids_a).tolist()), set(np.unique(ids_b).tolist())
+    assert dist["count_and"] == len(ua & ub)
+    assert dist["count_or"] == len(ua | ub)
+    assert dist["count_xor"] == len(ua ^ ub)
+    assert dist["count_sub_ab"] == len(ua - ub)
+    assert dist["count_sub_ba"] == len(ub - ua)
 
 
 # ---------------------------------------------------------------------------
