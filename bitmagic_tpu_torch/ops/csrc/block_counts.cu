@@ -6,16 +6,17 @@
 // 4-byte count written per row is 1/2048 of that).  Design: one warp per
 // row, the row's bytes in flight before the first popcount.  A lane loads
 // the 16 16-byte vectors it owns (bm_common.cuh kLaneVec) as two halves of
-// eight, all issued before its first __popc, and the warp's count is one
-// __reduce_add_sync: no shared memory, no barrier.  The grid is sized to
-// the CTAs the card holds resident (bm::resident_grid), so when the rows
-// fit every row is requested in the first round trip; when they do not,
-// each warp strides over rows and issues the next row's half as soon as it
-// has counted the same half of the current one, so a row stays in flight
-// while the warp reduces.  The total leaves with one 64-bit atomicAdd per
-// warp into a counter the launcher zeroes on the same stream.  The TPU
-// kernel's 8-row tiles and sequential grid become 132 SMs of warps that
-// each own whole rows.
+// eight, all issued before its first __popc and allocating no L1 lines
+// (bm::load_once), and the warp's count is one __reduce_add_sync: no
+// shared memory, no barrier.  The grid is sized to the CTAs the card holds
+// resident (bm::resident_grid), so when the rows fit every row is
+// requested in the first round trip; when they do not, each warp strides
+// over rows and issues the next row's half as soon as it has counted the
+// same half of the current one, so a row stays in flight while the warp
+// reduces.  The total leaves with one 64-bit atomicAdd per warp into a
+// counter the launcher zeroes on the same stream.  The TPU kernel's 8-row
+// tiles and sequential grid become 132 SMs of warps that each own whole
+// rows.
 #include "bm_common.cuh"
 
 namespace {
@@ -23,10 +24,6 @@ namespace {
 constexpr int kWarpsPerCta = 4;
 constexpr int kCtaThreads = 32 * kWarpsPerCta;
 
-// kWholeRow: the next row's 16 vectors per lane are loaded while the
-// current row is counted (128 registers of row data per lane); otherwise
-// the ring holds two halves (64 registers).
-template <bool kWholeRow, bool kStream>
 __global__ void __launch_bounds__(kCtaThreads)
 block_counts_kernel(const uint4* __restrict__ pool, int n,
                     int32_t* __restrict__ out,
@@ -37,34 +34,17 @@ block_counts_kernel(const uint4* __restrict__ pool, int n,
   if (row >= n) return;
   bm::RowSrc s{pool + static_cast<size_t>(row) * bm::kBlockVec, 0u};
   uint4 h0[bm::kHalfVec], h1[bm::kHalfVec];
-  bm::load_half<kStream>(h0, s, 0, lane);
-  bm::load_half<kStream>(h1, s, 1, lane);
+  bm::load_half(h0, s, 0, lane);
+  bm::load_half(h1, s, 1, lane);
   unsigned long long sum = 0ull;
   for (;;) {
     const int next = row + stride;
     const bool more = next < n;
     s.ptr = pool + static_cast<size_t>(more ? next : row) * bm::kBlockVec;
-    uint32_t c;
-    if constexpr (kWholeRow) {
-      uint4 n0[bm::kHalfVec], n1[bm::kHalfVec];
-      if (more) {
-        bm::load_half<kStream>(n0, s, 0, lane);
-        bm::load_half<kStream>(n1, s, 1, lane);
-      }
-      c = bm::popc_half(h0) + bm::popc_half(h1);
-      if (more) {
-#pragma unroll
-        for (int j = 0; j < bm::kHalfVec; ++j) {
-          h0[j] = n0[j];
-          h1[j] = n1[j];
-        }
-      }
-    } else {
-      c = bm::popc_half(h0);
-      if (more) bm::load_half<kStream>(h0, s, 0, lane);
-      c += bm::popc_half(h1);
-      if (more) bm::load_half<kStream>(h1, s, 1, lane);
-    }
+    uint32_t c = bm::popc_half(h0);
+    if (more) bm::load_half(h0, s, 0, lane);
+    c += bm::popc_half(h1);
+    if (more) bm::load_half(h1, s, 1, lane);
     c = __reduce_add_sync(0xFFFFFFFFu, c);
     if (out != nullptr && lane == 0) out[row] = static_cast<int32_t>(c);
     sum += c;
@@ -74,8 +54,13 @@ block_counts_kernel(const uint4* __restrict__ pool, int n,
   if (total != nullptr && lane == 0) atomicAdd(total, sum);
 }
 
-template <bool kWholeRow, bool kStream>
-int launch(const void* pool, int n, void* out, void* total, void* stream) {
+}  // namespace
+
+// out: int32[n] per-block counts or null; total: one int64, zeroed here on
+// the stream and then summed into, or null; not both null.  Returns the
+// CUDA error of the launch (0 = launched).  n >= 1.
+extern "C" int bm_block_counts(const void* pool, int n, void* out,
+                               void* total, void* stream) {
   if (n <= 0 || (out == nullptr && total == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -84,30 +69,10 @@ int launch(const void* pool, int n, void* out, void* total, void* stream) {
     const cudaError_t e = cudaMemsetAsync(total, 0, 8, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const auto kernel = block_counts_kernel<kWholeRow, kStream>;
-  const int grid = bm::resident_grid(kernel, kCtaThreads, kWarpsPerCta, n);
-  kernel<<<grid, kCtaThreads, 0, st>>>(
+  const int grid = bm::resident_grid(block_counts_kernel, kCtaThreads,
+                                     kWarpsPerCta, n);
+  block_counts_kernel<<<grid, kCtaThreads, 0, st>>>(
       static_cast<const uint4*>(pool), n, static_cast<int32_t*>(out),
       static_cast<unsigned long long*>(total));
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// out: int32[n] per-block counts or null; total: one int64, zeroed here on
-// the stream and then summed into, or null; not both null.  Returns the
-// CUDA error of the launch (0 = launched).  n >= 1.
-extern "C" int bm_block_counts(const void* pool, int n, void* out,
-                               void* total, void* stream) {
-  return launch<false, false>(pool, n, out, total, stream);
-}
-
-// Variants beside the half-row ring, to compare them on the card:
-// 1 = the whole-row ring (16 loads at once, the next row prefetched),
-// 2 = the half-row ring with evict-first loads.
-extern "C" int bm_block_counts_variant(const void* pool, int n, void* out,
-                                       void* total, int variant,
-                                       void* stream) {
-  if (variant == 1) return launch<true, false>(pool, n, out, total, stream);
-  return launch<false, true>(pool, n, out, total, stream);
 }

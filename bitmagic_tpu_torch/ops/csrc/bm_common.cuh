@@ -82,18 +82,24 @@ __device__ __forceinline__ uint32_t popc4(uint4 v) {
 constexpr int kLaneVec = kBlockVec / 32;              // 16
 constexpr int kHalfVec = kLaneVec / 2;                // 8
 
+// A 16-byte load that allocates no L1 line: rows are read once, and a
+// warp that keeps a whole row in flight would otherwise hold L1 lines for
+// all of it (ld.global.nc.L1::no_allocate).
+__device__ __forceinline__ uint4 load_once(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
 // Loads of half h (0 or 1) of a row into v (s is uniform in the warp).
-// kStream: evict-first loads (ld.global.cs), which replace each other in
-// L2 before they replace other lines.
-template <bool kStream = false>
 __device__ __forceinline__ void load_half(uint4 (&v)[kHalfVec],
                                           const RowSrc& s, int h, int lane) {
   if (s.ptr != nullptr) {
     const uint4* p = s.ptr + h * kHalfVec * 32 + lane;
 #pragma unroll
-    for (int j = 0; j < kHalfVec; ++j) {
-      v[j] = kStream ? __ldcs(p + j * 32) : __ldg(p + j * 32);
-    }
+    for (int j = 0; j < kHalfVec; ++j) v[j] = load_once(p + j * 32);
   } else {
 #pragma unroll
     for (int j = 0; j < kHalfVec; ++j) {

@@ -12,83 +12,87 @@
 // slot of each operand) in one round trip and shuffles broadcast them, so
 // the branch on each source is uniform in the warp; each lane then issues
 // both halves of both operands (32 16-byte loads, the block's 16 KiB in
-// flight) before its first popcount.  With more blocks than resident warps
-// a warp strides over blocks: the next block's descriptor words are read
-// while the current block streams, and each half of the next block is
-// issued as soon as the same half of the current one is counted.
+// flight, no L1 lines allocated) before its first popcount.  With more
+// blocks than resident warps a warp strides over blocks: the next block's
+// descriptor words are read while the current block streams, and each half
+// of the next block is issued as soon as the same half of the current one
+// is counted.
 //
-// Popcounts: `want` names the metrics counted directly (codes of
-// setops.py:25-36).  The caller (cuda_kernels.count_plan) asks for the
-// requested metrics themselves or, when fewer, for the base counts |a&b|,
-// |a| and |b| they need; the others follow exactly per block in 32 bits
+// Popcounts: the caller (blockops.count_plan) names at most three metrics
+// to count (codes of setops.py:25-36): the requested metrics themselves
+// or, when fewer, the base counts |a&b|, |a| and |b| they follow from.
+// Each requested metric is then a combination of the counted ones with
+// small integer coefficients (the recipe), exact per block in 32 bits
 // (counts <= 65536): or = a + b - and, xor = a + b - 2 and, sub_ab = a -
 // and, sub_ba = b - and.  So the seven metrics of distance_operation take
-// three popcounts per word pair, count_and one.
+// three popcounts per word pair and count_and one; the kernel is
+// instantiated for one, two and three counted metrics, so only their
+// counters occupy registers.
 #include "bm_common.cuh"
 
 namespace {
 
+constexpr int kMaxCounted = 3;
 constexpr int kMetrics = 7;
 constexpr int kWarpsPerCta = 4;
 constexpr int kCtaThreads = 32 * kWarpsPerCta;
-constexpr uint32_t kAnd = 0, kA = 5, kB = 6;
 
 // metric codes: the index in blockops.METRICS
-__device__ __forceinline__ uint4 metric(int c, uint4 a, uint4 b) {
-  switch (c) {
-    case 0: return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-    case 1: return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
-    case 2: return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
-    case 3: return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z,
-                              a.w & ~b.w);
-    case 4: return make_uint4(b.x & ~a.x, b.y & ~a.y, b.z & ~a.z,
-                              b.w & ~a.w);
-    case 5: return a;
-    default: return b;
+template <int C>
+__device__ __forceinline__ uint32_t metric_popc(uint4 a, uint4 b) {
+  if constexpr (C == 0) {
+    return bm::popc4(make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w));
+  } else if constexpr (C == 1) {
+    return bm::popc4(make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w));
+  } else if constexpr (C == 2) {
+    return bm::popc4(make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w));
+  } else if constexpr (C == 3) {
+    return bm::popc4(
+        make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w));
+  } else if constexpr (C == 4) {
+    return bm::popc4(
+        make_uint4(b.x & ~a.x, b.y & ~a.y, b.z & ~a.z, b.w & ~a.w));
+  } else if constexpr (C == 5) {
+    return bm::popc4(a);
+  } else {
+    return bm::popc4(b);
   }
 }
 
+template <int C>
+__device__ __forceinline__ uint32_t half_popc(const uint4 (&x)[bm::kHalfVec],
+                                              const uint4 (&y)[bm::kHalfVec]) {
+  uint32_t c = 0u;
+#pragma unroll
+  for (int j = 0; j < bm::kHalfVec; ++j) c += metric_popc<C>(x[j], y[j]);
+  return c;
+}
+
+// Adds half a row's popcounts of the N counted metrics (codes 3 bits each
+// in `counted`); the branch on a code is uniform and outside the loads.
+template <int N>
 __device__ __forceinline__ void count_half(const uint4 (&x)[bm::kHalfVec],
                                            const uint4 (&y)[bm::kHalfVec],
-                                           uint32_t want,
-                                           uint32_t (&cnt)[kMetrics]) {
+                                           uint32_t counted,
+                                           uint32_t (&cnt)[N]) {
 #pragma unroll
-  for (int j = 0; j < bm::kHalfVec; ++j) {
-#pragma unroll
-    for (int c = 0; c < kMetrics; ++c) {
-      if (want & (1u << c)) cnt[c] += bm::popc4(metric(c, x[j], y[j]));
+  for (int s = 0; s < N; ++s) {
+    switch ((counted >> (3 * s)) & 7u) {
+      case 0: cnt[s] += half_popc<0>(x, y); break;
+      case 1: cnt[s] += half_popc<1>(x, y); break;
+      case 2: cnt[s] += half_popc<2>(x, y); break;
+      case 3: cnt[s] += half_popc<3>(x, y); break;
+      case 4: cnt[s] += half_popc<4>(x, y); break;
+      case 5: cnt[s] += half_popc<5>(x, y); break;
+      default: cnt[s] += half_popc<6>(x, y); break;
     }
   }
 }
 
-// The block's count of metric c from the warp sums s of the counted
-// metrics: counted directly, or derived from |a&b|, |a| and |b|.
-__device__ __forceinline__ uint32_t metric_count(
-    uint32_t c, uint32_t want, const uint32_t (&s)[kMetrics]) {
-  if (want & (1u << c)) {
-    switch (c) {
-      case 0: return s[0];
-      case 1: return s[1];
-      case 2: return s[2];
-      case 3: return s[3];
-      case 4: return s[4];
-      case 5: return s[5];
-      default: return s[6];
-    }
-  }
-  const uint32_t n = s[kAnd], x = s[kA], y = s[kB];
-  switch (c) {
-    case 1: return x + y - 2u * n;
-    case 2: return x + y - n;
-    case 3: return x - n;
-    default: return y - n;
-  }
-}
-
-template <bool kStream>
-__global__ void __launch_bounds__(kCtaThreads, 3)
-count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t codes,
-                     int n_metrics, uint32_t want, int k,
+template <int N>
+__global__ void __launch_bounds__(kCtaThreads)
+count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t counted,
+                     int n_metrics, unsigned long long recipe, int k,
                      int32_t* __restrict__ out,
                      unsigned long long* __restrict__ total) {
   const int lane = threadIdx.x & 31;
@@ -99,44 +103,46 @@ count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t codes,
   bm::warp_sources(a, b, bm::desc_word(a, b, i, lane), sa, sb);
   uint4 a0[bm::kHalfVec], b0[bm::kHalfVec], a1[bm::kHalfVec],
       b1[bm::kHalfVec];
-  bm::load_half<kStream>(a0, sa, 0, lane);
-  bm::load_half<kStream>(b0, sb, 0, lane);
-  bm::load_half<kStream>(a1, sa, 1, lane);
-  bm::load_half<kStream>(b1, sb, 1, lane);
+  bm::load_half(a0, sa, 0, lane);
+  bm::load_half(b0, sb, 0, lane);
+  bm::load_half(a1, sa, 1, lane);
+  bm::load_half(b1, sb, 1, lane);
   // the next block's descriptor word, read while this block streams
   int w = i + stride < k ? bm::desc_word(a, b, i + stride, lane) : 0;
-  // lane j < n_metrics: metric j's code and its running total
-  const uint32_t code = (codes >> (3 * (lane < n_metrics ? lane : 0))) & 7u;
+  // lane j < n_metrics computes metric j: its coefficients over the
+  // counted metrics (3 bits each, biased by 4), and its running total
+  const uint32_t coef = lane < n_metrics
+      ? static_cast<uint32_t>(recipe >> (9 * lane)) & 0x1FFu : 0u;
   unsigned long long sum = 0ull;
   for (;;) {
     const int next = i + stride;
     const bool more = next < k;
     bm::RowSrc na = sa, nb = sb;
     if (more) bm::warp_sources(a, b, w, na, nb);
-    uint32_t cnt[kMetrics] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
-    count_half(a0, b0, want, cnt);
+    uint32_t cnt[N];
+#pragma unroll
+    for (int s = 0; s < N; ++s) cnt[s] = 0u;
+    count_half(a0, b0, counted, cnt);
     if (more) {
-      bm::load_half<kStream>(a0, na, 0, lane);
-      bm::load_half<kStream>(b0, nb, 0, lane);
+      bm::load_half(a0, na, 0, lane);
+      bm::load_half(b0, nb, 0, lane);
     }
-    count_half(a1, b1, want, cnt);
+    count_half(a1, b1, counted, cnt);
     if (more) {
-      bm::load_half<kStream>(a1, na, 1, lane);
-      bm::load_half<kStream>(b1, nb, 1, lane);
+      bm::load_half(a1, na, 1, lane);
+      bm::load_half(b1, nb, 1, lane);
       if (next + stride < k) w = bm::desc_word(a, b, next + stride, lane);
     }
-    uint32_t s[kMetrics];
+    int32_t v = 0;
 #pragma unroll
-    for (int c = 0; c < kMetrics; ++c) {
-      s[c] = (want & (1u << c)) ? __reduce_add_sync(0xFFFFFFFFu, cnt[c])
-                                : 0u;
+    for (int s = 0; s < N; ++s) {
+      const int32_t c = static_cast<int32_t>(
+          __reduce_add_sync(0xFFFFFFFFu, cnt[s]));
+      v += (static_cast<int32_t>((coef >> (3 * s)) & 7u) - 4) * c;
     }
     if (lane < n_metrics) {
-      const uint32_t v = metric_count(code, want, s);
-      if (out != nullptr) {
-        out[static_cast<size_t>(lane) * k + i] = static_cast<int32_t>(v);
-      }
-      sum += v;
+      if (out != nullptr) out[static_cast<size_t>(lane) * k + i] = v;
+      sum += static_cast<unsigned long long>(v);
     }
     if (!more) break;
     i = next;
@@ -146,24 +152,37 @@ count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t codes,
   if (total != nullptr && lane < n_metrics) atomicAdd(total + lane, sum);
 }
 
-// codes: n_metrics metric codes, 3 bits each (metric j at bits 3j..3j+2);
-// want: bit c set for each metric counted directly (every requested metric
-// is counted or derivable from the counted |a&b|, |a| and |b|).  out:
-// int32[n_metrics, k] or null; total: int64[n_metrics], zeroed here on the
-// stream and then summed into, or null; not both null.  Returns the CUDA
-// error of the launch (0 = launched).  k >= 1.
-template <bool kStream>
-int launch(
+template <int N>
+void launch(const bm::Operand& a, const bm::Operand& b, uint32_t counted,
+            int n_metrics, unsigned long long recipe, int k, int32_t* out,
+            unsigned long long* total, cudaStream_t st) {
+  const int grid = bm::resident_grid(count_metrics_kernel<N>, kCtaThreads,
+                                     kWarpsPerCta, k);
+  count_metrics_kernel<N><<<grid, kCtaThreads, 0, st>>>(
+      a, b, counted, n_metrics, recipe, k, out, total);
+}
+
+}  // namespace
+
+// counted: the codes of the n_counted (1..3) metrics popcounted, 3 bits
+// each (metric s at bits 3s..3s+2); recipe: for each output metric j <
+// n_metrics (1..7), its coefficients over the counted metrics, 3 bits each
+// biased by 4, at bits 9j + 3s.  out: int32[n_metrics, k] or null; total:
+// int64[n_metrics], zeroed here on the stream and then summed into, or
+// null; not both null.  Returns the CUDA error of the launch (0 =
+// launched).  k >= 1.
+extern "C" int bm_count_metrics(
     const void* a_pool, int a_pool_rows, const void* a_slot,
     const void* a_full, const void* a_aux, int a_aux_rows,
     const void* a_aux_slot,
     const void* b_pool, int b_pool_rows, const void* b_slot,
     const void* b_full, const void* b_aux, int b_aux_rows,
     const void* b_aux_slot,
-    int codes, int n_metrics, int want, int k, void* out, void* total,
-    void* stream) {
-  if (k <= 0 || n_metrics < 1 || n_metrics > kMetrics || want <= 0 ||
-      want >= (1 << kMetrics) || (out == nullptr && total == nullptr)) {
+    int n_counted, int counted, int n_metrics, unsigned long long recipe,
+    int k, void* out, void* total, void* stream) {
+  if (k <= 0 || n_counted < 1 || n_counted > kMaxCounted ||
+      n_metrics < 1 || n_metrics > kMetrics ||
+      (out == nullptr && total == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -181,34 +200,15 @@ int launch(
                       static_cast<const uint8_t*>(b_full),
                       static_cast<const uint4*>(b_aux), b_aux_rows,
                       static_cast<const int32_t*>(b_aux_slot)};
-  const auto kernel = count_metrics_kernel<kStream>;
-  const int grid = bm::resident_grid(kernel, kCtaThreads, kWarpsPerCta, k);
-  kernel<<<grid, kCtaThreads, 0, st>>>(
-      a, b, static_cast<uint32_t>(codes), n_metrics,
-      static_cast<uint32_t>(want), k, static_cast<int32_t*>(out),
-      static_cast<unsigned long long*>(total));
+  const uint32_t c = static_cast<uint32_t>(counted);
+  int32_t* o = static_cast<int32_t*>(out);
+  auto* t = static_cast<unsigned long long*>(total);
+  if (n_counted == 1) {
+    launch<1>(a, b, c, n_metrics, recipe, k, o, t, st);
+  } else if (n_counted == 2) {
+    launch<2>(a, b, c, n_metrics, recipe, k, o, t, st);
+  } else {
+    launch<3>(a, b, c, n_metrics, recipe, k, o, t, st);
+  }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-#define BM_K2_ARGS                                                          \
-  const void* a_pool, int a_pool_rows, const void* a_slot,                 \
-      const void* a_full, const void* a_aux, int a_aux_rows,               \
-      const void* a_aux_slot, const void* b_pool, int b_pool_rows,         \
-      const void* b_slot, const void* b_full, const void* b_aux,           \
-      int b_aux_rows, const void* b_aux_slot, int codes, int n_metrics,    \
-      int want, int k, void* out, void* total, void* stream
-#define BM_K2_PASS                                                          \
-  a_pool, a_pool_rows, a_slot, a_full, a_aux, a_aux_rows, a_aux_slot,      \
-      b_pool, b_pool_rows, b_slot, b_full, b_aux, b_aux_rows, b_aux_slot,  \
-      codes, n_metrics, want, k, out, total, stream
-
-extern "C" int bm_count_metrics(BM_K2_ARGS) {
-  return launch<false>(BM_K2_PASS);
-}
-
-// The same with evict-first loads, to compare the two on the card.
-extern "C" int bm_count_metrics_stream(BM_K2_ARGS) {
-  return launch<true>(BM_K2_PASS);
 }

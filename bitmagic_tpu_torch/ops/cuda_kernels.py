@@ -59,14 +59,10 @@ PIPELINE_REG_PLANES = 72
 
 _SIGNATURES = {
     "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP, _VP]),
-    "bm_block_counts_variant": ("block_counts.cu",
-                                [_VP, _INT, _VP, _VP, _INT, _VP]),
     "bm_count_metrics": ("count_op.cu",
                          _OPERAND + _OPERAND
-                         + [_INT, _INT, _INT, _INT, _VP, _VP, _VP]),
-    "bm_count_metrics_stream": ("count_op.cu",
-                                _OPERAND + _OPERAND
-                                + [_INT, _INT, _INT, _INT, _VP, _VP, _VP]),
+                         + [_INT, _INT, _INT, ctypes.c_ulonglong, _INT,
+                            _VP, _VP, _VP]),
     "bm_logical_op_digest": ("logical_op_digest.cu",
                              [_INT] + _OPERAND + _OPERAND
                              + [_INT, _VP, _VP, _VP]),
@@ -192,21 +188,26 @@ def block_counts_total(pool, per_block=False):
 # ---------------------------------------------------------------------------
 # K2: per-block popcount of a OP b / multi-metric, result rows not written
 # ---------------------------------------------------------------------------
-def _metric_codes(metrics):
+def count_args(metrics):
+    """K2's metric arguments for ``metrics``: ``(n_counted, counted codes,
+    n_metrics, recipe)`` of count_op.cu from ``blockops.count_plan``."""
     if not 1 <= len(metrics) <= len(blockops.METRICS):
         raise ValueError(f"between 1 and {len(blockops.METRICS)} metrics")
+    counted, coefs = blockops.count_plan(metrics)
     codes = 0
-    for j, m in enumerate(metrics):
-        codes |= blockops.METRICS.index(m) << (3 * j)
-    return codes
+    for s, m in enumerate(counted):
+        codes |= blockops.METRICS.index(m) << (3 * s)
+    recipe = 0
+    for j, row in enumerate(coefs):
+        for s, c in enumerate(row):
+            recipe |= (c + 4) << (9 * j + 3 * s)
+    return len(counted), codes, len(metrics), recipe
 
 
 def _count_launch(metrics, a_args, b_args, k, device, per_block=True,
                   total=False):
     """-> (int64[m] totals or None, int32[m, k] per-block counts or None)."""
-    codes = _metric_codes(metrics)
-    want = sum(1 << blockops.METRICS.index(m)
-               for m in blockops.count_plan(metrics))
+    args = count_args(metrics)
     m = len(metrics)
     out = torch.empty((m, k), dtype=_I32, device=device) if per_block \
         else None
@@ -214,7 +215,7 @@ def _count_launch(metrics, a_args, b_args, k, device, per_block=True,
     tot = torch.empty(m, dtype=_I64, device=device) if total else None
     if k:
         _launch("bm_count_metrics", "count_op", device, *a_args, *b_args,
-                codes, m, want, k, _ptr(out), _ptr(tot))
+                *args, k, _ptr(out), _ptr(tot))
     elif total:
         tot.zero_()
     return tot, out

@@ -1012,17 +1012,6 @@ def timings(device, card, cfg1):
                 lambda: ck.block_counts_total(a),
                 lambda: blockops.block_counts_total(a), None,
                 n * row + 8, words)
-        for v, vname in ((1, "whole_rows"), (2, "evict_first")):
-            cases["block_counts", f"{vname}_{n}"] = (
-                _k3_variant(ck, blockops, a, v),
-                lambda: blockops.block_counts(a), None, n * row + n * 4,
-                words)
-        cases["count_op", f"evict_first_{n}"] = (
-            _k2_stream(ck, blockops, ("count_and",), ck._aligned(a, "a"),
-                       ck._aligned(b, "b"), n,
-                       blockops.count_op("and", a, b)[None]),
-            lambda: blockops.count_op("and", a, b), None,
-            2 * n * row + n * 4, words)
         for name, (kern, plain, lib, nbytes, popc) in cases.items():
             key = name if isinstance(name, tuple) else (name, n)
             record(out, key, card, flush, kern, plain, lib, nbytes, 0, popc)
@@ -1046,19 +1035,11 @@ def timings(device, card, cfg1):
     k = da[1].shape[0]
     reads = desc_rows_read(da) + desc_rows_read(db)
     for ms_name, ms in (("7", METRICS), ("1", ("count_and",))):
-        n_popc = len(blockops.count_plan(ms))
+        n_popc = len(blockops.count_plan(ms)[0])
         for form in ("config1_", "total_config1_"):
             per_block = form == "config1_"
             nbytes = (reads * row + 2 * k * 9
                       + (len(ms) * k * 4 if per_block else len(ms) * 8))
-            if per_block:
-                record(out, ("count_op", "evict_first_config1_" + ms_name),
-                       card, flush, _k2_stream(
-                           ck, blockops, ms, ck._operand(da, k, "a"),
-                           ck._operand(db, k, "b"), k,
-                           blockops.count_metrics(ms, da, db)),
-                       lambda ms=ms: blockops.count_metrics(ms, da, db),
-                       None, nbytes, 0, n_popc * k * 2048)
             record(out, ("count_op", form + ms_name), card, flush,
                    (lambda ms=ms: ck.count_metrics(ms, da, db)) if per_block
                    else (lambda ms=ms: ck.count_metrics_total(ms, da, db)),
@@ -1068,41 +1049,6 @@ def timings(device, card, cfg1):
             out["count_op", form + ms_name].update(
                 rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
     return out
-
-
-def _k3_variant(ck, blockops, a, variant):
-    """A variant of K3 on ``a`` (block_counts.cu bm_block_counts_variant:
-    1 = the whole-row ring, 2 = evict-first loads), checked once against
-    the plain version."""
-    res = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
-
-    def run():
-        ck._launch("bm_block_counts_variant", "block_counts", a.device,
-                   ck._ptr(a), a.shape[0], ck._ptr(res), None, variant)
-
-    run()
-    sync()
-    check(torch.equal(res, blockops.block_counts(a)), f"K3 variant {variant}")
-    return run
-
-
-def _k2_stream(ck, blockops, metrics, a_args, b_args, k, want):
-    """K2 with evict-first loads on the C arguments of two operands
-    (per-block form), checked once against ``want``."""
-    res = torch.empty((len(metrics), k), dtype=torch.int32,
-                      device=want.device)
-    mask = sum(1 << blockops.METRICS.index(m)
-               for m in blockops.count_plan(metrics))
-    args = (a_args + b_args + [ck._metric_codes(metrics), len(metrics), mask,
-                               k, ck._ptr(res), None])
-
-    def run():
-        ck._launch("bm_count_metrics_stream", "count_op", want.device, *args)
-
-    run()
-    sync()
-    check(torch.equal(res, want), "K2 evict-first variant")
-    return run
 
 
 def _sweep_reads(rows_by_operand, n_and, slices, group=4):
@@ -1429,13 +1375,9 @@ def main():
     kernels = []
     shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
     shapes["block_counts"] += ("1536_clean_l2", "16384_clean_l2",
-                               "whole_rows_1536", "whole_rows_16384",
-                               "evict_first_1536", "evict_first_16384",
                                "config1_A", "total_1536", "total_config1_A")
-    shapes["count_op"] += ("evict_first_1536", "evict_first_16384",
-                           "config1_7", "config1_1", "total_config1_7",
-                           "total_config1_1", "evict_first_config1_7",
-                           "evict_first_config1_1")
+    shapes["count_op"] += ("config1_7", "config1_1", "total_config1_7",
+                           "total_config1_1")
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"))

@@ -2,9 +2,9 @@
 package, on the CPU.
 
 Kernel K2 popcounts either the requested metrics or the base counts
-|a & b|, |a| and |b| they follow from, whichever are fewer
-(``blockops.count_plan``), and derives the rest per block
-(``blockops.derive_count``); its plain version counts the same way.  The
+|a & b|, |a| and |b| they follow from, whichever are fewer, and combines
+them per block with small integer coefficients (``blockops.count_plan``);
+its plain version counts the same way.  The
 total forms (``block_counts_total``, ``count_metrics_total``) sum the
 per-block counts in int64 in the same launch, and ``BitVector.count()`` and
 ``distance_operation`` take them.  Everything here is held against
@@ -90,19 +90,24 @@ def _tdesc(d):
 # ---------------------------------------------------------------------------
 # the metric plan and its derivation
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("metrics,plan", [
-    (("count_and",), ("count_and",)),
-    (("count_or",), ("count_or",)),
-    (METRICS, ("count_and", "count_a", "count_b")),
-    (("count_sub_ab", "count_sub_ba"), ("count_sub_ab", "count_sub_ba")),
+@pytest.mark.parametrize("metrics,counted,coefs", [
+    (("count_and",), ("count_and",), [[1]]),
+    (("count_or",), ("count_or",), [[1]]),
+    (METRICS, ("count_and", "count_a", "count_b"),
+     [[1, 0, 0], [-2, 1, 1], [-1, 1, 1], [-1, 1, 0], [-1, 0, 1], [0, 1, 0],
+      [0, 0, 1]]),
+    (("count_sub_ab", "count_sub_ba"), ("count_sub_ab", "count_sub_ba"),
+     [[1, 0], [0, 1]]),
     (("count_xor", "count_or", "count_and", "count_sub_ab"),
-     ("count_and", "count_a", "count_b")),
-    (("count_sub_ab", "count_a", "count_and"), ("count_and", "count_a")),
-    (("count_b", "count_and", "count_or"), ("count_and", "count_or",
-                                            "count_b")),
+     ("count_and", "count_a", "count_b"),
+     [[-2, 1, 1], [-1, 1, 1], [1, 0, 0], [-1, 1, 0]]),
+    (("count_sub_ab", "count_a", "count_and"), ("count_and", "count_a"),
+     [[-1, 1], [0, 1], [1, 0]]),
+    (("count_b", "count_and", "count_or"),
+     ("count_and", "count_or", "count_b"), [[0, 0, 1], [1, 0, 0], [0, 1, 0]]),
 ])
-def test_count_plan(metrics, plan):
-    assert tops.count_plan(metrics) == plan
+def test_count_plan(metrics, counted, coefs):
+    assert tops.count_plan(metrics) == (counted, coefs)
 
 
 def test_count_plan_rejects():
@@ -125,8 +130,8 @@ def test_every_subset_vs_metric_kernel(rng, size):
         for combo in itertools.combinations(range(len(METRICS)), size):
             order = rng.permutation(np.asarray(combo))
             ms = tuple(METRICS[j] for j in order)
-            plan = tops.count_plan(ms)
-            assert len(plan) <= min(size, 3)
+            counted, _ = tops.count_plan(ms)
+            assert len(counted) <= min(size, 3)
             np.testing.assert_array_equal(
                 ck.count_metrics(ms, ta, tb).numpy(), want[order])
             for per_block in (False, True):
@@ -140,15 +145,16 @@ def test_every_subset_vs_metric_kernel(rng, size):
                     assert per is None
 
 
-def test_derive_count_from_bases(rng):
-    """Each derived metric from the three base counts equals its direct
-    popcount, on rows of all ones, zeros and random words."""
+def test_count_plan_coefficients_vs_direct_popcounts(rng):
+    """Each metric from its coefficients over the base counts equals its
+    direct popcount, on rows of all ones, zeros and random words."""
     a, b = _t(_pool(rng, 7)), _t(_pool(rng, 7)[::-1].copy())
-    base = {m: tops.block_counts(tops._metric_rows(m, a, b))
-            for m in ("count_and", "count_a", "count_b")}
-    for m in METRICS:
-        assert torch.equal(tops.derive_count(m, base),
-                           tops.block_counts(tops._metric_rows(m, a, b))), m
+    counted, coefs = tops.count_plan(METRICS)
+    base = [tops.block_counts(tops._metric_rows(m, a, b)) for m in counted]
+    for m, row in zip(METRICS, coefs):
+        got = sum(c * n for c, n in zip(row, base))
+        assert torch.equal(got, tops.block_counts(tops._metric_rows(m, a,
+                                                                    b))), m
 
 
 @pytest.mark.parametrize("per_block", [False, True])

@@ -164,7 +164,7 @@ def test_count_op_kernel_regimes(dev, rng, op, n):
 
 def test_count_metrics_every_subset(dev, rng):
     """Every subset of the seven metrics in a random order: counted
-    directly or derived from |a&b|, |a| and |b| (blockops.count_plan)."""
+    directly or combined from |a&b|, |a| and |b| (blockops.count_plan)."""
     da = _desc(rng, _pool(rng, 13, dev), 301, dev, True)
     db = _desc(rng, _pool(rng, 7, dev), 301, dev, False)
     n = 0

@@ -12,6 +12,9 @@
 //       for K3, 8 KiB per operand for K2) signalled on an mbarrier, the
 //       lanes count the stage from shared memory, and lane 0 refills it
 //       with the row R rows on.
+//   group<G, C>: G warps per row, 8 warps per CTA, one row per group and
+//       no grid-stride; a lane loads 16 / G vectors at once, and the G
+//       warp sums meet in shared memory (G = 8 is the shape of PR 1's K3).
 #include "bm_common.cuh"
 
 namespace {
@@ -216,6 +219,42 @@ tma_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
   }
 }
 
+template <int G, int C>
+__global__ void __launch_bounds__(256)
+group_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
+             int32_t* __restrict__ out) {
+  constexpr int kRows = 8 / G;             // rows per CTA
+  constexpr int V = bm::kLaneVec / G;      // vectors per lane
+  __shared__ uint32_t part[8];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int row = blockIdx.x * kRows + w / G;
+  uint32_t c = 0u;
+  if (row < n) {
+    const uint4* p = a + static_cast<size_t>(row) * bm::kBlockVec +
+                     (w % G) * V * 32 + lane;
+    uint4 v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = ld<C>(p + j * 32);
+#pragma unroll
+    for (int j = 0; j < V; ++j) c += bm::popc4(v[j]);
+  }
+  c = __reduce_add_sync(0xFFFFFFFFu, c);
+  if constexpr (G == 1) {
+    if (lane == 0 && row < n) out[row] = static_cast<int32_t>(c);
+  } else {
+    if (lane == 0) part[w] = c;
+    __syncthreads();
+    const int r = blockIdx.x * kRows + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < kRows && r < n) {
+      uint32_t t = 0u;
+#pragma unroll
+      for (int g = 0; g < G; ++g) t += part[threadIdx.x * G + g];
+      out[r] = static_cast<int32_t>(t);
+    }
+  }
+}
+
 template <typename K>
 int launch_grid(K kernel, int threads, int smem, int per_cta, int n,
                 const void* a, const void* b, void* out, void* stream) {
@@ -250,16 +289,22 @@ int tma(const void* a, const void* b, int n, void* out, void* stream) {
                      W * R * NOPS * kRowBytes, W, n, a, b, out, stream);
 }
 
+template <int G, int C>
+int group(const void* a, const void* b, int n, void* out, void* stream) {
+  const int grid = (n + 8 / G - 1) / (8 / G);
+  group_kernel<G, C><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(a), static_cast<const uint4*>(b), n,
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 using Fn = int (*)(const void*, const void*, int, void*, void*);
 
 // the variants, by index: names in tools/count_variants.py
-constexpr Fn kK3[] = {reg<8, 0, 1>, reg<8, 1, 1>, reg<8, 2, 1>, reg<8, 3, 1>,
-                      reg<4, 0, 1>, reg<4, 2, 1>, reg<4, 3, 1>,
-                      tma<2, 4, 1>, tma<3, 4, 1>, tma<4, 4, 1>,
-                      tma<6, 4, 1>};
-constexpr Fn kK2[] = {reg<8, 0, 2>, reg<8, 2, 2>, reg<8, 3, 2>,
-                      reg<4, 0, 2>, reg<4, 2, 2>, reg<4, 3, 2>,
-                      tma<2, 4, 2>, tma<3, 4, 2>, tma<2, 6, 2>};
+constexpr Fn kK3[] = {group<1, 0>, group<2, 0>, group<4, 0>, group<8, 0>,
+                      group<1, 3>, group<2, 3>, group<4, 3>, group<8, 3>,
+                      reg<8, 1, 1>, tma<2, 4, 1>};
+constexpr Fn kK2[] = {reg<8, 3, 2>, reg<4, 3, 2>, tma<2, 4, 2>};
 
 }  // namespace
 

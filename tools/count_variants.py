@@ -36,14 +36,13 @@ from bitmagic_tpu_torch.ops import _build, blockops  # noqa: E402
 from bitmagic_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 
 VP, INT = ctypes.c_void_p, ctypes.c_int
-K3_VARIANTS = ("reg halves ldg", "reg halves ldcs", "reg halves ldcg",
-               "reg halves nc.L1::no_allocate", "reg quarters ldg",
-               "reg quarters ldcg", "reg quarters nc.L1::no_allocate",
-               "tma R2 W4", "tma R3 W4", "tma R4 W4", "tma R6 W4")
-K2_VARIANTS = ("reg halves ldg", "reg halves ldcg",
-               "reg halves nc.L1::no_allocate", "reg quarters ldg",
-               "reg quarters ldcg", "reg quarters nc.L1::no_allocate",
-               "tma R2 W4", "tma R3 W4", "tma R2 W6")
+K3_VARIANTS = ("group G1 ldg", "group G2 ldg", "group G4 ldg",
+               "group G8 ldg", "group G1 nc.L1::no_allocate",
+               "group G2 nc.L1::no_allocate", "group G4 nc.L1::no_allocate",
+               "group G8 nc.L1::no_allocate", "reg halves ldcs",
+               "tma R2 W4")
+K2_VARIANTS = ("reg halves nc.L1::no_allocate",
+               "reg quarters nc.L1::no_allocate", "tma R2 W4")
 
 
 def build_variants():
@@ -100,7 +99,8 @@ def main(argv):
                 if two_ops:
                     ck._launch("bm_count_metrics", "count_op", device,
                                *ck._aligned(a, "a"), *ck._aligned(b, "b"),
-                               0, 1, 1, n, ptr(res), None)
+                               *ck.count_args(("count_and",)), n, ptr(res),
+                               None)
                 else:
                     ck._launch("bm_block_counts", "block_counts", device,
                                ptr(a), n, ptr(res), None)

@@ -103,9 +103,12 @@ def main(argv):
         return old, new
 
     def k2_old(metrics, a_args, b_args, k, total):
-        res = torch.empty((len(metrics), k), dtype=torch.int32, device=device)
-        args = a_args + b_args + [ck._metric_codes(metrics), len(metrics), k,
-                                  ptr(res)]
+        res = torch.empty((len(metrics), k), dtype=torch.int32,
+                          device=device)
+        # that commit's codes: metric j's index in METRICS at bits 3j..
+        codes = sum(cs.METRICS.index(m) << (3 * j)
+                    for j, m in enumerate(metrics))
+        args = a_args + b_args + [codes, len(metrics), k, ptr(res)]
 
         def old():
             cs.check(old_k2(*args, stream) == 0, "old K2 launch")
