@@ -3,55 +3,42 @@
 //
 // Replaces block_counts_pallas (bitmagic_tpu/ops/pallas_kernels.py:146-161,
 // body _popcount_body :140-143).  Bound: the 8 KiB read of each row (the
-// 4-byte count written per row is 1/2048 of that).  Design: one warp per
-// row, the row's bytes in flight before the first popcount.  A lane loads
-// the 16 16-byte vectors it owns (bm_common.cuh kLaneVec) as two halves of
-// eight, all issued before its first __popc and allocating no L1 lines
-// (bm::load_once), and the warp's count is one __reduce_add_sync: no
-// shared memory, no barrier.  The grid is sized to the CTAs the card holds
-// resident (bm::resident_grid), so when the rows fit every row is
-// requested in the first round trip; when they do not, each warp strides
-// over rows and issues the next row's half as soon as it has counted the
-// same half of the current one, so a row stays in flight while the warp
-// reduces.  The total leaves with one 64-bit atomicAdd per warp into a
-// counter the launcher zeroes on the same stream.  The TPU kernel's 8-row
-// tiles and sequential grid become 132 SMs of warps that each own whole
-// rows.
+// 4-byte count written per row is 1/2048 of that).  Design: one CTA of 256
+// threads per row, each thread's two 16-byte loads issued together and
+// allocating no L1 line (bm::load_once), __popc, a warp reduction with
+// __reduce_add_sync and the eight warp sums through shared memory; the
+// total leaves with one 64-bit atomicAdd per row into a counter the
+// launcher zeroes on the same stream, so a count needs no second kernel.
+// The TPU kernel's 8-row tiles and sequential grid become 132 SMs each
+// running many independent one-row CTAs.  A warp per row (its 8 KiB in
+// flight in registers, or in shared memory through cp.async.bulk) measured
+// slower on the H100 at 1024, 1536 and 16384 rows, and the more warps
+// share a row the faster the kernel ran (PERF.md, PR 4).
 #include "bm_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerCta = 4;
-constexpr int kCtaThreads = 32 * kWarpsPerCta;
-
-__global__ void __launch_bounds__(kCtaThreads)
-block_counts_kernel(const uint4* __restrict__ pool, int n,
-                    int32_t* __restrict__ out,
+__global__ void __launch_bounds__(bm::kThreads)
+block_counts_kernel(const uint4* __restrict__ pool, int32_t* __restrict__ out,
                     unsigned long long* __restrict__ total) {
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kWarpsPerCta;
-  int row = blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
-  if (row >= n) return;
-  bm::RowSrc s{pool + static_cast<size_t>(row) * bm::kBlockVec, 0u};
-  uint4 h0[bm::kHalfVec], h1[bm::kHalfVec];
-  bm::load_half(h0, s, 0, lane);
-  bm::load_half(h1, s, 1, lane);
-  unsigned long long sum = 0ull;
-  for (;;) {
-    const int next = row + stride;
-    const bool more = next < n;
-    s.ptr = pool + static_cast<size_t>(more ? next : row) * bm::kBlockVec;
-    uint32_t c = bm::popc_half(h0);
-    if (more) bm::load_half(h0, s, 0, lane);
-    c += bm::popc_half(h1);
-    if (more) bm::load_half(h1, s, 1, lane);
-    c = __reduce_add_sync(0xFFFFFFFFu, c);
-    if (out != nullptr && lane == 0) out[row] = static_cast<int32_t>(c);
-    sum += c;
-    if (!more) break;
-    row = next;
+  const bm::RowSrc s{pool + static_cast<size_t>(blockIdx.x) * bm::kBlockVec,
+                     0u};
+  uint4 v[bm::kVecPerThread];
+  bm::load_row(v, s);
+  uint32_t c = 0u;
+#pragma unroll
+  for (int j = 0; j < bm::kVecPerThread; ++j) c += bm::popc4(v[j]);
+  c = __reduce_add_sync(0xFFFFFFFFu, c);
+  __shared__ uint32_t part[bm::kWarps];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t t = 0u;
+#pragma unroll
+    for (int w = 0; w < bm::kWarps; ++w) t += part[w];
+    if (out != nullptr) out[blockIdx.x] = static_cast<int32_t>(t);
+    if (total != nullptr) atomicAdd(total, static_cast<unsigned long long>(t));
   }
-  if (total != nullptr && lane == 0) atomicAdd(total, sum);
 }
 
 }  // namespace
@@ -69,10 +56,8 @@ extern "C" int bm_block_counts(const void* pool, int n, void* out,
     const cudaError_t e = cudaMemsetAsync(total, 0, 8, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int grid = bm::resident_grid(block_counts_kernel, kCtaThreads,
-                                     kWarpsPerCta, n);
-  block_counts_kernel<<<grid, kCtaThreads, 0, st>>>(
-      static_cast<const uint4*>(pool), n, static_cast<int32_t*>(out),
+  block_counts_kernel<<<n, bm::kThreads, 0, st>>>(
+      static_cast<const uint4*>(pool), static_cast<int32_t*>(out),
       static_cast<unsigned long long*>(total));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,12 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a).
 //
-// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1 and
-// B6 give one CTA of 256 threads to one row: each thread moves two 16-byte
-// vectors, neighbouring threads on neighbouring addresses, so a warp's load
-// is 512 contiguous bytes.  K2 and K3 give one warp to a row (RowLanes
-// below).  All of them read each input byte once and write each output
-// byte once; they are bound by device memory bandwidth, not by the
-// popcount / logic instructions.  B4 and B5 cut rows differently
-// (agg_sub.cu, pipeline_counts.cu).
+// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1-K3
+// and B6 give one CTA of 256 threads to one row: each thread moves two
+// 16-byte vectors, neighbouring threads on neighbouring addresses, so a
+// warp's load is 512 contiguous bytes.  They read each input byte once and
+// write each output byte once; they are bound by device memory bandwidth,
+// not by the popcount / logic instructions.  B4 and B5 cut rows
+// differently (agg_sub.cu, pipeline_counts.cu).
 //
 // Words arrive as the int32 storage of PyTorch tensors and are treated as
 // uint32_t: the bits are the reference's uint32 words.
@@ -76,15 +75,9 @@ __device__ __forceinline__ uint32_t popc4(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
 
-// A warp's share of a row: lane l holds vectors l, l + 32, ..., l + 480,
-// so each warp-wide load is 512 contiguous bytes; a row is two halves of
-// kHalfVec vectors per lane.
-constexpr int kLaneVec = kBlockVec / 32;              // 16
-constexpr int kHalfVec = kLaneVec / 2;                // 8
-
-// A 16-byte load that allocates no L1 line: rows are read once, and a
-// warp that keeps a whole row in flight would otherwise hold L1 lines for
-// all of it (ld.global.nc.L1::no_allocate).
+// A 16-byte load that allocates no L1 line (ld.global.nc.L1::no_allocate):
+// K2 and K3 read each row once, and on the card these loads beat __ldg at
+// every row count measured (PERF.md, PR 4).
 __device__ __forceinline__ uint4 load_once(const uint4* p) {
   uint4 v;
   asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
@@ -93,26 +86,20 @@ __device__ __forceinline__ uint4 load_once(const uint4* p) {
   return v;
 }
 
-// Loads of half h (0 or 1) of a row into v (s is uniform in the warp).
-__device__ __forceinline__ void load_half(uint4 (&v)[kHalfVec],
-                                          const RowSrc& s, int h, int lane) {
+// This thread's kVecPerThread vectors of a row (s is uniform in the CTA).
+__device__ __forceinline__ void load_row(uint4 (&v)[kVecPerThread],
+                                         const RowSrc& s) {
   if (s.ptr != nullptr) {
-    const uint4* p = s.ptr + h * kHalfVec * 32 + lane;
 #pragma unroll
-    for (int j = 0; j < kHalfVec; ++j) v[j] = load_once(p + j * 32);
+    for (int j = 0; j < kVecPerThread; ++j) {
+      v[j] = load_once(s.ptr + threadIdx.x + j * kThreads);
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < kHalfVec; ++j) {
+    for (int j = 0; j < kVecPerThread; ++j) {
       v[j] = make_uint4(s.fill, s.fill, s.fill, s.fill);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t popc_half(const uint4 (&v)[kHalfVec]) {
-  uint32_t c = 0u;
-#pragma unroll
-  for (int j = 0; j < kHalfVec; ++j) c += popc4(v[j]);
-  return c;
 }
 
 // The source of a row from its three descriptor words (see resolve): the
@@ -132,7 +119,8 @@ __device__ __forceinline__ RowSrc row_source(const Operand& o, int ar,
 
 // One descriptor word of row i for a warp that resolves two operands:
 // lanes 0-2 read a's aux slot, FULL flag and pool slot, lanes 3-5 b's, so
-// the six reads are one round trip; warp_sources broadcasts them.
+// the six reads are one round trip of six loads (resolve has every thread
+// load all three); warp_sources broadcasts them.
 __device__ __forceinline__ int desc_word(const Operand& a, const Operand& b,
                                          int i, int lane) {
   const bool is_a = lane < 3;
@@ -155,28 +143,6 @@ __device__ __forceinline__ void warp_sources(const Operand& a,
                   __shfl_sync(all, w, 2));
   sb = row_source(b, __shfl_sync(all, w, 3), __shfl_sync(all, w, 4),
                   __shfl_sync(all, w, 5));
-}
-
-// Grid of a grid-stride launch of `kernel` (`threads` per CTA, `per_cta`
-// rows per CTA) over n rows: one CTA per per_cta rows while they fit in
-// the CTAs the card holds resident at once, else exactly those (cached per
-// device), so every row is requested in the first round trip when it can
-// be.
-template <typename Kernel>
-inline int resident_grid(Kernel kernel, int threads, int per_cta, int n) {
-  static int resident[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& cap = resident[dev & 63];
-  if (cap == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                  0);
-    cap = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int need = (n + per_cta - 1) / per_cta;
-  return need < cap ? need : cap;
 }
 
 }  // namespace bm

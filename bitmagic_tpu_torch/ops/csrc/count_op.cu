@@ -6,17 +6,16 @@
 // distance_operation runs.  The result rows are never written: the output
 // is the per-block counts int32[n_metrics, k], their int64 totals
 // int64[n_metrics], or both.  Bound: reading both operands' 8 KiB rows
-// (rows that are FULL or absent are not read at all).  Design: one warp per
-// aligned block, K3's shape for two operands (block_counts.cu).  Lanes 0-5
-// read the six descriptor words of the block (aux slot, FULL flag, pool
-// slot of each operand) in one round trip and shuffles broadcast them, so
-// the branch on each source is uniform in the warp; each lane then issues
-// both halves of both operands (32 16-byte loads, the block's 16 KiB in
-// flight, no L1 lines allocated) before its first popcount.  With more
-// blocks than resident warps a warp strides over blocks: the next block's
-// descriptor words are read while the current block streams, and each half
-// of the next block is issued as soon as the same half of the current one
-// is counted.
+// (rows that are FULL or absent are not read at all).  Design: one CTA of
+// 256 threads per aligned block, K3's shape for two operands
+// (block_counts.cu).  In each warp, lanes 0-5 read the six descriptor words
+// of the block (aux slot, FULL flag, pool slot of each operand) in one
+// round trip and shuffles broadcast them, so the branch on each source is
+// uniform; each thread then issues its two 16-byte loads of each operand
+// together, allocating no L1 line.  The counted metrics are reduced per
+// warp with __reduce_add_sync and across the eight warps through shared
+// memory; the totals leave with one 64-bit atomicAdd per block and metric
+// into counters the launcher zeroes on the same stream.
 //
 // Popcounts: the caller (blockops.count_plan) names at most three metrics
 // to count (codes of setops.py:25-36): the requested metrics themselves
@@ -34,8 +33,6 @@ namespace {
 
 constexpr int kMaxCounted = 3;
 constexpr int kMetrics = 7;
-constexpr int kWarpsPerCta = 4;
-constexpr int kCtaThreads = 32 * kWarpsPerCta;
 
 // metric codes: the index in blockops.METRICS
 template <int C>
@@ -60,105 +57,82 @@ __device__ __forceinline__ uint32_t metric_popc(uint4 a, uint4 b) {
 }
 
 template <int C>
-__device__ __forceinline__ uint32_t half_popc(const uint4 (&x)[bm::kHalfVec],
-                                              const uint4 (&y)[bm::kHalfVec]) {
+__device__ __forceinline__ uint32_t row_popc(
+    const uint4 (&x)[bm::kVecPerThread], const uint4 (&y)[bm::kVecPerThread]) {
   uint32_t c = 0u;
 #pragma unroll
-  for (int j = 0; j < bm::kHalfVec; ++j) c += metric_popc<C>(x[j], y[j]);
+  for (int j = 0; j < bm::kVecPerThread; ++j) c += metric_popc<C>(x[j], y[j]);
   return c;
 }
 
-// Adds half a row's popcounts of the N counted metrics (codes 3 bits each
-// in `counted`); the branch on a code is uniform and outside the loads.
+// This thread's popcounts of the N counted metrics (codes 3 bits each in
+// `counted`); the branch on a code is uniform and outside the words.
 template <int N>
-__device__ __forceinline__ void count_half(const uint4 (&x)[bm::kHalfVec],
-                                           const uint4 (&y)[bm::kHalfVec],
-                                           uint32_t counted,
-                                           uint32_t (&cnt)[N]) {
+__device__ __forceinline__ void count_row(
+    const uint4 (&x)[bm::kVecPerThread], const uint4 (&y)[bm::kVecPerThread],
+    uint32_t counted, uint32_t (&cnt)[N]) {
 #pragma unroll
   for (int s = 0; s < N; ++s) {
     switch ((counted >> (3 * s)) & 7u) {
-      case 0: cnt[s] += half_popc<0>(x, y); break;
-      case 1: cnt[s] += half_popc<1>(x, y); break;
-      case 2: cnt[s] += half_popc<2>(x, y); break;
-      case 3: cnt[s] += half_popc<3>(x, y); break;
-      case 4: cnt[s] += half_popc<4>(x, y); break;
-      case 5: cnt[s] += half_popc<5>(x, y); break;
-      default: cnt[s] += half_popc<6>(x, y); break;
+      case 0: cnt[s] = row_popc<0>(x, y); break;
+      case 1: cnt[s] = row_popc<1>(x, y); break;
+      case 2: cnt[s] = row_popc<2>(x, y); break;
+      case 3: cnt[s] = row_popc<3>(x, y); break;
+      case 4: cnt[s] = row_popc<4>(x, y); break;
+      case 5: cnt[s] = row_popc<5>(x, y); break;
+      default: cnt[s] = row_popc<6>(x, y); break;
     }
   }
 }
 
 template <int N>
-__global__ void __launch_bounds__(kCtaThreads)
+__global__ void __launch_bounds__(bm::kThreads)
 count_metrics_kernel(bm::Operand a, bm::Operand b, uint32_t counted,
                      int n_metrics, unsigned long long recipe, int k,
                      int32_t* __restrict__ out,
                      unsigned long long* __restrict__ total) {
+  const int i = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kWarpsPerCta;
-  int i = blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
-  if (i >= k) return;
   bm::RowSrc sa, sb;
   bm::warp_sources(a, b, bm::desc_word(a, b, i, lane), sa, sb);
-  uint4 a0[bm::kHalfVec], b0[bm::kHalfVec], a1[bm::kHalfVec],
-      b1[bm::kHalfVec];
-  bm::load_half(a0, sa, 0, lane);
-  bm::load_half(b0, sb, 0, lane);
-  bm::load_half(a1, sa, 1, lane);
-  bm::load_half(b1, sb, 1, lane);
-  // the next block's descriptor word, read while this block streams
-  int w = i + stride < k ? bm::desc_word(a, b, i + stride, lane) : 0;
-  // lane j < n_metrics computes metric j: its coefficients over the
-  // counted metrics (3 bits each, biased by 4), and its running total
-  const uint32_t coef = lane < n_metrics
-      ? static_cast<uint32_t>(recipe >> (9 * lane)) & 0x1FFu : 0u;
-  unsigned long long sum = 0ull;
-  for (;;) {
-    const int next = i + stride;
-    const bool more = next < k;
-    bm::RowSrc na = sa, nb = sb;
-    if (more) bm::warp_sources(a, b, w, na, nb);
-    uint32_t cnt[N];
+  uint4 x[bm::kVecPerThread], y[bm::kVecPerThread];
+  bm::load_row(x, sa);
+  bm::load_row(y, sb);
+  uint32_t cnt[N];
+  count_row(x, y, counted, cnt);
+  __shared__ uint32_t part[bm::kWarps][N];
 #pragma unroll
-    for (int s = 0; s < N; ++s) cnt[s] = 0u;
-    count_half(a0, b0, counted, cnt);
-    if (more) {
-      bm::load_half(a0, na, 0, lane);
-      bm::load_half(b0, nb, 0, lane);
-    }
-    count_half(a1, b1, counted, cnt);
-    if (more) {
-      bm::load_half(a1, na, 1, lane);
-      bm::load_half(b1, nb, 1, lane);
-      if (next + stride < k) w = bm::desc_word(a, b, next + stride, lane);
-    }
+  for (int s = 0; s < N; ++s) {
+    const uint32_t c = __reduce_add_sync(0xFFFFFFFFu, cnt[s]);
+    if (lane == 0) part[threadIdx.x >> 5][s] = c;
+  }
+  __syncthreads();
+  const int j = static_cast<int>(threadIdx.x);
+  if (j < n_metrics) {
+    // metric j: its coefficients over the counted metrics, 3 bits each
+    // biased by 4
+    const uint32_t coef = static_cast<uint32_t>(recipe >> (9 * j)) & 0x1FFu;
     int32_t v = 0;
 #pragma unroll
     for (int s = 0; s < N; ++s) {
-      const int32_t c = static_cast<int32_t>(
-          __reduce_add_sync(0xFFFFFFFFu, cnt[s]));
-      v += (static_cast<int32_t>((coef >> (3 * s)) & 7u) - 4) * c;
+      uint32_t t = 0u;
+#pragma unroll
+      for (int w = 0; w < bm::kWarps; ++w) t += part[w][s];
+      v += (static_cast<int32_t>((coef >> (3 * s)) & 7u) - 4) *
+           static_cast<int32_t>(t);
     }
-    if (lane < n_metrics) {
-      if (out != nullptr) out[static_cast<size_t>(lane) * k + i] = v;
-      sum += static_cast<unsigned long long>(v);
+    if (out != nullptr) out[static_cast<size_t>(j) * k + i] = v;
+    if (total != nullptr) {
+      atomicAdd(total + j, static_cast<unsigned long long>(v));
     }
-    if (!more) break;
-    i = next;
-    sa = na;
-    sb = nb;
   }
-  if (total != nullptr && lane < n_metrics) atomicAdd(total + lane, sum);
 }
 
 template <int N>
 void launch(const bm::Operand& a, const bm::Operand& b, uint32_t counted,
             int n_metrics, unsigned long long recipe, int k, int32_t* out,
             unsigned long long* total, cudaStream_t st) {
-  const int grid = bm::resident_grid(count_metrics_kernel<N>, kCtaThreads,
-                                     kWarpsPerCta, k);
-  count_metrics_kernel<N><<<grid, kCtaThreads, 0, st>>>(
+  count_metrics_kernel<N><<<k, bm::kThreads, 0, st>>>(
       a, b, counted, n_metrics, recipe, k, out, total);
 }
 

@@ -12,12 +12,15 @@
 //       for K3, 8 KiB per operand for K2) signalled on an mbarrier, the
 //       lanes count the stage from shared memory, and lane 0 refills it
 //       with the row R rows on.
-//   group<G, C>: G warps per row, 8 warps per CTA, one row per group and
-//       no grid-stride; a lane loads 16 / G vectors at once, and the G
-//       warp sums meet in shared memory (G = 8 is the shape of PR 1's K3).
+//   group<G, C, NOPS>: G warps per row, max(8, G) warps per CTA, one row
+//       per group and no grid-stride; a lane loads 16 / G vectors (of each
+//       operand) at once, and the G warp sums meet in shared memory (G = 8
+//       is the shape of PR 1's K2 and K3).
 #include "bm_common.cuh"
 
 namespace {
+
+constexpr int kLaneVec = bm::kBlockVec / 32;  // vectors per lane and row
 
 template <int C>
 __device__ __forceinline__ uint4 ld(const uint4* p) {
@@ -65,7 +68,7 @@ template <int D, int C, int NOPS>
 __global__ void __launch_bounds__(32 * kRegWarps)
 reg_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
            int32_t* __restrict__ out) {
-  constexpr int P = bm::kLaneVec / D;  // stages per row: 2 or 4
+  constexpr int P = kLaneVec / D;  // stages per row: 2 or 4
   const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * kRegWarps;
   int row = blockIdx.x * kRegWarps + (threadIdx.x >> 5);
@@ -196,7 +199,7 @@ tma_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
     const uint4* st = ring + s * NOPS * bm::kBlockVec;
     uint32_t c = 0u;
 #pragma unroll
-    for (int v = 0; v < bm::kLaneVec; ++v) {
+    for (int v = 0; v < kLaneVec; ++v) {
       const uint4 x = st[v * 32 + lane];
       if constexpr (NOPS == 2) {
         const uint4 y = st[bm::kBlockVec + v * 32 + lane];
@@ -219,25 +222,31 @@ tma_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
   }
 }
 
-template <int G, int C>
-__global__ void __launch_bounds__(256)
+template <int G, int C, int NOPS>
+__global__ void __launch_bounds__(32 * (G > 8 ? G : 8))
 group_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int n,
              int32_t* __restrict__ out) {
-  constexpr int kRows = 8 / G;             // rows per CTA
-  constexpr int V = bm::kLaneVec / G;      // vectors per lane
-  __shared__ uint32_t part[8];
+  constexpr int W = G > 8 ? G : 8;         // warps per CTA
+  constexpr int kRows = W / G;             // rows per CTA
+  constexpr int V = kLaneVec / G;          // vectors per lane
+  __shared__ uint32_t part[W];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int row = blockIdx.x * kRows + w / G;
   uint32_t c = 0u;
   if (row < n) {
-    const uint4* p = a + static_cast<size_t>(row) * bm::kBlockVec +
-                     (w % G) * V * 32 + lane;
-    uint4 v[V];
+    const size_t off = static_cast<size_t>(row) * bm::kBlockVec +
+                       (w % G) * V * 32 + lane;
+    uint4 x[V], y[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = ld<C>(p + j * 32);
+    for (int j = 0; j < V; ++j) x[j] = ld<C>(a + off + j * 32);
+    if constexpr (NOPS == 2) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) c += bm::popc4(v[j]);
+      for (int j = 0; j < V; ++j) y[j] = ld<C>(b + off + j * 32);
+      c = stage_popc_and<V>(x, y);
+    } else {
+      c = stage_popc<V>(x);
+    }
   }
   c = __reduce_add_sync(0xFFFFFFFFu, c);
   if constexpr (G == 1) {
@@ -289,10 +298,12 @@ int tma(const void* a, const void* b, int n, void* out, void* stream) {
                      W * R * NOPS * kRowBytes, W, n, a, b, out, stream);
 }
 
-template <int G, int C>
+template <int G, int C, int NOPS>
 int group(const void* a, const void* b, int n, void* out, void* stream) {
-  const int grid = (n + 8 / G - 1) / (8 / G);
-  group_kernel<G, C><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int W = G > 8 ? G : 8;
+  const int grid = (n + W / G - 1) / (W / G);
+  group_kernel<G, C, NOPS><<<grid, 32 * W, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(a), static_cast<const uint4*>(b), n,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -301,10 +312,11 @@ int group(const void* a, const void* b, int n, void* out, void* stream) {
 using Fn = int (*)(const void*, const void*, int, void*, void*);
 
 // the variants, by index: names in tools/count_variants.py
-constexpr Fn kK3[] = {group<1, 0>, group<2, 0>, group<4, 0>, group<8, 0>,
-                      group<1, 3>, group<2, 3>, group<4, 3>, group<8, 3>,
-                      reg<8, 1, 1>, tma<2, 4, 1>};
-constexpr Fn kK2[] = {reg<8, 3, 2>, reg<4, 3, 2>, tma<2, 4, 2>};
+constexpr Fn kK3[] = {group<1, 3, 1>, group<4, 3, 1>, group<8, 0, 1>,
+                      group<8, 3, 1>, group<16, 3, 1>, reg<8, 3, 1>};
+constexpr Fn kK2[] = {group<1, 3, 2>, group<2, 3, 2>, group<4, 3, 2>,
+                      group<8, 0, 2>, group<8, 3, 2>, group<16, 3, 2>,
+                      reg<8, 3, 2>};
 
 }  // namespace
 

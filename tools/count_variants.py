@@ -36,13 +36,14 @@ from bitmagic_tpu_torch.ops import _build, blockops  # noqa: E402
 from bitmagic_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 
 VP, INT = ctypes.c_void_p, ctypes.c_int
-K3_VARIANTS = ("group G1 ldg", "group G2 ldg", "group G4 ldg",
-               "group G8 ldg", "group G1 nc.L1::no_allocate",
-               "group G2 nc.L1::no_allocate", "group G4 nc.L1::no_allocate",
-               "group G8 nc.L1::no_allocate", "reg halves ldcs",
-               "tma R2 W4")
-K2_VARIANTS = ("reg halves nc.L1::no_allocate",
-               "reg quarters nc.L1::no_allocate", "tma R2 W4")
+K3_VARIANTS = ("group G1 nc.L1::no_allocate", "group G4 nc.L1::no_allocate",
+               "group G8 ldg", "group G8 nc.L1::no_allocate",
+               "group G16 nc.L1::no_allocate",
+               "reg halves nc.L1::no_allocate")
+K2_VARIANTS = ("group G1 nc.L1::no_allocate", "group G2 nc.L1::no_allocate",
+               "group G4 nc.L1::no_allocate", "group G8 ldg",
+               "group G8 nc.L1::no_allocate", "group G16 nc.L1::no_allocate",
+               "reg halves nc.L1::no_allocate")
 
 
 def build_variants():
