@@ -188,7 +188,7 @@ def block_counts_total(pool, per_block=False):
 # ---------------------------------------------------------------------------
 # K2: per-block popcount of a OP b / multi-metric, result rows not written
 # ---------------------------------------------------------------------------
-def count_args(metrics):
+def _count_args(metrics):
     """K2's metric arguments for ``metrics``: ``(n_counted, counted codes,
     n_metrics, recipe)`` of count_op.cu from ``blockops.count_plan``."""
     if not 1 <= len(metrics) <= len(blockops.METRICS):
@@ -207,7 +207,7 @@ def count_args(metrics):
 def _count_launch(metrics, a_args, b_args, k, device, per_block=True,
                   total=False):
     """-> (int64[m] totals or None, int32[m, k] per-block counts or None)."""
-    args = count_args(metrics)
+    args = _count_args(metrics)
     m = len(metrics)
     out = torch.empty((m, k), dtype=_I32, device=device) if per_block \
         else None

@@ -11,8 +11,9 @@ only when every phase passed):
  2. build   — compile the six kernels from ``ops/csrc`` with nvcc, all at
               once;
  3. kernels — each kernel against its plain PyTorch version on the card,
-              bit for bit: all four ops, all seven metrics, 0 / 13 / 1536
-              rows, descriptors with -1 slots, FULL rows and aux rows; the
+              bit for bit: all four ops, every subset of the seven metrics,
+              0 to 16384 rows, descriptors with -1 slots, FULL rows and aux
+              rows, K2 and K3 with and without their totals; the
               K-way sweep (B4) in arena and descriptor form, with -1 slots
               on both sides, early-dying and never-dying columns, an empty
               pool, OR mode, rows-off counts summed over the slices of
@@ -27,6 +28,8 @@ only when every phase passed):
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
               count_and/or/xor/sub, 64 count_range calls, build_rs_index
               plus 1M select and 1M rank; every answer against numpy;
+              count() and distance_operation each launch their kernel once
+              and a profiler trace shows no other kernel (no sum) in them;
  5. agg     — config 3 (bench.py:225): 200 vectors x 128 blocks mixing
               dense, GAP and FULL-run blocks; combine_and_sub with 100 AND /
               100 SUB and with 3 / 2, combine_and, combine_or,
@@ -47,7 +50,9 @@ only when every phase passed):
  9. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
-              operations.
+              operations: K2 and K3 also at config 1's own shapes and in
+              their total forms; the floor of a timed launch; K3 after a
+              flush that leaves L2 clean.
 
 Each path (4, 5, 6) is driven with the launch counts set to 0 just before
 and read just after; a kernel of the path launched no time fails it.
@@ -257,12 +262,11 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
 
 
 def count_kernels_vs_plain(rng, device, cmp):
-    """K3 and K2 in both grid regimes (rows that fit the resident warps,
-    one row per warp, and 16384 rows, a grid-stride over them), at row
-    counts that are no multiple of the warps per CTA; every subset of the
-    seven metrics in a random order, counted or derived from |a&b|, |a|
-    and |b|, over rows of all ones and zeros, FULL, aux and -1 rows; the
-    total forms with and without the per-block output."""
+    """K3 and K2 at 1 to 16384 rows (the total's atomics from many CTAs);
+    every subset of the seven metrics in a random order, counted directly
+    or combined from |a&b|, |a| and |b| (blockops.count_plan), over rows
+    of all ones and zeros, FULL, aux and -1 rows; the total forms with and
+    without the per-block output."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
 
@@ -980,7 +984,7 @@ def timings(device, card, cfg1):
     """K1-K3 at 1536 and 16384 rows; K3 and K2 at config 1's own shapes
     (``cfg1``: A's pool and the descriptors distance_operation hands K2),
     per block and in total form; the floor of a timed launch; K3 at 1536
-    rows after a flush that leaves L2 clean."""
+    and 16384 rows after a flush that leaves L2 clean."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     rng = np.random.default_rng(SEED + 4)
@@ -1016,10 +1020,10 @@ def timings(device, card, cfg1):
             key = name if isinstance(name, tuple) else (name, n)
             record(out, key, card, flush, kern, plain, lib, nbytes, 0, popc)
         clean = torch.empty_like(flush)
+        ms = time_ms(lambda: ck.block_counts(a), flush, clean=clean)
+        t = out["block_counts", n]
         out["block_counts", f"{n}_clean_l2"] = dict(
-            out["block_counts", n],
-            ms=time_ms(lambda: ck.block_counts(a), flush, clean=clean),
-            plain_ms=None)
+            t, ms=ms, plain_ms=None, gb_per_s=t["bytes"] / (ms * 1e-3) / 1e9)
         del clean
         del a, b
     # config 1's shapes: count() on A's pool; distance_operation's 7

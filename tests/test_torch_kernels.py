@@ -1,7 +1,7 @@
 """The six hand-written Hopper kernels against their plain PyTorch
-versions (or hand-worked counts), on the card.  Every test here needs CUDA (marker ``cuda``) and
-skips without it.  On a machine with an H100 and no JAX, run them without
-the suite's conftest (which imports JAX):
+versions (or hand-worked counts), on the card.  Every test here needs
+CUDA (marker ``cuda``) and skips without it.  On a machine with an H100
+and no JAX, run them without the suite's conftest (which imports JAX):
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -133,9 +133,8 @@ def test_bitvector_on_card_matches_cpu(dev, rng):
 
 
 # ---------------------------------------------------------------------------
-# K3 and K2 on a warp per row: both grid regimes (rows that fit the
-# resident warps, and a grid-stride over 16384 rows), row counts that are
-# no multiple of the warps per CTA, the total forms, derived metrics
+# K3 and K2 at 1 to 16384 rows, the total forms (one atomic per CTA into
+# a counter the launcher zeroes), every subset of the metrics
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("per_block", [False, True])
 @pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1536, 4097, 16384])
