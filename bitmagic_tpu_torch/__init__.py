@@ -1,24 +1,43 @@
 """bitmagic_tpu_torch — the PyTorch/CUDA port of bitmagic_tpu.
 
-Block-structured compressed bit-vectors with set algebra, counts and
-rank/select, the multi-vector aggregator, and bit-sliced integer sparse
-vectors with their equality scanner, on one NVIDIA Hopper card (H100).  The hot block ops are
+Block-structured compressed bit-vectors with set algebra, counts,
+rank/select, iteration and the free-function algorithms, the multi-vector
+aggregator, and bit-sliced integer sparse vectors with their equality
+scanner, on one NVIDIA Hopper card (H100).  The hot block ops are
 hand-written CUDA kernels for ``sm_90a`` (``ops/csrc``), built from source
-with ``nvcc`` at first use; every other device step is plain PyTorch.
+with ``nvcc`` at first use; every other device step is plain PyTorch, and
+the host-side block decoders are the port's native C++ library
+(``serial/native``, built with ``g++`` at first use).
 Entry points run on the card unless ``device="cpu"`` is given (or
 ``config.device`` is set to ``"cpu"``), where each kernel is replaced by
 its plain PyTorch version.  The package imports neither ``jax`` nor
 ``bitmagic_tpu``; it mirrors that package's layout (``ops/``, ``core/``,
-``algo/``, ``agg/``, ``sv/``) and is held bit for bit against it by the ``test_torch_*``
-tests.
+``algo/``, ``agg/``, ``sv/``, ``serial/``) and is held bit for bit against
+it by the ``test_torch_*`` tests.
 
 Bit ids and block ids are int64 on the host (numpy metadata); device
 tensors are int32 only, holding the reference's uint32 words bit for bit.
 """
 
 from . import constants
-from .algo.setops import (any_and, any_or, any_sub, any_xor, count_and,
-                          count_or, count_sub, count_xor, distance_operation)
+from . import algo
+from .algo import rank_compress
+from .algo.intervals import (IntervalEnumerator, count_intervals,
+                             find_interval_end, find_interval_start,
+                             interval_enumerator, is_interval)
+from .algo.kleene import (and_kleene, get_value_kleene, init_kleene,
+                          invert_kleene, or_kleene, set_value_kleene)
+from .algo.sampling import RandomSubset, random_subset
+from .algo.setops import (
+    any_and, any_or, any_sub, any_xor, bit_import, bit_import_u32,
+    build_jaccard_similarity_batch, build_similarity_batch, combine_and,
+    combine_and_sorted, combine_or, combine_sub, combine_xor, count_and,
+    count_or, count_sub, count_xor, distance_and_operation,
+    distance_operation, distance_operation_any, export_array,
+    similarity_batch)
+from .algo.traversal import (for_each_bit, for_each_bit_range,
+                             rank_range_split, visit_each_bit,
+                             visit_each_bit_range)
 from .agg.aggregator import AggOptions, Aggregator, aggregator
 from .config import config, simd_version
 from .core.bitvector import BitVector
@@ -31,8 +50,21 @@ __all__ = [
     "BitVector", "config", "constants", "simd_version",
     "Aggregator", "aggregator", "AggOptions",
     "SparseVector", "scanner", "SparseVectorScanner",
+    "algo",
     "count_and", "count_or", "count_xor", "count_sub",
     "any_and", "any_or", "any_xor", "any_sub",
-    "distance_operation",
+    "distance_operation", "distance_operation_any",
+    "build_jaccard_similarity_batch", "distance_and_operation",
+    "similarity_batch", "build_similarity_batch",
+    "combine_or", "combine_and", "combine_and_sorted", "combine_xor",
+    "combine_sub", "export_array", "bit_import", "bit_import_u32",
+    "for_each_bit", "for_each_bit_range", "visit_each_bit",
+    "visit_each_bit_range", "rank_range_split",
+    "count_intervals", "interval_enumerator", "IntervalEnumerator",
+    "RandomSubset", "is_interval", "find_interval_start",
+    "find_interval_end",
+    "init_kleene", "get_value_kleene", "set_value_kleene", "invert_kleene",
+    "or_kleene", "and_kleene",
+    "random_subset", "rank_compress",
     "__version__",
 ]

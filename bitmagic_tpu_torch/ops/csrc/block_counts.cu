@@ -1,7 +1,7 @@
 // K3: per-block popcount of a pool int32[n, 2048]: the counts int32[n],
 // their int64 total, or both.
 //
-// Replaces block_counts_pallas (bitmagic_tpu/ops/pallas_kernels.py:146-161,
+// Replaces block_counts_pallas (bitmagic_tpu/ops/pallas_kernels.py:147-161,
 // body _popcount_body :140-143).  Bound: the 8 KiB read of each row (the
 // 4-byte count written per row is 1/2048 of that).  Design: one CTA of 256
 // threads per row, each thread's two 16-byte loads issued together and

@@ -1,6 +1,6 @@
 // K2: gather-fused, multi-metric per-block popcount of a OP b.
 //
-// Replaces count_op_pallas (bitmagic_tpu/ops/pallas_kernels.py:118-137,
+// Replaces count_op_pallas (bitmagic_tpu/ops/pallas_kernels.py:119-137,
 // body _count_body :100-115) and, on the card, the XLA fusion
 // _metric_kernel (bitmagic_tpu/algo/setops.py:39-67) that
 // distance_operation runs.  The result rows are never written: the output

@@ -1,7 +1,7 @@
 // K1: gather-fused a OP b (op in and/or/xor/sub) plus its wave digest.
 //
 // Replaces logical_op_digest_pallas (bitmagic_tpu/ops/pallas_kernels.py:
-// 73-94, body _logical_digest_body :46-70) and, on the card, the XLA
+// 74-94, body _logical_digest_body :46-70) and, on the card, the XLA
 // fusion _binary_kernel (bitmagic_tpu/core/bitvector.py:43-48) that
 // BitVector._binary runs.  Writes the result rows int32[k, 2048] and the
 // digest int32[k, 64] (1 where the 32-word wave of the result is nonzero).

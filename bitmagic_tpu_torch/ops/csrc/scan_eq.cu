@@ -1,6 +1,6 @@
 // B6: bit-sliced equality scan of one value over an aligned plane stack.
 //
-// Replaces scan_eq_pallas (bitmagic_tpu/ops/pallas_kernels.py:309-329, body
+// Replaces scan_eq_pallas (bitmagic_tpu/ops/pallas_kernels.py:310-329, body
 // _scan_eq_body :297-306).  For planes [n_planes, nb, 2048] and a uint32
 // value, the hit mask of block i is
 //   AND_s (bit s of value ? plane[s][i] : ~plane[s][i])

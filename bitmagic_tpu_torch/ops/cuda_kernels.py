@@ -3,18 +3,18 @@
 =====================  ===========================  =========================
 wrapper                kernel (source)              replaces (TPU kernel)
 =====================  ===========================  =========================
-block_counts,          K3 block_counts.cu           pallas_kernels.py:146
+block_counts,          K3 block_counts.cu           pallas_kernels.py:147
 block_counts_total
-count_op,              K2 count_op.cu               pallas_kernels.py:118,
+count_op,              K2 count_op.cu               pallas_kernels.py:119,
 count_metrics,                                      setops.py:39 (_metric_kernel)
 count_metrics_total
-logical_op_digest,     K1 logical_op_digest.cu      pallas_kernels.py:73,
+logical_op_digest,     K1 logical_op_digest.cu      pallas_kernels.py:74,
 binary_op_digest                                    bitvector.py:43 (_binary_kernel)
 agg_and_sub,           B4 agg_sub.cu                pallas_kernels.py:270,
 agg_and_sub_arena,                                  aggregator.py:80/108/875
 agg_and_sub_batch
 pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
-scan_eq                B6 scan_eq.cu                pallas_kernels.py:309
+scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
 =====================  ===========================  =========================
 
 Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``,

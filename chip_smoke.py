@@ -41,20 +41,34 @@ only when every phase passed):
               SparseVector (values < 2^20, ~1 % NULL); a prepared pipeline
               counting 256 values, pipeline_find_eq of 8 values, find_eq,
               find_first_eq, find_ne and find_nonzero against numpy;
- 7. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
- 8. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+ 7. algo    — the rest of BitVector and the algorithms on configs 1-2's
+              vectors A and B: insert and erase (a block edge, mid-block,
+              bit 0), shift_left, flip, compare / find_first_mismatch,
+              merge, bit_or_and, calc_stat, the find walks, intervals and
+              count_intervals, rank_compress both ways, random_subset,
+              rank_range_split, Kleene AND / OR, the enumerator (a walk of
+              ENUM_WALK positions, then jumps across the vector); a
+              similarity batch over 16 dense vectors of config-1 width
+              (201 MB of rows, 120 pairs) and the Jaccard batch over config
+              4b's value planes; every answer against numpy.  It lists the
+              kernels each entry point puts on the card (K1 for insert and
+              erase, K2 for the batches, K3 for count()), profiles a steady
+              pass and requires the native codec library from the port's
+              own ``_build/``;
+ 8. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+ 9. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
- 9. timing  — each kernel, its plain version and the nearest single PyTorch
+10. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6) is driven with the launch counts set to 0 just before
+Each path (4, 5, 6, 7) is driven with the launch counts set to 0 just before
 and read just after; a kernel of the path launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
@@ -63,6 +77,7 @@ JAX package is imported.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import struct
@@ -96,17 +111,23 @@ N_REQUESTS = 64                 # aggregator pipeline batch
 SV_N, SV_BITS = 16_000_000, 20  # config 4b: 16M values < 2^20
 SV_QUERIES, SV_EQ = 256, 8
 SCAN_PLANES, SCAN_BLOCKS = 32, 512   # config 4 (bench.py:255)
+SIM_VECTORS = 16                # algo phase: 16 x 1536 dense rows, 201 MB
+# The algo phase walks A's enumerator one position at a time only this
+# far: a Python step costs about a microsecond, and A holds ~17M positions
+# (a full walk would take a large share of the script's time limit);
+# go_to, skip and skip_to_rank jumps cover the rest of the vector.
+ENUM_WALK = 1 << 20
 
 KERNELS = {
     "block_counts": dict(
         source="bitmagic_tpu_torch/ops/csrc/block_counts.cu",
-        replaces="bitmagic_tpu/ops/pallas_kernels.py:146"),
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:147"),
     "count_op": dict(
         source="bitmagic_tpu_torch/ops/csrc/count_op.cu",
-        replaces="bitmagic_tpu/ops/pallas_kernels.py:118"),
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:119"),
     "logical_op_digest": dict(
         source="bitmagic_tpu_torch/ops/csrc/logical_op_digest.cu",
-        replaces="bitmagic_tpu/ops/pallas_kernels.py:73"),
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:74"),
     "agg_and_sub": dict(
         source="bitmagic_tpu_torch/ops/csrc/agg_sub.cu",
         replaces="bitmagic_tpu/ops/pallas_kernels.py:270"),
@@ -115,9 +136,16 @@ KERNELS = {
         replaces="bitmagic_tpu/ops/pallas_kernels.py:428"),
     "scan_eq": dict(
         source="bitmagic_tpu_torch/ops/csrc/scan_eq.cu",
-        replaces="bitmagic_tpu/ops/pallas_kernels.py:309"),
+        replaces="bitmagic_tpu/ops/pallas_kernels.py:310"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
+# the kernel (launch counter, device function) an algo-phase entry point
+# must put on the card
+ALGO_KERNEL = {"insert": ("logical_op_digest", "binary_digest_kernel"),
+               "erase": ("logical_op_digest", "binary_digest_kernel"),
+               "count": ("block_counts", "block_counts_kernel"),
+               "similarity_batch": ("count_op", "count_metrics_kernel"),
+               "jaccard_batch": ("count_op", "count_metrics_kernel")}
 
 
 def log(msg):
@@ -842,14 +870,19 @@ def agg_steady_pass(tbm, agg, vecs, big, small, groups):
     agg.pipeline(groups, tbm.AggOptions().set_compute_count())
 
 
+def config4b_values():
+    """(the generator, values, NULL mask) of config 4b's column."""
+    rng = np.random.default_rng(SEED + 6)
+    vals = rng.integers(0, 1 << SV_BITS, SV_N).astype(np.uint32)
+    return rng, vals, rng.random(SV_N) < 0.01
+
+
 def scan_path(tbm, device):
     """Config 4b through the scanner's entry points: a nullable 16M-element
     uint32 SparseVector with values < 2^20 and ~1 % NULL; answers against
     np.bincount and ==."""
     times = {}
-    rng = np.random.default_rng(SEED + 6)
-    vals = rng.integers(0, 1 << SV_BITS, SV_N).astype(np.uint32)
-    nm = rng.random(SV_N) < 0.01
+    rng, vals, nm = config4b_values()
     live = np.where(nm, np.uint32(0), vals)
     with Clock("from_array_16M_ms", times):
         sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
@@ -927,7 +960,267 @@ def agg_scale_path(tbm, device, n_blocks=AGG_SCALE_BLOCKS):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: timing
+# phase 7: the rest of BitVector and the algorithms at config-1 width
+# ---------------------------------------------------------------------------
+def _first_at_or_after(idx, p):
+    """First of the sorted positions ``idx`` at or after p, or 0."""
+    k = int(np.searchsorted(idx, p))
+    return int(idx[k]) if k < idx.size else 0
+
+
+def _runs_np(x):
+    """Inclusive (start, end) runs of ones of a bool array."""
+    d = np.diff(np.concatenate([[0], x.view(np.int8), [0]]))
+    return np.stack([np.flatnonzero(d == 1), np.flatnonzero(d == -1) - 1],
+                    axis=1)
+
+
+def algo_positions(n_blocks):
+    """Probe positions in A's regions (build_main_vectors): a block edge
+    in a BIT row, mid-block in a GAP block, inside the FULL run."""
+    u = n_blocks // 24
+    return 9 * u * BPB, 17 * u * BPB + 777, (20 * u + 1) * BPB + 9
+
+
+def algo_path(tbm, device, sv, sv_live, n_blocks=N_BLOCKS):
+    """The rest of BitVector and the algorithms through the entry points,
+    on configs 1-2's vectors A and B (``n_blocks`` blocks, BIT / GAP /
+    FULL-run mixed), 16 dense vectors of the same width and config 4b's
+    SparseVector ``sv`` (values ``sv_live``, NULL slots 0); every answer
+    against numpy.  Returns the phase times (ms) and the state the kernel
+    listing and the steady pass reuse."""
+    from bitmagic_tpu_torch import constants as C
+    from bitmagic_tpu_torch.serial import native
+    times = {}
+    a, b, bits = build_main_vectors(tbm, n_blocks, device, {})
+    xa, xb = bits["a"], bits["b"]
+    size = a.size
+    idx_a, idx_b = np.flatnonzero(xa), np.flatnonzero(xb)
+
+    def same(v, x, what):
+        check(np.array_equal(v.to_words().ravel(), image(x)), what)
+
+    # the native library the iteration paths decode with: the port's own
+    lib_path = os.path.realpath(native.load()._name)
+    build_dir = os.path.realpath(os.path.join(ROOT, "bitmagic_tpu_torch",
+                                              "_build"))
+    check(os.path.dirname(lib_path) == build_dir,
+          f"native codec library {lib_path} is not under {build_dir}")
+    log(f"algo: native codec library loaded from {lib_path}")
+
+    # insert / erase at a block edge (a BIT row), mid-block (a GAP block)
+    # and at bit 0; shift_left
+    edge, mid, in_run = algo_positions(n_blocks)
+    u = n_blocks // 24
+    for i, val in ((edge, True), (mid, False), (0, True)):
+        with Clock(f"insert_{i}_ms", times):
+            v = a.copy().insert(i, val)
+        same(v, np.concatenate([xa[:i], [val], xa[i:-1]]), f"insert({i})")
+        with Clock(f"erase_{i}_ms", times):
+            v = a.copy().erase(i)
+        same(v, np.concatenate([xa[:i], xa[i + 1:], [False]]), f"erase({i})")
+    with Clock("shift_left_ms", times):
+        v = a.copy().shift_left()
+    same(v, np.concatenate([xa[1:], [False]]), "shift_left")
+    with Clock("flip_ms", times):
+        v = a.copy().flip()
+    same(v, ~xa, "flip()")
+    flips = [3, edge + 1, mid, in_run, size - 1]
+    v = a.copy()
+    for i in flips:
+        v.flip(i)
+    x = xa.copy()
+    x[flips] = ~x[flips]
+    same(v, x, "flip(i)")
+
+    # compare / find_first_mismatch: A against B, against a copy with one
+    # flipped bit, against itself
+    m = int(np.argmax(xa != xb))
+    with Clock("compare_ms", times):
+        got = (a.compare(b), a.find_first_mismatch(b))
+    check(got == ((1 if xa[m] else -1), m), f"compare(A, B) {got}")
+    for j in (mid, in_run):
+        c = a.copy().flip(j)
+        check((a.find_first_mismatch(c), a.compare(c), c.compare(a))
+              == (j, 1 if xa[j] else -1, -1 if xa[j] else 1),
+              f"compare against one flipped bit {j}")
+    check(a.compare(a.copy()) == 0 and a.find_first_mismatch(a) == -1,
+          "compare(A, A)")
+
+    # merge, bit_or_and
+    rng = np.random.default_rng(SEED + 9)
+    z_ids = rng.integers(0, size, 2_000_000)
+    z = tbm.BitVector.from_indices(z_ids, size, device=device)
+    xz = np.zeros(size, bool)
+    xz[z_ids] = True
+    c, d = a.copy(), b.copy()
+    with Clock("merge_ms", times):
+        c.merge(d)
+    same(c, xa | xb, "merge")
+    check(d.count() == 0 and not d.any(), "merge empties its argument")
+    e = z.copy()
+    with Clock("bit_or_and_ms", times):
+        e.bit_or_and(a, b)
+    same(e, xz | (xa & xb), "bit_or_and")
+
+    # calc_stat against the blocks' popcounts
+    with Clock("calc_stat_ms", times):
+        st = a.calc_stat()
+    bc = np.bitwise_count(image(xa).reshape(n_blocks, 2048)).sum(axis=1)
+    n_entries = len(a._struct.nb)
+    check((st["full_blocks"], st["zero_blocks"],
+           st["bit_blocks"] + st["gap_blocks"], st["device_memory_used"])
+          == (int((bc == BPB).sum()), int((bc == 0).sum()),
+              int(((bc > 0) & (bc < BPB)).sum()),
+              st["bit_blocks"] * 8192 + 9 * n_entries)
+          and st["gap_blocks"] == int((a._struct.cls == C.CLS_GAP).sum()),
+          f"calc_stat {st}")
+
+    # the find walks
+    probe = [0, 5, edge, mid, in_run, 22 * u * BPB - 1, 23 * u * BPB,
+             size - 1]
+    with Clock("get_next_check_or_next_ms", times):
+        got = [a.get_first()] + [(a.get_next(p), a.check_or_next(p))
+                                 for p in probe]
+    check(got == [int(idx_a[0])] + [(_first_at_or_after(idx_a, p + 1),
+                                     _first_at_or_after(idx_a, p))
+                                    for p in probe], "get_next / "
+          "check_or_next")
+
+    # intervals and count_intervals of B
+    with Clock("intervals_B_ms", times):
+        iv = tbm.algo.intervals(b)
+    check(np.array_equal(iv, _runs_np(xb)), "intervals(B)")
+    with Clock("count_intervals_B_ms", times):
+        n_iv = tbm.count_intervals(b)
+    check(n_iv == 1 + int(np.count_nonzero(xb[1:] != xb[:-1])),
+          "count_intervals(B)")
+
+    # rank_compress of A by B, and back
+    with Clock("compress_ms", times):
+        comp = tbm.rank_compress.compress(a, b)
+    hits = np.flatnonzero(xa & xb)
+    check(comp.size == idx_b.size and np.array_equal(
+        comp.indices(), np.searchsorted(idx_b, hits)), "compress(A, B)")
+    with Clock("decompress_ms", times):
+        back = tbm.rank_compress.decompress(comp, b)
+    check(np.array_equal(back.indices(), hits), "decompress")
+
+    # random_subset, rank_range_split
+    with Clock("random_subset_100k_ms", times):
+        sub = tbm.random_subset(a, 100_000, SEED)
+    ranks = np.random.default_rng(SEED).choice(idx_a.size, 100_000,
+                                               replace=False)
+    check(np.array_equal(sub.indices(), np.sort(idx_a[ranks])),
+          "random_subset")
+    k = 1 << 20
+    with Clock("rank_range_split_ms", times):
+        parts = tbm.rank_range_split(a, k)
+    n_parts = -(-idx_a.size // k)
+    check(parts == [(int(idx_a[j * k]),
+                     int(idx_a[min(j * k + k - 1, idx_a.size - 1)]))
+                    for j in range(n_parts)], "rank_range_split")
+
+    # Kleene AND / OR of (value A, known A|B) and (value B, known B|Z)
+    k1, k2 = a | b, b | z
+    with Clock("kleene_ms", times):
+        va, ka = tbm.and_kleene(a, k1, b, k2)
+        vo, ko = tbm.or_kleene(a, k1, b, k2)
+    xk1, xk2 = xa | xb, xb | xz
+    same(va, xa & xb, "and_kleene value")
+    same(ka, (xk1 & xk2) | (xk1 & ~xa) | (xk2 & ~xb), "and_kleene known")
+    same(vo, xa | xb, "or_kleene value")
+    same(ko, xa | xb | (xk1 & xk2), "or_kleene known")
+
+    # the enumerator: the first ENUM_WALK positions one at a time, then
+    # go_to / skip / skip_to_rank jumps across the whole vector
+    with Clock("indices_A_ms", times):
+        got_idx = a.indices()
+    check(np.array_equal(got_idx, idx_a), "indices(A)")
+    with Clock("enumerator_walk_ms", times):
+        walk = np.fromiter(itertools.islice(a.get_enumerator(), ENUM_WALK),
+                           np.int64)
+    check(np.array_equal(walk, idx_a[:ENUM_WALK]), "enumerator walk")
+    en = a.get_enumerator()
+    with Clock("enumerator_jumps_ms", times):
+        for p in rng.integers(0, size, 64).tolist() + [size - 1]:
+            en.go_to(p)
+            want = _first_at_or_after(idx_a, p)
+            check(en.valid() == (p <= idx_a[-1]) and (
+                not en.valid() or en.value() == want), f"go_to({p})")
+        en.go_first()
+        at = 0
+        for n in [7] + [int(idx_a.size * f) for f in (0.013, 0.09, 0.21,
+                                                       0.33)]:
+            en.skip(n)
+            at += n
+            check(en.value() == idx_a[at], f"skip({n})")
+        check(not en.skip(idx_a.size), "skip past the end")
+        for p, r in ((edge + 3, 1), (mid, idx_a.size // 7),
+                     (5, idx_a.size // 2)):
+            en = a.get_enumerator(p)
+            en.skip_to_rank(r)
+            check(en.value() == idx_a[np.searchsorted(idx_a, p) + r - 1],
+                  f"skip_to_rank({r}) from {p}")
+
+    # similarity batch: 16 dense vectors of config-1 width
+    W = rng.integers(0, 2**32, (SIM_VECTORS, n_blocks * 2048),
+                     dtype=np.uint32)
+    W[1::2] &= rng.integers(0, 2**32, W[1::2].shape, dtype=np.uint32)
+    sims = [tbm.BitVector.from_words(W[j], device=device)
+            for j in range(SIM_VECTORS)]
+    with Clock("similarity_batch_16_ms", times):
+        mat = tbm.similarity_batch(sims)
+    want = np.zeros((SIM_VECTORS, SIM_VECTORS), np.int64)
+    for i in range(SIM_VECTORS):
+        want[i, i] = _popcount(W[i])
+        for j in range(i + 1, SIM_VECTORS):
+            want[i, j] = want[j, i] = _popcount(W[i] & W[j])
+    check(np.array_equal(mat, want), "similarity_batch")
+    del W
+
+    # the Jaccard batch over config 4b's value planes
+    with Clock("jaccard_batch_ms", times):
+        jac = tbm.build_jaccard_similarity_batch(sv)
+    planes = [(s, np.packbits(((sv_live >> s) & 1).astype(bool)))
+              for s in range(32) if ((sv_live >> s) & 1).any()]
+    check([s for s, _ in planes] == [s for s, p in enumerate(sv.planes)
+                                     if p is not None], "SV planes")
+    want = []
+    for x, (i, pi) in enumerate(planes):
+        for j, pj in planes[x + 1:]:
+            c_and, c_or = _popcount(pi & pj), _popcount(pi | pj)
+            want.append((i, j, c_and, c_or, (c_and / c_or) if c_or else 0.0))
+    want.sort(key=lambda t: t[4], reverse=True)
+    check(jac == want, "build_jaccard_similarity_batch")
+    return times, (a, b, z, sims, sv, n_blocks)
+
+
+def algo_entry_points(tbm, a, b, z, sims, sv, n_blocks):
+    """Entry point -> a call of it on the phase's vectors (mutators act on
+    copies, so each call does the same work)."""
+    edge, mid, _ = algo_positions(n_blocks)
+    return {
+        "insert": lambda: a.copy().insert(edge, True),
+        "erase": lambda: a.copy().erase(mid),
+        "shift_left": lambda: a.copy().shift_left(),
+        "flip": lambda: a.copy().flip(),
+        "compare": lambda: a.compare(b),
+        "merge": lambda: a.copy().merge(b.copy()),
+        "bit_or_and": lambda: z.copy().bit_or_and(a, b),
+        "count": lambda: a.count(),
+        "intervals": lambda: tbm.algo.intervals(b),
+        "compress": lambda: tbm.rank_compress.compress(a, b),
+        "random_subset": lambda: tbm.random_subset(a, 100_000, SEED),
+        "rank_range_split": lambda: tbm.rank_range_split(a, 1 << 20),
+        "and_kleene": lambda: tbm.and_kleene(a, a | b, b, b | z),
+        "similarity_batch": lambda: tbm.similarity_batch(sims),
+        "jaccard_batch": lambda: tbm.build_jaccard_similarity_batch(sv),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -1345,17 +1638,59 @@ def main():
                   f"{path} path never launched {k}")
         profile(f"{path} steady pass ({what})",
                 lambda: steady(tbm, *state))
+        if path == "scan":
+            sv = state[1]
         del state
     search_launches = {k: path_launches["agg"][k] + path_launches["scan"][k]
                        for k in KERNELS}
 
-    # 7. reference fixtures
+    # 7. the algo phase: the rest of BitVector and the algorithms
+    _, vals, nm = config4b_values()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    algo_times, state = algo_path(tbm, device, sv,
+                                  np.where(nm, np.uint32(0), vals))
+    algo_launches = dict(ck.launches)
+    del sv, vals, nm
+    log(f"algo: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{algo_launches}; phase ms {json.dumps(algo_times)}")
+    for k in FIRST_SLICE:
+        check(algo_launches[k] > 0, f"algo path never launched {k}")
+    entry_points = algo_entry_points(tbm, *state)
+    del state
+    for what, fn in entry_points.items():
+        before = dict(ck.launches)
+        names = device_kernels(fn)        # runs fn twice: warm-up, traced
+        short = {}
+        for n in names:
+            n = n.replace("(anonymous namespace)::", "").split("(")[0]
+            n = n.removeprefix("void ")[:60]
+            short[n] = short.get(n, 0) + 1
+        counted = {k: (ck.launches[k] - before[k]) // 2 for k in FIRST_SLICE
+                   if ck.launches[k] > before[k]}
+        log(f"algo: {what} put these kernels on the card: "
+            f"{json.dumps(short)}; launch counters per call {counted}")
+        if what in ALGO_KERNEL:
+            # the counters decide: the profiler can drop the events of a
+            # short trace (on an H100 it once listed none for count())
+            counter, kernel = ALGO_KERNEL[what]
+            check(counted.get(counter, 0) > 0, f"{what} launched no {kernel}")
+            if not any(kernel in n for n in names):
+                log(f"algo: {what}: the profiler recorded no {kernel} event "
+                    f"where the counters show {counted[counter]} launch(es)")
+    steady = ("insert", "erase", "compare", "similarity_batch",
+              "jaccard_batch")
+    profile(f"algo steady pass ({', '.join(steady)})",
+            lambda: [entry_points[k]() for k in steady])
+    del entry_points
+
+    # 8. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 8. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 9. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -1370,7 +1705,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 9. timing
+    # 10. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -1402,6 +1737,7 @@ def main():
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
         entry = {"name": k, "route": "cuda", **meta, "launches": launches,
+                 "algo_launches": algo_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

@@ -3,6 +3,7 @@
 running on the CPU."""
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -55,6 +56,8 @@ def test_import_with_jax_and_reference_blocked():
         sv = bt.SparseVector.from_array([5, 0, 5, 7], device="cpu")
         assert bt.scanner.find_eq(sv, 5).indices().tolist() == [0, 2]
         assert bt.scanner.prepare_pipeline(sv).counts([5, 7]) == [2, 1]
+        assert v.get_enumerator().go_to(4) and list(v.first()) == [3, 70000]
+        assert bt.algo.intervals(v).tolist() == [[3, 3], [70000, 70000]]
         bad = [m for m in sys.modules
                if any(m == b or m.startswith(b + ".") for b in BLOCK)]
         assert not bad, bad
@@ -81,6 +84,51 @@ def test_no_module_imports_jax_or_reference(path):
             continue
         for name in names:
             assert not _forbidden(name), f"{path} imports {name}"
+
+
+_JAX_PKG_PATH = re.compile(r"(^|[^\w])bitmagic_tpu([/\\]|$)")
+
+
+def _strings(tree):
+    """The string constants of a module, docstrings left out."""
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_module_names_a_path_in_the_jax_package():
+    """No port module (nor a C++/CUDA include) names a path inside
+    ``bitmagic_tpu/``: the port reads nothing of the JAX package."""
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            path = os.path.join(d, f)
+            if f.endswith(".py"):
+                with open(path) as fh:
+                    strings = _strings(ast.parse(fh.read(), path))
+            elif f.endswith((".cpp", ".cu", ".cuh")):
+                with open(path) as fh:
+                    strings = [ln for ln in fh if ln.lstrip().startswith(
+                        "#include")]
+            else:
+                continue
+            for s in strings:
+                assert not _JAX_PKG_PATH.search(s), f"{path}: {s!r}"
+
+
+def test_native_library_is_the_ports_own():
+    """The codec source the port compiles and the library it loads lie
+    under bitmagic_tpu_torch/."""
+    from bitmagic_tpu_torch.serial import native
+    lib = native.load()
+    for p in (native.SOURCE, native.library_path(), lib._name):
+        p = os.path.realpath(p)
+        assert os.path.commonpath([p, os.path.realpath(PKG)]) == \
+            os.path.realpath(PKG), p
 
 
 def test_default_device_raises_without_card(monkeypatch):
