@@ -1,12 +1,13 @@
 """bitmagic_tpu_torch — the PyTorch/CUDA port of bitmagic_tpu.
 
 Block-structured compressed bit-vectors with set algebra, counts,
-rank/select, iteration and the free-function algorithms, the multi-vector
-aggregator, and bit-sliced integer sparse vectors with their equality
-scanner, on one NVIDIA Hopper card (H100).  The hot block ops are
+rank/select, iteration and the free-function algorithms, their BLOB
+serialization (the BMT1 format and the reference's own, set ops straight
+against a BLOB), the multi-vector aggregator, and bit-sliced integer sparse
+vectors with their equality scanner, on one NVIDIA Hopper card (H100).  The hot block ops are
 hand-written CUDA kernels for ``sm_90a`` (``ops/csrc``), built from source
 with ``nvcc`` at first use; every other device step is plain PyTorch, and
-the host-side block decoders are the port's native C++ library
+the host-side block codecs are the port's native C++ library
 (``serial/native``, built with ``g++`` at first use).
 Entry points run on the card unless ``device="cpu"`` is given (or
 ``config.device`` is set to ``"cpu"``), where each kernel is replaced by
@@ -40,14 +41,23 @@ from .algo.traversal import (for_each_bit, for_each_bit_range,
                              visit_each_bit_range)
 from .agg.aggregator import AggOptions, Aggregator, aggregator
 from .config import config, simd_version
-from .core.bitvector import BitVector
+from .core.bitvector import BitVector, ReadOnlyError
+from . import serial
+from .serial.opdeser import OperationDeserializer
+from .serial.serializer import (Deserializer, Serializer, deserialize,
+                                serialize)
+from .serial.stream_iter import IteratorDeserializer, SerialStreamIterator
 from .sv.scanner import SparseVectorScanner, scanner
 from .sv.sparse_vector import SparseVector
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "BitVector", "config", "constants", "simd_version",
+    "BitVector", "ReadOnlyError", "config", "constants", "simd_version",
+    "serialize", "deserialize",
+    "Serializer", "Deserializer", "OperationDeserializer",
+    "SerialStreamIterator", "IteratorDeserializer",
+    "serial",
     "Aggregator", "aggregator", "AggOptions",
     "SparseVector", "scanner", "SparseVectorScanner",
     "algo",

@@ -23,6 +23,8 @@ Every entry point runs on the card unless ``device="cpu"`` is given (or
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -31,8 +33,7 @@ from ..config import config, resolve_device
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
-from ..ops.blockops import to_device_words, to_host_words
-from ..serial import native
+from ..ops.blockops import to_device_words
 from .blocks import (RUN_MIN, Structure, descriptor, expand_gap_operand,
                      operand_args, plan_binary, points_in_runs, runs_clip,
                      runs_diff, runs_normalize, runs_overlap_bits,
@@ -90,6 +91,7 @@ class BitVector:
         self._size = int(size)
         self._struct = Structure.empty()
         self._pool = blockops.zero_pool(0, self._device)
+        self._host = None         # (weakref to _pool, its host copy)
         self._gaps = None         # GapStore for CLS_GAP entries (nb order)
         self._staged: dict[int, bool] = {}
         self._ro = False
@@ -114,6 +116,7 @@ class BitVector:
         bv._size = int(size)
         bv._struct = struct
         bv._pool = pool
+        bv._host = None
         bv._gaps = gaps
         bv._staged = {}
         bv._ro = False
@@ -217,8 +220,14 @@ class BitVector:
         return self
 
     def _pool_host(self) -> np.ndarray:
-        """Host uint32 copy of the dense rows."""
-        return to_host_words(self._pool)
+        """Host uint32 view of the dense rows: one device-to-host copy per
+        pool tensor, kept while the vector holds that tensor.  No operation
+        of the port writes a pool in place; every change installs a new
+        tensor, which misses the cache.  Callers must not write to it."""
+        pool = self._pool
+        if self._host is None or self._host[0]() is not pool:
+            self._host = (weakref.ref(pool), blockops.to_host_words(pool))
+        return self._host[1]
 
     def _drop_trailing(self, size):
         """Clear any bits at positions >= size."""
@@ -655,7 +664,7 @@ class BitVector:
         if bitq.any():
             flat = (slot[bitq] * C.SET_BLOCK_SIZE
                     + ((ids[bitq] & C.SET_BLOCK_MASK) >> 5))
-            words = to_host_words(
+            words = blockops.to_host_words(
                 self._pool.reshape(-1)[_index(flat, self._device)])
             out[bitq] = (words >> (ids[bitq] & 31).astype(np.uint32)) & 1
         gapq = st == 3
@@ -860,7 +869,7 @@ class BitVector:
         return min(cands) if cands else -1
 
     def _row_host(self, slot: int) -> np.ndarray:
-        return to_host_words(self._pool[int(slot)])
+        return blockops.to_host_words(self._pool[int(slot)])
 
     def _find_entries(self, frm: int) -> int:
         self._flush()
@@ -1168,6 +1177,8 @@ class BitVector:
                 out.append(gpos)
         if (self._struct.cls == C.CLS_BIT).any():
             # one host copy of the pool, decoded by the native library
+            # (imported here: the serial package imports this module)
+            from ..serial import native
             bases = (self._struct.nb[self._struct.cls == C.CLS_BIT]
                      << C.SET_BLOCK_SHIFT)
             out.append(native.pool_positions(self._pool_host(), bases))
@@ -1287,7 +1298,7 @@ class BitVector:
             conv &= _in_range_mask()
             if conv.any():
                 conv_rows = self._struct.slots()[conv]
-                new_store = GapStore.from_dense(to_host_words(
+                new_store = GapStore.from_dense(blockops.to_host_words(
                     self._pool[_index(conv_rows, self._device)]))
                 keep_rows = self._struct.slots()[is_bit & ~conv]
                 self._pool = self._pool[_index(keep_rows, self._device)]

@@ -1,3 +1,22 @@
-"""Serialization support of the port.  So far only the native codec library
-(``serial/native``), whose block decoders the BitVector's ``indices()``,
-its enumerators and ``algo.intervals`` call."""
+"""Serialization of bit-vectors (port of ``bitmagic_tpu/serial``): the BMT1
+format (``serializer``), the operation deserializer and the stream
+iterator that apply set ops straight against a BLOB, the reference's own
+BLOB format (``refcodec``), XOR-delta groups (``xor_group``) and the
+native codec library (``native``) whose C hot loops all of them use."""
+
+from . import encoding, native, refcodec
+from .opdeser import OperationDeserializer
+from .refcodec import (RefDeserializer, RefSerializer, ref_deserialize,
+                       ref_serialize)
+from .serializer import Deserializer, Serializer, deserialize, serialize
+from .stream_iter import IteratorDeserializer, SerialStreamIterator
+from .xor_group import deserialize_group, serialize_group
+
+__all__ = [
+    "Serializer", "Deserializer", "serialize", "deserialize",
+    "OperationDeserializer", "SerialStreamIterator", "IteratorDeserializer",
+    "encoding", "native",
+    "RefSerializer", "RefDeserializer", "ref_serialize", "ref_deserialize",
+    "serialize_group", "deserialize_group",
+    "refcodec",
+]

@@ -55,21 +55,36 @@ only when every phase passed):
               erase, K2 for the batches, K3 for count()), profiles a steady
               pass and requires the native codec library from the port's
               own ``_build/``;
- 8. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
- 9. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+ 8. serial  — serialization: configs 1-2's A and B as BMT1 BLOBs (levels
+              1, 4, 6, 6 with bookmarks) and reference-format BLOBs, each
+              decoded back onto the card and byte-identical to the BLOB of
+              the same vector built on the CPU; the OperationDeserializer's
+              four set ops and eight counts and deserialize_range with B's
+              BLOBs of both formats into A; the stream iterator over A's
+              BLOB; bench.py configs 5 and 5b at their own shapes
+              (serialize, deserialize, COUNT_AND on the BLOB, best of 21 /
+              11, MB/s of the raw bitmap); the 94 bit-vector BLOBs of the
+              reference (tests/fixtures/refblobs) decoded onto the card.
+              It lists the kernels each entry point puts on the card (K1
+              for the set ops on a run-coded BLOB and deserialize_range, K2
+              for COUNT_AND on it, K3 for the pass-through counts of a
+              streamed BLOB), counts the host copies of one streamed op and
+              profiles config 5's steady pass;
+ 9. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+10. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-10. timing  — each kernel, its plain version and the nearest single PyTorch
+11. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7) is driven with the launch counts set to 0 just before
-and read just after; a kernel of the path launched no time fails it.
+Each path (4, 5, 6, 7, 8) is driven with the launch counts set to 0 just
+before and read just after; a kernel of the path launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -1220,7 +1235,335 @@ def algo_entry_points(tbm, a, b, z, sims, sv, n_blocks):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: timing
+# phase 8: serialization (BMT1 and reference-format BLOBs, set ops on BLOBs)
+# ---------------------------------------------------------------------------
+def best_ms(fn, n):
+    """(best host wall ms of ``n`` runs after a warm-up, the last result),
+    each run ending in a device synchronize (bench.py's best())."""
+    fn()
+    sync()
+    best, r = float("inf"), None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, r
+
+
+def serial_path(tbm, device, n_blocks=N_BLOCKS):
+    """Configs 1-2's A and B through the serialization entry points, on
+    ``device``: BMT1 at levels 1, 4, 6 and 6 with bookmarks and the
+    reference format, each decoded back onto the device; every BLOB equal
+    to that of the same vectors built on the CPU; the operation
+    deserializer's set and count ops and deserialize_range on both formats;
+    a walk of the stream iterator.  Every answer against numpy.  Returns
+    the phase times (ms) and the state the kernel listing reuses."""
+    from bitmagic_tpu_torch import constants as C
+    from bitmagic_tpu_torch.serial import refcodec
+    times = {}
+    a, b, bits = build_main_vectors(tbm, n_blocks, device, {})
+    ca, cb, _ = build_main_vectors(tbm, n_blocks, "cpu", {})
+    words = {"A": image(bits["a"]), "B": image(bits["b"])}
+    bookmarks = tbm.Serializer(6)
+    bookmarks.set_bookmarks(True, 64)
+    levels = [("L1", tbm.Serializer(1)), ("L4", tbm.Serializer(4)),
+              ("L6", tbm.Serializer(6)), ("L6_bookmarks", bookmarks)]
+    blobs = {}
+    for name, v, cv in (("A", a, ca), ("B", b, cb)):
+        ids = np.flatnonzero(bits[name.lower()])
+        for label, ser in levels:
+            with Clock(f"serialize_{name}_{label}_ms", times):
+                blob = ser.serialize(v)
+            check(blob == ser.serialize(cv),
+                  f"{name} {label}: the card's BLOB is the CPU's")
+            with Clock(f"deserialize_{name}_{label}_ms", times):
+                back = tbm.deserialize(blob)
+            check(back.device == v.device, f"{name} {label} decode device")
+            check((v ^ back).count() == 0, f"{name} {label}: (x ^ back)")
+            check(np.array_equal(back.indices(), ids),
+                  f"{name} {label}: decoded ids")
+            blobs[(name, label)] = blob
+        with Clock(f"ref_serialize_{name}_ms", times):
+            rblob = refcodec.ref_serialize(v)
+        check(rblob == refcodec.ref_serialize(cv),
+              f"{name}: the card's reference-format BLOB is the CPU's")
+        with Clock(f"ref_deserialize_{name}_ms", times):
+            back = refcodec.ref_deserialize(rblob)
+        check(back.device == v.device and (v ^ back).count() == 0,
+              f"{name}: reference-format round trip")
+        check(np.array_equal(back.to_words().ravel(), words[name]),
+              f"{name}: reference-format words")
+        blobs[(name, "ref")] = rblob
+        log(f"serial: {name} BLOB bytes: " + json.dumps(
+            {lab: len(blobs[(name, lab)]) for lab in ("L1", "L4", "L6",
+                                                      "L6_bookmarks",
+                                                      "ref")}))
+    del ca, cb
+
+    wa, wb = words["A"], words["B"]
+    dist = tbm.distance_operation(a, b, list(METRICS))
+    od = tbm.OperationDeserializer()
+    size = a.size
+    lo, hi = 3 * size // 10 + 12345, 7 * size // 10 - 77
+    win = np.zeros(size, bool)
+    win[lo:hi + 1] = True
+    win_b = image(bits["b"] & win)
+    for fmt in ("L6", "ref"):
+        blob_b = blobs[("B", fmt)]
+        for op, name in ((C.SET_AND, "and"), (C.SET_OR, "or"),
+                         (C.SET_XOR, "xor"), (C.SET_SUB, "sub")):
+            t = a.copy()
+            with Clock(f"opdeser_{fmt}_{name}_ms", times):
+                od.deserialize(t, blob_b, op)
+            check(t.device == a.device, f"{fmt} {name}: result device")
+            check(np.array_equal(t.to_words().ravel(),
+                                 oracle_op(name, wa, wb)),
+                  f"OperationDeserializer {fmt} {name}")
+        for op, metric in (
+                (C.SET_COUNT_AND, "count_and"), (C.SET_COUNT_OR, "count_or"),
+                (C.SET_COUNT_XOR, "count_xor"),
+                (C.SET_COUNT_SUB_AB, "count_sub_ab"),
+                (C.SET_COUNT_SUB_BA, "count_sub_ba"),
+                (C.SET_COUNT_A, "count_a"), (C.SET_COUNT_B, "count_b"),
+                (C.SET_COUNT, "count_b")):
+            with Clock(f"opdeser_{fmt}_{metric}_ms", times):
+                got = od.deserialize(a, blob_b, op)
+            check(got == dist[metric], f"{fmt} SET_COUNT {metric}")
+        with Clock(f"deserialize_range_{fmt}_ms", times):
+            part = tbm.Deserializer().deserialize_range(blob_b, lo, hi)
+        check(np.array_equal(part.to_words().ravel(), win_b),
+              f"{fmt} deserialize_range window")
+        t = a.copy()
+        with Clock(f"opdeser_range_{fmt}_ms", times):
+            od.deserialize_range(t, blob_b, lo, hi)
+        check(np.array_equal(t.to_words().ravel(), wa & win_b),
+              f"{fmt} OperationDeserializer.deserialize_range")
+
+    # the stream iterator over A's BLOB, block by block against numpy
+    it = tbm.SerialStreamIterator(blobs[("A", "L6")])
+    blocks = wa.reshape(-1, 2048)
+    seen = np.zeros(blocks.shape[0], bool)
+    with Clock("stream_iterator_walk_A_ms", times):
+        while it.next():
+            check(np.array_equal(it.get_block_words(),
+                                 blocks[it.block_idx]),
+                  f"stream iterator block {it.block_idx}")
+            seen[it.block_idx] = True
+    check(np.array_equal(seen, blocks.any(axis=1)),
+          "the stream iterator visits every non-empty block")
+    return times, (a, b, blobs, od, (lo, hi))
+
+
+def serial_entry_points(tbm, a, b, blobs, od, window):
+    """Entry point -> a call of it on the phase's vectors and BLOBs."""
+    from bitmagic_tpu_torch import constants as C
+    lo, hi = window
+    return {
+        "serialize": lambda: tbm.serialize(a),
+        "deserialize": lambda: tbm.deserialize(blobs[("A", "L6")]),
+        # B's BMT1 BLOB holds FULL_RUN records: decode, then the set
+        # algebra (K1) or distance_operation (K2) on the card
+        "and_run_coded_blob": lambda: od.deserialize(
+            a.copy(), blobs[("B", "L6")], C.SET_AND),
+        "count_and_run_coded_blob": lambda: od.deserialize(
+            a, blobs[("B", "L6")], C.SET_COUNT_AND),
+        "deserialize_range": lambda: od.deserialize_range(
+            a.copy(), blobs[("B", "L6")], lo, hi),
+        # the reference format streams: A's blocks that B's BLOB never
+        # mentions pass through on the card (gathered; counted by K3)
+        "or_ref_streamed": lambda: od.deserialize(
+            a.copy(), blobs[("B", "ref")], C.SET_OR),
+        "count_or_ref_streamed": lambda: od.deserialize(
+            a, blobs[("B", "ref")], C.SET_COUNT_OR),
+    }
+
+
+# the kernel (launch counter) a serial-phase entry point must put on the card
+SERIAL_KERNEL = {"and_run_coded_blob": "logical_op_digest",
+                 "count_and_run_coded_blob": "count_op",
+                 "deserialize_range": "logical_op_digest",
+                 "count_or_ref_streamed": "block_counts"}
+
+
+def config5(tbm, device):
+    """bench.py config 5 (bench.py:307-366) at its own shape: 512 blocks of
+    1 % random bits with blocks 2-3 set, optimize(), Serializer(6);
+    serialize, deserialize and COUNT_AND on the BLOB, best of 21."""
+    from bitmagic_tpu_torch import constants as C
+    rng = np.random.default_rng(SEED + 11)
+    size = 512 * BPB
+    idx = np.unique(rng.integers(0, size, size // 100))
+    bv = tbm.BitVector.from_indices(idx, size, device=device)
+    bv.set_range(2 * BPB, 4 * BPB - 1)
+    bv.optimize()
+    x = np.zeros(size, bool)
+    x[idx] = True
+    x[2 * BPB:4 * BPB] = True
+    ser = tbm.Serializer(6)
+    od = tbm.OperationDeserializer()
+    t_ser, blob = best_ms(lambda: ser.serialize(bv), 21)
+    t_deser, back = best_ms(lambda: tbm.deserialize(blob), 21)
+    check(back.equal(bv) and back.device == bv.device, "config 5 round trip")
+    t_op, cnt = best_ms(lambda: od.deserialize(bv, blob, C.SET_COUNT_AND),
+                        21)
+    check(cnt == int(x.sum()), "config 5 COUNT_AND on the BLOB")
+    raw_mb = size / 8 / 1e6
+    out = {"raw_mb": raw_mb, "blob_kb": len(blob) / 1e3,
+           "ser_mbps": raw_mb / (t_ser / 1e3),
+           "deser_mbps": raw_mb / (t_deser / 1e3),
+           "count_and_blob_ms": t_op, "ser_ms": t_ser, "deser_ms": t_deser,
+           "codes": ser.get_compression_stat()}
+    return out, (bv, blob, ser, od)
+
+
+def config5_steady(tbm, bv, blob, ser, od):
+    from bitmagic_tpu_torch import constants as C
+    ser.serialize(bv)
+    tbm.deserialize(blob)
+    od.deserialize(bv, blob, C.SET_COUNT_AND)
+
+
+def config5b(tbm, device):
+    """bench.py config 5b (bench.py:371-438), its GAP/run corpus: 512
+    blocks, a sparse array section, a 200-block FULL span, 2000 bursty runs;
+    round trip, best of 11, and our reference-format BLOB's size."""
+    from bitmagic_tpu_torch.serial import refcodec
+    rng = np.random.default_rng(SEED + 12)
+    n_blk = 512
+    size = n_blk * BPB
+    lo, hi = 100 * BPB, 300 * BPB - 1
+    ids = np.unique(rng.integers(0, 100 * BPB, 20_000))
+    starts = rng.integers(300 * BPB, size - 400, 2000)
+    lens = rng.integers(30, 300, 2000)
+    burst = np.concatenate([np.arange(s, s + n)
+                            for s, n in zip(starts, lens)])
+    all_ids = np.unique(np.concatenate([ids, burst]))
+    bv = tbm.BitVector.from_indices(all_ids, size, device=device)
+    bv.set_range(lo, hi)
+    bv.optimize()
+    check(bv._struct.has_runs and bv._gaps is not None,
+          "config 5b holds FULL runs and GAP blocks")
+    ser = tbm.Serializer(6)
+    t_ser, blob = best_ms(lambda: ser.serialize(bv), 11)
+    t_deser, back = best_ms(lambda: tbm.deserialize(blob), 11)
+    check(back.equal(bv), "config 5b round trip")
+    want = np.union1d(all_ids, np.arange(lo, hi + 1))
+    check(np.array_equal(back.indices(), want), "config 5b decoded ids")
+    rblob = refcodec.ref_serialize(bv, level=6)
+    check(refcodec.ref_deserialize(rblob).equal(bv),
+          "config 5b reference-format round trip")
+    raw_mb = size / 8 / 1e6
+    return {"raw_mb": raw_mb, "blob_kb": len(blob) / 1e3,
+            "ser_mbps": raw_mb / (t_ser / 1e3),
+            "deser_mbps": raw_mb / (t_deser / 1e3), "ser_ms": t_ser,
+            "deser_ms": t_deser, "reffmt_blob_kb": len(rblob) / 1e3}
+
+
+def refblob_fixtures(tbm, device):
+    """The 94 bit-vector BLOBs the reference wrote
+    (tests/fixtures/refblobs), decoded onto the card against inputs.npz;
+    the two XOR BLOBs with their reference vectors."""
+    from bitmagic_tpu_torch.serial import refcodec
+    fix = os.path.join(ROOT, "tests", "fixtures", "refblobs")
+    with open(os.path.join(fix, "manifest.json")) as f:
+        manifest = json.load(f)
+    inputs = np.load(os.path.join(fix, "inputs.npz"))
+    size = manifest["size"]
+    xor_refs = {"xor_target.bin": ("xor_inputs.npz", ((0, "ref"),)),
+                "xor_chain.bin": ("xor_chain_inputs.npz",
+                                  ((0, "ref"), (2, "ref2")))}
+    n = 0
+    for e in manifest["blobs"]:
+        if e["dist"] in ("sv", "rsc", "strsv"):
+            continue                       # sparse-vector BLOBs
+        with open(os.path.join(fix, e["file"]), "rb") as f:
+            blob = f.read()
+        refs = []
+        want = inputs[e["dist"]] if e["dist"] in inputs else None
+        if e["file"] in xor_refs:
+            npz, rows = xor_refs[e["file"]]
+            data = np.load(os.path.join(fix, npz))
+            want = data["target"]
+            refs = [(r, tbm.BitVector.from_indices(data[k], size,
+                                                   device=device))
+                    for r, k in rows]
+        got = refcodec.RefDeserializer(refs, device=device).deserialize(blob)
+        check(got.device.type == torch.device(device).type
+              and got.size == size, f"{e['file']}: decoded onto {device}")
+        check(np.array_equal(got.indices(), want), f"{e['file']} ids")
+        n += 1
+    check(n == 94, f"{n} bit-vector BLOBs, not 94")
+    return n
+
+
+def short_kernel_names(names):
+    """{short kernel name: count} of a profiler listing."""
+    short = {}
+    for n in names:
+        n = n.replace("(anonymous namespace)::", "").split("(")[0]
+        n = n.removeprefix("void ")[:60]
+        short[n] = short.get(n, 0) + 1
+    return short
+
+
+def serial_phase(tbm, device, card):
+    """Phase 8: the serialization entry points at configs 1-2, 5 and 5b and
+    the reference's BLOBs, with the launch counts set to 0 just before and
+    read just after; then the kernels each entry point puts on the card,
+    the host copies of one streamed op and a profile of config 5's steady
+    pass.  Returns the phase's launch counts."""
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    times, state = serial_path(tbm, device)
+    c5, state5 = config5(tbm, device)
+    c5b = config5b(tbm, device)
+    n_fix = refblob_fixtures(tbm, device)
+    launches = dict(ck.launches)
+    log(f"serial: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}; phase ms {json.dumps(times)}")
+    for k in FIRST_SLICE:
+        check(launches[k] > 0, f"serial phase never launched {k}")
+    log(json.dumps({"serial_config": "5", **c5, "card": card["smi"]}))
+    log(json.dumps({"serial_config": "5b", **c5b, "card": card["smi"]}))
+    log(f"serial: the {n_fix} bit-vector BLOBs of the reference decode onto "
+        f"the card to their input ids")
+    entry_points = serial_entry_points(tbm, *state)
+    del state
+    for what, fn in entry_points.items():
+        before = dict(ck.launches)
+        names = device_kernels(fn)        # runs fn twice: warm-up, traced
+        counted = {k: (ck.launches[k] - before[k]) // 2 for k in FIRST_SLICE
+                   if ck.launches[k] > before[k]}
+        log(f"serial: {what} put these kernels on the card: "
+            f"{json.dumps(short_kernel_names(names))}; launch counters per "
+            f"call {counted}")
+        if what in SERIAL_KERNEL:
+            check(counted.get(SERIAL_KERNEL[what], 0) > 0,
+                  f"{what} launched no {SERIAL_KERNEL[what]}")
+    # host copies of one streamed reference-format op on a fresh target
+    calls = []
+    orig = blockops.to_host_words
+    blockops.to_host_words = lambda t: calls.append(t.shape[0]) or orig(t)
+    try:
+        entry_points["or_ref_streamed"]()
+    finally:
+        blockops.to_host_words = orig
+    log(f"serial: one streamed reference-format OR copied {len(calls)} "
+        f"pool(s) of {sum(calls)} rows to the host")
+    check(len(calls) <= 1, "one host copy of the target's pool per op")
+    del entry_points
+    # ten passes: the profiler can drop the lone events of a short trace
+    profile("serial steady pass (config 5, 10 x: serialize, deserialize, "
+            "COUNT_AND on the BLOB)",
+            lambda: [config5_steady(tbm, *state5) for _ in range(10)])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -1636,6 +1979,9 @@ def main():
         for k in ("agg_and_sub", "pipeline_counts"):
             check(path_launches[path][k] > 0,
                   f"{path} path never launched {k}")
+        if path == "agg":
+            log(f"agg: config-3 arena build {times['arena_build_ms']} ms "
+                f"(GAP blocks expanded by the native gaps_to_dense)")
         profile(f"{path} steady pass ({what})",
                 lambda: steady(tbm, *state))
         if path == "scan":
@@ -1661,15 +2007,11 @@ def main():
     for what, fn in entry_points.items():
         before = dict(ck.launches)
         names = device_kernels(fn)        # runs fn twice: warm-up, traced
-        short = {}
-        for n in names:
-            n = n.replace("(anonymous namespace)::", "").split("(")[0]
-            n = n.removeprefix("void ")[:60]
-            short[n] = short.get(n, 0) + 1
         counted = {k: (ck.launches[k] - before[k]) // 2 for k in FIRST_SLICE
                    if ck.launches[k] > before[k]}
         log(f"algo: {what} put these kernels on the card: "
-            f"{json.dumps(short)}; launch counters per call {counted}")
+            f"{json.dumps(short_kernel_names(names))}; launch counters per "
+            f"call {counted}")
         if what in ALGO_KERNEL:
             # the counters decide: the profiler can drop the events of a
             # short trace (on an H100 it once listed none for count())
@@ -1684,13 +2026,17 @@ def main():
             lambda: [entry_points[k]() for k in steady])
     del entry_points
 
-    # 8. reference fixtures
+    # 8. the serial phase: BMT1 and reference-format BLOBs, set ops on
+    # BLOBs, configs 5 and 5b, the reference's 94 bit-vector BLOBs
+    serial_launches = serial_phase(tbm, device, card)
+
+    # 9. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 9. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 10. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -1705,7 +2051,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 10. timing
+    # 11. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -1738,6 +2084,7 @@ def main():
         t = tm[(k, shapes[k][0])]
         entry = {"name": k, "route": "cuda", **meta, "launches": launches,
                  "algo_launches": algo_launches[k],
+                 "serial_launches": serial_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

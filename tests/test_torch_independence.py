@@ -58,6 +58,13 @@ def test_import_with_jax_and_reference_blocked():
         assert bt.scanner.prepare_pipeline(sv).counts([5, 7]) == [2, 1]
         assert v.get_enumerator().go_to(4) and list(v.first()) == [3, 70000]
         assert bt.algo.intervals(v).tolist() == [[3, 3], [70000, 70000]]
+        blob = bt.serialize(v)
+        assert bt.deserialize(blob, device="cpu").equal(v)
+        ref = bt.serial.ref_serialize(v)
+        assert bt.serial.ref_deserialize(ref, device="cpu").equal(v)
+        od = bt.OperationDeserializer()
+        assert od.deserialize(w.copy(), blob, bt.constants.SET_COUNT_AND) \\
+            == od.deserialize(w.copy(), ref, bt.constants.SET_COUNT_AND) == 1
         bad = [m for m in sys.modules
                if any(m == b or m.startswith(b + ".") for b in BLOCK)]
         assert not bad, bad

@@ -116,3 +116,82 @@ def test_bad_inputs_raise():
                               np.zeros(3, np.int64))
     with pytest.raises(TypeError):
         native.block_gap_boundaries(np.zeros(2048, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the serializer's wrappers
+# ---------------------------------------------------------------------------
+def _blob_and_target():
+    import bitmagic_tpu as jbm
+    rng = np.random.default_rng(5)
+    size = 40 * 65536
+    src = jbm.BitVector.from_indices(rng.integers(0, size, 30_000), size)
+    src.set_range(3 * 65536, 5 * 65536 - 1)
+    src.optimize()
+    tgt = jbm.BitVector.from_indices(rng.integers(0, size, 20_000), size)
+    tgt.set_range(4 * 65536, 6 * 65536 + 9)
+    tgt.optimize()
+    return jbm.serialize(src), tgt
+
+
+def _same(got, want):
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    else:
+        assert got == want
+
+
+def test_blob_wrappers_match_jax():
+    blob, tgt = _blob_and_target()
+    for fn in ("bmt1_decode", "bmt1_decode_gap", "bmt1_record_index"):
+        _same(getattr(native, fn)(blob, 13), getattr(jnative, fn)(blob, 13))
+        # a truncated BLOB is turned down with None by both
+        assert getattr(native, fn)(blob[:-3], 13) is None
+        assert getattr(jnative, fn)(blob[:-3], 13) is None
+    st, g = tgt._struct, tgt._gaps
+    words = tgt._pool_host()
+    cls = st.cls.copy()
+    for op in range(5):
+        for count in (True, False):
+            args = (blob, 13, op, count, st.nb, cls, words)
+            kw = dict(t_gap_ends=g.ends_i32(), t_gap_offs=g.offs,
+                      t_gap_first=g.first)
+            _same(native.bmt1_stream_op(*args, **kw),
+                  jnative.bmt1_stream_op(*args, **kw))
+    nbs, offs = native.bmt1_record_index(blob, 13)
+    _same(native.bmt1_stream_op(blob, int(offs[4]), 1, False, st.nb, cls,
+                                words, n_rec=6, nb_prev=int(nbs[3]), **kw),
+          jnative.bmt1_stream_op(blob, int(offs[4]), 1, False, st.nb, cls,
+                                 words, n_rec=6, nb_prev=int(nbs[3]), **kw))
+    _same(native.padded_blob(blob), jnative.padded_blob(blob))
+    assert native.padded_blob(native.padded_blob(blob)).size == len(blob) + 8
+
+
+def test_encode_wrappers_match_jax():
+    _, tgt = _blob_and_target()
+    st, g = tgt._struct, tgt._gaps
+    words = tgt._pool_host()
+    for level in range(7):
+        kw = dict(gap_ends=g.ends_i32(), gap_offs=g.offs, gap_first=g.first)
+        _same(native.bmt1_encode(words, st.nb, st.cls, level, **kw),
+              jnative.bmt1_encode(words, st.nb, st.cls, level, **kw))
+    _same(native.gaps_to_dense(g.ends, g.offs, g.first),
+          jnative.gaps_to_dense(g.ends, g.offs, g.first))
+    assert native.gaps_to_dense(np.zeros(0), np.zeros(1),
+                                np.zeros(0)).shape == (0, 2048)
+    rng = np.random.default_rng(2)
+    arr = np.unique(rng.integers(0, 65536, 3000)).astype(np.int64)
+    b = native.bic_encode_bytes(arr, 0, 65535)
+    assert b == jnative.bic_encode_bytes(arr, 0, 65535)
+    _same(native.bic_decode_bytes(b, arr.size, 0, 65535), arr)
+    vals = rng.integers(1, 1 << 40, 500).astype(np.uint64)
+    b = native.gamma_encode_bytes(vals)
+    assert b == jnative.gamma_encode_bytes(vals)
+    _same(native.gamma_decode_bytes(b, vals.size), vals)
+    with pytest.raises(ValueError, match="truncated"):
+        native.gamma_decode_bytes(b"\x00\x00", 50)
