@@ -3,8 +3,9 @@
 Block-structured compressed bit-vectors with set algebra, counts,
 rank/select, iteration and the free-function algorithms, their BLOB
 serialization (the BMT1 format and the reference's own, set ops straight
-against a BLOB), the multi-vector aggregator, and bit-sliced integer sparse
-vectors with their equality scanner, on one NVIDIA Hopper card (H100).  The hot block ops are
+against a BLOB), the multi-vector aggregator, and bit-sliced sparse vectors (integer, float,
+string, rank-select compressed) with their scanner, on one NVIDIA Hopper
+card (H100).  The hot block ops are
 hand-written CUDA kernels for ``sm_90a`` (``ops/csrc``), built from source
 with ``nvcc`` at first use; every other device step is plain PyTorch, and
 the host-side block codecs are the port's native C++ library
@@ -47,8 +48,10 @@ from .serial.opdeser import OperationDeserializer
 from .serial.serializer import (Deserializer, Serializer, deserialize,
                                 serialize)
 from .serial.stream_iter import IteratorDeserializer, SerialStreamIterator
-from .sv.scanner import SparseVectorScanner, scanner
-from .sv.sparse_vector import SparseVector
+from . import sv
+from .sv import (BitMatrix, FloatSparseVector, RSCSparseVector,
+                 SparseVector, SparseVectorScanner, StrSparseVector, scanner)
+from .sv.algo import Set2SetTransform, find_first_mismatch, set2set_transform
 
 __version__ = "0.1.0"
 
@@ -59,8 +62,9 @@ __all__ = [
     "SerialStreamIterator", "IteratorDeserializer",
     "serial",
     "Aggregator", "aggregator", "AggOptions",
-    "SparseVector", "scanner", "SparseVectorScanner",
-    "algo",
+    "SparseVector", "RSCSparseVector", "StrSparseVector",
+    "FloatSparseVector", "BitMatrix", "scanner", "SparseVectorScanner",
+    "algo", "sv",
     "count_and", "count_or", "count_xor", "count_sub",
     "any_and", "any_or", "any_xor", "any_sub",
     "distance_operation", "distance_operation_any",
@@ -76,5 +80,6 @@ __all__ = [
     "init_kleene", "get_value_kleene", "set_value_kleene", "invert_kleene",
     "or_kleene", "and_kleene",
     "random_subset", "rank_compress",
+    "find_first_mismatch", "set2set_transform", "Set2SetTransform",
     "__version__",
 ]

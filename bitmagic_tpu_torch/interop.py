@@ -5,7 +5,10 @@ The parts of a BitVector are those of the JAX package's ``BitVector``:
 (uint32 rows) and ``_gaps.ends/offs/first`` (empty arrays when the vector
 has no GAP blocks).  A SparseVector's parts are its dtype, nullability,
 size and the BitVector parts of each plane and of the NULL plane; an
-OperandArena's are the parts of its vectors.  With them the same
+OperandArena's are the parts of its vectors.  A StrSparseVector's are the
+SparseVector parts of its octet vectors, its remap matrices and its NULL
+plane; a FloatSparseVector's its sign, exponent, mantissa and NULL plane;
+an RSCSparseVector's its dense payload and NULL index.  With them the same
 containers can be fed to both packages and their states compared
 directly.  This module imports nothing of the JAX package.
 """
@@ -112,3 +115,104 @@ def operand_arena_to_parts(arena, indices, blocklist) -> dict:
     return {"pool_u32": to_host_words(arena.pool),
             "slots": arena.slots_matrix(list(indices),
                                         np.asarray(blocklist, np.int64))}
+
+
+STR_PARTS = ("max_str_size", "nullable", "size", "octets", "remap_matrices",
+             "unmap_matrices", "null_plane")
+FLOAT_PARTS = ("dtype", "nullable", "size", "sign", "exponent", "mantissa",
+               "null_plane")
+RSC_PARTS = ("dtype", "size", "dense", "null_bv")
+
+
+def str_vector_from_parts(max_str_size, nullable, size, octets,
+                          remap_matrices, unmap_matrices, null_plane,
+                          device=None):
+    """A port StrSparseVector holding exactly the given state: ``octets``
+    holds the ``sparse_vector_*_parts`` dict of each octet position's uint8
+    vector, the remap matrices are uint8[max_str_size, 256] (None when not
+    remapped), ``null_plane`` a ``bitvector_*_parts`` dict or None."""
+    from .sv.str_vector import StrSparseVector
+    ssv = StrSparseVector(int(max_str_size), nullable=bool(nullable),
+                          device=device)
+    ssv.octets = [sparse_vector_from_parts(**o, device=device)
+                  for o in octets]
+    ssv.max_str_size = len(ssv.octets)
+    for name, m in (("remap_matrices", remap_matrices),
+                    ("unmap_matrices", unmap_matrices)):
+        setattr(ssv, name, None if m is None
+                else np.asarray(m, np.uint8).copy())
+    if ssv.nullable:
+        ssv.null_plane = bitvector_from_parts(**null_plane, device=device)
+    ssv._size = int(size)
+    return ssv
+
+
+def str_vector_to_parts(ssv) -> dict:
+    """The state of a StrSparseVector keyed by ``STR_PARTS``."""
+    return {
+        "max_str_size": int(ssv.max_str_size),
+        "nullable": bool(ssv.nullable),
+        "size": int(ssv._size),
+        "octets": [sparse_vector_to_parts(o) for o in ssv.octets],
+        "remap_matrices": (None if ssv.remap_matrices is None
+                           else ssv.remap_matrices.copy()),
+        "unmap_matrices": (None if ssv.unmap_matrices is None
+                           else ssv.unmap_matrices.copy()),
+        "null_plane": (bitvector_to_parts(ssv.null_plane) if ssv.nullable
+                       else None),
+    }
+
+
+def float_vector_from_parts(dtype, nullable, size, sign, exponent, mantissa,
+                            null_plane, device=None):
+    """A port FloatSparseVector holding exactly the given state: ``sign``
+    and ``null_plane`` are ``bitvector_*_parts`` dicts (the latter None
+    when not nullable), ``exponent`` and ``mantissa`` are
+    ``sparse_vector_*_parts`` dicts."""
+    from .sv.float_vector import FloatSparseVector
+    fv = FloatSparseVector(np.dtype(dtype), nullable=bool(nullable),
+                           device=device)
+    fv.sign = bitvector_from_parts(**sign, device=device)
+    fv.exponent = sparse_vector_from_parts(**exponent, device=device)
+    fv.mantissa = sparse_vector_from_parts(**mantissa, device=device)
+    if fv.nullable:
+        fv.null_plane = bitvector_from_parts(**null_plane, device=device)
+    fv._size = int(size)
+    return fv
+
+
+def float_vector_to_parts(fv) -> dict:
+    """The state of a FloatSparseVector keyed by ``FLOAT_PARTS``."""
+    return {
+        "dtype": fv.dtype.str,
+        "nullable": bool(fv.nullable),
+        "size": int(fv._size),
+        "sign": bitvector_to_parts(fv.sign),
+        "exponent": sparse_vector_to_parts(fv.exponent),
+        "mantissa": sparse_vector_to_parts(fv.mantissa),
+        "null_plane": (bitvector_to_parts(fv.null_plane) if fv.nullable
+                       else None),
+    }
+
+
+def rsc_vector_from_parts(dtype, size, dense, null_bv, device=None):
+    """A port RSCSparseVector holding exactly the given state: ``dense`` is
+    the ``sparse_vector_*_parts`` dict of the compressed payload,
+    ``null_bv`` the ``bitvector_*_parts`` dict of the NULL index."""
+    from .sv.rsc_vector import RSCSparseVector
+    rsc = RSCSparseVector(np.dtype(dtype), device=device)
+    rsc.dense = sparse_vector_from_parts(**dense, device=device)
+    rsc.null_bv = bitvector_from_parts(**null_bv, device=device)
+    rsc._size = int(size)
+    return rsc.sync()
+
+
+def rsc_vector_to_parts(rsc) -> dict:
+    """The state of an RSCSparseVector keyed by ``RSC_PARTS``."""
+    rsc._flush()
+    return {
+        "dtype": rsc.dtype.str,
+        "size": int(rsc._size),
+        "dense": sparse_vector_to_parts(rsc.dense),
+        "null_bv": bitvector_to_parts(rsc.null_bv),
+    }

@@ -1,5 +1,5 @@
 """Bit-sliced (bit-transposed) succinct integer vector, unsigned and signed
-(port of the integer part of ``bitmagic_tpu/sv/sparse_vector.py``).
+(port of ``bitmagic_tpu/sv/sparse_vector.py``).
 
 Equivalent of `bm::sparse_vector<Val, BV>` (src/bmsparsevec.h:86): an integer
 vector stored as up to 64 bit-planes (BitVectors) plus an optional NULL plane
@@ -271,6 +271,23 @@ class SparseVector:
     def push_back(self, v):
         return self.set(self._size, v)
 
+    def push_back_null(self, count: int = 1):
+        """Append ``count`` NULL (unassigned) elements (reference
+        push_back_null, src/bmsparsevec.h:498)."""
+        if not self.is_nullable():
+            raise ValueError("push_back_null requires a nullable vector")
+        return self.resize(self._size + int(count))
+
+    def inc(self, i):
+        """Increment element i (reference inc)."""
+        self._check_writable()
+        self.set(i, self.get(i) + 1)
+        return self
+
+    def add(self, i, d):
+        self.set(i, self.get(i) + d)
+        return self
+
     def is_null(self, i) -> bool:
         self._flush()
         if not self.nullable:
@@ -293,6 +310,11 @@ class SparseVector:
         nulls = np.asarray([v is None for _, v in items], bool)
         vals = np.asarray([0 if v is None else v for _, v in items],
                           self.dtype)
+        self._write(ids, nulls, vals)
+
+    def _write(self, ids, nulls, vals):
+        """Write values (and NULLs where ``nulls``) at sorted unique ``ids``
+        into the planes: the staged writes' flush."""
         u = self.s2u(vals)
         for s in range(self.n_slices):
             ones = ids[(((u >> np.uint64(s)) & np.uint64(1)) == 1) & ~nulls]
@@ -380,11 +402,276 @@ class SparseVector:
         self._flush()
         return self.null_plane
 
+    # ------------------------------------------------------------------
+    # vector algebra (reference join/merge/filter/clear_range)
+    # ------------------------------------------------------------------
+    def _check_device(self, other):
+        if other.device != self._device:
+            raise ValueError(f"vectors on different devices: {self._device} "
+                             f"and {other.device}")
+
+    def join(self, other: "SparseVector"):
+        """Plane-wise OR merge (reference join, src/bmsparsevec.h:2186):
+        every value slice (and the NULL slice) ORs in the argument's, so
+        overlapping assigned values combine bitwise exactly as the
+        reference's ``*bv |= *arg_bv`` loop does (K1 per plane)."""
+        self._check_writable()
+        if other.dtype != self.dtype:
+            raise ValueError("dtype mismatch")
+        self._check_device(other)
+        self._flush()
+        other._flush()
+        if other._size > self._size:
+            self._size = other._size
+        for j, p in enumerate(other.planes):
+            if p is not None:
+                mine = self.planes[j]
+                if mine is None:
+                    self.planes[j] = p.copy()
+                else:
+                    mine.bit_or(p)
+        if self.nullable:
+            if other.nullable:
+                self.null_plane.bit_or(other.null_plane)
+            elif other._size:
+                # argument assumed all-real (reference join_null_slice)
+                self.null_plane.set_range(0, other._size - 1, True)
+        elif other.nullable:
+            # a non-nullable target adopts the argument's NULL slice
+            # (reference join_null_slice, src/bmsparsevec.h:2238-2243)
+            self.nullable = True
+            self.null_plane = other.null_plane.copy()
+        return self
+
+    def merge(self, other: "SparseVector"):
+        """join + clear other (reference merge, src/bmsparsevec.h:2217)."""
+        self.join(other)
+        other.clear()
+        return self
+
+    def end(self):
+        """Invalid const_iterator sentinel (reference end(); compares
+        equal to any exhausted iterator over this vector)."""
+        it = self.get_const_iterator(0)
+        it.invalidate()
+        return it
+
+    def find_rank(self, rank: int) -> int:
+        """Dense address space: the rank-th element is position rank-1
+        (reference sparse_vector::find_rank, src/bmsparsevec.h:2110)."""
+        rank = int(rank)
+        if rank < 1:
+            raise ValueError("rank is 1-based")
+        return rank - 1
+
+    def sync(self, force: bool = False):
+        """Structure sync (reference sync; the deferred state here is only
+        the staged writes: flush them)."""
+        self._flush()
+        return self
+
+    def sync_size(self):
+        return self.sync()
+
+    def is_remap(self) -> bool:
+        """Only string vectors remap (reference base is_remap)."""
+        return False
+
+    def filter(self, keep: BitVector):
+        """Zero out (and NULL) all positions not in keep (reference
+        filter): one AND per plane."""
+        self._check_writable()
+        self._flush()
+        for p in self.planes:
+            if p is not None:
+                p.bit_and(keep)
+        if self.nullable:
+            self.null_plane.bit_and(keep)
+        return self
+
+    keep = filter
+
+    def insert(self, i, v):
+        """Insert value at i, shifting elements right (reference
+        sparse_vector insert, src/bmsparsevec.h): every plane
+        insert-shifts; the NULL plane marks i assigned."""
+        self._check_writable()
+        self._flush()
+        i = int(i)
+        for p in self.planes:
+            if p is not None:
+                p.insert(i, False)
+        if self.nullable:
+            self.null_plane.insert(i, False)
+        self._size += 1
+        self.set(i, v)
+        return self
+
+    def erase(self, i):
+        """Erase element i, shifting elements left (reference erase,
+        src/bmsparsevec.h)."""
+        self._check_writable()
+        self._flush()
+        i = int(i)
+        for p in self.planes:
+            if p is not None:
+                p.erase(i)
+        if self.nullable:
+            self.null_plane.erase(i)
+        if self._size:
+            self._size -= 1
+        return self
+
+    def copy_range(self, other: "SparseVector", lo, hi):
+        """Copy [lo, hi] from another vector of the same dtype, clearing
+        everything else (reference copy_range, src/bmsparsevec.h)."""
+        self._check_writable()
+        other._flush()
+        self._flush()
+        if other.dtype != self.dtype:
+            raise ValueError("dtype mismatch")
+        self._check_device(other)
+        lo, hi = int(lo), int(hi)
+        self.planes = [None] * len(self.planes)
+        for s, p in enumerate(other.planes[:len(self.planes)]):
+            if p is not None:
+                bv = BitVector(p.size, device=self._device)
+                bv.copy_range(p, lo, hi)
+                self.planes[s] = bv
+        if self.nullable:
+            src_null = other.null_plane
+            if src_null is None:
+                src_null = self._new_plane()
+                if other._size:
+                    src_null.set_range(0, other._size - 1)
+            bv = BitVector(src_null.size, device=self._device)
+            bv.copy_range(src_null, lo, hi)
+            self.null_plane = bv
+        self._size = other._size
+        return self
+
+    def at(self, i):
+        """Bounds-checked access (reference at, src/bmsparsevec.h)."""
+        if not (0 <= int(i) < self._size):
+            raise IndexError(i)
+        return self.get(i)
+
+    def try_get(self, i):
+        """(found, value) pair; found is False at NULL positions
+        (reference try_get, src/bmsparsevec.h:473)."""
+        self._flush()
+        if self.nullable and not self.null_plane.test(i):
+            return False, self.dtype.type(0)
+        return True, self.get(i)
+
+    def compare(self, i, val) -> int:
+        """Three-way compare of element i against a value: -1/0/1
+        (reference compare, src/bmsparsevec.h:778)."""
+        mine = self.get(i)
+        val = self.dtype.type(val)
+        return int(mine > val) - int(mine < val)
+
     def is_nullable(self) -> bool:
         return self.nullable
 
+    def swap(self, a, b=None):
+        """Container swap (one arg, reference src/bmsparsevec.h:695) or
+        element swap of positions a and b (two args, :525)."""
+        if b is None:
+            if not isinstance(a, SparseVector):
+                raise TypeError("swap(other) needs a SparseVector")
+            self._flush()
+            a._flush()
+            self.__dict__, a.__dict__ = a.__dict__, self.__dict__
+            return self
+        va, vb = self.get(a), self.get(b)
+        na = self.nullable and not self.null_plane.test(a)
+        nb = self.nullable and not self.null_plane.test(b)
+        self.set_null(a) if nb else self.set(a, vb)
+        self.set_null(b) if na else self.set(b, va)
+        return self
+
+    def keep_range(self, lo, hi):
+        """Zero (and NULL) everything outside [lo, hi] (reference
+        keep_range, src/bmsparsevec.h:883)."""
+        self._check_writable()
+        self._flush()
+        rng = self._new_plane()
+        rng.set_range(int(lo), int(hi))
+        return self.filter(rng)
+
+    def extract(self, n, offset=0):
+        """Dense export of n values from offset (reference extract)."""
+        return self.decode(int(offset), int(n))
+
+    def extract_range(self, lo, hi):
+        """Values of [lo, hi] inclusive (reference extract_range)."""
+        return self.decode(int(lo), int(hi) - int(lo) + 1)
+
+    def optimize_gap_size(self):
+        """Per-plane GAP level tuning (reference optimize_gap_size)."""
+        self._flush()
+        for p in self.planes:
+            if p is not None:
+                p.optimize_gap_size()
+        if self.nullable:
+            self.null_plane.optimize_gap_size()
+        return self
+
+    # -- iterators (reference const_iterator / back_insert_iterator) ----
+    def get_const_iterator(self, pos: int = 0):
+        """Window-buffered iterator (reference get_const_iterator,
+        src/bmsparsevec.h:571-580)."""
+        from .iterators import ConstIterator
+        self._flush()
+        return ConstIterator(self, pos)
+
+    def begin(self):
+        return self.get_const_iterator(0)
+
+    def get_back_inserter(self):
+        """Buffered appender: add/add_null/flush land bulk imports
+        (reference get_back_inserter, src/bmsparsevec.h:587)."""
+        from .iterators import BackInsertIterator
+        self._flush()
+        return BackInsertIterator(self)
+
+    def _append_bulk(self, buf):
+        """Back-inserter flush sink: one bulk import per flush; None
+        entries become NULL positions."""
+        has_null = any(v is None for v in buf)
+        if has_null and not self.nullable:
+            raise ValueError("add_null on a non-nullable vector")
+        off = self._size
+        vals = np.asarray([0 if v is None else v for v in buf], self.dtype)
+        self.import_values(vals, offset=off)
+        if has_null:
+            nulls = np.flatnonzero([v is None for v in buf]) + off
+            self.null_plane.clear_many(nulls.astype(_I64))
+
     def empty(self) -> bool:
         return self._size == 0
+
+    def effective_size(self) -> int:
+        return self._size
+
+    def is_compressed(self) -> bool:
+        return False
+
+    def is_str(self) -> bool:
+        return False
+
+    def clear_range(self, lo, hi, set_null: bool = False):
+        """Zero values in [lo, hi]; set_null also unassigns them
+        (reference default is false, src/bmsparsevec.h:715)."""
+        self._check_writable()
+        self._flush()
+        for p in self.planes:
+            if p is not None:
+                p.set_range(lo, hi, False)
+        if self.nullable and set_null:
+            self.null_plane.set_range(lo, hi, False)
+        return self
 
     def clear(self):
         self._check_writable()
@@ -395,6 +682,8 @@ class SparseVector:
         self._size = 0
         return self
 
+    clear_all = clear       # reference alias (src/bmsparsevec.h)
+
     # ------------------------------------------------------------------
     def optimize(self):
         self._flush()
@@ -404,6 +693,17 @@ class SparseVector:
         if self.nullable:
             self.null_plane.optimize()
         return self
+
+    def calc_stat(self) -> dict:
+        self._flush()
+        st = {"bit_blocks": 0, "full_blocks": 0, "memory_used": 0,
+              "planes": sum(p is not None for p in self.planes)}
+        for p in self.planes:
+            if p is not None:
+                s = p.calc_stat()
+                for k in ("bit_blocks", "full_blocks", "memory_used"):
+                    st[k] += s[k]
+        return st
 
     def equal(self, other: "SparseVector") -> bool:
         self._flush()

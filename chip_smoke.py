@@ -70,21 +70,39 @@ only when every phase passed):
               for COUNT_AND on it, K3 for the pass-through counts of a
               streamed BLOB), counts the host copies of one streamed op and
               profiles config 5's steady pass;
- 9. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
-10. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+ 9. sv      — the rest of the sparse vectors, in groups: config 4b's column
+              through find_gt/ge/lt/le/range/nonnegative (plain, then under
+              an AND mask and a search range); a 16M-element nullable int32
+              column across zero and at the iinfo edges; 16M sorted uint32
+              with bind and SV_PROBES lower_bound / bfind_eq probes; a
+              16M-element nullable float32 column with +-0.0 and repeats
+              through the float searches; a dictionary of 2^22 sorted
+              catalog ids, remapped, optimized and frozen, and a raw copy:
+              exact, prefix and first-hit searches, SV_PROBES bound
+              bfind_eq_str probes and the string pipeline of 500 present +
+              100 missing ids on both forms; samples/11's RSC column (100M
+              rows, 100k values) through from_sparse_vector, gather, the
+              RSC searches, count_range_notnull and load_to; and
+              find_first_mismatch, set2set_transform and BitMatrix rows on
+              config 4b's column; every answer against numpy or Python.
+              Each group has its own launch counts and required kernels;
+              it logs one find_gt's K1 launches and profiles a steady pass;
+10. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+11. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-11. timing  — each kernel, its plain version and the nearest single PyTorch
+12. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8) is driven with the launch counts set to 0 just
-before and read just after; a kernel of the path launched no time fails it.
+Each path (4, 5, 6, 7, 8 and each group of 9) is driven with the launch
+counts set to 0 just before and read just after; a kernel of the path
+launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -132,6 +150,12 @@ SIM_VECTORS = 16                # algo phase: 16 x 1536 dense rows, 201 MB
 # (a full walk would take a large share of the script's time limit);
 # go_to, skip and skip_to_rank jumps cover the rest of the vector.
 ENUM_WALK = 1 << 20
+# sv phase: SV_PROBES sorted probes per column, a string dictionary of
+# STR_N catalog ids with a pipeline of STR_PRESENT + STR_MISSING ids
+# (samples/16_compressed_dictionary.py's mix), and samples/11's RSC column
+SV_PROBES = 1000
+STR_N, STR_PRESENT, STR_MISSING = 1 << 22, 500, 100
+RSC_ROWS, RSC_VALUES = 100_000_000, 100_000
 
 KERNELS = {
     "block_counts": dict(
@@ -1563,7 +1587,353 @@ def serial_phase(tbm, device, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: timing
+# phase 9: the rest of the sparse vectors (ordered and sorted searches, the
+# float, string and RSC vectors, BitMatrix and the sv algorithms)
+# ---------------------------------------------------------------------------
+ORDER_OPS = {"find_gt": np.greater, "find_ge": np.greater_equal,
+             "find_lt": np.less, "find_le": np.less_equal}
+FLOAT_OPS = {"find_eq_float": np.equal, "find_gt_float": np.greater,
+             "find_ge_float": np.greater_equal, "find_lt_float": np.less,
+             "find_le_float": np.less_equal}
+
+
+def require_launches(what, launches, kernels):
+    for k in kernels:
+        check(launches[k] > 0, f"{what} never launched {k}")
+
+
+def same_ids(bv, want, what):
+    check(np.array_equal(bv.indices(), want), what)
+
+
+def sv_4b_ordered(tbm, ck, sv, vals, nm, times):
+    """Config 4b's column through the ordered searches, plain and under an
+    AND mask plus a search range, against numpy."""
+    rng = np.random.default_rng(SEED + 20)
+    v64 = vals.astype(np.int64)
+    ok = ~nm
+    drawn = int(vals[rng.integers(0, SV_N)])
+    sc = tbm.SparseVectorScanner()
+    for q in (0, 1 << 19, (1 << SV_BITS) - 1, drawn, -1, 1 << 32):
+        for name, op in ORDER_OPS.items():
+            same_ids(getattr(sc, name)(sv, q), np.flatnonzero(op(v64, q) & ok),
+                     f"config 4b {name}({q})")
+    for lo, hi in ((1000, 1 << 19), (drawn, drawn), (0, (1 << SV_BITS) - 1)):
+        same_ids(sc.find_range(sv, lo, hi),
+                 np.flatnonzero((v64 >= lo) & (v64 <= hi) & ok),
+                 f"config 4b find_range({lo}, {hi})")
+    check(sc.find_nonnegative(sv).count() == SV_N, "config 4b nonnegative")
+    # one find_gt alone: the K1 launches of one ordered descent
+    before = ck.launches["logical_op_digest"]
+    with Clock("find_gt_ms", times):
+        sc.find_gt(sv, drawn)
+    times["find_gt_k1_launches"] = ck.launches["logical_op_digest"] - before
+    mask_ids = np.flatnonzero(rng.random(SV_N) < 0.5)
+    in_mask = np.zeros(SV_N, bool)
+    in_mask[mask_ids] = True
+    lo, hi = SV_N // 5, SV_N - SV_N // 7
+    in_mask[:lo] = in_mask[hi + 1:] = False
+    sc.set_and_mask(tbm.BitVector.from_indices(mask_ids, tbm.constants.ID_MAX48,
+                                               device=sv.device))
+    sc.set_search_range(hi, lo)
+    for name, op in ORDER_OPS.items():
+        same_ids(getattr(sc, name)(sv, drawn),
+                 np.flatnonzero(op(v64, drawn) & ok & in_mask),
+                 f"config 4b masked {name}")
+    same_ids(sc.find_range(sv, 1000, 1 << 19),
+             np.flatnonzero((v64 >= 1000) & (v64 <= 1 << 19) & ok & in_mask),
+             "config 4b masked find_range")
+    same_ids(sc.find_nonnegative(sv), np.flatnonzero(in_mask),
+             "config 4b masked find_nonnegative")
+    return sc, drawn
+
+
+def sv_signed(tbm, device):
+    """A 16M-element nullable int32 column, uniform in [-2^19, 2^19), ~1 %
+    NULL: find_gt / find_lt / find_range across zero and at the iinfo
+    edges, against numpy."""
+    rng = np.random.default_rng(SEED + 21)
+    vals = rng.integers(-(1 << 19), 1 << 19, SV_N).astype(np.int32)
+    nm = rng.random(SV_N) < 0.01
+    sv = tbm.SparseVector.from_array(vals, null_mask=nm, device=device)
+    v64, ok = vals.astype(np.int64), ~nm
+    info = np.iinfo(np.int32)
+    sc = tbm.scanner
+    for q in (-1, 0, 1, -(1 << 19), (1 << 19) - 1, info.min, info.max,
+              int(info.min) - 1, int(info.max) + 1, int(vals[12345])):
+        for name in ("find_gt", "find_lt"):
+            same_ids(getattr(sc, name)(sv, q),
+                     np.flatnonzero(ORDER_OPS[name](v64, q) & ok),
+                     f"signed {name}({q})")
+    for lo, hi in ((-5, 5), (info.min, -1), (0, info.max),
+                   (-(1 << 19), (1 << 19) - 1)):
+        same_ids(sc.find_range(sv, lo, hi),
+                 np.flatnonzero((v64 >= lo) & (v64 <= hi) & ok),
+                 f"signed find_range({lo}, {hi})")
+
+
+def sv_sorted(tbm, device, times):
+    """16M sorted uint32: bind, then SV_PROBES lower_bound and bfind_eq
+    probes against np.searchsorted."""
+    rng = np.random.default_rng(SEED + 22)
+    vals = np.sort(rng.integers(0, 1 << 32, SV_N, dtype=np.uint64)
+                   ).astype(np.uint32)
+    sv = tbm.SparseVector.from_array(vals, device=device)
+    sc = tbm.SparseVectorScanner()
+    with Clock("bind_ms", times):
+        sc.bind(sv)
+    probes = np.concatenate([
+        vals[rng.integers(0, SV_N, SV_PROBES // 2)],
+        rng.integers(0, 1 << 32, SV_PROBES // 2 - 2, dtype=np.uint64),
+        [0, (1 << 32) - 1]]).astype(np.uint32)
+    # the oracle outside the timed loop: a searchsorted of a Python int
+    # would widen the 16M column to int64 on every probe
+    want = np.searchsorted(vals, probes, side="left")
+    hit = np.where((want < SV_N) & (vals[np.minimum(want, SV_N - 1)]
+                                    == probes), want, -1)
+    got = []
+    with Clock(f"lower_bound_bfind_eq_{SV_PROBES}_ms", times):
+        for q in probes.tolist():
+            got.append((sc.lower_bound(sv, q), sc.bfind_eq(sv, q)))
+    check(got == list(zip(want.tolist(), hit.tolist())),
+          "lower_bound / bfind_eq against np.searchsorted")
+    return sc, sv, probes[:10].tolist()
+
+
+def sv_float(tbm, device, times):
+    """A 16M-element nullable float32 column, standard_normal() * 1000,
+    ~1 % NULL, with +-0.0 and repeats: the float searches against numpy."""
+    rng = np.random.default_rng(SEED + 23)
+    vals = (rng.standard_normal(SV_N) * 1000).astype(np.float32)
+    vals[rng.integers(0, SV_N, 5000)] = 0.0
+    vals[rng.integers(0, SV_N, 5000)] = -0.0
+    vals[::97] = 12.5
+    vals[1::89] = -12.5
+    nm = rng.random(SV_N) < 0.01
+    with Clock("float_import_ms", times):
+        fv = tbm.FloatSparseVector.from_array(vals, nullable=True,
+                                              device=device)
+        for i in np.flatnonzero(nm).tolist():
+            fv.set_null(i)
+    ok = ~nm
+    sc = tbm.scanner
+    for q in (0.0, -0.0, 12.5, -12.5, float(vals[777])):
+        for name, op in FLOAT_OPS.items():
+            same_ids(getattr(sc, name)(fv, q),
+                     np.flatnonzero(op(vals, np.float32(q)) & ok),
+                     f"float {name}({q})")
+    same_ids(sc.find_range_float(fv, 12.5, -12.5),
+             np.flatnonzero((vals >= -12.5) & (vals <= 12.5) & ok),
+             "find_range_float")
+    same_ids(sc.find_range_float_unbounded(fv, -1000.0, 0.0),
+             np.flatnonzero((vals > -1000) & (vals < 0) & ok),
+             "find_range_float_unbounded")
+    return fv
+
+
+def _catalog_ids(rng, n):
+    nums = np.sort(rng.choice(10 ** 7, n, replace=False))
+    return nums, [f"NGC {x:07d}" for x in nums.tolist()]
+
+
+def sv_strings(tbm, device, times):
+    """A sorted dictionary of STR_N catalog ids "NGC %07d" drawn without
+    replacement from 10^7 (samples/16_compressed_dictionary.py's form),
+    remapped, optimized and frozen, and a raw copy: exact and prefix
+    searches, the first hit, SV_PROBES bound bfind_eq_str probes and the
+    string pipeline (STR_PRESENT present + STR_MISSING missing ids) on both
+    forms, against Python."""
+    rng = np.random.default_rng(SEED + 24)
+    nums, names = _catalog_ids(rng, STR_N)
+    with Clock("str_import_ms", times):
+        cat = tbm.StrSparseVector.from_strings(names, device=device)
+    raw = tbm.StrSparseVector.from_strings(names, device=device)
+    with Clock("remap_ms", times):
+        cat.remap()
+    with Clock("optimize_freeze_ms", times):
+        cat.optimize()
+        cat.freeze()
+    raw.optimize()
+    check(cat.is_remap() and cat.is_ro() and cat.size == STR_N, "dictionary")
+    ids = rng.integers(0, STR_N, 1000)
+    check(cat.gather(ids) == [names[i] for i in ids.tolist()],
+          "dictionary gather")
+    absent = np.setdiff1d(rng.integers(0, 10 ** 7, 4 * STR_MISSING), nums)
+    missing = ([f"NGC {x:07d}" for x in absent[:STR_MISSING // 2].tolist()]
+               + [f"XYZ {i}" for i in range(STR_MISSING
+                                            - STR_MISSING // 2)])
+    sc = tbm.SparseVectorScanner()
+    k = int(rng.integers(0, STR_N))
+    for v in (cat, raw):
+        same_ids(sc.find_eq_str(v, names[k]), [k], "find_eq_str")
+        check(sc.find_eq_str_count(v, names[k]) == 1, "find_eq_str_count")
+        check(sc.find_eq_str(v, missing[0]).count() == 0, "missing id")
+        check(sc.find_first_eq_str(v, names[k]) == k, "find_first_eq_str")
+        check(sc.find_first_eq_str(v, missing[0]) == -1, "first of missing")
+        for p, lo, hi in (("NGC 12", 1_200_000, 1_300_000),
+                          ("NGC 00000", 0, 100),
+                          ("NGC 9", 9_000_000, 10 ** 7)):
+            same_ids(sc.find_eq_str_prefix(v, p),
+                     np.flatnonzero((nums >= lo) & (nums < hi)),
+                     f"find_eq_str_prefix({p})")
+    with Clock("bind_str_ms", times):
+        sc.bind(cat)
+    probe_ids = rng.integers(0, STR_N, SV_PROBES - STR_MISSING)
+    with Clock(f"bfind_eq_str_{SV_PROBES}_ms", times):
+        for i in probe_ids.tolist():
+            check(sc.bfind_eq_str(cat, names[i]) == i, f"bfind_eq_str({i})")
+        for s in missing:
+            check(sc.bfind_eq_str(cat, s) == -1, f"bfind_eq_str({s})")
+    queries = [names[i] for i in rng.integers(0, STR_N, STR_PRESENT)] \
+        + missing
+    want = [1] * STR_PRESENT + [0] * len(missing)
+    for form, v in (("remapped", cat), ("raw", raw)):
+        with Clock(f"pipeline_{form}_ms", times):
+            got = sc.pipeline_find_eq_str(v, queries)
+        check(got == want, f"string pipeline on the {form} dictionary")
+        times[f"pipeline_{form}_planes"] = sc.prepare_pipeline_str(v).K
+    return cat, queries
+
+
+def sv_rsc(tbm, device, times):
+    """samples/11_rsc_collections.py's shape: a column of RSC_ROWS rows
+    holding RSC_VALUES values < 2^20, compressed from a nullable
+    SparseVector; gather, the RSC searches, count_range_notnull and the
+    load_to round trip, against numpy."""
+    rng = np.random.default_rng(SEED + 25)
+    idx = np.unique(rng.integers(0, RSC_ROWS, RSC_VALUES)).astype(np.int64)
+    rv = rng.integers(1, 1 << 20, idx.size).astype(np.uint32)
+    arr = np.zeros(int(idx[-1]) + 1, np.uint32)
+    arr[idx] = rv
+    mask = np.ones(arr.size, bool)
+    mask[idx] = False
+    with Clock("source_from_array_ms", times):
+        src = tbm.SparseVector.from_array(arr, null_mask=mask, device=device)
+    with Clock("from_sparse_vector_ms", times):
+        rsc = tbm.RSCSparseVector.from_sparse_vector(src)
+    del src, mask
+    check(rsc.count() == idx.size and rsc.size == arr.size, "rsc counts")
+    probe = np.concatenate([rng.integers(0, arr.size, 10_000), idx[::97]])
+    check(np.array_equal(rsc.gather(probe), arr[probe]), "rsc gather")
+    sc = tbm.scanner
+    for name, op, q in (("find_eq_rsc", np.equal, int(rv[5])),
+                        ("find_gt_rsc", np.greater, 1 << 19),
+                        ("find_lt_rsc", np.less, 1000)):
+        same_ids(getattr(sc, name)(rsc, q), idx[op(rv, q)], f"{name}({q})")
+    for lo, hi in ((0, arr.size - 1), (12345, 54_321_000), (arr.size // 2,
+                                                            arr.size // 3)):
+        a, b = min(lo, hi), max(lo, hi)
+        want = int(np.searchsorted(idx, b, "right")
+                   - np.searchsorted(idx, a, "left"))
+        check(rsc.count_range_notnull(lo, hi) == want,
+              f"count_range_notnull({lo}, {hi})")
+    with Clock("load_to_ms", times):
+        back = rsc.load_to()
+    check(back.size == arr.size, "load_to size")
+    same_ids(back.get_null_bvector(), idx, "load_to NULL plane")
+    check(np.array_equal(back.gather(probe), arr[probe]), "load_to values")
+    return rsc, int(rv[5])
+
+
+def sv_algorithms(tbm, sv, vals, nm):
+    """find_first_mismatch of config 4b's column against a copy that
+    differs at one late position, set2set_transform and BitMatrix rows over
+    its planes, against numpy."""
+    rng = np.random.default_rng(SEED + 26)
+    late = int(np.flatnonzero(~nm[SV_N - 5000:])[0]) + SV_N - 5000
+    vals2 = vals.copy()
+    vals2[late] ^= 1
+    copy = tbm.SparseVector.from_array(vals2, null_mask=nm, device=sv.device)
+    check(tbm.find_first_mismatch(sv, copy) == late, "find_first_mismatch")
+    check(tbm.find_first_mismatch(sv, sv) == -1, "no mismatch")
+    ids = np.unique(rng.integers(0, SV_N, 100_000))
+    img = tbm.set2set_transform(sv, tbm.BitVector.from_indices(
+        ids, tbm.constants.ID_MAX48, device=sv.device))
+    same_ids(img, np.unique(vals[ids[~nm[ids]]]).astype(np.int64),
+             "set2set_transform")
+    m = tbm.BitMatrix(device=sv.device)
+    for s, p in enumerate(sv.planes):
+        if p is not None:
+            m.set_row(s, p)
+    live = np.where(nm, 0, vals)
+    probe = rng.integers(0, SV_N, 10_000)
+    for o in range(3):
+        check(np.array_equal(m.octets(probe, o),
+                             ((live[probe] >> (8 * o)) & 0xFF).astype(
+                                 np.uint8)), f"BitMatrix octet {o}")
+    return copy
+
+
+# the kernels (launch counters) each group of the sv phase must launch
+SV_GROUP_KERNELS = {
+    "config 4b ordered": ("logical_op_digest",),
+    "signed": ("logical_op_digest",),
+    "sorted": (),
+    "float": ("logical_op_digest", "agg_and_sub"),
+    "strings": ("agg_and_sub", "pipeline_counts", "block_counts"),
+    "rsc": ("agg_and_sub", "logical_op_digest"),
+    "sv algorithms": ("logical_op_digest",),
+}
+
+
+def sv_phase(tbm, device, card, sv, vals, nm):
+    """Phase 9: each group of the sv phase with the launch counts set to 0
+    just before it and read just after, then a profile of one steady pass.
+    Returns the phase's launch counts summed over the groups."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    total = {k: 0 for k in KERNELS}
+    times, state = {}, {}
+    groups = (
+        ("config 4b ordered",
+         lambda: state.update(ordered=sv_4b_ordered(tbm, ck, sv, vals, nm,
+                                                    times))),
+        ("signed", lambda: sv_signed(tbm, device)),
+        ("sorted",
+         lambda: state.update(sorted=sv_sorted(tbm, device, times))),
+        ("float", lambda: state.update(fv=sv_float(tbm, device, times))),
+        ("strings", lambda: state.update(cat=sv_strings(tbm, device, times))),
+        ("rsc", lambda: state.update(rsc=sv_rsc(tbm, device, times))),
+        ("sv algorithms",
+         lambda: state.update(copy=sv_algorithms(tbm, sv, vals, nm))))
+    for name, run in groups:
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        launches = dict(ck.launches)
+        log(f"sv: {name} passed in {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
+        require_launches(f"sv {name}", launches, SV_GROUP_KERNELS[name])
+        for k in total:
+            total[k] += launches[k]
+    log(f"sv: phase ms {json.dumps(times)}")
+    log(json.dumps({"sv_find_gt_config4b": {
+        "ms": times["find_gt_ms"],
+        "k1_launches": times["find_gt_k1_launches"],
+        "planes": SV_BITS}, "card": card["smi"]}))
+    sc, drawn = state["ordered"]
+    sc.reset_and_mask()
+    sc.reset_search_range()
+    cat, queries = state["cat"]
+    rsc, rq = state["rsc"]
+    profile("sv steady pass (find_gt on config 4b, find_range_float, "
+            "pipeline_find_eq_str of 600 ids, find_eq_rsc, "
+            "find_first_mismatch)",
+            lambda: (sc.find_gt(sv, drawn),
+                     tbm.scanner.find_range_float(state["fv"], -12.5, 12.5),
+                     tbm.scanner.pipeline_find_eq_str(cat, queries),
+                     tbm.scanner.find_eq_rsc(rsc, rq),
+                     tbm.find_first_mismatch(sv, state["copy"])))
+    ssc, ssv, probes = state["sorted"]
+    profile("sv sorted probes (10 x lower_bound + bfind_eq on the bound "
+            "16M column)",
+            lambda: [(ssc.lower_bound(ssv, q), ssc.bfind_eq(ssv, q))
+                     for q in probes])
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 12: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -1997,7 +2367,6 @@ def main():
     algo_times, state = algo_path(tbm, device, sv,
                                   np.where(nm, np.uint32(0), vals))
     algo_launches = dict(ck.launches)
-    del sv, vals, nm
     log(f"algo: passed in {time.perf_counter() - t0:.1f} s; launches "
         f"{algo_launches}; phase ms {json.dumps(algo_times)}")
     for k in FIRST_SLICE:
@@ -2030,13 +2399,24 @@ def main():
     # BLOBs, configs 5 and 5b, the reference's 94 bit-vector BLOBs
     serial_launches = serial_phase(tbm, device, card)
 
-    # 9. reference fixtures
+    # 9. the sv phase: ordered and sorted searches, the float, string and
+    # RSC vectors, BitMatrix and the sv algorithms
+    t0 = time.perf_counter()
+    sv_launches = sv_phase(tbm, device, card, sv, vals, nm)
+    log(f"sv: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{sv_launches}")
+    require_launches("sv phase", sv_launches,
+                     ("logical_op_digest", "agg_and_sub", "pipeline_counts",
+                      "block_counts"))
+    del sv, vals, nm
+
+    # 10. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 10. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 11. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -2051,7 +2431,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 11. timing
+    # 12. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -2085,6 +2465,7 @@ def main():
         entry = {"name": k, "route": "cuda", **meta, "launches": launches,
                  "algo_launches": algo_launches[k],
                  "serial_launches": serial_launches[k],
+                 "sv_launches": sv_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
