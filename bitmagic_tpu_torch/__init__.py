@@ -3,9 +3,10 @@
 Block-structured compressed bit-vectors with set algebra, counts,
 rank/select, iteration and the free-function algorithms, their BLOB
 serialization (the BMT1 format and the reference's own, set ops straight
-against a BLOB), the multi-vector aggregator, and bit-sliced sparse vectors (integer, float,
-string, rank-select compressed) with their scanner, on one NVIDIA Hopper
-card (H100).  The hot block ops are
+against a BLOB), the multi-vector aggregator, bit-sliced sparse vectors (integer, float,
+string, rank-select compressed) with their scanner and their BLOBs, and
+containers sharded over a mesh of devices (``parallel``), on NVIDIA Hopper
+cards (H100).  The hot block ops are
 hand-written CUDA kernels for ``sm_90a`` (``ops/csrc``), built from source
 with ``nvcc`` at first use; every other device step is plain PyTorch, and
 the host-side block codecs are the port's native C++ library
@@ -48,10 +49,15 @@ from .serial.opdeser import OperationDeserializer
 from .serial.serializer import (Deserializer, Serializer, deserialize,
                                 serialize)
 from .serial.stream_iter import IteratorDeserializer, SerialStreamIterator
+from .serial.sv_serial import (SparseVectorDeserializer,
+                               SparseVectorSerializer,
+                               sparse_vector_deserialize,
+                               sparse_vector_serialize)
 from . import sv
 from .sv import (BitMatrix, FloatSparseVector, RSCSparseVector,
                  SparseVector, SparseVectorScanner, StrSparseVector, scanner)
 from .sv.algo import Set2SetTransform, find_first_mismatch, set2set_transform
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -60,7 +66,9 @@ __all__ = [
     "serialize", "deserialize",
     "Serializer", "Deserializer", "OperationDeserializer",
     "SerialStreamIterator", "IteratorDeserializer",
-    "serial",
+    "serial", "parallel",
+    "SparseVectorSerializer", "SparseVectorDeserializer",
+    "sparse_vector_serialize", "sparse_vector_deserialize",
     "Aggregator", "aggregator", "AggOptions",
     "SparseVector", "RSCSparseVector", "StrSparseVector",
     "FloatSparseVector", "BitMatrix", "scanner", "SparseVectorScanner",

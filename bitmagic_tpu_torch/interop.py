@@ -8,7 +8,10 @@ size and the BitVector parts of each plane and of the NULL plane; an
 OperandArena's are the parts of its vectors.  A StrSparseVector's are the
 SparseVector parts of its octet vectors, its remap matrices and its NULL
 plane; a FloatSparseVector's its sign, exponent, mantissa and NULL plane;
-an RSCSparseVector's its dense payload and NULL index.  With them the same
+an RSCSparseVector's its dense payload and NULL index.  A sharded
+container's are its pool or plane stack as one host array (padding rows
+included), its size and its metadata, placed over a port ``Mesh``.  With
+them the same
 containers can be fed to both packages and their states compared
 directly.  This module imports nothing of the JAX package.
 """
@@ -216,3 +219,107 @@ def rsc_vector_to_parts(rsc) -> dict:
         "dense": sparse_vector_to_parts(rsc.dense),
         "null_bv": bitvector_to_parts(rsc.null_bv),
     }
+
+
+# ---------------------------------------------------------------------------
+# sharded containers: the JAX package's pool or stack as one host array,
+# its size and metadata, placed over a port Mesh
+# ---------------------------------------------------------------------------
+def sharded_bitvector_from_parts(pool_u32, size, mesh):
+    """A port ShardedBitVector holding the rows ``pool_u32`` uint32[n,
+    2048] (n divisible by the mesh size) over ``mesh``."""
+    from .parallel.mesh import block_sharding
+    from .parallel.sharded import ShardedBitVector
+    pool = np.asarray(pool_u32, np.uint32).reshape(-1, C.SET_BLOCK_SIZE)
+    return ShardedBitVector(block_sharding(mesh).place(pool), size, mesh)
+
+
+def sharded_bitvector_to_parts(sbv) -> dict:
+    """``pool_u32`` (every row, padding included) and ``size``."""
+    return {"pool_u32": sbv.to_words(), "size": sbv.size}
+
+
+def _stack_shards(stack_u32, mesh):
+    from .parallel.mesh import block_sharding
+    stack = np.asarray(stack_u32, np.uint32)
+    return block_sharding(mesh, 1).place(stack)
+
+
+SHARDED_SV_PARTS = ("stack_u32", "size", "dtype", "signed", "n_slices",
+                    "n_eff", "nullable")
+SHARDED_STR_PARTS = ("stack_u32", "size", "max_str_size", "nullable",
+                     "slots", "remap_matrices", "unmap_matrices")
+SHARDED_FLOAT_PARTS = ("stack_u32", "size", "dtype", "rows", "sign_row",
+                       "nullable")
+
+
+def sharded_sparse_vector_from_parts(stack_u32, size, dtype, signed,
+                                     n_slices, n_eff, nullable, mesh):
+    """A port ShardedSparseVector over ``mesh`` holding the plane stack
+    uint32[K, n, 2048] and metadata keyed by ``SHARDED_SV_PARTS``."""
+    from .parallel.sharded_sv import ShardedSparseVector
+    return ShardedSparseVector(_stack_shards(stack_u32, mesh), size, mesh,
+                               dtype, signed, n_slices, n_eff, nullable)
+
+
+def sharded_sparse_vector_to_parts(ssv) -> dict:
+    return {"stack_u32": ssv.to_words(), "size": ssv.size,
+            "dtype": ssv.dtype.str, "signed": ssv.signed,
+            "n_slices": ssv.n_slices, "n_eff": ssv.n_eff,
+            "nullable": ssv.nullable}
+
+
+def sharded_str_vector_from_parts(stack_u32, size, max_str_size, nullable,
+                                  slots, remap_matrices, unmap_matrices,
+                                  mesh):
+    """A port ShardedStrSparseVector over ``mesh`` (parts keyed by
+    ``SHARDED_STR_PARTS``)."""
+    from .parallel.sharded_sv import ShardedStrSparseVector
+    return ShardedStrSparseVector(
+        _stack_shards(stack_u32, mesh), size, mesh, max_str_size, nullable,
+        [tuple(s) for s in slots],
+        None if remap_matrices is None else np.asarray(remap_matrices,
+                                                       np.uint8).copy(),
+        None if unmap_matrices is None else np.asarray(unmap_matrices,
+                                                       np.uint8).copy())
+
+
+def sharded_str_vector_to_parts(ssv) -> dict:
+    return {"stack_u32": ssv.to_words(),
+            "size": ssv.size, "max_str_size": ssv.max_str_size,
+            "nullable": ssv.nullable, "slots": list(ssv.slots),
+            "remap_matrices": ssv.remap_matrices,
+            "unmap_matrices": ssv.unmap_matrices}
+
+
+def sharded_float_vector_from_parts(stack_u32, size, dtype, rows, sign_row,
+                                    nullable, mesh):
+    """A port ShardedFloatVector over ``mesh`` (parts keyed by
+    ``SHARDED_FLOAT_PARTS``)."""
+    from .parallel.sharded_sv import ShardedFloatVector
+    return ShardedFloatVector(_stack_shards(stack_u32, mesh), size, mesh,
+                              dtype, rows, sign_row, nullable)
+
+
+def sharded_float_vector_to_parts(fv) -> dict:
+    return {"stack_u32": fv.to_words(),
+            "size": fv.size, "dtype": fv.dtype.str, "rows": fv.rows,
+            "sign_row": fv.SIGN, "nullable": fv.nullable}
+
+
+def sharded_rsc_vector_from_parts(dense, null_pool_u32, size, mesh):
+    """A port ShardedRSCVector over ``mesh``: ``dense`` keyed by
+    ``SHARDED_SV_PARTS`` (without the mesh), the NULL index as its rows
+    ``null_pool_u32`` over ``max(size, 1)`` bits; its rank/select index is
+    built here."""
+    from .parallel.sharded_sv import ShardedRSCVector
+    d = sharded_sparse_vector_from_parts(**dense, mesh=mesh)
+    null_sbv = sharded_bitvector_from_parts(null_pool_u32, max(size, 1),
+                                            mesh)
+    return ShardedRSCVector(d, null_sbv, null_sbv.build_rs_index(), size,
+                            mesh)
+
+
+def sharded_rsc_vector_to_parts(rsc) -> dict:
+    return {"dense": sharded_sparse_vector_to_parts(rsc.dense),
+            "null_pool_u32": rsc.null_sbv.to_words(), "size": rsc.size}

@@ -279,6 +279,13 @@ def bmt1_decode_gap(blob, rec_offset: int):
             (g_ends[:nge], g_offs[:ngr + 1], g_first[:ngr]))
 
 
+# the largest payload one BMT1 record can take: an ARR_BIC(_INV) list of
+# 29789 positions at 16 bits each plus its count and a flushed word
+_MAX_RECORD_PAYLOAD = 2 * 29789 + 16
+# the room bm_bmt1_encode checks for before each record
+_RECORD_MARGIN = 16 + 8192 + 64
+
+
 def bmt1_encode(words: np.ndarray, nbs: np.ndarray, cls: np.ndarray,
                 level: int, spans: np.ndarray = None,
                 prev_nb: int = -1, emit_end: bool = True,
@@ -303,7 +310,13 @@ def bmt1_encode(words: np.ndarray, nbs: np.ndarray, cls: np.ndarray,
     gap_first = np.ascontiguousarray(gap_first, np.uint8)
     n_rec = nbs.size
     n_payload_rows = words.size // C.SET_BLOCK_SIZE + int(gap_first.size)
-    cap = n_rec * 22 + n_payload_rows * 8400 + 64
+    # a BIC record may outgrow RAW's 8 KiB: the chooser takes it on its
+    # size estimate, and one holds at most 29789 values of <= 16 bits.
+    # The encoder asks for 8272 free bytes before every record, FULL ones
+    # included, so one such margin more keeps it from turning down a
+    # vector of FULL blocks only
+    cap = (n_rec * 22 + n_payload_rows * _MAX_RECORD_PAYLOAD
+           + _RECORD_MARGIN + 64)
     out = np.empty(cap, np.uint8)
     counts = np.zeros(11, np.int64)
     n = lib.bm_bmt1_encode(

@@ -87,20 +87,41 @@ only when every phase passed):
               config 4b's column; every answer against numpy or Python.
               Each group has its own launch counts and required kernels;
               it logs one find_gt's K1 launches and profiles a steady pass;
-10. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
-11. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+10. sv_serial — every column of phase 9 (config 4b's, the signed and
+              float columns, the dictionary remapped and raw, the RSC
+              column) through BMSV with XOR groups on and off,
+              deserialize_range, deserialize_gather of 1M ids and the
+              reference-format BLOBs: each BLOB byte-equal to the same
+              column's on the CPU, each decode equal to the source on the
+              card (MB/s of serialize / deserialize, ms of the reference
+              routes); then the reference's five sparse-vector BLOBs;
+11. sharded — a mesh of 8 shards on the one card: two 2^30-bit vectors and
+              one of 2^31 + 2^16 bits (both select routes) through the four
+              ops, count, count_range, 1M select and rank, get_bits,
+              reshard to one shard and the checkpoint; sharded_and_many over
+              8 vectors with and without digest narrowing,
+              sharded_and_sub_count, group_and_exchange on a vector-axis
+              mesh; the config 4b stack through pipeline_counts_host (256
+              selectors) and scan_throughput_program; the four sharded
+              sparse vectors built from phase 9's columns (searches,
+              pipelines, gather, checkpoint); then the bit-vector group and
+              config 4b's searches on make_mesh() (every visible card);
+              exact per-step launch counts (one per shard) and a profile of
+              one steady pass;
+12. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+13. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-12. timing  — each kernel, its plain version and the nearest single PyTorch
+14. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8 and each group of 9) is driven with the launch
+Each path (4, 5, 6, 7, 8, 10 and each group of 9 and 11) is driven with the launch
 counts set to 0 just before and read just after; a kernel of the path
 launched no time fails it.
 
@@ -1651,7 +1672,7 @@ def sv_4b_ordered(tbm, ck, sv, vals, nm, times):
 def sv_signed(tbm, device):
     """A 16M-element nullable int32 column, uniform in [-2^19, 2^19), ~1 %
     NULL: find_gt / find_lt / find_range across zero and at the iinfo
-    edges, against numpy."""
+    edges, against numpy.  Returns (column, values, NULL mask)."""
     rng = np.random.default_rng(SEED + 21)
     vals = rng.integers(-(1 << 19), 1 << 19, SV_N).astype(np.int32)
     nm = rng.random(SV_N) < 0.01
@@ -1670,6 +1691,7 @@ def sv_signed(tbm, device):
         same_ids(sc.find_range(sv, lo, hi),
                  np.flatnonzero((v64 >= lo) & (v64 <= hi) & ok),
                  f"signed find_range({lo}, {hi})")
+    return sv, vals, nm
 
 
 def sv_sorted(tbm, device, times):
@@ -1728,7 +1750,7 @@ def sv_float(tbm, device, times):
     same_ids(sc.find_range_float_unbounded(fv, -1000.0, 0.0),
              np.flatnonzero((vals > -1000) & (vals < 0) & ok),
              "find_range_float_unbounded")
-    return fv
+    return fv, vals, nm
 
 
 def _catalog_ids(rng, n):
@@ -1792,7 +1814,7 @@ def sv_strings(tbm, device, times):
             got = sc.pipeline_find_eq_str(v, queries)
         check(got == want, f"string pipeline on the {form} dictionary")
         times[f"pipeline_{form}_planes"] = sc.prepare_pipeline_str(v).K
-    return cat, queries
+    return cat, queries, raw, names, nums
 
 
 def sv_rsc(tbm, device, times):
@@ -1832,7 +1854,7 @@ def sv_rsc(tbm, device, times):
     check(back.size == arr.size, "load_to size")
     same_ids(back.get_null_bvector(), idx, "load_to NULL plane")
     check(np.array_equal(back.gather(probe), arr[probe]), "load_to values")
-    return rsc, int(rv[5])
+    return rsc, int(rv[5]), idx, rv
 
 
 def sv_algorithms(tbm, sv, vals, nm):
@@ -1879,7 +1901,8 @@ SV_GROUP_KERNELS = {
 def sv_phase(tbm, device, card, sv, vals, nm):
     """Phase 9: each group of the sv phase with the launch counts set to 0
     just before it and read just after, then a profile of one steady pass.
-    Returns the phase's launch counts summed over the groups."""
+    Returns the phase's launch counts summed over the groups and its
+    columns (for the sv_serial and sharded phases)."""
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     total = {k: 0 for k in KERNELS}
     times, state = {}, {}
@@ -1887,7 +1910,7 @@ def sv_phase(tbm, device, card, sv, vals, nm):
         ("config 4b ordered",
          lambda: state.update(ordered=sv_4b_ordered(tbm, ck, sv, vals, nm,
                                                     times))),
-        ("signed", lambda: sv_signed(tbm, device)),
+        ("signed", lambda: state.update(signed=sv_signed(tbm, device))),
         ("sorted",
          lambda: state.update(sorted=sv_sorted(tbm, device, times))),
         ("float", lambda: state.update(fv=sv_float(tbm, device, times))),
@@ -1914,13 +1937,14 @@ def sv_phase(tbm, device, card, sv, vals, nm):
     sc, drawn = state["ordered"]
     sc.reset_and_mask()
     sc.reset_search_range()
-    cat, queries = state["cat"]
-    rsc, rq = state["rsc"]
+    cat, queries, raw, names, nums = state["cat"]
+    rsc, rq, rsc_idx, rsc_vals = state["rsc"]
+    fv = state["fv"][0]
     profile("sv steady pass (find_gt on config 4b, find_range_float, "
             "pipeline_find_eq_str of 600 ids, find_eq_rsc, "
             "find_first_mismatch)",
             lambda: (sc.find_gt(sv, drawn),
-                     tbm.scanner.find_range_float(state["fv"], -12.5, 12.5),
+                     tbm.scanner.find_range_float(fv, -12.5, 12.5),
                      tbm.scanner.pipeline_find_eq_str(cat, queries),
                      tbm.scanner.find_eq_rsc(rsc, rq),
                      tbm.find_first_mismatch(sv, state["copy"])))
@@ -1929,11 +1953,652 @@ def sv_phase(tbm, device, card, sv, vals, nm):
             "16M column)",
             lambda: [(ssc.lower_bound(ssv, q), ssc.bfind_eq(ssv, q))
                      for q in probes])
+    cols = {"4b": (sv, vals, nm), "signed": state["signed"],
+            "float": state["fv"], "dict": (cat, raw, names, queries, nums),
+            "rsc": (rsc, rsc_idx, rsc_vals)}
+    return total, cols
+
+
+# ---------------------------------------------------------------------------
+# phase 10: sv_serial — the sv phase's columns through BMSV and the
+# reference's sparse-vector format
+# ---------------------------------------------------------------------------
+SV_GATHER = 1 << 20             # deserialize_gather / sharded gather ids
+
+
+def _planes_of(c):
+    """(size, every BitVector of container ``c`` in a fixed order)."""
+    kind = type(c).__name__
+    if kind == "SparseVector":
+        bvs = list(c.planes) + [c.null_plane if c.nullable else None]
+    elif kind == "RSCSparseVector":
+        bvs = list(c.dense.planes) + [c.null_bv]
+    elif kind == "StrSparseVector":
+        bvs = [p for o in c.octets for p in o.planes] + [
+            c.null_plane if c.nullable else None]
+    else:
+        bvs = [c.sign] + list(c.exponent.planes) + list(c.mantissa.planes) \
+            + [c.null_plane if c.nullable else None]
+    return c.size, bvs
+
+
+def same_container(a, b, what):
+    """Every plane of ``a`` equals ``b``'s (one XOR + none() each; an
+    absent plane equals an empty one), sizes and remap matrices equal."""
+    sa, pa = _planes_of(a)
+    sb, pb = _planes_of(b)
+    check(sa == sb and len(pa) == len(pb), f"{what}: shape")
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        if x is None or y is None:
+            check((x is None or x.none()) and (y is None or y.none()),
+                  f"{what}: plane {i}")
+        else:
+            check(x.equal(y), f"{what}: plane {i}")
+    if type(a).__name__ == "StrSparseVector":
+        for m in ("remap_matrices", "unmap_matrices"):
+            x, y = getattr(a, m), getattr(b, m)
+            check((x is None) == (y is None)
+                  and (x is None or np.array_equal(x, y)), f"{what}: {m}")
+
+
+def same_str_ref(back, c, what):
+    """A string vector decoded from its reference-format BLOB: the
+    reader's template width (32 octets) and an assigned-everywhere NULL
+    row around the source's octet planes and remap matrices."""
+    w = c.max_str_size
+    check(back.size == c.size and back.max_str_size >= w, f"{what}: shape")
+    for k in range(back.max_str_size):
+        for b in range(8):
+            x = back.octets[k].planes[b]
+            y = c.octets[k].planes[b] if k < w else None
+            if x is None or y is None:
+                check((x is None or x.none()) and (y is None or y.none()),
+                      f"{what}: octet {k} plane {b}")
+            else:
+                check(x.equal(y), f"{what}: octet {k} plane {b}")
+    check(back.null_plane.count() == c.size, f"{what}: NULL row")
+    if c.unmap_matrices is not None:
+        check(np.array_equal(back.unmap_matrices[:w], c.unmap_matrices)
+              and not back.unmap_matrices[w:].any(), f"{what}: unmap")
+    else:
+        check(back.unmap_matrices is None, f"{what}: no remap")
+
+
+def same_values(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype.kind == "f":
+        got, want = got.view(np.uint8), want.view(np.uint8)
+    check(got.shape == want.shape and np.array_equal(got, want), what)
+
+
+def _cpu_copy(tbm, c):
+    """The same container built on the CPU, from its parts."""
+    from bitmagic_tpu_torch import interop
+    kind = type(c).__name__
+    to, frm = {"SparseVector": ("sparse_vector_to_parts",
+                                "sparse_vector_from_parts"),
+               "RSCSparseVector": ("rsc_vector_to_parts",
+                                   "rsc_vector_from_parts"),
+               "StrSparseVector": ("str_vector_to_parts",
+                                   "str_vector_from_parts"),
+               "FloatSparseVector": ("float_vector_to_parts",
+                                     "float_vector_from_parts")}[kind]
+    return getattr(interop, frm)(**getattr(interop, to)(c), device="cpu")
+
+
+def _value_bytes(c) -> int:
+    kind = type(c).__name__
+    if kind == "RSCSparseVector":
+        return c.count() * c.dtype.itemsize
+    if kind == "StrSparseVector":
+        return c.size * c.max_str_size
+    return c.size * c.dtype.itemsize
+
+
+def _ref_blob(ref_sv, c, xor_refs):
+    kind = type(c).__name__
+    if kind == "SparseVector":
+        return ref_sv.serialize_sv_blob(c, xor_refs=xor_refs)
+    if kind == "RSCSparseVector":
+        return ref_sv.serialize_rsc_blob(c, xor_refs=xor_refs)
+    if kind == "StrSparseVector":
+        return ref_sv.serialize_str_blob(c, xor_refs=xor_refs)
+    return ref_sv.serialize_float_blob(c)
+
+
+def _ref_decode(ref_sv, c, blob, device):
+    kind = type(c).__name__
+    if kind == "SparseVector":
+        return ref_sv.deserialize_sv_blob(blob, c.dtype, device=device)
+    if kind == "RSCSparseVector":
+        return ref_sv.deserialize_rsc_blob(blob, c.dtype, device=device)
+    if kind == "StrSparseVector":
+        return ref_sv.deserialize_str_blob(blob, device=device)
+    return ref_sv.deserialize_float_blob(blob, device=device)
+
+
+def sv_serial_column(tbm, device, name, c, cc, ref_xor, times, rng):
+    """One column of the sv phase (``c`` on the card, ``cc`` the same on
+    the CPU): BMSV with XOR groups on and off, range and gather decodes,
+    the reference-format BLOB; every BLOB byte-equal to the CPU copy's,
+    every decode equal to the source on the card."""
+    from bitmagic_tpu_torch.serial import ref_sv, sv_serial
+    n = c.size
+    mb = _value_bytes(c) / 1e6
+    ids = np.sort(rng.choice(n, min(SV_GATHER, n), replace=False))
+    want = c.gather(ids[:10_000] if name.startswith("dict") else ids)
+    out = {"values_MB": round(mb, 3)}
+    for xor in (True, False):
+        ser = sv_serial.SparseVectorSerializer(6, xor_filter=xor)
+        fn = {"SparseVector": ser.serialize,
+              "RSCSparseVector": ser.serialize_rsc,
+              "StrSparseVector": ser.serialize_str,
+              "FloatSparseVector": ser.serialize_float}[type(c).__name__]
+        t = {}
+        with Clock("ser", t):
+            blob = fn(c)
+        check(blob == fn(cc), f"{name} BMSV (xor={xor}) equals the CPU copy's")
+        de = sv_serial.SparseVectorDeserializer(device)
+        with Clock("deser", t):
+            back = de.deserialize(blob)
+        check(back.device == c.device, f"{name} decoded onto the card")
+        same_container(back, c, f"{name} BMSV round trip (xor={xor})")
+        tag = "xor" if xor else "plain"
+        out[f"bmsv_{tag}_bytes"] = len(blob)
+        out[f"bmsv_{tag}_serialize_MB_s"] = round(mb / (t["ser"] / 1e3), 3)
+        out[f"bmsv_{tag}_deserialize_MB_s"] = round(
+            mb / (t["deser"] / 1e3), 3)
+        lo, hi = n // 3, min(n // 3 + (1 << 20), n - 1)
+        part = de.deserialize_range(blob, lo, hi)
+        rid = np.arange(lo, min(hi + 1, lo + 10_000))
+        same_values(part.gather(rid), c.gather(rid),
+                    f"{name} deserialize_range (xor={xor})")
+        with Clock(f"gather_{tag}_ms", out):
+            part = de.deserialize_gather(blob, ids)
+        got = part.gather(ids[:10_000] if name.startswith("dict") else ids)
+        if name.startswith("dict"):
+            check(got == want, f"{name} deserialize_gather (xor={xor})")
+        else:
+            same_values(got, want, f"{name} deserialize_gather (xor={xor})")
+    t = {}
+    with Clock("ref_ser", t):
+        rblob = _ref_blob(ref_sv, c, ref_xor)
+    if type(c).__name__ != "FloatSparseVector":
+        # the float column's 'bf0' BLOB takes about a minute of host
+        # Python per copy (its planes' XOR-reference search): the card's
+        # BLOB is checked by its round trip only
+        check(rblob == _ref_blob(ref_sv, cc, ref_xor),
+              f"{name} reference-format BLOB equals the CPU copy's")
+    with Clock("ref_deser", t):
+        rback = _ref_decode(ref_sv, c, rblob, device)
+    if type(c).__name__ == "FloatSparseVector":
+        same_values(rback.to_numpy()[:n], c.to_numpy(),
+                    f"{name} reference-format round trip")
+    elif type(c).__name__ == "StrSparseVector":
+        same_str_ref(rback, c, f"{name} reference-format round trip")
+    else:
+        same_container(rback, c, f"{name} reference-format round trip")
+    out.update(ref_bytes=len(rblob), ref_xor_refs=ref_xor,
+               ref_serialize_ms=t["ref_ser"], ref_deserialize_ms=t["ref_deser"])
+    times[name] = out
+
+
+def sv_ref_fixtures(tbm, device):
+    """The reference's five sparse-vector BLOBs decoded onto the card."""
+    from bitmagic_tpu_torch.serial import ref_sv
+    fix = os.path.join(ROOT, "tests", "fixtures", "refblobs")
+    inp = np.load(os.path.join(fix, "sv_inputs.npz"))
+    vals, nn = inp["vals"], inp["notnull"].astype(bool)
+    idx = np.flatnonzero(nn).astype(np.int64)
+    strings = [s or None for s in np.load(
+        os.path.join(fix, "str_inputs.npz"),
+        allow_pickle=True)["strings"].tolist()]
+
+    def rd(name):
+        with open(os.path.join(fix, name), "rb") as f:
+            return f.read()
+    for name in ("sv_plain.bin", "sv_xor.bin"):
+        sv = ref_sv.deserialize_sv_blob(rd(name), np.uint32, device=device)
+        check(sv.device.type == torch.device(device).type
+              and sv.size == len(vals)
+              and np.array_equal(sv.gather(idx), vals[idx]), name)
+        nz = sv.null_plane.indices()
+        check(np.array_equal(nz[nz < len(vals)], idx), f"{name} NULL plane")
+    rsc = ref_sv.deserialize_rsc_blob(rd("rsc.bin"), np.uint32, device=device)
+    check(np.array_equal(rsc.gather(idx), vals[idx]), "rsc.bin")
+    for name in ("strsv_plain.bin", "strsv_remap.bin"):
+        ssv = ref_sv.deserialize_str_blob(rd(name), device=device)
+        check([g or None for g in ssv.to_list()] == strings, name)
+
+
+def sv_serial_phase(tbm, device, card, cols):
+    """Phase 10: every column of the sv phase through BMSV (XOR groups on
+    and off), deserialize_range, deserialize_gather of SV_GATHER ids and
+    the reference-format BLOBs, byte-equal to the same column on the CPU;
+    then the reference's sparse-vector fixtures.  Returns the launches."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(SEED + 30)
+    sv, vals, nm = cols["4b"]
+    cat, raw = cols["dict"][:2]
+    columns = (
+        ("config 4b", sv, tbm.SparseVector.from_array(vals, null_mask=nm,
+                                                      device="cpu"), True),
+        ("signed", cols["signed"][0], None, False),
+        ("float", cols["float"][0], None, True),
+        ("dict remapped", cat, None, True),
+        ("dict raw", raw, None, False),
+        ("rsc", cols["rsc"][0], None, True))
+    times = {}
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    for name, c, cc, ref_xor in columns:
+        t1 = time.perf_counter()
+        sv_serial_column(tbm, device, name, c, cc or _cpu_copy(tbm, c),
+                         ref_xor, times, rng)
+        times[name]["column_s"] = round(time.perf_counter() - t1, 3)
+        log(f"sv_serial: {name}: {json.dumps(times[name])}")
+    sv_ref_fixtures(tbm, device)
+    launches = dict(ck.launches)
+    log(f"sv_serial: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}; reference sparse-vector fixtures decoded onto the card")
+    log(json.dumps({"sv_serial": times, "card": card["smi"]}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: sharded — the sharded containers on a mesh of 8 shards on the
+# one card, and on every visible card
+# ---------------------------------------------------------------------------
+SHARDS = 8
+SHARD_BLOCKS = 16384            # 2^30 bits
+BIG_BITS = (1 << 31) + (1 << 16)  # past the JAX package's int32 select cap
+AND_MANY = 8
+
+
+def oracle_select(words: np.ndarray, ranks: np.ndarray) -> np.ndarray:
+    """Bit position of each 1-based rank (all within [1, total])."""
+    wcum = np.cumsum(np.bitwise_count(words), dtype=np.int64)
+    k = np.searchsorted(wcum, ranks, side="left")
+    rem = ranks - np.where(k > 0, wcum[np.maximum(k - 1, 0)], 0)
+    w = words[k].astype(np.int64)
+    pos = np.full(ranks.shape, -1, np.int64)
+    cnt = np.zeros(ranks.shape, np.int64)
+    for bit in range(32):
+        b = (w >> bit) & 1
+        cnt += b
+        pos[(b == 1) & (cnt == rem) & (pos < 0)] = bit
+    return k * 32 + pos
+
+
+def _block_words(rng, n_blocks, keep=None):
+    w = rng.integers(0, 2**32, (n_blocks, 2048), dtype=np.uint64).astype(
+        np.uint32)
+    if keep is not None:
+        w[~keep] = 0
+    return w
+
+
+def shard_launch_check(what, before, want):
+    """Exact launch counts of a sharded step since ``before`` (a copy of
+    the counters): one per shard per launch."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    for k, n in want.items():
+        got = ck.launches[k] - before[k]
+        check(got == n, f"{what}: {k} launched {got} times, expected {n}")
+
+
+def sharded_bitvectors(tbm, device, mesh, times, tag):
+    """Two 2^30-bit vectors and one of 2^31 + 2^16 bits over ``mesh``:
+    AND/OR/XOR/SUB, count, count_range, select and rank batches (both
+    select routes), get_bits, reshard to one shard, checkpoint; every
+    answer against numpy and every step's launches counted."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import Mesh, ShardedBitVector
+    n = mesh.size
+    rng = np.random.default_rng(SEED + 31)
+    size = SHARD_BLOCKS * BPB
+    wa, wb = _block_words(rng, SHARD_BLOCKS), _block_words(rng, SHARD_BLOCKS)
+    with Clock(f"{tag}_build_ms", times):
+        a = ShardedBitVector.from_words(wa, size, mesh)
+        b = ShardedBitVector.from_words(wb, size, mesh)
+    fa, fb = wa.reshape(-1), wb.reshape(-1)
+    for op in OPS:
+        before = dict(ck.launches)
+        r = getattr(a, DUNDER[op])(b)
+        shard_launch_check(f"sharded {op}", before,
+                           {"logical_op_digest": n})
+        want = oracle_op(op, fa, fb)
+        check(np.array_equal(r.to_words().reshape(-1), want),
+              f"sharded {op} rows")
+        before = dict(ck.launches)
+        check(r.count() == int(np.bitwise_count(want).sum(dtype=np.int64)),
+              f"sharded {op} count")
+        shard_launch_check(f"sharded {op} count", before,
+                           {"block_counts": n})
+    lo = rng.integers(0, size, N_RANGES)
+    hi = np.minimum(lo + rng.integers(0, size // 4, N_RANGES), size - 1)
+    want = oracle_rank(fa, hi) - oracle_rank(fa, lo - 1)
+    check([a.count_range(int(x), int(y)) for x, y in zip(lo, hi)]
+          == want.tolist(), "sharded count_range")
+    total = a.count()
+    ranks = rng.integers(1, total + 1, N_QUERIES)
+    with Clock(f"{tag}_select_1M_ms", times):
+        got = a.select_batch(ranks)
+    check(a._rs is None, "2^30 bits: the select below the cap")
+    check(np.array_equal(got, oracle_select(fa, ranks)), "sharded select")
+    ids = rng.integers(0, size, N_QUERIES)
+    with Clock(f"{tag}_rank_1M_ms", times):
+        got = a.build_rs_index().rank_batch(ids)
+    check(np.array_equal(got, oracle_rank(fa, ids)), "sharded rank")
+    bits = ((fa[ids >> 5] >> (ids & 31).astype(np.uint32)) & 1).astype(bool)
+    check(np.array_equal(a.get_bits(ids), bits), "sharded get_bits")
+    one = a.reshard(Mesh([mesh.devices[0]]))
+    check(one.mesh.size == 1 and np.array_equal(one.to_words(), wa),
+          f"reshard {n} -> 1")
+    with Clock(f"{tag}_checkpoint_ms", times):
+        blob = a.checkpoint_bytes()
+        back = ShardedBitVector.from_checkpoint(blob, mesh)
+    check(np.array_equal(back.to_words(), wa), "sharded checkpoint")
+    del one, back, r
+    nbig = -(-BIG_BITS // BPB)
+    if -(-nbig // n) * BPB >= 2**31:
+        log(f"sharded: {BIG_BITS} bits on {n} shard(s): a shard would span "
+            f"2^31 bits or more, past the rank/select index's int32 "
+            f"prefix; the vector needs at least 2 shards")
+        return a, b, wa, wb
+    # past 2^31 bits: the select takes the rank/select index route
+    wc = _block_words(rng, nbig)
+    wc.reshape(-1)[BIG_BITS // 32:] = 0
+    c = ShardedBitVector.from_words(wc, BIG_BITS, mesh)
+    fc = wc.reshape(-1)
+    total = c.count()
+    check(total == int(np.bitwise_count(fc).sum(dtype=np.int64)),
+          "2^31 + 2^16 bits: count")
+    ranks = np.concatenate([rng.integers(1, total + 1, N_QUERIES),
+                            [total, total + 1, 0]])
+    with Clock(f"{tag}_big_select_1M_ms", times):
+        got = c.select_batch(ranks)
+    check(c._rs is not None, "2^31 + 2^16 bits: the select past the cap")
+    want = np.full(ranks.size, -1, np.int64)
+    want[:-2] = oracle_select(fc, ranks[:-2])
+    check(np.array_equal(got, want), "2^31 + 2^16 bits: select")
+    ids = np.concatenate([rng.integers(0, BIG_BITS, N_QUERIES),
+                          [BIG_BITS - 1, BIG_BITS - BPB + 5]])
+    check(np.array_equal(c.build_rs_index().rank_batch(ids),
+                         oracle_rank(fc, ids)), "2^31 + 2^16 bits: rank")
+    return a, b, wa, wb
+
+
+def sharded_and_groups(tbm, device, mesh, times):
+    """sharded_and_many over AND_MANY 2^30-bit vectors whose content lies
+    in half the blocks each (digest narrowing on and off),
+    sharded_and_sub_count, and group_and_exchange on a vector-axis mesh;
+    against numpy."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import (Mesh, ShardedBitVector,
+                                             group_and_exchange,
+                                             sharded_and_many,
+                                             sharded_and_sub_count)
+    n = mesh.size
+    rng = np.random.default_rng(SEED + 32)
+    size = SHARD_BLOCKS * BPB
+    keeps = rng.random((AND_MANY, SHARD_BLOCKS)) < 0.5
+    words = [_block_words(rng, SHARD_BLOCKS, k) for k in keeps]
+    vs = [ShardedBitVector.from_words(w, size, mesh) for w in words]
+    want = np.bitwise_and.reduce(np.stack(words), axis=0)
+    alive = keeps.all(axis=0)
+    for narrow in (True, False):
+        before = dict(ck.launches)
+        with Clock(f"and_many_{'narrowed' if narrow else 'full'}_ms",
+                   times):
+            r = sharded_and_many(vs, digest_narrowing=narrow)
+        check(np.array_equal(r.to_words(), want),
+              f"sharded_and_many (narrowing {narrow})")
+        check(r.last_narrowing == ((int(alive.sum()) if narrow
+                                    else SHARD_BLOCKS), SHARD_BLOCKS),
+              f"last_narrowing {r.last_narrowing}")
+        busy = np.count_nonzero(alive.reshape(n, -1).any(axis=1))
+        shard_launch_check("sharded_and_many", before,
+                           {"agg_and_sub": busy if narrow else n})
+    times["and_many_survivors"] = int(alive.sum())
+    sub = np.bitwise_or.reduce(np.stack(words[4:6]), axis=0)
+    want_c = int(np.bitwise_count(np.bitwise_and.reduce(
+        np.stack(words[:4]), axis=0) & ~sub).sum(dtype=np.int64))
+    for narrow in (True, False):
+        check(sharded_and_sub_count(vs[:4], vs[4:6], narrow) == want_c,
+              f"sharded_and_sub_count (narrowing {narrow})")
+    vmesh = Mesh([mesh.devices[i % mesh.size] for i in range(AND_MANY)], "v")
+    stack = np.stack(words)
+    before = dict(ck.launches)
+    with Clock("group_and_exchange_ms", times):
+        rows, surv, traffic = group_and_exchange(stack, vmesh, "v")
+    check(np.array_equal(surv, np.flatnonzero(alive)), "exchange survivors")
+    check(traffic == (int(alive.sum()), SHARD_BLOCKS), "exchange traffic")
+    # no survivor: one zero row stands for the empty result
+    want_rows = want[surv] if surv.size else np.zeros((1, 2048), np.uint32)
+    check(np.array_equal(rows.cpu().numpy().view(np.uint32), want_rows),
+          "exchange rows")
+    cnt, _, _ = group_and_exchange(stack, vmesh, "v", count_only=True)
+    check(cnt == int(np.bitwise_count(want).sum(dtype=np.int64)),
+          "exchange count")
+    times["exchange_launches"] = {k: v - before[k]
+                                  for k, v in ck.launches.items()
+                                  if v > before[k]}
+    return vs
+
+
+def sharded_scans(tbm, mesh, ssv, live, assigned, times):
+    """The config 4b stack: pipeline_counts_host with SV_QUERIES selectors,
+    pipeline_find_eq and scan_throughput_program, against numpy."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import (pipeline_counts_host,
+                                             scan_throughput_program)
+    n = mesh.size
+    rng = np.random.default_rng(SEED + 33)
+    values = rng.integers(0, 1 << SV_BITS, SV_QUERIES)
+    values[:8] = live[rng.integers(0, SV_N, 8)]
+    hist = np.bincount(live[assigned], minlength=1 << SV_BITS)
+    want = [int(hist[v]) for v in values]
+    sels = np.stack([ssv._selector(int(v)) for v in values])
+    before = dict(ck.launches)
+    with Clock("pipeline_counts_256_ms", times):
+        got = pipeline_counts_host(mesh, ssv.stack, sels)
+    shard_launch_check("pipeline_counts_host", before,
+                       {"pipeline_counts": n})
+    check(got.tolist() == want, "sharded pipeline counts")
+    check(ssv.pipeline_find_eq(values.tolist()) == want,
+          "sharded pipeline_find_eq")
+    v = int(values[0]) or 1
+    bps = ssv.stack[0].shape[1]
+    # the scan reads the 20 value planes only: NULL rows hold value 0
+    scan, _ = scan_throughput_program(mesh, SV_BITS, bps)
+    before = dict(ck.launches)
+    with Clock("scan_throughput_ms", times):
+        hits = scan(ssv.stack, v)
+    shard_launch_check("scan_throughput_program", before,
+                       {"scan_eq": n, "block_counts": n})
+    check(int(hits) == int(hist[v]), "scan_throughput_program count")
+
+
+def sharded_svs(tbm, device, mesh, cols, times):
+    """The four sharded sparse vectors built from the sv phase's columns:
+    find_eq / ne / gt / ge / lt / le / range, pipelines, gather and the
+    checkpoint round trip, against numpy or Python."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import (ShardedFloatVector,
+                                             ShardedRSCVector,
+                                             ShardedSparseVector,
+                                             ShardedStrSparseVector)
+    rng = np.random.default_rng(SEED + 34)
+    sv, vals, nm = cols["4b"]
+    v64, ok = vals.astype(np.int64), ~nm
+    live = np.where(nm, 0, vals)
+
+    def hits(r):
+        return r.to_bitvector().indices()
+    with Clock("sv_4b_build_ms", times):
+        ssv = ShardedSparseVector.from_sparse_vector(sv, mesh)
+    drawn = int(vals[rng.integers(0, SV_N)])
+    check(np.array_equal(hits(ssv.find_eq(drawn)),
+                         np.flatnonzero((v64 == drawn) & ok)), "4b find_eq")
+    check(ssv.find_eq_count(drawn) == int(((v64 == drawn) & ok).sum()),
+          "4b find_eq_count")
+    check(np.array_equal(hits(ssv.find_ne(drawn)),
+                         np.flatnonzero((v64 != drawn) & ok)), "4b find_ne")
+    for name, op in ORDER_OPS.items():
+        check(np.array_equal(hits(getattr(ssv, name)(drawn)),
+                             np.flatnonzero(op(v64, drawn) & ok)),
+              f"4b sharded {name}")
+    check(np.array_equal(hits(ssv.find_range(1000, 1 << 19)),
+                         np.flatnonzero((v64 >= 1000) & (v64 <= 1 << 19)
+                                        & ok)), "4b sharded find_range")
+    before = ck.launches["logical_op_digest"]
+    with Clock("find_gt_ms", times):
+        ssv.find_gt(drawn)
+    times["find_gt_k1_launches"] = ck.launches["logical_op_digest"] - before
+    ids = rng.integers(0, SV_N, SV_GATHER)
+    with Clock("sv_4b_gather_1M_ms", times):
+        got = ssv.gather(ids)
+    check(np.array_equal(got, live[ids]), "4b sharded gather")
+    blob = ssv.checkpoint_bytes()
+    again = ShardedSparseVector.from_checkpoint(blob, mesh)
+    check(all(torch.equal(x, y) for x, y in zip(again.stack, ssv.stack)),
+          "4b sharded checkpoint")
+    sharded_scans(tbm, mesh, ssv, live, ok, times)
+    # RSC: samples/11's column
+    rsc, idx, rv = cols["rsc"]
+    with Clock("rsc_build_ms", times):
+        srsc = ShardedRSCVector.from_rsc(rsc, mesh)
+    q = int(rv[5])
+    check(np.array_equal(hits(srsc.find_eq(q)), idx[rv == q]),
+          "rsc sharded find_eq")
+    for name, op, v in (("find_gt", np.greater, 1 << 19),
+                        ("find_le", np.less_equal, 1000),
+                        ("find_ne", np.not_equal, q)):
+        check(np.array_equal(hits(getattr(srsc, name)(v)), idx[op(rv, v)]),
+              f"rsc sharded {name}")
+    check(srsc.pipeline_find_eq([q, 0]) == [int((rv == q).sum()), 0],
+          "rsc sharded pipeline")
+    probe = np.concatenate([rng.integers(0, srsc.size, 100_000), idx[::97]])
+    gv, gok = srsc.gather(probe)
+    check(np.array_equal(gv, rsc.gather(probe)) and np.array_equal(
+        gok, np.isin(probe, idx)), "rsc sharded gather")
+    again = ShardedRSCVector.from_checkpoint(srsc.checkpoint_bytes(), mesh)
+    check(np.array_equal(again.gather(probe)[0], gv), "rsc sharded checkpoint")
+    # strings: the remapped dictionary
+    cat, _, names, queries, nums = cols["dict"]
+    with Clock("dict_build_ms", times):
+        sstr = ShardedStrSparseVector.from_str_vector(cat, mesh)
+    k = int(rng.integers(0, STR_N))
+    check(hits(sstr.find_eq_str(names[k])).tolist() == [k],
+          "dict sharded find_eq_str")
+    check(sstr.find_eq_str_count(queries[-1]) == 0, "dict missing id")
+    lo = int(np.searchsorted(nums, 1_200_000))
+    hi = int(np.searchsorted(nums, 1_300_000))
+    check(np.array_equal(hits(sstr.find_eq_str_prefix("NGC 12")),
+                         np.arange(lo, hi)), "dict sharded prefix")
+    with Clock("dict_pipeline_600_ms", times):
+        got = sstr.pipeline_find_eq_str(queries)
+    check(got == [1] * STR_PRESENT + [0] * STR_MISSING,
+          "dict sharded string pipeline")
+    gid = rng.integers(0, STR_N, 1000)
+    check(sstr.gather(gid) == [names[i] for i in gid.tolist()],
+          "dict sharded gather")
+    again = ShardedStrSparseVector.from_checkpoint(sstr.checkpoint_bytes(),
+                                                   mesh)
+    check(again.gather(gid) == [names[i] for i in gid.tolist()],
+          "dict sharded checkpoint")
+    # floats
+    fv, fvals, fnm = cols["float"]
+    fok = ~fnm
+    with Clock("float_build_ms", times):
+        sfv = ShardedFloatVector.from_float_vector(fv, mesh)
+    for qf in (12.5, -12.5, 0.0):
+        q32 = np.float32(qf)
+        for name, op in (("find_eq", np.equal), ("find_gt", np.greater),
+                         ("find_le", np.less_equal)):
+            check(np.array_equal(hits(getattr(sfv, name)(q32)),
+                                 np.flatnonzero(op(fvals, q32) & fok)),
+                  f"float sharded {name}({qf})")
+    check(sfv.pipeline_find_eq([np.float32(12.5), np.float32(-12.5)])
+          == [int(((fvals == 12.5) & fok).sum()),
+              int(((fvals == -12.5) & fok).sum())], "float sharded pipeline")
+    fid = rng.integers(0, SV_N, 100_000)
+    same_values(sfv.gather(fid), np.where(fnm, np.float32(0), fvals)[fid],
+                "float sharded gather")
+    again = ShardedFloatVector.from_checkpoint(sfv.checkpoint_bytes(), mesh)
+    same_values(again.gather(fid), sfv.gather(fid), "float sharded checkpoint")
+    return ssv, drawn
+
+
+def sharded_phase(tbm, device, card, cols):
+    """Phase 11: the sharded containers on a mesh of SHARDS shards on the
+    one card, in groups with their own launch counts, then the bit-vector
+    group and config 4b's searches on ``make_mesh()`` (every visible card);
+    a profile of one steady pass.  Returns the phase's launches."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import (Mesh, ShardedSparseVector,
+                                             make_mesh)
+    mesh = Mesh([device] * SHARDS)
+    total = {k: 0 for k in KERNELS}
+    times, state = {}, {}
+    groups = (
+        ("bit-vectors", ("logical_op_digest", "block_counts"),
+         lambda: state.update(bv=sharded_bitvectors(
+             tbm, device, mesh, times, f"mesh{SHARDS}"))),
+        ("and groups", ("agg_and_sub",),
+         lambda: sharded_and_groups(tbm, device, mesh, times)),
+        ("sparse vectors", ("logical_op_digest", "agg_and_sub",
+                            "pipeline_counts", "scan_eq", "block_counts"),
+         lambda: state.update(sv=sharded_svs(tbm, device, mesh, cols,
+                                             times))))
+    for name, need, run in groups:
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        launches = dict(ck.launches)
+        log(f"sharded: {name} on {SHARDS} shards passed in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        require_launches(f"sharded {name}", launches, need)
+        for k in total:
+            total[k] += launches[k]
+    # every visible card
+    full = make_mesh()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    sharded_bitvectors(tbm, device, full, times, f"cards{full.size}")
+    sv, vals, nm = cols["4b"]
+    s1 = ShardedSparseVector.from_sparse_vector(sv, full)
+    drawn = state["sv"][1]
+    ok = ~nm
+    check(np.array_equal(s1.find_gt(drawn).to_bitvector().indices(),
+                         np.flatnonzero((vals > drawn) & ok)),
+          "make_mesh find_gt")
+    check(s1.find_eq_count(drawn) == int(((vals == drawn) & ok).sum()),
+          "make_mesh find_eq_count")
+    launches = dict(ck.launches)
+    log(f"sharded: make_mesh() over {full.size} card(s) passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    for k in total:
+        total[k] += launches[k]
+    log(f"sharded: phase ms {json.dumps(times)}")
+    log(json.dumps({"sharded_find_gt_config4b": {
+        "shards": SHARDS, "ms": times["find_gt_ms"],
+        "k1_launches": times["find_gt_k1_launches"]}, "card": card["smi"]}))
+    a, b = state["bv"][0], state["bv"][1]
+    ssv = state["sv"][0]
+    ranks = np.random.default_rng(SEED + 35).integers(1, a.count() + 1,
+                                                      N_QUERIES)
+    profile(f"sharded steady pass ({SHARDS} shards: 4 ops + counts on 2^30 "
+            f"bits, 1M select, find_gt on config 4b)",
+            lambda: ([getattr(a, DUNDER[op])(b).count() for op in OPS],
+                     a.select_batch(ranks), ssv.find_gt(drawn)))
     return total
 
 
 # ---------------------------------------------------------------------------
-# phase 12: timing
+# phase 14: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -2402,21 +3067,35 @@ def main():
     # 9. the sv phase: ordered and sorted searches, the float, string and
     # RSC vectors, BitMatrix and the sv algorithms
     t0 = time.perf_counter()
-    sv_launches = sv_phase(tbm, device, card, sv, vals, nm)
+    sv_launches, cols = sv_phase(tbm, device, card, sv, vals, nm)
     log(f"sv: passed in {time.perf_counter() - t0:.1f} s; launches "
         f"{sv_launches}")
     require_launches("sv phase", sv_launches,
                      ("logical_op_digest", "agg_and_sub", "pipeline_counts",
                       "block_counts"))
-    del sv, vals, nm
 
-    # 10. reference fixtures
+    # 10. the sv_serial phase: the sv phase's columns through BMSV and the
+    # reference's sparse-vector format, then its five fixtures
+    sv_serial_launches = sv_serial_phase(tbm, device, card, cols)
+
+    # 11. the sharded phase: sharded bit-vectors and sparse vectors on a
+    # mesh of SHARDS shards on the one card and on every visible card
+    t0 = time.perf_counter()
+    sharded_launches = sharded_phase(tbm, device, card, cols)
+    log(f"sharded: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{sharded_launches}")
+    require_launches("sharded phase", sharded_launches,
+                     ("logical_op_digest", "block_counts", "agg_and_sub",
+                      "pipeline_counts", "scan_eq"))
+    del sv, vals, nm, cols
+
+    # 12. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 11. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 13. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -2431,7 +3110,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 12. timing
+    # 14. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -2466,12 +3145,15 @@ def main():
                  "algo_launches": algo_launches[k],
                  "serial_launches": serial_launches[k],
                  "sv_launches": sv_launches[k],
+                 "sv_serial_launches": sv_serial_launches[k],
+                 "sharded_launches": sharded_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if k == "scan_eq":
-            entry["note"] = ("no entry point of either package calls it; "
-                             "driven by the kernel phase only")
+            entry["note"] = ("its entry point is scan_throughput_program "
+                             "(sharded phase); the main paths do not call "
+                             "it")
         kernels.append(entry)
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(nvidia_smi("name,power.limit"))

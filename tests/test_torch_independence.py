@@ -160,3 +160,62 @@ def test_default_device_raises_without_card(monkeypatch):
     assert v.count() == 2 and v.device.type == "cpu"
     monkeypatch.setattr(tbm.config, "device", "cpu")
     assert tbm.simd_version() == "cpu:torch"
+
+
+def test_sharding_and_sv_serialization_import_alone():
+    """The sv serialization and sharding modules load and run with ``jax``
+    and ``bitmagic_tpu`` blocked."""
+    code = textwrap.dedent("""
+        import sys
+        BLOCK = ("jax", "jaxlib", "bitmagic_tpu")
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCK):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        import numpy as np
+        import bitmagic_tpu_torch as bt
+        from bitmagic_tpu_torch import parallel
+        from bitmagic_tpu_torch.serial import ref_sv, sv_serial
+        bt.config.device = "cpu"
+        sv = bt.SparseVector.from_array(
+            (np.arange(70000) % 50).astype(np.uint32))
+        blob = sv_serial.sparse_vector_serialize(sv)
+        assert sv_serial.sparse_vector_deserialize(blob).equal(sv)
+        back = ref_sv.deserialize_sv_blob(ref_sv.serialize_sv_blob(sv))
+        assert back.gather([69999])[0] == 69999 % 50
+        mesh = parallel.Mesh(["cpu"] * 4)
+        s = parallel.ShardedSparseVector.from_sparse_vector(sv, mesh)
+        assert s.find_eq_count(7) == 1400
+        assert s.find_gt(47).count() == 2800
+        a = parallel.ShardedBitVector.from_indices([1, 70000], 1 << 20, mesh)
+        assert (a & a).count() == 2 and a.select(2) == 70000
+        assert parallel.broadcast_bytes(b"x") == b"x"
+        bad = [m for m in sys.modules
+               if any(m == b or m.startswith(b + ".") for b in BLOCK)]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_blobcast_uses_torch_distributed_only():
+    """The BLOB broadcast talks to other processes through
+    ``torch.distributed`` and nothing else."""
+    path = os.path.join(PKG, "parallel", "blobcast.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            top.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module)
+    assert top == {"__future__", "torch", "torch.distributed"}

@@ -431,3 +431,43 @@ def test_scan_eq_kernel(dev, rng, n_planes, nb):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(),
                            blockops.scan_eq(n_planes, planes.cpu(), value))
+
+
+def test_sharded_steps_launch_per_shard(dev, rng):
+    """The sharded containers' per-shard steps launch one kernel per shard
+    and give the answers of the same containers on a CPU mesh."""
+    from bitmagic_tpu_torch.parallel import (Mesh, ShardedBitVector,
+                                             ShardedSparseVector,
+                                             sharded_and_many)
+    size = 8 * 65536
+    wa = rng.integers(0, 2**32, (8, 2048), dtype=np.uint64).astype(np.uint32)
+    wb = rng.integers(0, 2**32, (8, 2048), dtype=np.uint64).astype(np.uint32)
+    card, host = Mesh([dev] * 4), Mesh(["cpu"] * 4)
+    a, b = (ShardedBitVector.from_words(w, size, card) for w in (wa, wb))
+    ha, hb = (ShardedBitVector.from_words(w, size, host) for w in (wa, wb))
+    for op in ("__and__", "__or__", "__xor__", "__sub__"):
+        ck.reset_launches()
+        r = getattr(a, op)(b)
+        assert ck.launches["logical_op_digest"] == 4
+        np.testing.assert_array_equal(r.to_words(),
+                                      getattr(ha, op)(hb).to_words())
+        ck.reset_launches()
+        assert r.count() == getattr(ha, op)(hb).count()
+        assert ck.launches["block_counts"] == 4
+    ck.reset_launches()
+    r = sharded_and_many([a, b], digest_narrowing=False)
+    assert ck.launches["agg_and_sub"] == 4
+    np.testing.assert_array_equal(
+        r.to_words(), sharded_and_many([ha, hb],
+                                       digest_narrowing=False).to_words())
+    vals = rng.integers(0, 1000, 200_000).astype(np.uint32)
+    sv = tbm.SparseVector.from_array(vals, device="cpu")
+    s, h = (ShardedSparseVector.from_sparse_vector(sv, m)
+            for m in (card, host))
+    ck.reset_launches()
+    assert s.pipeline_find_eq([7, 8]) == h.pipeline_find_eq([7, 8])
+    assert ck.launches["pipeline_counts"] == 4
+    np.testing.assert_array_equal(s.find_gt(500).to_words(),
+                                  h.find_gt(500).to_words())
+    np.testing.assert_array_equal(s.find_eq(7).to_words(),
+                                  h.find_eq(7).to_words())

@@ -120,6 +120,36 @@ def test_blob_bytes_identical(vecs, kind, level):
     assert ts.serialize(tv) == want
 
 
+@pytest.mark.parametrize("density", [0.44, 0.56])
+def test_bic_record_larger_than_raw(density):
+    """At level 6 a block of ~29000 set (or clear) bits is written as an
+    ARR_BIC(_INV) record chosen on its size estimate; its payload outgrows
+    the 8 KiB of a RAW record.  The native encoder must make room for it
+    and write the JAX package's bytes."""
+    rng = np.random.default_rng(0)
+    ids = np.flatnonzero(rng.random(3 * BPB) < density)
+    jv = jbm.BitVector.from_indices(ids, 3 * BPB)
+    tv = tbm.BitVector.from_indices(ids, 3 * BPB, device="cpu")
+    want = jbm.Serializer(6).serialize(jv)
+    assert len(want) > 3 * 8192
+    assert tbm.Serializer(6).serialize(tv) == want
+
+
+@pytest.mark.parametrize("n_full", [1, 4, 40])
+def test_full_blocks_only(n_full):
+    """A vector of FULL blocks only (an optimized plane) has no payload
+    row; the native encoder must still take it and write the JAX
+    package's bytes."""
+    ids = np.arange(n_full * BPB, dtype=np.int64)
+    jv = jbm.BitVector.from_indices(ids, C.ID_MAX48)
+    tv = tbm.BitVector.from_indices(ids, C.ID_MAX48, device="cpu")
+    jv.optimize()
+    tv.optimize()
+    for level in (1, 6):
+        want = jbm.Serializer(level).serialize(jv)
+        assert tbm.Serializer(level).serialize(tv) == want
+
+
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_cross_decode(vecs, kind):
     """Each package decodes the other's BLOB to the same state, GAP
