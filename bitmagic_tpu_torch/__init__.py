@@ -5,8 +5,9 @@ rank/select, iteration and the free-function algorithms, their BLOB
 serialization (the BMT1 format and the reference's own, set ops straight
 against a BLOB), the multi-vector aggregator, bit-sliced sparse vectors (integer, float,
 string, rank-select compressed) with their scanner and their BLOBs, and
-containers sharded over a mesh of devices (``parallel``), on NVIDIA Hopper
-cards (H100).  The hot block ops are
+containers sharded over a mesh of devices (``parallel``), with the
+libbm-shaped C-API facade (``capi``) and the debug, timer and oracle helpers
+(``utils``), on NVIDIA Hopper cards (H100).  The hot block ops are
 hand-written CUDA kernels for ``sm_90a`` (``ops/csrc``), built from source
 with ``nvcc`` at first use; every other device step is plain PyTorch, and
 the host-side block codecs are the port's native C++ library
@@ -41,7 +42,9 @@ from .algo.setops import (
 from .algo.traversal import (for_each_bit, for_each_bit_range,
                              rank_range_split, visit_each_bit,
                              visit_each_bit_range)
-from .agg.aggregator import AggOptions, Aggregator, aggregator
+from . import agg
+from .agg.aggregator import (AggOptions, Aggregator, aggregator,
+                             aggregator_pipeline_execute)
 from .config import config, simd_version
 from .core.bitvector import BitVector, ReadOnlyError
 from . import serial
@@ -58,6 +61,7 @@ from .sv import (BitMatrix, FloatSparseVector, RSCSparseVector,
                  SparseVector, SparseVectorScanner, StrSparseVector, scanner)
 from .sv.algo import Set2SetTransform, find_first_mismatch, set2set_transform
 from . import parallel
+from . import utils
 
 __version__ = "0.1.0"
 
@@ -69,10 +73,10 @@ __all__ = [
     "serial", "parallel",
     "SparseVectorSerializer", "SparseVectorDeserializer",
     "sparse_vector_serialize", "sparse_vector_deserialize",
-    "Aggregator", "aggregator", "AggOptions",
+    "Aggregator", "aggregator", "AggOptions", "aggregator_pipeline_execute",
     "SparseVector", "RSCSparseVector", "StrSparseVector",
     "FloatSparseVector", "BitMatrix", "scanner", "SparseVectorScanner",
-    "algo", "sv",
+    "algo", "agg", "sv", "utils",
     "count_and", "count_or", "count_xor", "count_sub",
     "any_and", "any_or", "any_xor", "any_sub",
     "distance_operation", "distance_operation_any",

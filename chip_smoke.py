@@ -108,22 +108,51 @@ only when every phase passed):
               config 4b's searches on make_mesh() (every visible card);
               exact per-step launch counts (one per shard) and a profile of
               one steady pass;
-12. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
-13. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+12. capi    — configs 1-2's A and B through the C-API facade
+              (``bitmagic_tpu_torch.capi``): built with BM_bvector_construct
+              + BM_bvector_set_bits and equal to phase 4's; the four
+              combines, their 3-operand and opcode forms, the five array
+              forms and merge; count, 64 count_range, count_/any_ AND, OR,
+              XOR, SUB; compare, equal, find_first_mismatch; CAPI_CALLS
+              calls each of get_bit, find, get_next, select, rank and
+              find_rank after BM_bvector_optimize; serialize, deserialize
+              and the operation deserializer; statistics; frozen copies (a
+              write returns an error code); the enumerator (ENUM_WALK
+              positions, then goto jumps); extract_next.  Every call must
+              return BM_OK where the JAX package's facade does, the phase
+              stops at the first bad code, and every answer is held against
+              numpy; it logs ms per entry point;
+13. utils   — debug.print_stat (one K3 launch) and print_bvector_stat on A,
+              print_svector_stat on config 4b's column, each printed count
+              against numpy; compute_serialization_size; the save / load
+              round trips of A and the column through files; ChronoTaker
+              around one config-1 AND (at least the device time of the
+              events inside it); profiler_trace writing a trace that names
+              a kernel of the port;
+14. samples — the 24 programs of samples_torch/ in this process on the
+              card, each printing the lines it prints on the CPU (apart
+              from the mesh's device list and sample 22's wall times), with
+              its wall seconds and launches; then B8, the Bitap chain
+              (combine_shift_right_and) at samples/06's shape and at
+              config-1 width (4 occurrence vectors of a 100.7M-base text;
+              16- and 32-letter patterns) against a numpy Bitap, with host
+              wall ms, device busy ms and launches per call;
+15. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+16. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-14. timing  — each kernel, its plain version and the nearest single PyTorch
+17. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8, 10 and each group of 9 and 11) is driven with the launch
-counts set to 0 just before and read just after; a kernel of the path
-launched no time fails it.
+Each path (4, 5, 6, 7, 8, 10, 12, 13, 14 and each group of 9 and 11) is
+driven with the launch counts set to 0 just before and read just after; a
+kernel of the path launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -2598,7 +2627,603 @@ def sharded_phase(tbm, device, card, cols):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: timing
+# phases 12-14: the surface — the C-API facade, utils and the samples
+# ---------------------------------------------------------------------------
+CAPI_CALLS = 1000               # per-call queries (get_bit, rank, select...)
+CAPI_ARR = 100_000              # ids of each *_arr combine
+SAMPLES_DIR = os.path.join(ROOT, "samples_torch")
+# the lines a port sample may print differently on the card and on the CPU:
+# the mesh's device list (07, 21), the wall times of sample 22 (its counts
+# still compare) and sample 07's run over every visible card (card only)
+SAMPLE_MESH_LINE = {"07_sharded_scaling.py", "21_sharded_succinct_scan.py"}
+SAMPLE_TIMED = {"22_wide_ranges_48bit.py": ("set_range(0, 2^47-1): ",
+                                            "invert() @ 2^48     : ")}
+SAMPLE_CARD_ONLY = {"07_sharded_scaling.py": "make_mesh() over "}
+BITAP_PATTERNS = (16, 32)       # B8 at config-1 width: pattern lengths
+
+
+def capi_ok(capi, ret, what):
+    """The value of a BM_* call whose code must be BM_OK: a failed kernel
+    build or launch comes back from the facade as an error code, and after
+    a CUDA error the context is unusable, so the phase stops at the first
+    bad code.  Returns None (code only), the value, or the tuple of values."""
+    code = ret[0] if isinstance(ret, tuple) else ret
+    check(code == capi.BM_OK,
+          f"capi: {what} returned {code} ({capi.BM_error_msg(code)})")
+    if not isinstance(ret, tuple):
+        return None
+    return ret[1] if len(ret) == 2 else ret[1:]
+
+
+def _first_mismatch(wa, wb):
+    x = np.flatnonzero(wa ^ wb)
+    if not x.size:
+        return -1
+    w = int(x[0])
+    d = int(wa[w] ^ wb[w])
+    return w * 32 + (d & -d).bit_length() - 1
+
+
+def capi_path(tbm, device, times, n_blocks=N_BLOCKS):
+    """Configs 1-2's A and B through the C-API facade, every answer against
+    numpy; ``times`` gets ms per entry point (per call for the per-call
+    queries).  Returns A (optimized), B and their bit arrays."""
+    from bitmagic_tpu_torch import capi
+    from bitmagic_tpu_torch import constants as C
+    size = n_blocks * BPB
+    a, b, bits = build_main_vectors(tbm, n_blocks, device, {})
+    wa, wb = image(bits["a"]), image(bits["b"])
+    ids_a = np.flatnonzero(bits["a"])
+    rng = np.random.default_rng(SEED + 40)
+
+    def ok(ret, what):
+        return capi_ok(capi, ret, what)
+
+    def per_call(name, fn, n=CAPI_CALLS):
+        sync()
+        t0 = time.perf_counter()
+        out = [fn(k) for k in range(n)]
+        sync()
+        times[f"{name}_ms_per_call"] = round(
+            (time.perf_counter() - t0) * 1e3 / n, 4)
+        return out
+
+    # A and B through BM_bvector_construct + BM_bvector_set_bits
+    built = {}
+    for name, ids in (("a", ids_a), ("b", np.flatnonzero(bits["b"]))):
+        with Clock(f"construct_set_bits_{name}_ms", times):
+            v = ok(capi.BM_bvector_construct(size), "construct")
+            ok(capi.BM_bvector_set_bits(v, ids), f"set_bits {name}")
+        check(v.device.type == device.type, "construct builds on the card")
+        built[name] = v
+    check(ok(capi.BM_bvector_equal(built["a"], a), "equal") is True
+          and ok(capi.BM_bvector_equal(built["b"], b), "equal") is True,
+          "A and B through the facade equal phase 4's")
+    check(np.array_equal(built["a"].to_words().ravel(), wa),
+          "A through the facade: word image")
+    del built
+
+    def copy(v):
+        return ok(capi.BM_bvector_construct_copy(v), "construct_copy")
+
+    # the four combines, their 3-operand forms, arrays and merge
+    for op in ("AND", "OR", "XOR", "SUB"):
+        want = oracle_op(op.lower(), wa, wb)
+        x = copy(a)
+        with Clock(f"combine_{op}_ms", times):
+            ok(getattr(capi, f"BM_bvector_combine_{op}")(x, b), op)
+        check(np.array_equal(x.to_words().ravel(), want), f"combine_{op}")
+        t = ok(capi.BM_bvector_construct(size), "construct")
+        with Clock(f"combine_{op}_2sc_ms", times):
+            ok(getattr(capi, f"BM_bvector_combine_{op}_2sc")(t, a, b),
+               f"{op}_2sc")
+        check(np.array_equal(t.to_words().ravel(), want),
+              f"combine_{op}_2sc")
+        x = copy(a)
+        with Clock(f"combine_operation_{op}_ms", times):
+            ok(capi.BM_bvector_combine_operation(
+                x, b, ("AND", "OR", "SUB", "XOR").index(op)), op)
+        check(np.array_equal(x.to_words().ravel(), want),
+              f"combine_operation {op}")
+    arr = rng.integers(0, size, CAPI_ARR)
+    arr_bits = np.zeros(size, bool)
+    arr_bits[arr] = True
+    warr = image(arr_bits)
+    for form, op in (("OR", "or"), ("AND", "and"), ("XOR", "xor"),
+                     ("SUB", "sub"), ("AND", "and_sorted")):
+        x = copy(a)
+        fn = (capi.BM_bvector_combine_AND_arr_sorted if op == "and_sorted"
+              else getattr(capi, f"BM_bvector_combine_{form}_arr"))
+        with Clock(f"combine_{op}_arr_ms", times):
+            ok(fn(x, np.sort(arr) if op == "and_sorted" else arr),
+               f"{op}_arr")
+        check(np.array_equal(x.to_words().ravel(),
+                             oracle_op(form.lower(), wa, warr)),
+              f"combine_{op}_arr")
+    x, y = copy(a), copy(b)
+    with Clock("merge_ms", times):
+        ok(capi.BM_bvector_merge(x, y), "merge")
+    check(np.array_equal(x.to_words().ravel(), wa | wb), "merge")
+    del x, y, t
+
+    # counts
+    for name, v, w in (("a", a, wa), ("b", b, wb)):
+        with Clock(f"count_{name}_ms", times):
+            cnt = ok(capi.BM_bvector_count(v), "count")
+        check(cnt == int(np.bitwise_count(w).sum(dtype=np.int64)),
+              f"count {name}")
+    lo = rng.integers(0, size, N_RANGES)
+    hi = np.minimum(lo + rng.integers(0, size // 4, N_RANGES), size - 1)
+    got = per_call("count_range", lambda k: ok(capi.BM_bvector_count_range(
+        a, int(lo[k]), int(hi[k])), "count_range"), N_RANGES)
+    want = oracle_rank(wa, hi) - oracle_rank(wa, lo - 1)
+    check(np.array_equal(got, want), "count_range x64")
+    for op, metric in (("AND", "count_and"), ("OR", "count_or"),
+                       ("XOR", "count_xor"), ("SUB", "count_sub_ab")):
+        want = oracle_metric(metric, wa, wb)
+        with Clock(f"count_{op}_ms", times):
+            got = ok(getattr(capi, f"BM_bvector_count_{op}")(a, b), op)
+        check(got == want, f"count_{op}")
+        with Clock(f"any_{op}_ms", times):
+            got = ok(getattr(capi, f"BM_bvector_any_{op}")(a, b), op)
+        check(got == (want > 0), f"any_{op}")
+
+    # compare, equal, the first mismatch
+    m = _first_mismatch(wa, wb)
+    with Clock("compare_ms", times):
+        cmp = ok(capi.BM_bvector_compare(a, b), "compare")
+    check(cmp == (1 if bits["a"][m] else -1), "compare")
+    with Clock("equal_ms", times):
+        check(ok(capi.BM_bvector_equal(a, b), "equal") is False, "equal")
+    with Clock("find_first_mismatch_ms", times):
+        got = ok(capi.BM_bvector_find_first_mismatch(a, b), "mismatch")
+    check(tuple(got) == (True, m), "find_first_mismatch")
+    check(tuple(ok(capi.BM_bvector_find_first_mismatch(a, copy(a)),
+                   "mismatch")) == (False, -1), "no mismatch with a copy")
+
+    # single-bit queries and the find family, CAPI_CALLS calls each
+    pos = rng.integers(0, size, CAPI_CALLS)
+    got = per_call("get_bit", lambda k: ok(capi.BM_bvector_get_bit(
+        a, int(pos[k])), "get_bit"))
+    check(np.array_equal(got, bits["a"][pos]), "get_bit")
+    nxt = np.searchsorted(ids_a, pos)
+    want = [(bool(i < ids_a.size), int(ids_a[i]) if i < ids_a.size else -1)
+            for i in nxt]
+    got = per_call("find", lambda k: tuple(ok(capi.BM_bvector_find(
+        a, int(pos[k])), "find")))
+    check(got == want, "find")
+    walk = [tuple(ok(capi.BM_bvector_get_first(a), "get_first"))]
+
+    def get_next(k):
+        walk.append(tuple(ok(capi.BM_bvector_get_next(a, walk[-1][1]),
+                             "get_next")))
+    per_call("get_next", get_next)
+    check(walk == [(True, int(p)) for p in ids_a[:CAPI_CALLS + 1]],
+          "get_first / get_next")
+    check(tuple(ok(capi.BM_bvector_find_reverse(a), "find_reverse"))
+          == (True, int(ids_a[-1])), "find_reverse")
+
+    # optimize, then rank / select / find_rank on the rank-select index
+    with Clock("optimize_ms", times):
+        st = ok(capi.BM_bvector_optimize(a), "optimize")
+    check(np.array_equal(a.to_words().ravel(), wa), "optimize keeps A")
+    blk = wa.reshape(n_blocks, -1)
+    check(st["full_blocks"] == int((blk == 0xFFFFFFFF).all(1).sum())
+          and st["zero_blocks"] == int((blk == 0).all(1).sum())
+          and st["bit_blocks"] + st["gap_blocks"] + st["full_blocks"]
+          + st["zero_blocks"] == n_blocks, f"optimize statistics {st}")
+    with Clock("statistics_ms", times):
+        check(ok(capi.BM_bvector_statistics(a), "statistics") == st,
+              "statistics")
+    ranks = rng.integers(1, ids_a.size + 1, CAPI_CALLS)
+    got = per_call("select", lambda k: tuple(ok(capi.BM_bvector_select(
+        a, int(ranks[k])), "select")))
+    check(got == [(True, int(p)) for p in ids_a[ranks - 1]], "select")
+    check(tuple(ok(capi.BM_bvector_select(a, 0), "select")) == (False, -1),
+          "select(0)")
+    got = per_call("rank", lambda k: ok(capi.BM_bvector_rank(
+        a, int(pos[k])), "rank"))
+    check(np.array_equal(got, oracle_rank(wa, pos)), "rank")
+    got = per_call("rank_corrected", lambda k: ok(
+        capi.BM_bvector_rank_corrected(a, int(pos[k])), "rank_corrected"),
+        N_RANGES)
+    check(np.array_equal(got, oracle_rank(wa, pos[:N_RANGES])
+                         - bits["a"][pos[:N_RANGES]]), "rank_corrected")
+    frm = rng.integers(1, size, CAPI_CALLS)
+    rr = rng.integers(1, 1000, CAPI_CALLS)
+    at = oracle_rank(wa, frm - 1) + rr - 1
+    want = [(bool(i < ids_a.size), int(ids_a[i]) if i < ids_a.size else -1)
+            for i in at]
+    got = per_call("find_rank", lambda k: tuple(ok(capi.BM_bvector_find_rank(
+        a, int(rr[k]), int(frm[k])), "find_rank")))
+    check(got == want, "find_rank")
+
+    # serialization, the operation deserializer
+    with Clock("serialize_ms", times):
+        blob = ok(capi.BM_bvector_serialize(a), "serialize")
+    with Clock("deserialize_ms", times):
+        back = ok(capi.BM_bvector_deserialize(blob), "deserialize")
+    check(back.device.type == device.type
+          and np.array_equal(back.to_words().ravel(), wa), "deserialize")
+    for op, want in ((C.SET_AND, wa & wb), (C.SET_OR, wa | wb),
+                     (C.SET_SUB, wb & ~wa)):
+        x = copy(b)
+        with Clock(f"operation_deserialize_{op}_ms", times):
+            ok(capi.BM_bvector_operation_deserialize(x, blob, op),
+               f"operation_deserialize {op}")
+        check(np.array_equal(x.to_words().ravel(), want),
+              f"operation_deserialize {op}")
+    with Clock("operation_deserialize_count_and_ms", times):
+        got = ok(capi.BM_bvector_operation_deserialize(
+            copy(b), blob, C.SET_COUNT_AND), "COUNT_AND")
+    check(got == oracle_metric("count_and", wa, wb),
+          "operation_deserialize COUNT_AND")
+    del back, x
+
+    # read-only copies: a write returns an error code, never raises
+    with Clock("construct_copy_ro_ms", times):
+        ro = ok(capi.BM_bvector_construct_copy_ro(a), "construct_copy_ro")
+    check(ok(capi.BM_bvector_is_ro(ro), "is_ro") is True, "is_ro")
+    log("capi: a write to a frozen copy must return an error code; the "
+        "facade prints the ReadOnlyError it caught:")
+    code = capi.BM_bvector_set_bit(ro, 5)
+    check(code == capi.BM_ERR_BADARG, f"write to a frozen copy gave {code}")
+    x = copy(b)
+    ok(capi.BM_bvector_freeze(x), "freeze")
+    check(ok(capi.BM_bvector_is_ro(x), "is_ro") is True, "freeze")
+    rw = ok(capi.BM_bvector_construct_copy_rw(ro), "construct_copy_rw")
+    check(ok(capi.BM_bvector_is_ro(rw), "is_ro") is False
+          and ok(capi.BM_bvector_count(ro), "count")
+          == ids_a.size, "read-write copy")
+    del ro, rw, x
+
+    # the enumerator: ENUM_WALK positions one at a time, then goto jumps
+    with Clock("enumerator_construct_from_ms", times):
+        en = ok(capi.BM_bvector_enumerator_construct_from(a, 0),
+                "enumerator_construct_from")
+    first = ok(capi.BM_bvector_enumerator_get_value(en), "get_value")
+    walk_n = min(ENUM_WALK, ids_a.size)
+    steps = per_call("enumerator_next_value", lambda k: tuple(ok(
+        capi.BM_bvector_enumerator_next_value(en), "next_value")),
+        walk_n - 1)
+    check([first] + [v for _, v in steps] == ids_a[:walk_n].tolist()
+          and all(f for f, _ in steps), "enumerator walk")
+    jumps = np.sort(rng.integers(0, size, CAPI_CALLS))
+
+    def goto(k):
+        valid = ok(capi.BM_bvector_enumerator_goto(en, int(jumps[k])), "goto")
+        check(valid == ok(capi.BM_bvector_enumerator_is_valid(en),
+                          "is_valid"), "is_valid after goto")
+        return (valid, ok(capi.BM_bvector_enumerator_get_value(en),
+                          "get_value") if valid else -1)
+    got = per_call("enumerator_goto", goto)
+    nxt = np.searchsorted(ids_a, jumps)
+    check(got == [(True, int(ids_a[i])) if i < ids_a.size else (False, -1)
+                  for i in nxt], "enumerator goto")
+    ok(capi.BM_bvector_enumerator_free(en), "enumerator_free")
+    tail = 22 * (n_blocks // 24) * BPB          # A's sparse region
+    it = ok(capi.BM_bvector_enumerator_construct(a, tail),
+            "enumerator_construct")
+    seen = []
+    while True:
+        err, found, v = capi.BM_bvector_enumerator_next(it)
+        check(err == capi.BM_OK, "enumerator_next")
+        if not found:
+            break
+        seen.append(v)
+    check(seen == ids_a[ids_a >= tail].tolist(), "enumerator_next")
+
+    # extract_next: the next set bit, cleared
+    x = copy(a)
+    prev = [-1]
+
+    def extract(k):
+        prev.append(ok(capi.BM_bvector_extract_next(x, prev[-1]),
+                       "extract_next"))
+    per_call("extract_next", extract)
+    check(prev[1:] == ids_a[:CAPI_CALLS].tolist()
+          and ok(capi.BM_bvector_count(x), "count")
+          == ids_a.size - CAPI_CALLS, "extract_next")
+    return a, b, bits
+
+
+def capi_phase(tbm, device, n_blocks=N_BLOCKS):
+    """Phase 12: the C-API facade on configs 1-2's A and B with the launch
+    counts set to 0 just before and read just after.  Returns the phase's
+    launches and (A, B, their bit arrays) for the utils phase."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    times = {}
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    state = capi_path(tbm, device, times, n_blocks)
+    launches = dict(ck.launches)
+    log(f"capi: configs 1-2 through the BM_* facade passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}; ms per "
+        f"entry point {json.dumps(times)}")
+    require_launches("capi phase", launches, FIRST_SLICE)
+    return launches, state
+
+
+def utils_path(tbm, device, a, b, bits, sv, vals, nm, times):
+    """debug, timer and the file helpers on config 1's A and B and config
+    4b's column, every printed number against numpy."""
+    import glob
+    import io
+    import tempfile
+    from bitmagic_tpu_torch import constants as C
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.serial.serializer import serialize
+    from bitmagic_tpu_torch.serial.sv_serial import sparse_vector_serialize
+    from bitmagic_tpu_torch.utils import debug, timer
+    wa = image(bits["a"])
+    blk = wa.reshape(-1, 2048)
+    bc = np.bitwise_count(blk).sum(1, dtype=np.int64)
+
+    # print_stat: one K3 launch for the dense rows' counts
+    out = io.StringIO()
+    before = dict(ck.launches)
+    with Clock("print_stat_ms", times):
+        debug.print_stat(a, out=out)
+    n = {k: ck.launches[k] - before[k] for k in before}
+    check(n["block_counts"] == 1 and sum(n.values()) == 1,
+          f"print_stat launched K3 once and nothing else: {n}")
+    lines = out.getvalue().splitlines()
+    check(len(lines) == len(a._struct.nb), "print_stat: a line per block")
+    kinds = set()
+    for ln in lines:
+        head, rest = ln.split(": ", 1)
+        nb = int(head.split()[1])
+        kind = rest.split()[0]
+        kinds.add(kind)
+        if kind == "FULL":
+            check(bc[nb] == BPB, f"print_stat {ln}")
+        else:
+            got = int(rest.split("bc=")[1].split()[0])
+            check(got == bc[nb], f"print_stat {ln}: numpy {bc[nb]}")
+    check(kinds == {"BIT", "GAP", "FULL"} or kinds == {"BIT", "GAP"},
+          f"print_stat block classes {kinds}")
+    out = io.StringIO()
+    debug.print_bvector_stat(a, out=out)
+    st = a.calc_stat()
+    check(out.getvalue().splitlines() == [
+        f"size: {a.size}  count: {int(bc.sum())}",
+        f"blocks: bit={st['bit_blocks']} full={st['full_blocks']} "
+        f"zero={st['zero_blocks']} gap={st['gap_blocks']}",
+        f"memory: {st['memory_used']} bytes "
+        f"(max serialize {st['max_serialize_mem']})"], "print_bvector_stat")
+
+    # print_svector_stat on config 4b's column
+    out = io.StringIO()
+    with Clock("print_svector_stat_ms", times):
+        debug.print_svector_stat(sv, out=out)
+    with Clock("plane_counts_numpy_ms", times):
+        live = np.where(nm, np.uint32(0), vals)
+        planes = [int(np.count_nonzero((live >> np.uint32(s))
+                                       & np.uint32(1))) for s in range(32)]
+    lines = out.getvalue().splitlines()
+    check(lines[0] == f"size: {vals.size} dtype: uint32 planes: "
+          f"{sum(p is not None for p in sv.planes)}/{sv.n_slices} "
+          f"nullable: True", f"print_svector_stat {lines[0]}")
+    check(lines[1:] == [f"  plane {s}: count={c}" for s, c in
+                        enumerate(planes) if c], "print_svector_stat planes")
+
+    # serialization sizes and the file round trips
+    with Clock("compute_serialization_size_a_ms", times):
+        n_a = debug.compute_serialization_size(a)
+    check(n_a == len(serialize(a)), "compute_serialization_size(A)")
+    with Clock("compute_serialization_size_sv_ms", times):
+        n_sv = debug.compute_serialization_size(sv)
+    check(n_sv == len(sparse_vector_serialize(sv)),
+          "compute_serialization_size(config 4b)")
+    with tempfile.TemporaryDirectory() as d:
+        with Clock("save_load_bvector_ms", times):
+            debug.save_bvector(os.path.join(d, "a.bv"), a)
+            back = debug.load_bvector(os.path.join(d, "a.bv"), device=device)
+        check(back.device.type == device.type
+              and np.array_equal(back.to_words().ravel(), wa),
+              "save_bvector / load_bvector")
+        with Clock("save_load_svector_ms", times):
+            debug.file_save_svector(os.path.join(d, "4b.sv"), sv)
+            back = debug.file_load_svector(os.path.join(d, "4b.sv"),
+                                           device=device)
+        # plane by plane on the card (a full decode of 16M values takes
+        # tens of seconds of host work: B9 in ROADMAP)
+        with Clock("svector_planes_equal_ms", times):
+            same = all((x is None) == (y is None)
+                       and (x is None or x.equal(y)) for x, y in
+                       zip(back.planes + [back.null_plane],
+                           sv.planes + [sv.null_plane]))
+        check(back.device.type == device.type and same,
+              "file_save_svector / file_load_svector")
+        del back
+
+        # ChronoTaker around one config-1 AND: at least the device time
+        # the events inside it bracket
+        timer.reset_statistics()
+        r = a & b
+        sync()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        with timer.ChronoTaker("config1_and", track=a):
+            s.record()
+            r = a & b
+            e.record()
+        ct_ms = timer.statistics["config1_and"]["total_s"] * 1e3
+        ev_ms = s.elapsed_time(e)
+        times["chrono_taker_and_ms"] = round(ct_ms, 4)
+        times["cuda_event_and_ms"] = round(ev_ms, 4)
+        check(ct_ms >= ev_ms, f"ChronoTaker {ct_ms} ms < events {ev_ms} ms")
+        check(np.array_equal(r.to_words().ravel(), wa & image(bits["b"])),
+              "config-1 AND")
+        timer.reset_statistics()
+
+        # profiler_trace: a trace file that names a kernel of the port
+        with Clock("profiler_trace_ms", times), timer.profiler_trace(d):
+            for _ in range(10):     # a short trace can lose lone events
+                (a & b).count()
+            sync()
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        check(len(files) == 1 and os.path.getsize(files[0]) > 0,
+              f"profiler_trace wrote {files}")
+        with open(files[0]) as f:
+            text = f.read()
+        named = [k for k in ("binary_digest_kernel", "block_counts_kernel")
+                 if k in text]
+        times["profiler_trace_bytes"] = os.path.getsize(files[0])
+        check(named, "the trace names a kernel of the port")
+        log(f"utils: profiler_trace wrote {os.path.basename(files[0])} "
+            f"({times['profiler_trace_bytes']} bytes) naming {named}")
+
+
+def utils_phase(tbm, device, a, b, bits, sv, vals, nm):
+    """Phase 13: ``utils`` with the launch counts set to 0 just before and
+    read just after.  Returns the phase's launches."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    times = {}
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    utils_path(tbm, device, a, b, bits, sv, vals, nm, times)
+    launches = dict(ck.launches)
+    log(f"utils: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}; ms {json.dumps(times)}")
+    require_launches("utils phase", launches,
+                     ("logical_op_digest", "block_counts"))
+    return launches
+
+
+def _sample_lines(name, text, card):
+    """A sample's printed lines, with the lines that may differ between
+    the card and the CPU normalised (SAMPLE_MESH_LINE, SAMPLE_TIMED) and
+    the card-only lines dropped."""
+    import re
+    out = []
+    for ln in text.splitlines():
+        if card and ln.startswith(SAMPLE_CARD_ONLY.get(name, "\0")):
+            continue
+        if name in SAMPLE_MESH_LINE and ln.startswith("mesh: "):
+            ln = "mesh: <repr>"
+        elif ln.startswith(SAMPLE_TIMED.get(name, ())):
+            ln = re.sub(r"\d+\.\d ms;", "<ms>;", ln)
+        out.append(ln)
+    return out
+
+
+def run_sample(tbm, path, device):
+    """(stdout, wall s) of one port sample run in this process with
+    ``config.device`` set to ``device``."""
+    import contextlib
+    import io
+    import runpy
+    old_dev, old_path = tbm.config.device, list(sys.path)
+    buf = io.StringIO()
+    tbm.config.device = device
+    try:
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        sync()
+        return buf.getvalue(), time.perf_counter() - t0
+    finally:
+        tbm.config.device = old_dev
+        sys.path[:] = old_path
+
+
+def samples_phase(tbm, device, card, n_blocks=N_BLOCKS):
+    """Phase 14: the 24 port samples in this process on the card, each with
+    the launch counts set to 0 just before and read just after, its lines
+    equal to the same sample's on the CPU; then B8 (the Bitap chain).
+    Returns the launches of the 24 samples."""
+    import glob
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    check(not os.environ.get("BMTPU_PLATFORM"),
+          "BMTPU_PLATFORM would send the samples to the CPU")
+    paths = sorted(glob.glob(os.path.join(SAMPLES_DIR, "[0-9]*.py")))
+    check(len(paths) == 24, f"24 samples, found {len(paths)}")
+    total = {k: 0 for k in KERNELS}
+    per = {}
+    t0 = time.perf_counter()
+    for path in paths:
+        name = os.path.basename(path)
+        ck.reset_launches()
+        text, wall = run_sample(tbm, path, "cuda")
+        launches = {k: v for k, v in ck.launches.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+        check(text.strip(), f"sample {name} printed nothing")
+        cpu_text, cpu_wall = run_sample(tbm, path, "cpu")
+        check(_sample_lines(name, text, True)
+              == _sample_lines(name, cpu_text, False),
+              f"sample {name}: the card's lines differ from the CPU's")
+        per[name] = {"s": round(wall, 3), "cpu_s": round(cpu_wall, 3),
+                     "launches": launches}
+        log(f"samples: {name} passed in {wall:.3f} s on the card "
+            f"({cpu_wall:.3f} s on the CPU); launches {launches}")
+    log(json.dumps({"samples": per, "card": card["smi"]}))
+    log(f"samples: 24 samples passed in {time.perf_counter() - t0:.1f} s "
+        f"(card and CPU runs); launches {total}")
+    require_launches("samples phase", total, ("logical_op_digest",
+                                              "block_counts", "agg_and_sub",
+                                              "pipeline_counts"))
+    bitap_timing(tbm, device, card, n_blocks)
+    return total
+
+
+def bitap_oracle(codes, pat) -> np.ndarray:
+    """End positions of ``pat`` (letter codes) in ``codes``, numpy."""
+    n, m = codes.size, len(pat)
+    hit = np.ones(n - m + 1, bool)
+    for k, c in enumerate(pat):
+        hit &= codes[k:n - m + 1 + k] == c
+    return np.flatnonzero(hit) + (m - 1)
+
+
+def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
+    """B8: ``combine_shift_right_and`` (the Bitap chain, plain PyTorch) at
+    samples/06's shape and at config-1 width (4 occurrence vectors of a
+    seeded 100.7M-base text, 1536 blocks each, BITAP_PATTERNS letters),
+    each result against a numpy Bitap; host wall ms, device busy ms and
+    launches per call (the six kernels' counters and the device kernels
+    in a profiler trace)."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    agg = tbm.Aggregator()
+    text = "ACGTACGTTTACGGACGTACGT" * 1000
+    codes6 = np.frombuffer(text.encode(), np.uint8)
+    occ6 = {c: tbm.BitVector.from_indices(
+        np.flatnonzero(codes6 == ord(c)), len(text) + 1, device=device)
+        for c in "ACGT"}
+    rng = np.random.default_rng(SEED + 41)
+    n = n_blocks * BPB
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    occ = [tbm.BitVector.from_words(image(codes == c), n, device=device)
+           for c in range(4)]
+    cases = [("sample06_ACGG", [occ6[c] for c in "ACGG"],
+              bitap_oracle(codes6, [ord(c) for c in "ACGG"]))]
+    for m in BITAP_PATTERNS:
+        p = int(rng.integers(0, n - m))
+        pat = codes[p:p + m]
+        cases.append((f"config1_{m}", [occ[c] for c in pat],
+                      bitap_oracle(codes, pat)))
+    for what, vecs, want in cases:
+        ck.reset_launches()
+        res = agg.combine_shift_right_and(vecs)
+        launches = {k: v for k, v in ck.launches.items() if v}
+        check(np.array_equal(res.indices(), want),
+              f"B8 {what}: Bitap ends against numpy")
+        wall, busy, top = device_busy(
+            lambda: agg.combine_shift_right_and(vecs))
+        kernels = device_kernels(lambda: agg.combine_shift_right_and(vecs))
+        log(json.dumps({"b8": what, "operands": len(vecs),
+                        "blocks": vecs[0]._struct.nb.size, "hits":
+                        int(want.size), "host_wall_ms": round(wall, 3),
+                        "device_busy_ms": round(busy, 4),
+                        "counted_launches": launches,
+                        "device_kernels_per_call": len(kernels),
+                        "device_ms_by_kernel": top, "card": card["smi"]}))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -3087,15 +3712,25 @@ def main():
     require_launches("sharded phase", sharded_launches,
                      ("logical_op_digest", "block_counts", "agg_and_sub",
                       "pipeline_counts", "scan_eq"))
-    del sv, vals, nm, cols
+    del cols
 
-    # 12. reference fixtures
+    # 12. the capi phase: configs 1-2's A and B through the BM_* facade
+    capi_launches, (a, b, bits) = capi_phase(tbm, device)
+
+    # 13. the utils phase: debug, timer and the file helpers
+    utils_launches = utils_phase(tbm, device, a, b, bits, sv, vals, nm)
+    del a, b, bits, sv, vals, nm
+
+    # 14. the samples phase: the 24 port samples on the card, then B8
+    samples_launches = samples_phase(tbm, device, card)
+
+    # 15. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 13. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 16. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -3110,7 +3745,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 14. timing
+    # 17. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -3147,6 +3782,9 @@ def main():
                  "sv_launches": sv_launches[k],
                  "sv_serial_launches": sv_serial_launches[k],
                  "sharded_launches": sharded_launches[k],
+                 "capi_launches": capi_launches[k],
+                 "utils_launches": utils_launches[k],
+                 "samples_launches": samples_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

@@ -30,6 +30,10 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    samples = os.path.join(ROOT, "samples_torch")
+    for f in sorted(os.listdir(samples)):
+        if f.endswith(".py"):
+            yield os.path.join(samples, f)
 
 
 def test_import_with_jax_and_reference_blocked():
