@@ -11,6 +11,7 @@ points put new vectors; it defaults to the card.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -21,8 +22,19 @@ class Config:
     # default: asking for the card where there is none raises, it never
     # falls back to the CPU.
     device: str = "cuda"
+    # Strategy of new vectors when an entry point is given none: read by
+    # BitVector() and BitVector.from_indices (reference
+    # set_new_blocks_strat, src/bm.h:1912)
+    strategy: int = 0                    # BM_BIT
     # GAP level length table (reference src/bmconst.h:396-431)
     gap_levels: tuple = (128, 256, 512, 1280)
+
+    def device_from_env(self) -> None:
+        """The port's tools and samples start here: ``BMTPU_PLATFORM=cpu``
+        sends them to the CPU; otherwise ``device`` stays as it is (the
+        card, which raises where there is none)."""
+        if os.environ.get("BMTPU_PLATFORM") == "cpu":
+            self.device = "cpu"
 
 
 config = Config()

@@ -33,7 +33,7 @@ from ..config import config, resolve_device
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
-from ..ops.blockops import to_device_words
+from ..ops.blockops import full_block_np, to_device_words
 from .blocks import (RUN_MIN, Structure, descriptor, expand_gap_operand,
                      operand_args, plan_binary, points_in_runs, runs_clip,
                      runs_diff, runs_normalize, runs_overlap_bits,
@@ -85,7 +85,7 @@ def check_writable(obj, what: str = "container"):
 class BitVector:
     """Block-structured succinct bit-vector (bm::bvector equivalent)."""
 
-    def __init__(self, size: int = C.ID_MAX32, strategy: int = C.BM_BIT,
+    def __init__(self, size: int = C.ID_MAX32, strategy=None,
                  device=None):
         self._device = resolve_device(device)
         self._size = int(size)
@@ -97,7 +97,7 @@ class BitVector:
         self._ro = False
         self._rs = None           # cached RSIndex
         self._glevel = tuple(config.gap_levels)
-        self.strategy = strategy
+        self.strategy = config.strategy if strategy is None else strategy
 
     # ------------------------------------------------------------------
     # construction
@@ -132,8 +132,11 @@ class BitVector:
         src/bm.h:1133).  With strategy=BM_GAP the blocks are built DIRECTLY
         as succinct D-GAP runs on the host (reference check_allocate_block
         under BM_GAP, src/bmblocks.h:1076; blocks whose run count overflows
-        the top GAP level fall back to dense)."""
+        the top GAP level fall back to dense).  Without a strategy it
+        takes ``config.strategy``."""
         dev = resolve_device(device)
+        if strategy is None:
+            strategy = config.strategy
         ids = _unique_ids(ids)
         if ids.size and (ids[0] < 0 or ids[-1] >= size):
             raise IndexError("bit id out of range")
@@ -141,8 +144,7 @@ class BitVector:
             return cls._from_indices_gap(ids, size, dev)
         struct, pool = _pool_from_ids(ids, dev)
         bv = cls._from_parts(struct, pool, size)
-        if strategy is not None:
-            bv.strategy = strategy
+        bv.strategy = strategy
         return bv
 
     @classmethod
@@ -347,7 +349,7 @@ class BitVector:
         """Dense uint32[2048] content of metadata entry k (host copy)."""
         cls_k = self._struct.cls[k]
         if cls_k == C.CLS_FULL:
-            return np.full(C.SET_BLOCK_SIZE, 0xFFFFFFFF, np.uint32)
+            return full_block_np()
         if cls_k == C.CLS_GAP:
             return self._gaps.to_dense(
                 np.asarray([self._struct.gslots()[k]]))[0]
@@ -472,22 +474,21 @@ class BitVector:
         ids = np.fromiter(items.keys(), _I64, len(items))
         vals = np.fromiter(items.values(), bool, len(items))
         set_ids, clr_ids = ids[vals], ids[~vals]
-        strat = self.strategy if self.strategy == C.BM_GAP else None
         if set_ids.size:
             self._ior(BitVector.from_indices(set_ids, self._size,
-                                             strategy=strat,
+                                             strategy=self.strategy,
                                              device=self._device))
         if clr_ids.size:
             self._isub(BitVector.from_indices(clr_ids, self._size,
-                                              strategy=strat,
+                                              strategy=self.strategy,
                                               device=self._device))
 
     # ------------------------------------------------------------------
     # bulk mutation
     # ------------------------------------------------------------------
     def _bulk_operand(self, ids) -> "BitVector":
-        strat = self.strategy if self.strategy == C.BM_GAP else None
-        return BitVector.from_indices(ids, self._size, strategy=strat,
+        return BitVector.from_indices(ids, self._size,
+                                      strategy=self.strategy,
                                       device=self._device)
 
     def set_many(self, ids):

@@ -59,6 +59,11 @@ def ctz32(w):
     return torch.where(v == 0, 32, 31 - clz32(iso)).to(_I32)
 
 
+def bit_scan_forward32(w):
+    """Index of lowest set bit (32 for zero input)."""
+    return ctz32(w)
+
+
 def bit_scan_reverse32(w):
     """Index of highest set bit (reference bmutil.h:305)."""
     return 31 - clz32(w)

@@ -48,6 +48,11 @@ def zero_pool(n, device="cpu"):
     return torch.zeros((n, SET_BLOCK_SIZE), dtype=_I32, device=device)
 
 
+def full_block_np():
+    """One FULL block as a host uint32 row (all ones)."""
+    return np.full((SET_BLOCK_SIZE,), 0xFFFFFFFF, np.uint32)
+
+
 def to_device_words(words_u32: np.ndarray, device) -> torch.Tensor:
     """Upload a host uint32 word array as int32 words (same bits)."""
     w = np.ascontiguousarray(words_u32, np.uint32).view(np.int32)
@@ -87,6 +92,16 @@ def calc_digest(pool):
     n = pool.shape[0]
     w = pool.reshape(n, BLOCK_WAVES, WAVE_WORDS)
     return (w != 0).any(dim=-1).to(_I32)
+
+
+def pack_digest(digest):
+    """int32[n, 64] 0/1 -> int32[n, 2]: the packed (lo, hi) halves of the
+    reference's 64-bit digest, as words with the uint32 bits."""
+    n = digest.shape[0]
+    d = digest.reshape(n, 2, 32).to(_I64)
+    weights = torch.ones(32, dtype=_I64, device=d.device) << torch.arange(
+        32, dtype=_I64, device=d.device)
+    return u32_to_i32((d * weights).sum(dim=-1))
 
 
 def is_zero_blocks(pool):
@@ -558,6 +573,21 @@ def shift_rows_down1(pool, carry_bits):
 def edge_bits(pool):
     """(bottom, top) int32[n]: each row's bit 0 and bit 65535."""
     return pool[:, 0] & 1, _shr_logical(pool[:, -1], 31)
+
+
+# ---------------------------------------------------------------------------
+# bit unpack / pack (enumerator + import support)
+# ---------------------------------------------------------------------------
+def unpack_words_to_bits(words):
+    """int32[...] words -> uint8[..., 32] little-endian bit expansion."""
+    shifts = torch.arange(32, dtype=_I32, device=words.device)
+    return ((words.to(_I32)[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+def pack_bits_to_words(bits):
+    """{uint8,int32}[..., 32] 0/1 -> int32[...] words, little-endian."""
+    shifts = torch.arange(32, dtype=_I64, device=bits.device)
+    return u32_to_i32((bits.to(_I64) << shifts).sum(dim=-1))
 
 
 # ---------------------------------------------------------------------------

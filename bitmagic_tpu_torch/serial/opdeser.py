@@ -50,7 +50,7 @@ from ..core.blocks import Structure
 from ..core.gapstore import GapStore
 from ..core import gaps as gaps_mod
 from ..ops import cuda_kernels as ck
-from ..ops.blockops import to_device_words
+from ..ops.blockops import full_block_np, to_device_words
 from .encoding import ByteDecoder
 from .refcodec import RefDeserializer, ref_deserialize
 from .serializer import (CODE_END, CODE_FULL, CODE_FULL_RUN, Deserializer,
@@ -264,7 +264,7 @@ class _StreamCombiner:
         self.accum = accum
         self.count = 0
         self.seen = []
-        self._ones = np.full(C.SET_BLOCK_SIZE, 0xFFFFFFFF, np.uint32)
+        self._ones = full_block_np()
         self._zeros = np.zeros(C.SET_BLOCK_SIZE, np.uint32)
         self._b_nbs, self._b_cls, self._b_rows = [], [], []
 

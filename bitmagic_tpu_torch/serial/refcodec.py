@@ -45,6 +45,7 @@ from .. import constants as C
 from ..core.bitvector import BitVector
 from ..core.blocks import (Structure, points_in_runs, runs_clip,
                            runs_normalize, runs_subtract_points)
+from ..ops.blockops import full_block_np
 from . import native
 
 
@@ -890,7 +891,7 @@ class RefDeserializer:
                     if nb > last_nb_ or not (nb_from <= nb <= nb_to):
                         continue
                     if nb == last_nb_ and tail_bits_ < BITS:
-                        sink(nb, np.full(WORDS, 0xFFFFFFFF, np.uint32)
+                        sink(nb, full_block_np()
                              & _tail_mask(tail_bits_))
                     else:
                         sink(nb, None)
@@ -924,7 +925,7 @@ class RefDeserializer:
                         _apply_chain(blk, x_chain)
             else:
                 if ref is _FULL:
-                    ref = np.full(WORDS, 0xFFFFFFFF, np.uint32)
+                    ref = full_block_np()
                 if x_nb in full:
                     full.discard(x_nb)
                     blk = blocks[x_nb] = np.full(WORDS, 0xFFFFFFFF,
@@ -949,14 +950,14 @@ class RefDeserializer:
                 if refc is None:
                     continue
                 if refc is _FULL:
-                    refc = np.full(WORDS, 0xFFFFFFFF, np.uint32)
+                    refc = full_block_np()
                 _xor_digest(blk, refc, d64)
 
         def start_xor(nb_i, row, d64):
             nonlocal x_row, x_d64, x_nb, or_block
             x_row, x_d64, x_nb = row, d64, nb_i
             if nb_i in full:
-                or_block = np.full(WORDS, 0xFFFFFFFF, np.uint32)
+                or_block = full_block_np()
                 full.discard(nb_i)
             elif nb_i in blocks:
                 or_block = blocks.pop(nb_i)
@@ -1214,7 +1215,7 @@ class RefDeserializer:
                 if (nb == last_nb and tail_bits < BITS) or \
                         (lo_edge and nb == lo_edge[0]) or \
                         (hi_edge and nb == hi_edge[0]):
-                    w = np.full(WORDS, 0xFFFFFFFF, np.uint32)
+                    w = full_block_np()
                 else:
                     nbs.append(nb); clss.append(C.CLS_FULL)
                     continue
@@ -2057,7 +2058,7 @@ class RefSerializer:
             ref = self._ref_block(row_id, nb)
             if ref is None:
                 continue
-            refw = np.full(WORDS, 0xFFFFFFFF, np.uint32) \
+            refw = full_block_np() \
                 if ref is _FULL else ref
             if np.array_equal(refw, words):
                 if best is None or 5 < best[0]:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants as C
+from ..ops.blockops import full_block_np
 from .encoding import ByteDecoder
 from .serializer import (CODE_END, CODE_FULL, CODE_FULL_RUN,
                          _decode_payload, read_blob_header,
@@ -108,7 +109,7 @@ class SerialStreamIterator:
         if self.state == E_END or self.block_idx < 0:
             raise ValueError("no current record")
         if self.state == E_FULL:
-            return np.full(C.SET_BLOCK_SIZE, 0xFFFFFFFF, np.uint32)
+            return full_block_np()
         payload = self._data[self._payload_at:self._payload_at + self._plen]
         return _decode_payload(self.code, payload)
 

@@ -27,6 +27,7 @@ import numpy as np
 
 from .. import constants as C
 from ..core.bitvector import BitVector
+from ..ops.blockops import full_block_np
 from . import native
 from .encoding import ByteDecoder, ByteEncoder
 from .opdeser import _materialize_subset, _stream_blocks
@@ -228,7 +229,7 @@ def _deserialize_with_xor(blob, group, deser, sel=None) -> BitVector:
             if ref_blk is None:
                 # FULL or ZERO reference block
                 st, _ = group[key]._struct.lookup(np.asarray([nb]))
-                ref_blk = (np.full(C.SET_BLOCK_SIZE, 0xFFFFFFFF, np.uint32)
+                ref_blk = (full_block_np()
                            if st[0] == 1 else
                            np.zeros(C.SET_BLOCK_SIZE, np.uint32))
             words = prod ^ ref_blk

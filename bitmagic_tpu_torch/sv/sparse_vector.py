@@ -25,7 +25,7 @@ from .. import constants as C
 from ..config import resolve_device
 from ..core.bitvector import BitVector, check_writable
 from ..core.blocks import _B, _F, _G, Structure
-from ..ops.bitops import u32_to_i32
+from ..ops.blockops import pack_bits_to_words
 
 _I64 = np.int64
 
@@ -51,11 +51,9 @@ def _transpose(u: np.ndarray, n_slices: int, n_words: int, device):
     pad = np.zeros(n_words * 32, np.uint64)
     pad[:u.size] = u
     v = torch.from_numpy(pad.view(np.int64)).to(device).reshape(n_words, 32)
-    weights = torch.ones(32, dtype=torch.int64, device=device) << \
-        torch.arange(32, dtype=torch.int64, device=device)
     out = torch.empty((n_slices, n_words), dtype=torch.int32, device=device)
     for s in range(n_slices):
-        out[s] = u32_to_i32((((v >> s) & 1) * weights).sum(dim=1))
+        out[s] = pack_bits_to_words((v >> s) & 1)
     return out
 
 

@@ -91,7 +91,8 @@ only when every phase passed):
               float columns, the dictionary remapped and raw, the RSC
               column) through BMSV with XOR groups on and off,
               deserialize_range, deserialize_gather of 1M ids and the
-              reference-format BLOBs: each BLOB byte-equal to the same
+              reference-format BLOBs (the float column's from its first
+              2^20 values): each BLOB byte-equal to the same
               column's on the CPU, each decode equal to the source on the
               card (MB/s of serialize / deserialize, ms of the reference
               routes); then the reference's five sparse-vector BLOBs;
@@ -137,22 +138,41 @@ only when every phase passed):
               config-1 width (4 occurrence vectors of a 100.7M-base text;
               16- and 32-letter patterns) against a numpy Bitap, with host
               wall ms, device busy ms and launches per call;
-15. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
-16. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+15. tools   — the four BLOB tools of tools_torch/ in this process on the
+              card, each leg with its seconds and launches: svutil over
+              config 4b's live values (16M) to sv and RSC BLOBs (MB/s;
+              both decode to the column), the first 2^22 values' BLOBs
+              back to the same u32 bytes, and at the demo's size BLOBs
+              equal to the CPU's; range_idx over 1M ranges in a
+              3.1e9-position space (its 2000-query self-check, the
+              payload BLOB, 100k point queries against numpy, half outside
+              every range); lnkutil over 2048 x 512 links (build, save,
+              load, the 2-hop benchmark; every loaded row equals its built
+              row, the neighborhood equals a numpy BFS; s per 1000 rows);
+              inv_list over its synthetic corpus as a Gov2-style file
+              (BMT1 on 40 lists, the reference format on 8, the columns
+              equal a CPU run's on those 8);
+16. fuzz    — tools_torch/fuzz_containers.py in this process on a mesh of
+              8 shards on the card: every family at seeds 0, 1 and 2, then
+              24 trials from seed 1000 in the random order; a failed trial
+              prints its FAIL line and exits; seconds and launches per
+              family;
+17. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+18. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-17. timing  — each kernel, its plain version and the nearest single PyTorch
+19. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8, 10, 12, 13, 14 and each group of 9 and 11) is
-driven with the launch counts set to 0 just before and read just after; a
-kernel of the path launched no time fails it.
+Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, and each
+leg of 15 and 16) is driven with the launch counts set to 0 just before
+and read just after; a kernel of the path launched no time fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -160,6 +180,7 @@ JAX package is imported.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import os
@@ -712,26 +733,32 @@ def steady_pass(tbm, a, b, rs, ranks):
     rs.select_batch(ranks)
 
 
+def traced_device_events(fn):
+    """The device events of one torch.profiler trace of ``fn``, kept with
+    acc_events=True (without it torch warns that the profiler clears its
+    events at the end of each cycle)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        sync()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def device_busy(fn):
     """(host wall ms of fn, device-busy ms, device ms by kernel name): the
     wall time from an unprofiled run, the device time from the kernel and
     copy events of a torch.profiler run of the same work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
     t0 = time.perf_counter()
     fn()
     sync()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    for e in traced_device_events(fn):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return wall, busy, {k[:60]: round(v / 1e3, 4) for k, v in top}
@@ -740,17 +767,10 @@ def device_busy(fn):
 def device_kernels(fn):
     """Names of the kernels one run of ``fn`` put on the card (copies and
     memsets left out), from a torch.profiler trace after a warm-up run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    return [e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name for e in traced_device_events(fn)
+            if not e.name.startswith(("Memcpy", "Memset"))]
 
 
 def k2_operands(a, b):
@@ -1993,6 +2013,12 @@ def sv_phase(tbm, device, card, sv, vals, nm):
 # reference's sparse-vector format
 # ---------------------------------------------------------------------------
 SV_GATHER = 1 << 20             # deserialize_gather / sharded gather ids
+# The float column's reference-format ('bf0') BLOB is written from its
+# first REF_FLOAT_HEAD values only: the XOR-reference search over its planes
+# is host Python, about a minute to write and half a minute to read the
+# whole 16M column on the card's host, which the script's time limit cannot
+# hold beside the tools and fuzz phases.
+REF_FLOAT_HEAD = 1 << 20
 
 
 def _planes_of(c):
@@ -2106,11 +2132,13 @@ def _ref_decode(ref_sv, c, blob, device):
     return ref_sv.deserialize_float_blob(blob, device=device)
 
 
-def sv_serial_column(tbm, device, name, c, cc, ref_xor, times, rng):
+def sv_serial_column(tbm, device, name, c, cc, ref_xor, times, rng,
+                     ref=None):
     """One column of the sv phase (``c`` on the card, ``cc`` the same on
     the CPU): BMSV with XOR groups on and off, range and gather decodes,
-    the reference-format BLOB; every BLOB byte-equal to the CPU copy's,
-    every decode equal to the source on the card."""
+    the reference-format BLOB (of ``ref``, a (card, CPU) pair of another
+    column, where given); every BLOB byte-equal to the CPU copy's, every
+    decode equal to the source on the card."""
     from bitmagic_tpu_torch.serial import ref_sv, sv_serial
     n = c.size
     mb = _value_bytes(c) / 1e6
@@ -2149,15 +2177,14 @@ def sv_serial_column(tbm, device, name, c, cc, ref_xor, times, rng):
             check(got == want, f"{name} deserialize_gather (xor={xor})")
         else:
             same_values(got, want, f"{name} deserialize_gather (xor={xor})")
+    if ref is not None:
+        c, cc = ref
+        n = c.size
     t = {}
     with Clock("ref_ser", t):
         rblob = _ref_blob(ref_sv, c, ref_xor)
-    if type(c).__name__ != "FloatSparseVector":
-        # the float column's 'bf0' BLOB takes about a minute of host
-        # Python per copy (its planes' XOR-reference search): the card's
-        # BLOB is checked by its round trip only
-        check(rblob == _ref_blob(ref_sv, cc, ref_xor),
-              f"{name} reference-format BLOB equals the CPU copy's")
+    check(rblob == _ref_blob(ref_sv, cc, ref_xor),
+          f"{name} reference-format BLOB equals the CPU copy's")
     with Clock("ref_deser", t):
         rback = _ref_decode(ref_sv, c, rblob, device)
     if type(c).__name__ == "FloatSparseVector":
@@ -2167,7 +2194,7 @@ def sv_serial_column(tbm, device, name, c, cc, ref_xor, times, rng):
         same_str_ref(rback, c, f"{name} reference-format round trip")
     else:
         same_container(rback, c, f"{name} reference-format round trip")
-    out.update(ref_bytes=len(rblob), ref_xor_refs=ref_xor,
+    out.update(ref_values=n, ref_bytes=len(rblob), ref_xor_refs=ref_xor,
                ref_serialize_ms=t["ref_ser"], ref_deserialize_ms=t["ref_deser"])
     times[name] = out
 
@@ -2217,13 +2244,19 @@ def sv_serial_phase(tbm, device, card, cols):
         ("dict remapped", cat, None, True),
         ("dict raw", raw, None, False),
         ("rsc", cols["rsc"][0], None, True))
+    fv, fvals, fnm = cols["float"]
+    head = tbm.FloatSparseVector.from_array(fvals[:REF_FLOAT_HEAD],
+                                            nullable=True, device=device)
+    for i in np.flatnonzero(fnm[:REF_FLOAT_HEAD]).tolist():
+        head.set_null(i)
+    refs = {"float": (head, _cpu_copy(tbm, head))}
     times = {}
     ck.reset_launches()
     t0 = time.perf_counter()
     for name, c, cc, ref_xor in columns:
         t1 = time.perf_counter()
         sv_serial_column(tbm, device, name, c, cc or _cpu_copy(tbm, c),
-                         ref_xor, times, rng)
+                         ref_xor, times, rng, refs.get(name))
         times[name]["column_s"] = round(time.perf_counter() - t1, 3)
         log(f"sv_serial: {name}: {json.dumps(times[name])}")
     sv_ref_fixtures(tbm, device)
@@ -3223,7 +3256,369 @@ def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: timing
+# phases 15-16: the port's tools (tools_torch/) and the container fuzzer
+# ---------------------------------------------------------------------------
+SVUTIL_HEAD = 1 << 22           # svutil's decode legs: the first 2^22 values
+SVUTIL_DEMO_N = 100_000         # svutil --demo's size
+RANGES = 1_000_000              # range_idx: ranges of 10-89 positions ...
+RANGE_SPACE = 3_100_000_000     # ... over a genome-sized coordinate space
+RANGE_QUERIES = 100_000         # further point queries, half outside
+LNK_SOURCES, LNK_LINKS = 2048, 512      # lnkutil: ~1M links over 2^22 ids
+INV_LISTS_CPU = 8               # inv_list lists compared with a CPU run
+FUZZ_SEEDS = (0, 1, 2)          # every family at each of these seeds
+FUZZ_RANDOM = ("24", "1000")    # then --trials, --seed in random order
+FUZZ_CORRUPT = ("40", "100")    # then corrupt BLOBs: --trials, --seed
+
+
+def run_tool(tbm, name, argv, device):
+    """(stdout, wall s, launches) of ``tools_torch/<name>.main(argv)`` run
+    in this process with ``config.device`` set to ``device``; the launch
+    counts are set to 0 just before and read just after."""
+    import contextlib
+    import importlib
+    import io
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    mod = importlib.import_module(f"tools_torch.{name}")
+    old = tbm.config.device
+    buf = io.StringIO()
+    tbm.config.device = device
+    try:
+        sync()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.launches.items() if v}
+    finally:
+        tbm.config.device = old
+    check(rc == 0, f"{name} {argv}: exit code {rc}")
+    return buf.getvalue(), wall, launches
+
+
+class ToolLegs:
+    """Seconds and launches of each tool leg, summed per tool and over the
+    phase."""
+
+    def __init__(self):
+        self.legs, self.total = {}, {k: 0 for k in KERNELS}
+
+    def run(self, tbm, leg, name, argv):
+        text, wall, launches = run_tool(tbm, name, argv, "cuda")
+        for k, v in launches.items():
+            self.total[k] += v
+        self.legs[leg] = {"s": round(wall, 3), "launches": launches}
+        log(f"tools: {leg}: {wall:.3f} s; launches {launches}")
+        for ln in text.splitlines():
+            log(f"tools:   | {ln}")
+        return text, wall
+
+
+def tools_svutil(tbm, legs, tmp):
+    """svutil over config 4b's live values (16M, < 2^20, NULLs as 0) to an
+    sv and an RSC BLOB; both decoded back from the first SVUTIL_HEAD
+    values' BLOBs to the same bytes; at the demo's size the BLOBs equal
+    the CPU's."""
+    from tools_torch import normalised
+    from bitmagic_tpu_torch.serial.sv_serial import sparse_vector_deserialize
+    p = lambda f: os.path.join(tmp, f)                     # noqa: E731
+    _, vals, nm = config4b_values()
+    live = np.where(nm, np.uint32(0), vals)
+    live.astype("<u4").tofile(p("4b.u32"))
+    text, wall = legs.run(tbm, "svutil -u32in 16M -svout -rscout", "svutil", [
+        "-u32in", p("4b.u32"), "-svout", p("4b.sv"), "-rscout", p("4b.rsc"),
+        "-diag", "-timing"])
+    legs.legs["svutil -u32in 16M -svout -rscout"]["mb_per_s"] = round(
+        live.nbytes / 1e6 / wall, 3)
+    lines = normalised(text)
+    check(lines[0] == f"import: <s> ({live.size} values)"
+          and lines[1].startswith(f"size={live.size} nonzero="
+                                  f"{int((live != 0).sum())} memory_used="),
+          "svutil: the import and size lines")
+    check(lines[2].startswith(f"sv BLOB: {os.path.getsize(p('4b.sv'))} "
+                              "bytes") and lines[3] ==
+          f"rsc BLOB: {os.path.getsize(p('4b.rsc'))} bytes",
+          "svutil: the BLOB sizes printed are the files'")
+    want = tbm.SparseVector.from_array(live, nullable=True,
+                                       null_mask=live == 0)
+    with open(p("4b.sv"), "rb") as f:
+        same_container(sparse_vector_deserialize(f.read()), want,
+                       "svutil: the 16M sv BLOB decodes to the column")
+    with open(p("4b.rsc"), "rb") as f:
+        same_container(sparse_vector_deserialize(f.read()),
+                       tbm.RSCSparseVector.from_sparse_vector(want),
+                       "svutil: the 16M RSC BLOB decodes to the column")
+    del want
+    head = live[:SVUTIL_HEAD]
+    head.astype("<u4").tofile(p("head.u32"))
+    legs.run(tbm, "svutil -u32in 2^22 -svout -rscout", "svutil", [
+        "-u32in", p("head.u32"), "-svout", p("head.sv"), "-rscout",
+        p("head.rsc")])
+    for flag, ext in (("-svin", "sv"), ("-rscin", "rsc")):
+        legs.run(tbm, f"svutil {flag} 2^22 -u32out", "svutil", [
+            flag, p(f"head.{ext}"), "-u32out", p(f"back_{ext}.u32")])
+        with open(p(f"back_{ext}.u32"), "rb") as f, \
+                open(p("head.u32"), "rb") as g:
+            check(f.read() == g.read(),
+                  f"svutil {flag}: the u32 file equals the input")
+    # the demo's size: the card's BLOBs and lines equal the CPU's
+    rng = np.random.default_rng(1)
+    demo = rng.integers(0, 1 << 16, SVUTIL_DEMO_N).astype(np.uint32)
+    demo[rng.random(demo.size) < 0.5] = 0
+    demo.astype("<u4").tofile(p("demo.u32"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        argv = ["-u32in", p("demo.u32"), "-svout", p(f"demo_{dev}.sv"),
+                "-rscout", p(f"demo_{dev}.rsc"), "-diag"]
+        if dev == "cuda":
+            out[dev] = legs.run(tbm, "svutil 100k (demo size)", "svutil",
+                                argv)[0]
+        else:
+            out[dev] = run_tool(tbm, "svutil", argv, "cpu")[0]
+    check(out["cuda"] == out["cpu"], "svutil at the demo's size: the "
+          "card's lines differ from the CPU's")
+    for ext in ("sv", "rsc"):
+        with open(p(f"demo_cuda.{ext}"), "rb") as f, \
+                open(p(f"demo_cpu.{ext}"), "rb") as g:
+            check(f.read() == g.read(), f"svutil at the demo's size: the "
+                  f"card's {ext} BLOB differs from the CPU's")
+
+
+def tools_range_idx(tbm, legs, tmp):
+    """range_idx over RANGES genome-sized ranges: the tool's own 2000-query
+    self-check, the payload BLOB, then RANGE_QUERIES point queries (half
+    outside every range) through the index the tool built, against
+    numpy."""
+    from tools_torch import normalised
+    from tools_torch import range_idx
+    from bitmagic_tpu_torch.serial.sv_serial import sparse_vector_deserialize
+    rng = np.random.default_rng(SEED + 51)
+    starts = np.sort(rng.choice(RANGE_SPACE // 100, RANGES,
+                                replace=False)) * 100      # range_idx.py:75
+    ends = starts + rng.integers(10, 90, RANGES)
+    payloads = rng.integers(1, 1 << 20, RANGES)
+    tab = os.path.join(tmp, "ranges.tab")
+    order = rng.permutation(RANGES)                       # unsorted rows
+    np.savetxt(tab, np.stack([starts, ends, payloads], 1)[order], fmt="%d",
+               delimiter="\t")
+    pfile = os.path.join(tmp, "payload.sv")
+    built = []                          # the index the tool builds
+
+    class Recorded(range_idx.RangeIndex):
+        def __init__(self, *args):
+            super().__init__(*args)
+            built.append(self)
+
+    range_idx.RangeIndex = Recorded
+    try:
+        text, _ = legs.run(tbm, "range_idx -i 1M ranges -t -svout",
+                           "range_idx", ["-i", tab, "-t", "-svout", pfile])
+    finally:
+        range_idx.RangeIndex = Recorded.__base__
+    check(len(built) == 1, "range_idx built one index")
+    idx = built[0]
+    check(normalised(text)[2] == "2000 point queries OK (<ms> ms/1k)",
+          "range_idx: the tool's self-check")
+    with open(pfile, "rb") as f:
+        back = sparse_vector_deserialize(f.read())
+    check(back.size == RANGES and np.array_equal(
+        back.gather(np.arange(RANGES)), payloads.astype(np.uint32)),
+        "range_idx: the payload BLOB holds the payloads in start order")
+    # the last range is left out: a point past it lies past the index
+    k = rng.integers(0, RANGES - 1, RANGE_QUERIES)
+    inside = rng.random(RANGE_QUERIES) < 0.5
+    off = np.where(inside, rng.integers(0, 1 << 30, RANGE_QUERIES)
+                   % (ends[k] - starts[k] + 1),
+                   ends[k] - starts[k] + 1 + rng.integers(
+                       0, 1 << 30, RANGE_QUERIES) % (
+                       starts[k] + 100 - ends[k] - 1))
+    pts = starts[k] + off
+    t0 = time.perf_counter()
+    got = idx.query_batch(pts)
+    q_s = time.perf_counter() - t0
+    j = np.searchsorted(starts, pts, side="right") - 1
+    hit = (j >= 0) & (pts <= ends[np.maximum(j, 0)])
+    check(np.array_equal(hit, inside), "range_idx: the oracle's hits")
+    want = [int(payloads[i]) if h else None for i, h in zip(j, hit)]
+    check(got == want, f"range_idx: {RANGE_QUERIES} point queries against "
+          f"numpy")
+    legs.legs["range_idx checks"] = {
+        "index_build_line": text.splitlines()[0], "queries": RANGE_QUERIES,
+        "ms_per_1k": round(q_s * 1e6 / RANGE_QUERIES, 3),
+        "cover_blocks": int(idx.cover._struct.nb.size)}
+    log(f"tools: range_idx: {RANGE_QUERIES} point queries against numpy "
+        f"({int(inside.sum())} inside a range) in {q_s:.3f} s; "
+        f"{legs.legs['range_idx checks']}")
+
+
+def tools_lnkutil(tbm, legs, tmp):
+    """lnkutil over LNK_SOURCES x LNK_LINKS links (half of the targets are
+    sources): build and save the matrix, load it and run the 2-hop
+    benchmark; every loaded row equals its built row and the 2-hop
+    neighborhood equals a numpy BFS."""
+    from tools_torch import normalised
+    from tools_torch import lnkutil
+    rng = np.random.default_rng(SEED + 52)
+    src = rng.choice(lnkutil.N_NODES, LNK_SOURCES, replace=False)
+    frm = np.repeat(src, LNK_LINKS)
+    to = np.where(rng.random(frm.size) < 0.5, rng.choice(src, frm.size),
+                  rng.integers(0, lnkutil.N_NODES, frm.size))
+    pairs = np.stack([frm, to], 1)
+    tab, mfile = os.path.join(tmp, "links.tab"), os.path.join(tmp, "m.lm")
+    np.savetxt(tab, pairs, fmt="%d", delimiter="\t")
+    _, wall = legs.run(tbm, "lnkutil -lin 1M links -lmout", "lnkutil",
+                       ["-lin", tab, "-lmout", mfile])
+    text, _ = legs.run(tbm, "lnkutil -lmin -bench", "lnkutil",
+                       ["-lmin", mfile, "-bench"])
+    t0 = time.perf_counter()
+    built = lnkutil.build_matrix(pairs)
+    sync()
+    build_s = time.perf_counter() - t0
+    loaded = lnkutil.load_matrix(mfile)
+    check(sorted(built) == sorted(loaded) == sorted(int(s) for s in src),
+          "lnkutil: the matrix's row keys")
+    for key in built:
+        check(built[key].equal(loaded[key]), f"lnkutil: row {key} loaded "
+              f"from the file equals its built row")
+    by_src = np.argsort(frm, kind="stable")
+    cut = np.flatnonzero(np.diff(frm[by_src])) + 1
+    adj = {int(frm[i[0]]): np.unique(to[i]) for i in np.split(by_src, cut)}
+    seed = min(adj)
+    visited = {seed}
+    frontier = [seed]
+    for _ in range(2):
+        nxt = set()
+        for f in frontier:
+            nxt.update(adj.get(f, np.empty(0, np.int64)).tolist())
+        frontier = sorted(nxt - visited)
+        visited |= nxt
+    hood = lnkutil.neighborhood(loaded, seed, 2)
+    check(np.array_equal(hood.indices(), np.asarray(sorted(visited))),
+          "lnkutil: the 2-hop neighborhood against a numpy BFS")
+    check(f"2-hop neighborhood of {seed}: {len(visited)} nodes in <ms>"
+          in normalised(text), "lnkutil: the bench line")
+    legs.legs["lnkutil checks"] = {
+        "build_s_per_1000_rows": round(build_s * 1000 / len(built), 3),
+        "tool_leg_s_per_1000_rows": round(wall * 1000 / len(built), 3),
+        "two_hop_nodes": len(visited)}
+    log(f"tools: lnkutil: {len(built)} rows equal after the file round "
+        f"trip; {legs.legs['lnkutil checks']}")
+
+
+def tools_inv_list(tbm, legs, tmp):
+    """inv_list over its own synthetic corpus (seed 42, 40 lists) written
+    as a Gov2-style flat file: BMT1 at levels 0, 4, 6 on every list, the
+    reference's format at level 6 on INV_LISTS_CPU lists; on those lists
+    the bytes/int and bits/int columns equal a CPU run's."""
+    from tools_torch import normalised
+    from tools_torch import inv_list
+    flat = os.path.join(tmp, "gov2.bin")
+    n_ints = 0
+    with open(flat, "wb") as f:
+        for ids in inv_list.synthetic(np.random.default_rng(42), 40):
+            f.write(np.uint32(ids.size).tobytes())
+            f.write(ids.astype("<u4").tobytes())
+            n_ints += int(ids.size)
+    text, _ = legs.run(tbm, "inv_list BMT1 0,4,6 (40 lists)", "inv_list",
+                       ["--file", flat, "--format", "bmt1", "--levels",
+                        "0,4,6"])
+    check(text.splitlines()[0] == f"# 40 lists, {n_ints} ints total",
+          "inv_list: the corpus line")
+    short = ["--max-lists", str(INV_LISTS_CPU)]
+    for fmt, levels in (("ref", "6"), ("bmt1", "0,4,6")):
+        argv = ["--file", flat, "--format", fmt, "--levels", levels] + short
+        card = legs.run(tbm, f"inv_list {fmt} {levels} ({INV_LISTS_CPU} "
+                        f"lists)", "inv_list", argv)[0]
+        cpu = run_tool(tbm, "inv_list", argv, "cpu")[0]
+        check(normalised(card) == normalised(cpu),
+              f"inv_list {fmt}: the card's columns differ from the CPU's")
+
+
+def tools_phase(tbm, card):
+    """Phase 15: the four BLOB tools of tools_torch/ in this process on the
+    card, each leg with the launch counts set to 0 just before and read
+    just after.  Returns the phase's launches summed over the legs."""
+    import tempfile
+    check(not os.environ.get("BMTPU_PLATFORM"),
+          "BMTPU_PLATFORM would send the tools to the CPU")
+    legs = ToolLegs()
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="bmtools_") as tmp:
+        for name, fn in (("svutil", tools_svutil),
+                         ("range_idx", tools_range_idx),
+                         ("lnkutil", tools_lnkutil),
+                         ("inv_list", tools_inv_list)):
+            t0 = time.perf_counter()
+            fn(tbm, legs, tmp)
+            seconds[name] = round(time.perf_counter() - t0, 3)
+            log(f"tools: {name} passed in {seconds[name]} s (legs and "
+                f"checks)")
+    log(json.dumps({"tools": legs.legs, "tool_s": seconds,
+                    "card": card["smi"]}))
+    log(f"tools: passed in {sum(seconds.values()):.1f} s; launches "
+        f"{legs.total}")
+    require_launches("tools phase", legs.total,
+                     ("logical_op_digest", "block_counts", "agg_and_sub"))
+    return legs.total
+
+
+def fuzz_phase(tbm, card):
+    """Phase 16: tools_torch/fuzz_containers.py in this process on
+    Mesh([cuda:0] * 8): every family at FUZZ_SEEDS, then FUZZ_RANDOM
+    trials in the random family order.  A failed trial prints its FAIL
+    line and exits (the SystemExit ends this script).  Returns the phase's
+    launches."""
+    from tools_torch import fuzz_containers as fz
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    check(not os.environ.get("BMTPU_PLATFORM"),
+          "BMTPU_PLATFORM would send the fuzzer to the CPU")
+    total = {k: 0 for k in KERNELS}
+    per = {}
+    runs = [(f.__name__.removeprefix("trial_"),
+             ["--family", f.__name__.removeprefix("trial_"), "--seed",
+              str(s), "--trials", "1"]) for f in fz.TRIALS
+            for s in FUZZ_SEEDS]
+    runs.append((f"random {FUZZ_RANDOM[0]} from seed {FUZZ_RANDOM[1]}",
+                 ["--trials", FUZZ_RANDOM[0], "--seed", FUZZ_RANDOM[1]]))
+    runs.append(("corrupt", ["--family", "corrupt", "--seed",
+                             FUZZ_CORRUPT[1], "--trials", FUZZ_CORRUPT[0]]))
+    fz.REJECTIONS.clear()
+    t0 = time.perf_counter()
+    for name, argv in runs:
+        sync()
+        ck.reset_launches()
+        t1 = time.perf_counter()
+        check(fz.main(argv) == 0, f"fuzz {argv}")
+        sync()
+        wall = time.perf_counter() - t1
+        entry = per.setdefault(name, {"s": 0.0, "trials": 0, "launches": {}})
+        entry["s"] = round(entry["s"] + wall, 3)
+        entry["trials"] += int(argv[argv.index("--trials") + 1])
+        for k, v in ck.launches.items():
+            total[k] += v
+            if v:
+                entry["launches"][k] = entry["launches"].get(k, 0) + v
+    log(json.dumps({"fuzz": per, "card": card["smi"]}))
+    # a corrupt BLOB is either decoded to a consistent vector or rejected
+    # with an exception that is no fault of the card (those propagate)
+    for seed, t, cls, msg in fz.REJECTIONS:
+        log(f"fuzz: corrupt seed {seed} trial {t}: rejected with {cls}: "
+            f"{msg}")
+    n_corrupt = per["corrupt"]["trials"]
+    log(f"fuzz: trial_corrupt ran {n_corrupt} times by family (more in the "
+        f"random run); {len(fz.REJECTIONS)} BLOBs rejected, by class "
+        f"{json.dumps(dict(collections.Counter(r[2] for r in fz.REJECTIONS)))}")
+    log(f"fuzz: {sum(e['trials'] for e in per.values())} trials passed in "
+        f"{time.perf_counter() - t0:.1f} s; launches {total}")
+    require_launches("fuzz phase", total, ("logical_op_digest",
+                                           "block_counts", "agg_and_sub",
+                                           "pipeline_counts"))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 19: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -3611,8 +4006,15 @@ def main():
             ("count()", r.count, "block_counts_kernel"),
             ("distance_operation", lambda: tbm.distance_operation(
                 a, b, list(METRICS)), "count_metrics_kernel")):
-        names = device_kernels(fn)
-        log(f"main: {what} put these kernels on the card: {names}")
+        # one run of this check (torch 2.11, H100) once got a trace with
+        # no event at all (PERF.md, open questions): trace again, at most
+        # twice, when it recorded no kernel, and log how often
+        for retries in range(3):
+            names = device_kernels(fn)
+            if names:
+                break
+        log(f"main: {what} put these kernels on the card: {names}; "
+            f"empty traces before this one: {retries}")
         check(len(names) == 1 and kernel in names[0],
               f"{what}: one launch of {kernel} and no sum kernel after it")
     cfg1 = (a._pool, *k2_operands(a, b))
@@ -3724,13 +4126,20 @@ def main():
     # 14. the samples phase: the 24 port samples on the card, then B8
     samples_launches = samples_phase(tbm, device, card)
 
-    # 15. reference fixtures
+    # 15. the tools phase: svutil, range_idx, lnkutil and inv_list
+    tools_launches = tools_phase(tbm, card)
+
+    # 16. the fuzz phase: every family of the container fuzzer, then a
+    # random run
+    fuzz_launches = fuzz_phase(tbm, card)
+
+    # 17. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 16. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 18. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -3745,7 +4154,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 17. timing
+    # 19. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -3785,6 +4194,8 @@ def main():
                  "capi_launches": capi_launches[k],
                  "utils_launches": utils_launches[k],
                  "samples_launches": samples_launches[k],
+                 "tools_launches": tools_launches[k],
+                 "fuzz_launches": fuzz_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

@@ -9,8 +9,7 @@ import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.join(_os.path.dirname(__file__), ".."))
 import bitmagic_tpu_torch as _bm
-if _os.environ.get("BMTPU_PLATFORM") == "cpu":   # else the card, or raise
-    _bm.config.device = "cpu"
+_bm.config.device_from_env()   # BMTPU_PLATFORM=cpu: the CPU
 import numpy as np
 from bitmagic_tpu_torch.sv import StrSparseVector, scanner as sc
 

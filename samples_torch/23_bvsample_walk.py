@@ -15,8 +15,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import bitmagic_tpu_torch as _bm
-if os.environ.get("BMTPU_PLATFORM") == "cpu":   # else the card, or raise
-    _bm.config.device = "cpu"
+_bm.config.device_from_env()   # BMTPU_PLATFORM=cpu: the CPU
 import bitmagic_tpu_torch as bm  # noqa: E402
 
 

@@ -4,10 +4,14 @@ Every name of ``bitmagic_tpu.__all__`` resolves in ``bitmagic_tpu_torch``
 (to the port's own object), the public methods of each container,
 scanner, serializer, enumerator and helper class of the JAX package exist
 on the port's class of the same module and name, and the alias identities
-of ``tests/test_api_surface.py`` hold for the port.
+of ``tests/test_api_surface.py`` hold for the port.  Over every Python
+module of the JAX package, each public function and class defined there
+(and each public attribute of such a class) exists in the port's module
+of the same path, apart from a named list of what differs by design.
 """
 import importlib
 import inspect
+import os
 import types
 
 import pytest
@@ -96,3 +100,58 @@ def test_utils_and_capi_submodules():
     assert "capi" not in tbm.__all__ and "capi" not in jbm.__all__
     capi = importlib.import_module("bitmagic_tpu_torch.capi")
     assert capi.BM_bvector_construct.__module__ == "bitmagic_tpu_torch.capi"
+
+
+# What the port leaves out by design: the Pallas kernels' module (their
+# place is taken by ops/csrc + ops/cuda_kernels.py), the bridge to the
+# reference's C++ (it compiles the reference's headers, which the
+# repository does not hold), and the four Pallas switches of Config (the
+# tensor's device picks the route).
+ABSENT_MODULES = {"ops.pallas_kernels", "serial.refformat"}
+ABSENT_NAMES = {"config.Config": {"use_pallas", "pallas_interpret",
+                                  "pallas_enabled", "interpret_mode"}}
+
+
+def _jax_modules():
+    root = os.path.dirname(jbm.__file__)
+    out = []
+    for d, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), root)[:-3]
+                parts = rel.split(os.sep)
+                if parts[-1] == "__init__":
+                    parts = parts[:-1]
+                out.append(".".join(parts))
+    return sorted(out)
+
+
+def _defined_here(module):
+    """Public functions and classes defined in ``module`` itself."""
+    return {n: v for n, v in vars(module).items()
+            if not n.startswith("_")
+            and (inspect.isclass(v) or inspect.isfunction(v))
+            and v.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("path", _jax_modules(), ids=lambda p: p or "top")
+def test_every_defined_name_exists_in_the_port(path):
+    suffix = f".{path}" if path else ""
+    if path in ABSENT_MODULES:
+        with pytest.raises(ImportError):
+            importlib.import_module(f"bitmagic_tpu_torch{suffix}")
+        return
+    jm = importlib.import_module(f"bitmagic_tpu{suffix}")
+    tm = importlib.import_module(f"bitmagic_tpu_torch{suffix}")
+    for name, jv in _defined_here(jm).items():
+        tv = getattr(tm, name, None)
+        assert tv is not None, f"{path}.{name}"
+        if inspect.isclass(jv):
+            assert inspect.isclass(tv), f"{path}.{name}"
+            want = {n for n in dir(jv) if not n.startswith("_")}
+            absent = ABSENT_NAMES.get(f"{path}.{name}", set())
+            missing = want - absent - set(dir(tv))
+            assert not missing, f"{path}.{name} lacks {sorted(missing)}"
+            assert not absent & set(dir(tv)), f"{path}.{name}"
+        else:
+            assert callable(tv), f"{path}.{name}"

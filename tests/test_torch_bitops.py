@@ -1,5 +1,7 @@
 """Word-level bit utilities of the PyTorch port against the JAX package
 (``bitmagic_tpu.ops.bitops``), on the CPU.  Tolerance: exact equality."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ def _t(w):
 
 
 @pytest.mark.parametrize("name", ["popcount", "clz32", "ctz32",
+                                  "bit_scan_forward32",
                                   "bit_scan_reverse32", "parity"])
 def test_word_functions_match(words, name):
     got = getattr(tb, name)(_t(words)).numpy()
@@ -66,3 +69,44 @@ def test_u32_round_trip(words):
                                   words)
     np.testing.assert_array_equal(tb.as_u32_int64(_t(words)).numpy(),
                                   words.astype(np.int64))
+
+
+def test_config_strategy_matches():
+    """The default new-block strategy (BM_BIT) is the JAX package's; its
+    four Pallas switches have no counterpart (the tensor's device picks
+    the route)."""
+    # the packages' ``config`` attribute is the Config object, not the
+    # module
+    jcfg = importlib.import_module("bitmagic_tpu.config")
+    tcfg = importlib.import_module("bitmagic_tpu_torch.config")
+    assert tcfg.Config().strategy == jcfg.Config().strategy == 0
+    assert tcfg.config.strategy == jcfg.config.strategy
+    for name in ("use_pallas", "pallas_interpret", "pallas_enabled",
+                 "interpret_mode"):
+        assert hasattr(jcfg.config, name), name
+        assert not hasattr(tcfg.config, name), name
+
+
+def test_config_strategy_sets_new_vectors(monkeypatch, rng):
+    """``config.strategy`` is the strategy of vectors built without one:
+    BM_GAP builds GAP blocks, as ``strategy=BM_GAP`` does in both
+    packages, with the same bits."""
+    import bitmagic_tpu as jbm
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch import constants as TC
+    tcfg = importlib.import_module("bitmagic_tpu_torch.config")
+    size = 4 * TC.BITS_PER_BLOCK
+    ids = np.unique(rng.integers(0, size, 300))
+    want = jbm.BitVector.from_indices(ids, size, strategy=TC.BM_GAP)
+    monkeypatch.setattr(tcfg.config, "strategy", TC.BM_GAP)
+    built = tbm.BitVector.from_indices(ids, size, device="cpu")
+    grown = tbm.BitVector(size, device="cpu")
+    grown.set_many(ids)
+    for bv in (built, grown):
+        assert bv.get_new_blocks_strat() == TC.BM_GAP
+        assert set(bv._struct.cls.tolist()) == {TC.CLS_GAP}
+        np.testing.assert_array_equal(bv.indices(), np.asarray(want.indices()))
+    monkeypatch.setattr(tcfg.config, "strategy", TC.BM_BIT)
+    plain = tbm.BitVector.from_indices(ids, size, device="cpu")
+    assert plain.get_new_blocks_strat() == TC.BM_BIT
+    assert set(plain._struct.cls.tolist()) == {TC.CLS_BIT}

@@ -257,3 +257,36 @@ def test_logical_ops_match(pools):
         np.testing.assert_array_equal(
             _u(tops.logical_op(op, _t(a), _t(b))),
             np.asarray(jops.logical_op(op, jnp.asarray(a), jnp.asarray(b))))
+
+
+def test_full_block_np_matches():
+    got, want = tops.full_block_np(), jops.full_block_np()
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pack_digest_matches(pools):
+    a, b = pools
+    p = np.concatenate([a, b])
+    d = np.array(jops.calc_digest(jnp.asarray(p)))
+    d[0] = 1                                   # both top bits set
+    got = tops.pack_digest(torch.from_numpy(d.astype(np.int32)))
+    want = np.asarray(jops.pack_digest(jnp.asarray(d)))
+    assert got.dtype == torch.int32 and got.shape == (p.shape[0], 2)
+    np.testing.assert_array_equal(_u(got), want)
+
+
+def test_unpack_and_pack_bits_match(pools):
+    a, _ = pools
+    w = a[:4, :64]
+    got = tops.unpack_words_to_bits(_t(w))
+    want = np.asarray(jops.unpack_words_to_bits(jnp.asarray(w)))
+    assert got.dtype == torch.uint8 and got.shape == (4, 64, 32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = tops.pack_bits_to_words(got)
+    np.testing.assert_array_equal(
+        _u(back), np.asarray(jops.pack_bits_to_words(jnp.asarray(want))))
+    np.testing.assert_array_equal(_u(back), w)
+    # int32 0/1 input packs the same
+    np.testing.assert_array_equal(
+        _u(tops.pack_bits_to_words(got.to(torch.int32))), w)

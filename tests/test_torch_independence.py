@@ -30,10 +30,11 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    samples = os.path.join(ROOT, "samples_torch")
-    for f in sorted(os.listdir(samples)):
-        if f.endswith(".py"):
-            yield os.path.join(samples, f)
+    for sub in ("samples_torch", "tools_torch"):
+        d = os.path.join(ROOT, sub)
+        for f in sorted(os.listdir(d)):
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
 
 
 def test_import_with_jax_and_reference_blocked():
