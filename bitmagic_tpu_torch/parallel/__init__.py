@@ -1,10 +1,11 @@
 """Sharding over a mesh of devices (port of ``bitmagic_tpu/parallel``):
-meshes, sharded bit-vectors and sparse vectors whose per-shard steps run
+meshes (in one process or across the processes of a ``torch.distributed``
+group), sharded bit-vectors and sparse vectors whose per-shard steps run
 the port's kernels, host task plans, and BLOB broadcast between processes
 through ``torch.distributed``."""
 
 from .mesh import (BLOCK_AXIS, Mesh, block_sharding, make_mesh, pad_rows,
-                   replicated)
+                   process_mesh, replicated)
 from .sharded import (ShardedBitVector, ShardedRSIndex,
                       group_and_exchange, pipeline_counts_host,
                       pipeline_counts_program, scan_throughput_program,
@@ -29,5 +30,5 @@ __all__ = [
     "build_sim_matrix_plan", "build_sv_serialization_plan",
     "run_task_batch", "all_gather_blobs", "broadcast_bitvector",
     "broadcast_bytes", "broadcast_sparse_vector", "merge_broadcast_parts",
-    "Mesh", "pad_rows",
+    "Mesh", "pad_rows", "process_mesh",
 ]

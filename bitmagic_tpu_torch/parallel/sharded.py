@@ -7,8 +7,13 @@ tensor per shard, each on its shard's device (``mesh.Mesh``).  The JAX
 package's ``shard_map`` programs become a loop over the shards with one
 launch per shard per step; what they sum with ``psum`` or gather with
 ``all_gather`` comes to the host as per-shard partials and combines there
-in int64.  It is a single controller, like a JAX mesh: no
-``torch.distributed`` here.
+in int64.  On a mesh that spans processes (``mesh.Mesh`` with ranks)
+each process holds and launches for its own shards only, and every one of
+those host combines goes through ``_host_fetch``, which gathers the
+per-shard partials of every process over the default ``torch.distributed``
+group (gloo, CPU tensors) in mesh order: the counterpart of the JAX
+package's ``process_allgather`` fallback.  Every process must then make
+the same calls in the same order.
 
 Per-shard steps run through the same ``ops/cuda_kernels`` wrappers as the
 single-device port (the kernel on a CUDA tensor, its plain version on a
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import constants as C
 from ..core.bitvector import BitVector
@@ -58,21 +64,87 @@ def _index(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _host_total(totals) -> int:
-    """Sum of per-shard 0-d int64 tensors, on the host in int64."""
-    return int(sum(int(t) for t in totals))
+def _host_fetch(mesh: Mesh, parts) -> list:
+    """Every shard's host array, in mesh order, from ``parts``: this
+    process's per-shard host arrays in local order (any dtype and shape,
+    one per shard of ``mesh.local``).  On a mesh that spans processes the
+    arrays of every process come over the default ``torch.distributed``
+    group: their dtypes and shapes first, then one uint8 buffer each.
+    With no process group, a group of one or a mesh of this process alone
+    it returns ``parts`` as it is."""
+    if mesh.ranks is None or not dist.is_available() \
+            or not dist.is_initialized() or dist.get_world_size() == 1:
+        return parts
+    parts = [np.asarray(p, order="C") for p in parts]
+    metas = [None] * dist.get_world_size()
+    dist.all_gather_object(metas, [(p.dtype.str, p.shape) for p in parts])
+    sizes = [sum(np.dtype(d).itemsize * int(np.prod(s)) for d, s in m)
+             for m in metas]
+    mine = np.concatenate([p.reshape(-1).view(np.uint8) for p in parts]
+                          + [np.zeros(0, np.uint8)])
+    buf = torch.zeros(max(max(sizes), 1), dtype=torch.uint8)
+    buf[:mine.size] = torch.from_numpy(mine)
+    bufs = [torch.empty_like(buf) for _ in metas]
+    dist.all_gather(bufs, buf)
+    out = [None] * mesh.size
+    for r, (meta, b) in enumerate(zip(metas, bufs)):
+        ids = [j for j, o in enumerate(mesh.ranks) if o == r]
+        if len(ids) != len(meta):
+            raise RuntimeError(f"process {r} sent {len(meta)} shards, the "
+                               f"mesh gives it {len(ids)}")
+        raw, off = b.numpy(), 0
+        for j, (d, s) in zip(ids, meta):
+            n = np.dtype(d).itemsize * int(np.prod(s))
+            out[j] = raw[off:off + n].view(d).reshape(s).copy()
+            off += n
+    return out
+
+
+def _host_sum(mesh: Mesh, values) -> int:
+    """Sum over every shard of this process's per-shard ints (0-d tensors
+    or ints), on the host in int64."""
+    mine = [np.asarray(int(v), np.int64) for v in values]
+    return int(sum(int(v) for v in _host_fetch(mesh, mine)))
+
+
+def _host_concat(mesh: Mesh, parts, axis: int = 0) -> np.ndarray:
+    """Every shard's host array joined along ``axis``, in mesh order."""
+    return np.concatenate(_host_fetch(mesh, parts), axis=axis)
+
+
+def _answer_by_shard(mesh: Mesh, tgt: np.ndarray, local_answer, out,
+                     axis: int = 0):
+    """Queries answered by the shard that owns them: ``tgt`` gives each
+    query's shard, ``local_answer(i, j, sel)`` the answers of local shard
+    ``i`` (global ``j``) to the queries ``sel`` (a host array whose
+    ``axis`` runs over them, empty where the shard has none); every
+    shard's answers land in ``out`` at its queries."""
+    empty = np.zeros(out.shape[:axis] + (0,) + out.shape[axis + 1:],
+                     out.dtype)
+    mine = []
+    for i, j in enumerate(mesh.local):
+        sel = tgt == j
+        mine.append(local_answer(i, j, sel) if sel.any() else empty)
+    got = _host_fetch(mesh, mine)
+    for j in np.unique(tgt).tolist():
+        idx = [slice(None)] * out.ndim
+        idx[axis] = tgt == j
+        out[tuple(idx)] = got[j]
+    return out
 
 
 def placed(x, mesh: Mesh, axis: int) -> list[torch.Tensor]:
-    """``x`` as per-shard tensors split along ``axis`` over ``mesh``: a list
-    of per-shard tensors (checked to lie on their shards' devices) or a
-    host array / tensor to split."""
+    """``x`` as this process's per-shard tensors split along ``axis`` over
+    ``mesh``: a list of the local shards (checked to lie on their shards'
+    devices) or a host array / tensor of the whole mesh to split."""
     if isinstance(x, (list, tuple)):
-        if len(x) != mesh.size:
-            raise ValueError(f"{len(x)} shards for a mesh of {mesh.size}")
-        for t, d in zip(x, mesh.devices):
-            if t.device != d:
-                raise ValueError(f"shard on {t.device}, mesh wants {d}")
+        if len(x) != len(mesh.local):
+            raise ValueError(f"{len(x)} shards for the {len(mesh.local)} "
+                             f"local shards of a mesh of {mesh.size}")
+        for t, j in zip(x, mesh.local):
+            if t.device != mesh.devices[j]:
+                raise ValueError(f"shard on {t.device}, mesh wants "
+                                 f"{mesh.devices[j]}")
         return list(x)
     return block_sharding(mesh, axis).place(x)
 
@@ -81,7 +153,9 @@ class ShardedBitVector:
     """Dense, mesh-sharded bit-vector covering [0, size)."""
 
     def __init__(self, shards, size: int, mesh: Mesh):
-        self.shards = list(shards)   # int32[blocks_per_shard, 2048] each
+        # int32[blocks_per_shard, 2048] each: this process's shards
+        # (mesh.local), in mesh order
+        self.shards = list(shards)
         self.size = int(size)
         self.mesh = mesh
         self._rs = None              # cached ShardedRSIndex
@@ -125,20 +199,24 @@ class ShardedBitVector:
 
     def to_words(self) -> np.ndarray:
         """Host uint32 image of every row, padding rows included."""
-        return np.concatenate([blockops.to_host_words(s)
-                               for s in self.shards])
+        return _host_concat(self.mesh, [blockops.to_host_words(s)
+                                        for s in self.shards])
 
     def to_bitvector(self, device=None) -> BitVector:
         """Collect into one BitVector on ``device`` (by default the first
-        shard's device), optimized."""
+        local shard's device), optimized."""
         bv = BitVector.from_words(self.to_words(), self.size,
-                                  device=device or self.mesh.devices[0])
+                                  device=device or self.shards[0].device)
         bv.optimize()
         return bv
 
     def reshard(self, mesh: Mesh) -> "ShardedBitVector":
         """Repartition onto another mesh: each new shard takes its rows
-        from the old shards, moved to its device explicitly."""
+        from the old shards, moved to its device explicitly.  Across
+        processes the rows go through the host image."""
+        if self.mesh.ranks is not None or mesh.ranks is not None:
+            return ShardedBitVector.from_words(self.to_words(), self.size,
+                                               mesh)
         nblk = max(C.blocks_for_bits(self.size), 1)
         bps = pad_rows(nblk, mesh.size) // mesh.size
         old = self.blocks_per_shard
@@ -196,7 +274,8 @@ class ShardedBitVector:
     # reductions: per-shard partials, combined on the host in int64
     # ------------------------------------------------------------------
     def count(self) -> int:
-        return _host_total(ck.block_counts_total(s)[0] for s in self.shards)
+        return _host_sum(self.mesh, [ck.block_counts_total(s)[0]
+                                     for s in self.shards])
 
     def count_shardmap(self) -> int:
         """The JAX package's explicit-collective variant; here the same
@@ -205,13 +284,13 @@ class ShardedBitVector:
 
     def count_range(self, lo: int, hi: int) -> int:
         span = self.shard_span
-        total = 0
-        for s, t in enumerate(self.shards):
+        parts = []
+        for s, t in zip(self.mesh.local, self.shards):
             a, b = max(int(lo), s * span), min(int(hi), (s + 1) * span - 1)
-            if a <= b:
-                total += blockops.count_range_pool(t, a - s * span,
+            parts.append(blockops.count_range_pool(t, a - s * span,
                                                    b - s * span)
-        return total
+                         if a <= b else 0)
+        return _host_sum(self.mesh, parts)
 
     def build_rs_index(self) -> "ShardedRSIndex":
         """Build (once) and cache the persistent sharded rank/select index
@@ -232,7 +311,7 @@ class ShardedBitVector:
     def block_counts(self) -> np.ndarray:
         """Per-block popcounts of every row (padding included), int32 on
         the host."""
-        return np.concatenate([
+        return _host_concat(self.mesh, [
             ck.block_counts_total(s, per_block=True)[1].cpu().numpy()
             for s in self.shards])
 
@@ -256,8 +335,8 @@ class ShardedBitVector:
     def digests(self) -> np.ndarray:
         """Per-block wave digests int32[n_blocks, 64] of 0/1 on the host
         (the 8-byte/block exchange currency)."""
-        return np.concatenate([blockops.calc_digest(s).cpu().numpy()
-                               for s in self.shards])
+        return _host_concat(self.mesh, [blockops.calc_digest(s).cpu().numpy()
+                                        for s in self.shards])
 
     def get_bits(self, ids) -> np.ndarray:
         """Bit values at global positions ids, as a bool array: each shard
@@ -269,13 +348,14 @@ class ShardedBitVector:
         q = np.clip(ids, 0, self.n_blocks * C.BITS_PER_BLOCK - 1)
         tgt = q // span
         rel = q - tgt * span
-        out = np.zeros(ids.size, bool)
-        for s in np.unique(tgt).tolist():
-            sel = tgt == s
-            t = self.shards[s]
+
+        def bits(i, _, sel):
+            t = self.shards[i]
             r = _index(rel[sel], t.device)
             w = t.reshape(-1)[r >> 5]
-            out[sel] = ((w >> (r & 31)) & 1).cpu().numpy().astype(bool)
+            return ((w >> (r & 31)) & 1).cpu().numpy().astype(bool)
+        out = _answer_by_shard(self.mesh, tgt, bits,
+                               np.zeros(ids.size, bool))
         out[(ids < 0) | (ids != q)] = False      # out-of-range reads 0
         return out
 
@@ -318,9 +398,10 @@ class ShardedRSIndex:
         # the shard-local prefix is int32: a full shard's count must fit
         assert self.shard_span < 2**31, \
             "per-shard span exceeds the int32 prefix bound; add shards"
-        self.gwc = [_gwc(s) for s in sbv.shards]
-        self.shard_totals = np.asarray(
-            [int(g[-1]) if g.numel() else 0 for g in self.gwc], np.int64)
+        self.gwc = [_gwc(s) for s in sbv.shards]       # local shards
+        self.shard_totals = np.asarray(_host_fetch(self.mesh, [
+            np.asarray(int(g[-1]) if g.numel() else 0, np.int64)
+            for g in self.gwc]), np.int64)
         self.cum = np.cumsum(self.shard_totals)
         self.before = np.concatenate([[0], self.cum[:-1]]).astype(np.int64)
         self.total = int(self.cum[-1])
@@ -335,12 +416,13 @@ class ShardedRSIndex:
         rk = ranks[ok]
         tgt = np.searchsorted(self.cum, rk, side="left")
         local = rk - self.before[tgt]
-        pos = np.zeros(rk.size, np.int64)
-        for s in np.unique(tgt).tolist():
-            sel = tgt == s
-            t = self.sbv.shards[s]
-            pos[sel] = select_flat(t, self.gwc[s], _index(
+
+        def positions(i, _, sel):
+            t = self.sbv.shards[i]
+            return select_flat(t, self.gwc[i], _index(
                 local[sel].astype(np.int32), t.device)).cpu().numpy()
+        pos = _answer_by_shard(self.mesh, tgt, positions,
+                               np.zeros(rk.size, np.int64))
         out[ok] = tgt * self.shard_span + pos
         return out
 
@@ -357,12 +439,13 @@ class ShardedRSIndex:
         q = np.minimum(ids[ok], self.sbv.n_blocks * C.BITS_PER_BLOCK - 1)
         tgt = q // self.shard_span
         rel = q - tgt * self.shard_span
-        part = np.zeros(q.size, np.int64)
-        for s in np.unique(tgt).tolist():
-            sel = tgt == s
-            t = self.sbv.shards[s]
-            part[sel] = _rank_local(t, self.gwc[s],
-                                    _index(rel[sel], t.device)).cpu().numpy()
+
+        def ranks(i, _, sel):
+            t = self.sbv.shards[i]
+            return _rank_local(t, self.gwc[i],
+                               _index(rel[sel], t.device)).cpu().numpy()
+        part = _answer_by_shard(self.mesh, tgt, ranks,
+                                np.zeros(q.size, np.int64))
         out[ok] = self.before[tgt] + part
         return out
 
@@ -376,9 +459,10 @@ class ShardedRSIndex:
 # ---------------------------------------------------------------------------
 # sharded aggregator with digest narrowing (communication-avoiding AND)
 # ---------------------------------------------------------------------------
-def _alive_rows(shard_groups) -> np.ndarray:
-    """Digest pre-pass: per shard, AND the wave digests of its operand
-    rows (one list of tensors per shard) -> bool[n_blocks] on the host."""
+def _alive_rows(mesh: Mesh, shard_groups) -> np.ndarray:
+    """Digest pre-pass: per local shard, AND the wave digests of its
+    operand rows (one list of tensors per shard) -> bool[n_blocks] of the
+    whole mesh on the host."""
     alive = []
     for rows in shard_groups:
         acc = None
@@ -386,13 +470,14 @@ def _alive_rows(shard_groups) -> np.ndarray:
             d = blockops.calc_digest(t).to(torch.bool)
             acc = d if acc is None else (acc & d)
         alive.append(acc.any(dim=1).cpu().numpy())
-    return np.concatenate(alive)
+    return _host_concat(mesh, alive)
 
 
-def _survivor_rows(alive: np.ndarray, n_shards: int) -> list[np.ndarray]:
-    """Each shard's local survivor rows (int32), no padding."""
-    per = alive.reshape(n_shards, -1)
-    return [np.flatnonzero(p).astype(np.int32) for p in per]
+def _survivor_rows(alive: np.ndarray, mesh: Mesh) -> list[np.ndarray]:
+    """Each local shard's survivor rows (int32, shard-relative), no
+    padding, from the whole mesh's ``alive``."""
+    per = alive.reshape(mesh.size, -1)
+    return [np.flatnonzero(per[j]).astype(np.int32) for j in mesh.local]
 
 
 def _survivor_sweep(n_and, shard_ops, rows, counts=False):
@@ -436,9 +521,9 @@ def sharded_and_many(vectors: list[ShardedBitVector],
         sbv.last_narrowing = (nblk, nblk)      # nothing skipped
         return sbv
 
-    alive = _alive_rows(per_shard)
+    alive = _alive_rows(mesh, per_shard)
     shards = []
-    for ops, rows in zip(per_shard, _survivor_rows(alive, mesh.size)):
+    for ops, rows in zip(per_shard, _survivor_rows(alive, mesh)):
         res = _survivor_sweep(n, ops, rows)[0] if rows.size else None
         shards.append(_scatter_rows(ops[0].shape[0], rows, res,
                                     ops[0].device))
@@ -457,16 +542,15 @@ def sharded_and_sub_count(and_vs, sub_vs=(), digest_narrowing=True) -> int:
     per_shard = list(zip(*[v.shards for v in list(and_vs) + list(sub_vs)]))
     bps = and_vs[0].blocks_per_shard
     if digest_narrowing:
-        alive = _alive_rows([ops[:len(and_vs)] for ops in per_shard])
-        rows = _survivor_rows(alive, mesh.size)
+        alive = _alive_rows(mesh, [ops[:len(and_vs)] for ops in per_shard])
+        rows = _survivor_rows(alive, mesh)
     else:
-        rows = [np.arange(bps, dtype=np.int32)] * mesh.size
-    total = 0
+        rows = [np.arange(bps, dtype=np.int32)] * len(mesh.local)
+    parts = []
     for ops, r in zip(per_shard, rows):
-        if r.size:
-            cnt = _survivor_sweep(len(and_vs), ops, r, counts=True)[1]
-            total += int(cnt.sum(dtype=_I64))
-    return total
+        parts.append(_survivor_sweep(len(and_vs), ops, r, counts=True)[1]
+                     .sum(dtype=_I64) if r.size else 0)
+    return _host_sum(mesh, parts)
 
 
 def sharded_and_sub(and_vs, sub_vs) -> ShardedBitVector:
@@ -492,9 +576,10 @@ def group_and_exchange(stack, mesh: Mesh, vec_axis: str = "v",
     each device holds K/n whole vectors.  Phase 1 ANDs each shard's
     vectors (one B4 launch) and brings the wave digests (8 B/block) to the
     host; phase 2 moves only the survivor rows of each shard's AND to the
-    first device and ANDs them there.  Returns (result_rows_or_count,
-    survivor_block_ids, traffic) where traffic = (blocks_shipped,
-    blocks_total)."""
+    first device and ANDs them there (across processes: through the host,
+    to each process's first local device).  Returns
+    (result_rows_or_count, survivor_block_ids, traffic) where traffic =
+    (blocks_shipped, blocks_total)."""
     if mesh.axis_name != vec_axis:
         raise ValueError(f"mesh axis {mesh.axis_name!r} is not {vec_axis!r}")
     shards = placed(stack, mesh, 0)
@@ -502,18 +587,22 @@ def group_and_exchange(stack, mesh: Mesh, vec_axis: str = "v",
     local = [ck.agg_and_sub(t.shape[0], [_aligned(t[i])
                                          for i in range(t.shape[0])])[0]
              for t in shards]
-    alive = None
-    for acc in local:
-        d = blockops.calc_digest(acc).to(torch.bool).cpu().numpy()
-        alive = d if alive is None else (alive & d)
-    alive = alive.any(axis=1)
+    digests = _host_fetch(mesh, [
+        blockops.calc_digest(acc).to(torch.bool).cpu().numpy()
+        for acc in local])
+    alive = np.logical_and.reduce(digests).any(axis=1)
     surv = np.flatnonzero(alive).astype(np.int32)
     surv_pad = surv if surv.size else np.zeros(1, np.int32)
-    home = mesh.devices[0]
+    home = local[0].device
+    mine = [acc[_index(surv_pad.astype(np.int64), acc.device)]
+            for acc in local]
+    if mesh.ranks is not None:
+        mine = [torch.from_numpy(r) for r in _host_fetch(
+            mesh, [t.cpu().numpy() for t in mine])]
     out = None
-    for acc in local:
-        mine = acc[_index(surv_pad.astype(np.int64), acc.device)].to(home)
-        out = mine if out is None else (out & mine)
+    for t in mine:
+        t = t.to(home)
+        out = t if out is None else (out & t)
     traffic = (int(surv.size), nblk)
     if count_only:
         res = int(ck.block_counts_total(out)[0]) if surv.size else 0
@@ -531,7 +620,7 @@ def pipeline_counts_program(mesh: Mesh):
         sels = (sels.detach().cpu().numpy() if torch.is_tensor(sels)
                 else np.asarray(sels))
         parts = [ck.pipeline_counts(p, sels) for p in placed(planes, mesh, 1)]
-        return np.stack([p.cpu().numpy() for p in parts])
+        return np.stack(_host_fetch(mesh, [p.cpu().numpy() for p in parts]))
 
     return counts
 
@@ -559,9 +648,9 @@ def scan_throughput_program(mesh: Mesh, n_planes: int,
                                  f"[>= {n_planes}, {n_blocks_per_shard}, "
                                  f"2048]")
         v = int(value_bits) & 0xFFFFFFFF
-        total = _host_total(
+        total = _host_sum(mesh, [
             ck.block_counts_total(ck.scan_eq(n_planes, t, v))[0]
-            for t in shards)
+            for t in shards])
         return np.uint32(total & 0xFFFFFFFF)
 
     return scan, sharding

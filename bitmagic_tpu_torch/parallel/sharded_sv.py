@@ -25,7 +25,10 @@ CPU one):
     single-device scanner, up to three K1 launches per plane and shard;
   * ``pipeline_find_eq``: one B5 launch per shard for a whole value batch,
     the per-shard partials combined on the host in int64.
-Digests and gathers stay plain PyTorch.
+Digests and gathers stay plain PyTorch.  On a mesh that spans processes
+each process holds its own shards' tensors, and every host combine (the
+alive vector, counts, gathered bits, the host image) goes through
+``sharded._host_fetch``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from ..core.bitvector import BitVector
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from .mesh import Mesh, block_sharding, make_mesh, pad_rows, zero_rows
-from .sharded import (ShardedBitVector, _index, _scatter_rows,
+from .sharded import (ShardedBitVector, _alive_rows, _answer_by_shard,
+                      _host_concat, _host_sum, _index, _scatter_rows,
                       _survivor_rows, pipeline_counts_host)
 
 _I64 = np.int64
@@ -113,7 +117,7 @@ def _per_shard(op, pools_a, pools_b):
 class _SelectorSearchBase:
     """Shared digest-narrowing search flow for stacked-plane containers.
 
-    Subclasses provide ``stack`` (per-shard int32[K, rows, 2048]),
+    Subclasses provide ``stack`` (int32[K, rows, 2048] per local shard),
     ``mesh``, ``size``, ``UNI`` and ``_selector(key) -> int32[K] | None``
     (1 = AND, -1 = AND-NOT per plane; None = the key cannot occur).  The
     flow mirrors the single-device scanner: digest pre-pass (8 B/block) ->
@@ -133,8 +137,8 @@ class _SelectorSearchBase:
 
     def to_words(self) -> np.ndarray:
         """Host uint32 image of the whole stack [K, n_blocks, 2048]."""
-        return np.concatenate([blockops.to_host_words(s) for s in self.stack],
-                              axis=1)
+        return _host_concat(self.mesh, [blockops.to_host_words(s)
+                                        for s in self.stack], axis=1)
 
     def _empty_result(self) -> ShardedBitVector:
         out = self._wrap([zero_rows(s.shape[1], s.device)
@@ -152,14 +156,8 @@ class _SelectorSearchBase:
         """Digest pre-pass for a selector: AND the wave digests of the AND
         rows -> bool[n_blocks] on the host."""
         and_rows = np.flatnonzero(sel == 1).tolist()
-        alive = []
-        for s in self.stack:
-            acc = None
-            for r in and_rows:
-                d = blockops.calc_digest(s[r]).to(torch.bool)
-                acc = d if acc is None else (acc & d)
-            alive.append(acc.any(dim=1).cpu().numpy())
-        return np.concatenate(alive)
+        return _alive_rows(self.mesh, [[s[r] for r in and_rows]
+                                       for s in self.stack])
 
     def _sweep(self, sel, shard, rows, counts=False):
         """B4 over one shard's survivor ``rows`` for selector ``sel``."""
@@ -180,8 +178,7 @@ class _SelectorSearchBase:
             return self._empty_result()
         alive = self._alive(sel)
         shards = []
-        for s, rows in zip(self.stack,
-                           _survivor_rows(alive, self.mesh.size)):
+        for s, rows in zip(self.stack, _survivor_rows(alive, self.mesh)):
             res = self._sweep(sel, s, rows)[0] if rows.size else None
             shards.append(_scatter_rows(s.shape[1], rows, res, s.device))
         out = self._wrap(shards)
@@ -193,14 +190,10 @@ class _SelectorSearchBase:
         if sel is None:
             return 0
         alive = self._alive(sel)
-        total = 0
-        for s, rows in zip(self.stack,
-                           _survivor_rows(alive, self.mesh.size)):
-            if rows.size:
-                total += int(self._sweep(sel, s, rows,
-                                         counts=True)[1].sum(
-                                             dtype=torch.int64))
-        return total
+        return _host_sum(self.mesh, [
+            self._sweep(sel, s, rows, counts=True)[1].sum(dtype=torch.int64)
+            if rows.size else 0
+            for s, rows in zip(self.stack, _survivor_rows(alive, self.mesh))])
 
     def _search_ne(self, key) -> ShardedBitVector:
         """Universe minus the eq hits (scanner find_ne)."""
@@ -227,18 +220,19 @@ class _SelectorSearchBase:
         bps = int(self.stack[0].shape[1])
         blk = ids >> C.SET_BLOCK_SHIFT
         tgt = blk // bps
-        out = np.zeros((len(rows), ids.size), np.uint8)
-        for s in np.unique(tgt).tolist():
-            sel = tgt == s
-            t = self.stack[s]
+
+        def bits(i, s, sel):
+            t = self.stack[i]
             ridx = _index(np.asarray(rows, np.int64), t.device)[:, None]
             local = _index((blk[sel] - s * bps), t.device)[None, :]
             widx = _index((ids[sel] & C.SET_BLOCK_MASK) >> 5,
                           t.device)[None, :]
             bit = _index(ids[sel] & 31, t.device)
             w = t[ridx, local, widx]                      # [rows, q]
-            out[:, sel] = ((w >> bit) & 1).to(torch.uint8).cpu().numpy()
-        return out
+            return ((w >> bit) & 1).to(torch.uint8).cpu().numpy()
+        return _answer_by_shard(self.mesh, tgt, bits,
+                                np.zeros((len(rows), ids.size), np.uint8),
+                                axis=1)
 
     def _check_ids(self, ids) -> np.ndarray:
         ids = np.asarray(ids, _I64)
@@ -293,9 +287,9 @@ class ShardedSparseVector(_SelectorSearchBase):
 
     def to_sparse_vector(self, device=None):
         """Collect into one SparseVector on ``device`` (by default the first
-        shard's device), planes optimized."""
+        local shard's device), planes optimized."""
         from ..sv.sparse_vector import SparseVector
-        device = device or self.mesh.devices[0]
+        device = device or self.stack[0].device
         host = self.to_words()
         sv = SparseVector(self.dtype, nullable=self.nullable, device=device)
         for s in range(self.n_eff):
@@ -534,9 +528,9 @@ class ShardedRSCVector:
 
     def to_rsc(self, device=None):
         """Collect into one RSCSparseVector on ``device`` (by default the
-        first shard's device)."""
+        first local shard's device)."""
         from ..sv.rsc_vector import RSCSparseVector
-        device = device or self.mesh.devices[0]
+        device = device or self.dense.stack[0].device
         out = RSCSparseVector(self.dense.dtype, device=device)
         out.dense = self.dense.to_sparse_vector(device)
         out.dense.nullable = False
@@ -802,9 +796,9 @@ class ShardedStrSparseVector(_SelectorSearchBase):
     # ------------------------------------------------------------------
     def to_str_vector(self, device=None):
         """Collect into one StrSparseVector on ``device`` (by default the
-        first shard's device)."""
+        first local shard's device)."""
         from ..sv.str_vector import StrSparseVector
-        device = device or self.mesh.devices[0]
+        device = device or self.stack[0].device
         host = self.to_words()
         out = StrSparseVector(self.max_str_size, nullable=self.nullable,
                               device=device)
@@ -911,9 +905,9 @@ class ShardedFloatVector(_SelectorSearchBase):
 
     def to_float_vector(self, device=None):
         """Collect into one FloatSparseVector on ``device`` (by default the
-        first shard's device)."""
+        first local shard's device)."""
         from ..sv.float_vector import FloatSparseVector
-        device = device or self.mesh.devices[0]
+        device = device or self.stack[0].device
         host = self.to_words()
         fv = FloatSparseVector(self.dtype, nullable=self.nullable,
                                device=device)

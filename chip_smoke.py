@@ -157,22 +157,40 @@ only when every phase passed):
               24 trials from seed 1000 in the random order; a failed trial
               prints its FAIL line and exits; seconds and launches per
               family;
-17. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
-18. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
+17. bench_tools — the benchmarking tools of tools_torch/ in this process
+              on the card, each with its seconds and launches: bench_tpch
+              at TPC-H SF1's 150,000 customers and SF100's 15,000,000 (200
+              nations, top 10; orders against numpy, SF1's index bytes
+              against a CPU run), microbench's nine families at 768 blocks
+              (20 labelled lines, 3 BLOB sizes), scaling_check over 1, 2,
+              4 and 8 shards (one B6 and one K3 per shard per scan, one B5
+              per shard per pipeline);
+18. multihost — two fresh interpreters of 4 shards each on cuda:0,
+              joined over gloo (a file:// store, 120 s per collective):
+              multihost_check's steps, then the sharded phase's work
+              across them (two 2^30-bit vectors, the four ops and counts,
+              1M select and rank, config 4b's column through find_gt,
+              find_eq_count and pipeline_find_eq); every answer against
+              numpy in each process and equal to this process's run on
+              one mesh of the 8 shards, one launch per local shard per
+              step; a worker's failure or timeout fails the phase;
+19. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
+20. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
               then 200 vectors x 1536 blocks (2.5 GB of operand rows): the
               combine_and_sub pair of phase 5 and a 64-request counts
               pipeline;
-19. timing  — each kernel, its plain version and the nearest single PyTorch
+21. timing  — each kernel, its plain version and the nearest single PyTorch
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; the floor of a timed launch; K3 after a
               flush that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, and each
-leg of 15 and 16) is driven with the launch counts set to 0 just before
-and read just after; a kernel of the path launched no time fails it.
+Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, each leg
+of 15, 16 and 17, and each step of 18) is driven with the launch counts set
+to 0 just before and read just after; a kernel of the path launched no time
+fails it.
 
 The oracles are numpy and the committed fixtures; nothing of JAX or of the
 JAX package is imported.
@@ -3299,9 +3317,10 @@ def run_tool(tbm, name, argv, device):
 
 class ToolLegs:
     """Seconds and launches of each tool leg, summed per tool and over the
-    phase."""
+    phase (``phase`` prefixes the log lines)."""
 
-    def __init__(self):
+    def __init__(self, phase="tools"):
+        self.phase = phase
         self.legs, self.total = {}, {k: 0 for k in KERNELS}
 
     def run(self, tbm, leg, name, argv):
@@ -3309,9 +3328,9 @@ class ToolLegs:
         for k, v in launches.items():
             self.total[k] += v
         self.legs[leg] = {"s": round(wall, 3), "launches": launches}
-        log(f"tools: {leg}: {wall:.3f} s; launches {launches}")
+        log(f"{self.phase}: {leg}: {wall:.3f} s; launches {launches}")
         for ln in text.splitlines():
-            log(f"tools:   | {ln}")
+            log(f"{self.phase}:   | {ln}")
         return text, wall
 
 
@@ -3618,7 +3637,276 @@ def fuzz_phase(tbm, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 19: timing
+# phases 17-18: the benchmarking tools, and sharding across processes
+# ---------------------------------------------------------------------------
+TPCH_SF1, TPCH_SF100 = 150_000, 15_000_000      # TPC-H customers
+MICRO_LABELS = ("stream", "count", "and", "or", "xor", "sub", "and_cnt",
+                "or_cnt", "enum", "select", "rank", "sv_gath", "sv_dec",
+                "scan_eq", "scan_gt", "agg", "ser_L1", "ser_L4", "ser_L6",
+                "deser_L6")
+MH_PROCESSES, MH_LOCAL = 2, 4     # multihost: 2 processes x 4 shards
+MH_TIMEOUT_S = 900
+
+
+def tpch_oracle(customers, nations=200, top=10):
+    """bench_tpch's result orders, from its own draws."""
+    nation_of = np.random.default_rng(9).integers(0, nations, customers)
+    return int(np.isin(nation_of, range(top)).sum()) * 5
+
+
+def bench_tools_phase(tbm, card):
+    """Phase 17: bench_tpch at TPC-H SF1's and SF100's customer counts,
+    microbench's nine families at 768 blocks and scaling_check, in this
+    process on the card; each with its seconds and launches.  Returns the
+    phase's launches."""
+    import re
+    check(not os.environ.get("BMTPU_PLATFORM"),
+          "BMTPU_PLATFORM would send the tools to the CPU")
+    legs = ToolLegs("bench_tools")
+    tpch = {}
+    for tag, customers in (("sf1", TPCH_SF1), ("sf100", TPCH_SF100)):
+        text, _ = legs.run(tbm, f"bench_tpch {tag}", "bench_tpch",
+                           ["--customers", str(customers), "--json"])
+        tpch[tag] = json.loads(text.strip().splitlines()[-1])
+        check(tpch[tag]["result_orders"] == tpch_oracle(customers),
+              f"bench_tpch {tag}: {tpch[tag]['result_orders']} orders")
+    # the BLOBs do not depend on the device: SF1's index on the CPU
+    cpu, _, _ = run_tool(tbm, "bench_tpch", ["--json"], "cpu")
+    cpu = json.loads(cpu.strip().splitlines()[-1])
+    check(cpu["index_bytes"] == tpch["sf1"]["index_bytes"],
+          f"bench_tpch sf1 index bytes {tpch['sf1']['index_bytes']} on the "
+          f"card, {cpu['index_bytes']} on the CPU")
+    text, _ = legs.run(tbm, "microbench", "microbench", [])
+    labels = tuple(re.findall(r"^\[(\w+) *\]", text, re.M))
+    check(labels == MICRO_LABELS, f"microbench families {labels}")
+    check(len(re.findall(r"^ +blob \d+\.\d KB$", text, re.M)) == 3,
+          "microbench BLOB lines")
+    text, _ = legs.run(tbm, "scaling_check", "scaling_check", [])
+    rows = re.findall(r"^mesh=(\d+): .*; launches per step: scan (\d+) B6 "
+                      r"\+ (\d+) K3, pipeline (\d+) B5$", text, re.M)
+    check([int(r[0]) for r in rows] == [1, 2, 4, 8],
+          f"scaling_check meshes {rows}")
+    for r in rows:
+        check(len(set(r)) == 1, f"scaling_check: mesh={r[0]} launched "
+              f"{r[1]} B6, {r[2]} K3 and {r[3]} B5 per step, not one each "
+              f"per shard")
+    log(json.dumps({"bench_tools": legs.legs, "bench_tpch": tpch,
+                    "card": card["smi"]}))
+    require_launches("bench_tools phase", legs.total,
+                     ("logical_op_digest", "count_op", "block_counts",
+                      "agg_and_sub", "pipeline_counts", "scan_eq"))
+    return legs.total
+
+
+def _digest_of(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+class Steps:
+    """Launches and host wall ms of each step of a sharded run, read
+    around the step (which ends in a synchronize)."""
+
+    def __init__(self):
+        self.launches, self.ms = {}, {}
+
+    def __call__(self, name, fn):
+        from bitmagic_tpu_torch.ops import cuda_kernels as ck
+        sync()
+        before = dict(ck.launches)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        self.ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        self.launches[name] = {k: v - before[k] for k, v in
+                               ck.launches.items() if v > before[k]}
+        return out
+
+
+def multihost_scale(tbm, mesh):
+    """The sharded phase's work over ``mesh`` (one process or many): two
+    2^30-bit vectors through the four ops and counts, 1M select and rank,
+    and config 4b's 16M-element column through find_gt, find_eq_count and
+    pipeline_find_eq; every answer against numpy.  Returns (results,
+    launches per step, ms per step)."""
+    from bitmagic_tpu_torch.parallel import (ShardedBitVector,
+                                             ShardedSparseVector)
+    step = Steps()
+    rng = np.random.default_rng(SEED + 31)
+    size = SHARD_BLOCKS * BPB
+    wa, wb = _block_words(rng, SHARD_BLOCKS), _block_words(rng, SHARD_BLOCKS)
+    a = ShardedBitVector.from_words(wa, size, mesh)
+    b = ShardedBitVector.from_words(wb, size, mesh)
+    fa, fb = wa.reshape(-1), wb.reshape(-1)
+    res = {}
+    for op in OPS:
+        r = step(op, lambda: getattr(a, DUNDER[op])(b))
+        want = oracle_op(op, fa, fb)
+        res[f"{op}_count"] = step(f"{op} count", r.count)
+        check(res[f"{op}_count"] == int(np.bitwise_count(want).sum(
+            dtype=np.int64)), f"multihost {op} count")
+        if op == "and":
+            check(np.array_equal(r.to_words().reshape(-1), want),
+                  "multihost and rows")
+    del r
+    qrng = np.random.default_rng(SEED + 36)
+    total = step("count", a.count)
+    ranks = qrng.integers(1, total + 1, N_QUERIES)
+    got = step("select 1M", lambda: a.select_batch(ranks))
+    check(np.array_equal(got, oracle_select(fa, ranks)), "multihost select")
+    res["select_sha256"] = _digest_of(got)
+    ids = qrng.integers(0, size, N_QUERIES)
+    got = step("rank 1M", lambda: a.build_rs_index().rank_batch(ids))
+    check(np.array_equal(got, oracle_rank(fa, ids)), "multihost rank")
+    res["rank_sha256"] = _digest_of(got)
+    del a, b
+    _, vals, nm = config4b_values()
+    ok = ~nm
+    sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
+                                     device="cpu")
+    ssv = ShardedSparseVector.from_sparse_vector(sv, mesh)
+    del sv
+    drawn = int(vals[qrng.integers(0, SV_N)])
+    hits = step("find_gt", lambda: ssv.find_gt(drawn))
+    check(np.array_equal(hits.to_bitvector().indices(),
+                         np.flatnonzero((vals > drawn) & ok)),
+          "multihost find_gt")
+    res["find_eq_count"] = step("find_eq_count",
+                                lambda: ssv.find_eq_count(drawn))
+    check(res["find_eq_count"] == int(((vals == drawn) & ok).sum()),
+          "multihost find_eq_count")
+    values = qrng.integers(0, 1 << SV_BITS, SV_QUERIES)
+    values[:8] = vals[qrng.integers(0, SV_N, 8)]
+    res["pipeline_find_eq"] = step(
+        "pipeline_find_eq", lambda: ssv.pipeline_find_eq(values.tolist()))
+    hist = np.bincount(vals[ok], minlength=1 << SV_BITS)
+    check(res["pipeline_find_eq"] == hist[values].tolist(),
+          "multihost pipeline_find_eq")
+    return res, step.launches, step.ms
+
+
+# the steps with exactly one launch of these kernels per shard
+MH_ONE_PER_SHARD = {**{op: ("logical_op_digest",) for op in OPS},
+                    **{f"{op} count": ("block_counts",) for op in OPS},
+                    "count": ("block_counts",),
+                    "pipeline_find_eq": ("pipeline_counts",)}
+
+
+def multihost_worker(rank, world, init, out_dir, device):
+    """One process of the multihost phase: multihost_check's steps, then
+    the sharded phase's work, over a mesh of MH_LOCAL shards on ``device``
+    in every process of the gloo group; its results and launches go to
+    ``out_dir/rank<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import process_mesh
+    from tools_torch import multihost_check as mh
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    device = torch.device(device)
+    tbm.config.device = str(device)
+    out = {}
+    try:
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        out["tool"] = mh.worker_steps(rank, world, device)
+        sync()
+        out["tool_s"] = time.perf_counter() - t0
+        out["tool_launches"] = dict(ck.launches)
+        mesh = process_mesh([device] * MH_LOCAL)
+        t0 = time.perf_counter()
+        out["scale"], out["scale_launches"], out["scale_ms"] = \
+            multihost_scale(tbm, mesh)
+        out["scale_s"] = time.perf_counter() - t0
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def multihost_phase(tbm, card, device="cuda:0"):
+    """Phase 18: MH_PROCESSES fresh interpreters of MH_LOCAL shards each on
+    ``device``, joined over gloo, run multihost_check's steps and the sharded
+    phase's work; their results must equal numpy (each process checks)
+    and this process's run on one mesh of all the shards, with one launch
+    per local shard per step.  A worker's failure or timeout fails the
+    phase.  Returns the launches of the workers, summed."""
+    import tempfile
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import Mesh
+    from tools_torch import multihost_check as mh
+    n_all = MH_PROCESSES * MH_LOCAL
+    mesh = Mesh([device] * n_all)
+    # the same work in this process, on one mesh of every shard
+    ck.reset_launches()
+    d = mh.draws(n_all, 0, MH_PROCESSES)
+    one_tool = mh.containers(mesh, d, mh.local_planes(mesh, d["planes"]))
+    one_scale, one_steps, one_ms = multihost_scale(tbm, mesh)
+    log(f"multihost: one process, {n_all} shards on {device}: launches per "
+        f"step {json.dumps(one_steps)}; ms per step {json.dumps(one_ms)}")
+    with tempfile.TemporaryDirectory(prefix="bm_multihost_") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        rc = mh.run_workers(
+            lambda r: [sys.executable, os.path.abspath(__file__),
+                       "--multihost-worker", str(r), str(MH_PROCESSES), init,
+                       tmp, device], MH_PROCESSES, MH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"multihost: a worker failed (exit code {rc})")
+        outs = []
+        for r in range(MH_PROCESSES):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    for k in ("scan_s", "merged_count", "n_global"):
+        for o in outs:
+            o["tool"].pop(k)
+    one_tool.pop("scan_s")
+    total = {k: 0 for k in KERNELS}
+    for r, o in enumerate(outs):
+        check(o["tool"] == one_tool, f"multihost: process {r}'s "
+              f"multihost_check results differ from one process's")
+        check(o["scale"] == one_scale, f"multihost: process {r}'s sharded "
+              f"results differ from one process's")
+        for name, kernels in MH_ONE_PER_SHARD.items():
+            for k in kernels:
+                got = o["scale_launches"][name].get(k, 0)
+                check(got == MH_LOCAL, f"multihost: process {r} step "
+                      f"{name}: {got} {k} launches for {MH_LOCAL} shards")
+        for k in KERNELS:
+            total[k] += o["tool_launches"][k] + sum(
+                s.get(k, 0) for s in o["scale_launches"].values())
+        log(f"multihost: process {r}: multihost_check steps "
+            f"{o['tool_s']:.1f} s, sharded work {o['scale_s']:.1f} s, peak "
+            f"{o['peak_mib']:.0f} MiB; launches per step "
+            f"{json.dumps(o['scale_launches'])}; ms per step "
+            f"{json.dumps(o['scale_ms'])}")
+    # across the processes every step launched what one process did
+    for name, want in one_steps.items():
+        got = {k: sum(o["scale_launches"][name].get(k, 0) for o in outs)
+               for k in want}
+        check(got == want, f"multihost: step {name}: {got} launches over "
+              f"the processes, {want} in one process")
+    log(json.dumps({"multihost": {"processes": MH_PROCESSES,
+                                  "local_shards": MH_LOCAL, "wall_s": wall,
+                                  "results": one_scale},
+                    "card": card["smi"]}))
+    log(f"multihost: passed in {wall:.1f} s of worker wall; launches "
+        f"{total}")
+    require_launches("multihost phase", total,
+                     ("logical_op_digest", "block_counts", "agg_and_sub",
+                      "pipeline_counts", "scan_eq"))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 21: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, flush, reps=25, clean=None):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
@@ -3946,6 +4234,9 @@ def nvidia_smi(fields):
 
 
 def main():
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        rank, world, init, out_dir, device = sys.argv[2:7]
+        return multihost_worker(int(rank), int(world), init, out_dir, device)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on an NVIDIA card and has nothing to run "
@@ -4133,13 +4424,24 @@ def main():
     # random run
     fuzz_launches = fuzz_phase(tbm, card)
 
-    # 17. reference fixtures
+    # 17. the bench_tools phase: bench_tpch, microbench and scaling_check
+    t0 = time.perf_counter()
+    bench_tools_launches = bench_tools_phase(tbm, card)
+    log(f"bench_tools: passed in {time.perf_counter() - t0:.1f} s; "
+        f"launches {bench_tools_launches}")
+
+    # 18. the multihost phase: sharding across two processes
+    t0 = time.perf_counter()
+    multihost_launches = multihost_phase(tbm, card)
+    log(f"multihost: phase passed in {time.perf_counter() - t0:.1f} s")
+
+    # 19. reference fixtures
     ck.reset_launches()
     fixtures_path(tbm, device)
     log(f"fixtures: reference counts, AND ids, ranks and selects match; "
         f"launches {dict(ck.launches)}")
 
-    # 18. scale phases: 2^30-bit pair, then 200 x 1536 blocks
+    # 20. scale phases: 2^30-bit pair, then 200 x 1536 blocks
     ck.reset_launches()
     t0 = time.perf_counter()
     scale_times = scale_path(tbm, device)
@@ -4154,7 +4456,7 @@ def main():
     check(ck.launches["agg_and_sub"] > 0 and ck.launches["pipeline_counts"]
           > 0, "search scale phase launched B4 and B5")
 
-    # 19. timing
+    # 21. timing
     tm = timings(device, card, cfg1)
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
@@ -4196,6 +4498,8 @@ def main():
                  "samples_launches": samples_launches[k],
                  "tools_launches": tools_launches[k],
                  "fuzz_launches": fuzz_launches[k],
+                 "bench_tools_launches": bench_tools_launches[k],
+                 "multihost_launches": multihost_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

@@ -8,7 +8,9 @@ print the same lines apart from the named timing lines (svutil's
 ``in ... ms`` and inv_list's ``Mint/s`` column).  On one seeded input the
 BLOB files that both write are byte-identical, and each package reads the
 other's file to the same output (these run in this process).  Without a
-card and without ``BMTPU_PLATFORM=cpu`` every port tool raises.
+card and without ``BMTPU_PLATFORM=cpu`` every port tool raises, the four
+benchmarking tools (``tests/test_torch_bench_tools.py``,
+``tests/test_torch_multihost.py``) included.
 """
 import contextlib
 import importlib
@@ -78,8 +80,12 @@ def _run_subprocess(pkg_dir, name, env):
     return r.stdout
 
 
+BENCH_TOOLS = ("bench_tpch", "microbench", "scaling_check",
+               "multihost_check")
+
+
 def test_every_tool_has_a_port():
-    for name in TOOLS + ("fuzz_containers",):
+    for name in TOOLS + ("fuzz_containers",) + BENCH_TOOLS:
         assert os.path.isfile(os.path.join(ROOT, "tools_torch",
                                            f"{name}.py")), name
 
@@ -201,13 +207,17 @@ def test_lnkutil_files_cross(tmp_path):
 # ---------------------------------------------------------------------------
 # no card and no BMTPU_PLATFORM=cpu: every port tool raises
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", TOOLS + ("fuzz_containers",))
+@pytest.mark.parametrize("name", TOOLS + ("fuzz_containers",)
+                         + BENCH_TOOLS)
 def test_tool_raises_without_card(name, monkeypatch):
     mod = _port_tool(name)
     monkeypatch.delenv("BMTPU_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tbm.config, "device", "cuda")
     argv = {"inv_list": ["--max-lists", "1", "--levels", "6"],
-            "fuzz_containers": ["--trials", "1"]}.get(name, ["--demo"])
+            "fuzz_containers": ["--trials", "1"],
+            "bench_tpch": ["--customers", "1000", "--nations", "2"],
+            "microbench": ["--blocks", "1"], "scaling_check": [],
+            "multihost_check": ["2"]}.get(name, ["--demo"])
     with pytest.raises(RuntimeError, match="cuda"):
         mod.main(argv)
