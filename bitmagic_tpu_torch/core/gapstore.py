@@ -3,13 +3,16 @@
 
 The reference keeps sparse blocks as D-GAP buffers (uint16 run boundaries,
 src/bmfunc.h gap_* family; storage src/bmblocks.h:1245 set_gap_block) so a
-mostly-empty 2^32-bit vector costs KBs, not MBs.  The design keeps GAP
-content OFF the device: device memory holds only dense BIT rows, while CLS_GAP blocks
-live here as one concatenated run-boundary table on the host.  Device ops
+mostly-empty 2^32-bit vector costs KBs, not MBs.  The store lives on the
+host: a vector's device memory holds its dense BIT rows, while CLS_GAP blocks
+live here as one concatenated run-boundary table.  Device ops
 expand touched GAP blocks to transient dense rows (the batched analog of
-gap_convert_to_bitset, src/bmfunc.h:5223); queries (test/rank/select/count)
+gap_convert_to_bitset, src/bmfunc.h:5223); queries (test/rank/count)
 answer directly from the runs with segmented searchsorted — the vectorized
-analog of gap_bfind / gap_test (src/bmfunc.h:1835,1943).
+analog of gap_bfind / gap_test (src/bmfunc.h:1835,1943).  The one device
+copy is an rs-index's query tables (``core/rs_index.py``): the run ends,
+the inclusive ones counts and two int64 search keys, 24 B per run, built
+from this store once per index for its rank and select batches.
 
 Layout (all blocks concatenated, in the owner's CLS_GAP nb order):
 

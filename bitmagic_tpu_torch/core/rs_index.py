@@ -3,17 +3,23 @@
 Equivalent of the reference ``bm::rs_index`` (src/bmrs.h:40): per-block
 running counts for O(1) rank and log-descent select, laid out as
 
-  * host: inclusive popcount prefix ``cum[int64, n_seg]`` over allocated
+  * the inclusive popcount prefix ``cum[int64, n_seg]`` over allocated
     segments (ZERO blocks contribute nothing, like the reference's NULL
-    super-block encoding; a FULL run is one multi-block segment),
+    super-block encoding; a FULL run is one multi-block segment), kept on
+    the host and mirrored on the device with the other segment tables,
   * device: the global inclusive *wave* popcount prefix ``int32[r * 64]``
     over the pool rows (one entry per 1024 bits, finer than the
-    reference's three sub-blocks per block).
+    reference's three sub-blocks per block),
+  * device: the D-GAP blocks' query tables (run ends, inclusive ones
+    counts and two search keys; 24 B per run), built from the host
+    ``GapStore`` at the first query that needs them.
 
-Select descends rank -> segment (host searchsorted over ``cum``) -> wave
-(device searchsorted over the wave prefix) -> word -> in-word position.
-All queries are batched: a million ranks resolve in one pass of tensor ops.
-The per-block counts of the build come from kernel K3.
+Select descends rank -> segment (searchsorted over ``cum``) -> GAP run
+(searchsorted over the run keys) or wave (searchsorted over the wave
+prefix) -> word -> in-word position; rank searches the segment starts.
+All queries are batched and every step runs on the index's device: a
+call uploads its queries once and downloads its answers once.  The
+per-block counts of the build come from kernel K3.
 """
 
 from __future__ import annotations
@@ -26,6 +32,11 @@ from ..ops import cuda_kernels as ck
 from ..ops.select import global_wave_prefix, rank_in_rows, select_flat
 
 _I64 = np.int64
+_BPB = C.BITS_PER_BLOCK
+# columns of the device segment table (RSIndex._segment_table)
+(_END, _CB, _CA, _BASE, _CLS, _GKEY, _GKEYS, _GOFFS, _SLOT, _BEFORE,
+ _BITOFF) = range(11)
+_NCOLS = _BITOFF + 1
 
 
 def _to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -48,7 +59,6 @@ class RSIndex:
         self.gwc = (global_wave_prefix(pool) if pool.shape[0]
                     else torch.zeros(0, dtype=torch.int32,
                                      device=pool.device))
-        self._gwc_cache = None
         self.size = size
         self.total = int(cum[-1]) if cum.size else 0
         if slots is None:
@@ -59,6 +69,42 @@ class RSIndex:
             gslots = np.where(is_gap, np.cumsum(is_gap) - 1, -1).astype(_I64)
         self.slots = slots
         self.gslots = gslots
+        self._seg = self._segment_table()
+        dev = pool.device
+        self._nb_dev = _to_device(nb, torch.int64, dev)
+        self._cum0_dev = _to_device(np.concatenate([[0], cum]), torch.int64,
+                                    dev)
+        self._runs_dev = None          # GAP query tables, at first use
+
+    def _segment_table(self) -> torch.Tensor:
+        """The segment tables on the device, one int64 row per segment
+        after a sentinel row 0 that no block hits (rank's "before the
+        first segment"): columns ``_END`` .. ``_BITOFF``, so one gather
+        gives a query all its segment's fields."""
+        m, dev = len(self.nb), self.pool.device
+        g = np.maximum(self.gslots, 0)
+        offs = self.gaps.offs if self.gaps is not None else np.zeros(1, _I64)
+        cols = np.zeros((m + 1, _NCOLS), _I64)
+        cols[0, _END] = np.iinfo(_I64).min
+        cols[0, _CLS] = C.CLS_ZERO
+        seg = cols[1:]
+        seg[:, _END] = self.nb + self.span
+        seg[:, _CB] = self.cum - np.diff(self.cum, prepend=0)
+        seg[:, _CA] = self.cum
+        seg[:, _BASE] = self.nb << C.SET_BLOCK_SHIFT
+        seg[:, _CLS] = self.cls
+        seg[:, _GKEY] = g * _BPB
+        seg[:, _GKEYS] = g * (_BPB + 1)
+        seg[:, _GOFFS] = np.where(self.gslots >= 0, offs[g], 0)
+        seg[:, _SLOT] = np.maximum(self.slots, 0)
+        seg[:, _BITOFF] = seg[:, _BASE] - seg[:, _SLOT] * _BPB
+        out = _to_device(cols, torch.int64, dev)
+        if self.gwc.numel():
+            # pool-global rank before the slot's row, for the select descent
+            row0 = out[:, _SLOT] * C.BLOCK_WAVES
+            out[:, _BEFORE] = torch.where(
+                row0 > 0, self.gwc[(row0 - 1).clamp(min=0)].long(), 0)
+        return out
 
     # ------------------------------------------------------------------
     @classmethod
@@ -85,10 +131,23 @@ class RSIndex:
         return cls_(start, seg_cls, np.cumsum(counts), pool, bv.size,
                     bv._gaps, span=span, slots=slots, gslots=gslots)
 
-    def _gwc_host(self):
-        if self._gwc_cache is None:
-            self._gwc_cache = self.gwc.cpu().numpy().astype(np.int64)
-        return self._gwc_cache
+    def _gap_runs(self):
+        """The GAP blocks' per-run query tables on the index's device,
+        built once from the host store: block-local run ends and inclusive
+        ones counts as int32 pairs ``[runs, 2]``, and the search keys
+        ``run_block * 65536 + ends`` (rank) and ``run_block * 65537 +
+        cum1`` (select) as int64: 24 B per run."""
+        if self._runs_dev is None:
+            g, dev = self.gaps, self.pool.device
+            rb, cum1 = g.run_block(), g._ones_cum()
+            self._runs_dev = (
+                _to_device(np.stack([g.ends, cum1], 1), torch.int32, dev),
+                _to_device(rb * _BPB + g.ends, torch.int64, dev),
+                _to_device(rb * (_BPB + 1) + cum1, torch.int64, dev))
+        return self._runs_dev
+
+    def _has_gaps(self) -> bool:
+        return self.gaps is not None and self.gaps.n_blocks > 0
 
     # ------------------------------------------------------------------
     def count(self) -> int:
@@ -96,84 +155,76 @@ class RSIndex:
 
     def rank_batch(self, ids) -> np.ndarray:
         """rank(i) = popcount[0, i] for each id (reference count_to with
-        rs_index, src/bm.h:1420)."""
+        rs_index, src/bm.h:1420); one upload of the ids, one download of
+        the ranks, every step on the index's device."""
         ids = np.asarray(ids, _I64)
-        out = np.zeros(ids.shape, _I64)
         if len(self.nb) == 0:
-            return out
-        blocks = ids >> C.SET_BLOCK_SHIFT
-        # segment at or before each block (segments may span many blocks)
-        pos = np.searchsorted(self.nb, blocks, side="right") - 1
-        pos_c = np.maximum(pos, 0)
-        hit = (pos >= 0) & (blocks < self.nb[pos_c] + self.span[pos_c])
-        # whole segments strictly before the queried block
-        out += np.where(hit,
-                        np.where(pos_c > 0,
-                                 self.cum[np.maximum(pos_c - 1, 0)], 0),
-                        np.where(pos >= 0, self.cum[pos_c], 0))
-        cls_at = self.cls[pos_c]
+            return np.zeros(ids.shape, _I64)
+        q = _to_device(ids.reshape(-1), torch.int64, self.pool.device)
+        blocks = q >> C.SET_BLOCK_SHIFT
+        nbit = q & C.SET_BLOCK_MASK
+        # the segment at or before each block (row 0: none)
+        s = self._seg[torch.searchsorted(self._nb_dev, blocks, right=True)]
+        hit = blocks < s[:, _END]
+        kind = torch.where(hit, s[:, _CLS], C.CLS_ZERO)
         # FULL segment containing i: in-segment offset + 1
-        fullm = hit & (cls_at == C.CLS_FULL)
-        out[fullm] += (ids[fullm]
-                       - (self.nb[pos_c[fullm]] << C.SET_BLOCK_SHIFT)) + 1
-        # GAP block containing i: host run arithmetic (gap_bfind analog)
-        gapm = hit & (cls_at == C.CLS_GAP)
-        if gapm.any():
-            g = self.gslots[pos_c[gapm]]
-            out[gapm] += self.gaps.rank_in_block(
-                g, ids[gapm] & C.SET_BLOCK_MASK)
-        # BIT block containing i: in-row partial popcount on the device
-        bitm = hit & (cls_at == C.CLS_BIT)
-        if bitm.any():
-            dev = self.pool.device
-            part = rank_in_rows(
-                self.pool, self.gwc,
-                _to_device(self.slots[pos_c[bitm]], torch.int64, dev),
-                _to_device(ids[bitm] & C.SET_BLOCK_MASK, torch.int32, dev))
-            out[bitm] += part.cpu().numpy().astype(_I64)
-        return out
+        inblk = torch.where(kind == C.CLS_FULL, q - s[:, _BASE] + 1, 0)
+        if self._has_gaps():
+            # GAP block: the run holding the bit (gap_bfind analog); with
+            # p the ones count minus the end of the run before it (1 for a
+            # block's first run), rank = min(cum1[r], p + nbit) holds for
+            # runs of ones and of zeros alike
+            ec, key_end, _ = self._gap_runs()
+            r = torch.searchsorted(key_end, s[:, _GKEY] + nbit)
+            prev = ec[(r - 1).clamp(min=0)]
+            p = torch.where(r > s[:, _GOFFS], prev[:, 1] - prev[:, 0], 1)
+            inblk = torch.where(kind == C.CLS_GAP,
+                                torch.minimum(ec[r, 1], p + nbit), inblk)
+        # whole segments before the block, plus the in-block count
+        out = torch.where(hit, s[:, _CB] + inblk, s[:, _CA])
+        # BIT block containing i: in-row partial popcount
+        bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
+        if bi.numel():
+            out[bi] += rank_in_rows(self.pool, self.gwc, s[bi, _SLOT],
+                                    nbit[bi]).long()
+        return out.cpu().numpy().reshape(ids.shape)
 
     def rank(self, i) -> int:
         return int(self.rank_batch(np.asarray([i]))[0])
 
     def select_batch(self, ranks) -> np.ndarray:
         """Position of each (1-based) rank's set bit; -1 if out of range
-        (reference select, src/bm.h:1705)."""
+        (reference select, src/bm.h:1705); one upload of the ranks, one
+        download of the positions, every step on the index's device."""
         ranks = np.asarray(ranks, _I64)
-        out = np.full(ranks.shape, -1, _I64)
-        ok = (ranks >= 1) & (ranks <= self.total)
-        if not ok.any():
-            return out
-        r = ranks[ok]
-        entry = np.searchsorted(self.cum, r, side="left")
-        base_rank = np.where(entry > 0, self.cum[np.maximum(entry - 1, 0)], 0)
-        rem = r - base_rank                  # 1-based in segment (int64:
-        blk_base = self.nb[entry] << C.SET_BLOCK_SHIFT   # runs pass 2^31)
-        res = np.empty(r.shape, _I64)
-        fullm = self.cls[entry] == C.CLS_FULL
-        res[fullm] = blk_base[fullm] + rem[fullm] - 1
-        gapm = self.cls[entry] == C.CLS_GAP
-        if gapm.any():
-            g = self.gslots[entry[gapm]]
-            res[gapm] = blk_base[gapm] + self.gaps.select_in_block(
-                g, rem[gapm])
-        bitm = ~fullm & ~gapm
-        if bitm.any():
-            slots = self.slots[entry[bitm]].astype(np.int64)
+        if self.total == 0:
+            return np.full(ranks.shape, -1, _I64)
+        q = _to_device(ranks.reshape(-1), torch.int64, self.pool.device)
+        r = q.clamp(1, self.total)
+        s = self._seg[torch.searchsorted(self._cum0_dev, r)]
+        # 1-based rank within the segment (int64: FULL runs pass 2^31)
+        rem = r - s[:, _CB]
+        kind = s[:, _CLS]
+        out = s[:, _BASE] + rem - 1    # FULL
+        if self._has_gaps():
+            # GAP block: the first run whose ones count reaches rem ends
+            # cum1 - rem bits after the set bit
+            ec, _, key_cum = self._gap_runs()
+            rr = torch.searchsorted(key_cum, s[:, _GKEYS] + rem).clamp(
+                max=key_cum.shape[0] - 1)
+            run = ec[rr]
+            out = torch.where(kind == C.CLS_GAP,
+                              out + (run[:, 0] - run[:, 1] + 1), out)
+        bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
+        if bi.numel():
             # the in-block rank in the pool's global rank space, resolved
             # by one flat search over the global wave prefix
-            gwc_np = self._gwc_host()
-            before = np.where(slots > 0,
-                              gwc_np[np.maximum(slots * C.BLOCK_WAVES - 1, 0)],
-                              0)
-            granks = rem[bitm] + before
-            pos_flat = select_flat(
+            sb = s[bi]
+            out[bi] = sb[:, _BITOFF] + select_flat(
                 self.pool, self.gwc,
-                _to_device(granks, torch.int32, self.pool.device))
-            in_block = pos_flat.cpu().numpy() - slots * C.BITS_PER_BLOCK
-            res[bitm] = blk_base[bitm] + in_block
-        out[ok] = res
-        return out
+                (rem[bi] + sb[:, _BEFORE]).to(torch.int32))
+        out = torch.where((q >= 1) & (q <= self.total), out, -1)
+        return out.cpu().numpy().reshape(ranks.shape)
 
     def select(self, rank) -> int:
         return int(self.select_batch(np.asarray([rank]))[0])

@@ -3,6 +3,10 @@
 and check it.
 
     python3 chip_smoke.py            # from the repository root, on the card
+    python3 chip_smoke.py --single-query ROOT
+                                     # only the one-query timing of the
+                                     # main path, with the package under
+                                     # ROOT (two trees in turns, one call)
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -27,7 +31,9 @@ only when every phase passed):
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
               count_and/or/xor/sub, 64 count_range calls, build_rs_index
-              plus 1M select and 1M rank; every answer against numpy;
+              plus 1M select and 1M rank, then SINGLE_CALLS one-query
+              calls each of select, rank and BitVector.select (median
+              host wall); every answer against numpy;
               count() and distance_operation each launch their kernel once
               and a profiler trace shows no other kernel (no sum) in them;
  5. agg     — config 3 (bench.py:225): 200 vectors x 128 blocks mixing
@@ -216,6 +222,7 @@ N_BLOCKS = 1536                 # configs 1-2: ~100.6M bits (bench.py:35)
 SCALE_BLOCKS = 16384            # 2^30 bits
 SEED = 20261016
 N_QUERIES = 1_000_000           # config-2 select / rank batch
+SINGLE_CALLS = 200              # one-query select / rank calls timed
 N_RANGES = 64
 METRICS = ("count_and", "count_xor", "count_or", "count_sub_ab",
            "count_sub_ba", "count_a", "count_b")
@@ -740,7 +747,53 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     with Clock("rank_1M_ms", times):
         rk = rs.rank_batch(ids)
     check(np.array_equal(rk, oracle_rank(wa, ids)), "rank")
+    times.update(single_query_ms(a, rs, ranks, pos, ids, rk))
     return times, (a, b, rs, ranks)
+
+
+def single_query_ms(a, rs, ranks, pos, ids, rk, calls=SINGLE_CALLS):
+    """Median host wall ms of one-query calls on a built index (the
+    callers that pass one query: BitVector.select, RSCSparseVector,
+    sv.util): ``rs.select``, ``rs.rank`` and ``a.select``, each on the
+    first ``calls`` queries after one warm-up call; each call returns a
+    host int, so its wall ends with the answer's download.  ``pos`` and
+    ``rk`` are the batches' checked answers to the same queries."""
+    out = {}
+    for what, fn, qs, want in (("select", rs.select, ranks, pos),
+                               ("rank", rs.rank, ids, rk),
+                               ("bv_select", a.select, ranks, pos)):
+        fn(int(qs[0]))
+        walls, got = [], []
+        for q in qs[:calls]:
+            t0 = time.perf_counter()
+            got.append(fn(int(q)))
+            walls.append(time.perf_counter() - t0)
+        check(got == want[:calls].tolist(), f"one-query {what}")
+        out[f"one_{what}_ms"] = round(float(np.median(walls)) * 1e3, 4)
+    return out
+
+
+def single_query_main(root):
+    """``--single-query ROOT``: config 1's A and its rs-index built by the
+    package under ROOT, the main path's 1M select and rank batches as its
+    oracle, then ``single_query_ms``; prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import bitmagic_tpu_torch as tbm
+    device = torch.device("cuda")
+    a, _, bits = build_main_vectors(tbm, N_BLOCKS, device, {})
+    rs = a.build_rs_index()
+    rng = np.random.default_rng(SEED + 4)
+    ranks = rng.integers(1, rs.count() + 1, N_QUERIES)
+    ids = rng.integers(0, N_BLOCKS * BPB, N_QUERIES)
+    pos, rk = rs.select_batch(ranks), rs.rank_batch(ids)
+    check(np.array_equal(pos, np.flatnonzero(bits["a"])[ranks - 1]),
+          "select")
+    check(np.array_equal(rk, oracle_rank(image(bits["a"]), ids)), "rank")
+    log(json.dumps({"root": root, "package": tbm.__file__,
+                    **single_query_ms(a, rs, ranks, pos, ids, rk),
+                    "calls": SINGLE_CALLS,
+                    "card": nvidia_smi("name,power.limit")}))
+    return 0
 
 
 def steady_pass(tbm, a, b, rs, ranks):
@@ -4251,6 +4304,8 @@ def main():
               "drives the port on an NVIDIA card and has nothing to run "
               "here", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--single-query"]:
+        return single_query_main(sys.argv[2])
     sys.path.insert(0, ROOT)
     import bitmagic_tpu_torch as tbm
     from bitmagic_tpu_torch.ops import _build
@@ -4300,6 +4355,10 @@ def main():
         f"launches {main_launches}; phase ms {json.dumps(main_times)}")
     for k in FIRST_SLICE:
         check(main_launches[k] > 0, f"main path never launched {k}")
+    log(f"main: one query per call, median host wall ms of "
+        f"{SINGLE_CALLS} calls: select {main_times['one_select_ms']}, rank "
+        f"{main_times['one_rank_ms']}, BitVector.select "
+        f"{main_times['one_bv_select_ms']}; {smi}")
     a, b = state[0], state[1]
     r = a & b
     for what, fn, kernel in (

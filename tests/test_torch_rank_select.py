@@ -6,9 +6,12 @@ import torch
 
 import bitmagic_tpu as jbm
 import bitmagic_tpu_torch as tbm
+from bench_torch import run_block
 from bitmagic_tpu.utils.golden import GoldenBitSet, random_indices
+from bitmagic_tpu_torch import constants as C
 from bitmagic_tpu_torch.constants import BITS_PER_BLOCK
 from bitmagic_tpu_torch.core import rs_index as trs
+from bitmagic_tpu_torch.core.gapstore import GapStore
 from bitmagic_tpu_torch.ops import select as tsel
 
 torch.set_num_threads(1)
@@ -126,3 +129,89 @@ def test_rs_index_int32_bound_enforced(rng, monkeypatch):
                                 dtype=torch.int64))
     with pytest.raises(ValueError, match="2\\^31"):
         trs.RSIndex.build(bv)
+
+
+def _gap_heavy_words(seed, n_blocks, full_run):
+    """A word image of ``n_blocks`` blocks, half of them drawn as 1-256
+    runs (bench_torch.run_block, D-GAP after optimize()), the rest dense
+    random words, single FULL blocks and ZERO gaps; ``full_run`` puts a
+    33-block FULL run (one multi-block segment) in the middle."""
+    rng = np.random.default_rng(seed)
+    kinds = np.array(["gap"] * (n_blocks // 2) + ["bit", "full", "zero"]
+                     * n_blocks)[:n_blocks]
+    rng.shuffle(kinds)
+    if full_run:
+        kinds = np.concatenate([kinds[:n_blocks // 2], ["full"] * 33,
+                                kinds[n_blocks // 2:]])
+    words = np.zeros((len(kinds), C.SET_BLOCK_SIZE), np.uint32)
+    for i, k in enumerate(kinds):
+        if k == "gap":
+            words[i] = run_block(rng, int(rng.integers(1, 257)))
+        elif k == "bit":
+            words[i] = rng.integers(0, 2**32, C.SET_BLOCK_SIZE,
+                                    dtype=np.uint64).astype(np.uint32)
+        elif k == "full":
+            words[i] = 0xFFFFFFFF
+    return words.ravel()
+
+
+@pytest.mark.parametrize("seed,n_blocks,full_run",
+                         [(1, 16, False), (2, 20, True), (3, 24, True)])
+def test_rank_select_gap_heavy(seed, n_blocks, full_run):
+    """D-GAP-heavy vectors: ranks at every block border, at bit 0 and bit
+    65535 of each GAP block, past the end and negative; selects at every
+    segment's first and last rank, 0, 1, total, total + 1 and negatives."""
+    words = _gap_heavy_words(seed, n_blocks, full_run)
+    jv, tv = jbm.BitVector.from_words(words), tbm.BitVector.from_words(words)
+    for v in (jv, tv):
+        v.optimize()
+    st = tv._struct
+    assert {C.CLS_BIT, C.CLS_GAP, C.CLS_FULL} <= set(st.cls.tolist())
+    assert st.has_runs == full_run
+    jr, tr = jv.build_rs_index(), tv.build_rs_index()
+    np.testing.assert_array_equal(tr.cum, jr.cum)
+    size = words.size * 32
+    gap_nb = st.nb[st.cls == C.CLS_GAP]
+    borders = np.arange(len(words) // C.SET_BLOCK_SIZE + 1) * BITS_PER_BLOCK
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([borders - 1, borders, borders + 1,
+                          gap_nb * BITS_PER_BLOCK,
+                          gap_nb * BITS_PER_BLOCK + BITS_PER_BLOCK - 1,
+                          rng.integers(0, size, 500), [size, -1, -7]])
+    np.testing.assert_array_equal(tr.rank_batch(ids), jr.rank_batch(ids))
+    total = tr.count()
+    assert total == int(np.bitwise_count(words).sum())
+    cum = tr.cum
+    ranks = np.concatenate([cum, cum + 1, np.concatenate([[0], cum[:-1]]) + 1,
+                            rng.integers(1, total + 1, 500),
+                            [0, 1, total, total + 1, -1, -3]])
+    want = jr.select_batch(ranks)
+    np.testing.assert_array_equal(tr.select_batch(ranks), want)
+    ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little"))
+    ok = (ranks >= 1) & (ranks <= total)
+    np.testing.assert_array_equal(want[ok], ones[ranks[ok] - 1])
+    assert (want[~ok] == -1).all()
+
+
+def test_rank_select_batches_skip_host_gap_queries(monkeypatch):
+    """select_batch and rank_batch answer GAP blocks from the index's own
+    device tables, never through the host GapStore's queries."""
+    words = _gap_heavy_words(4, 20, True)
+    jv, tv = jbm.BitVector.from_words(words), tbm.BitVector.from_words(words)
+    for v in (jv, tv):
+        v.optimize()
+    jr, tr = jv.build_rs_index(), tv.build_rs_index()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("host GapStore query on the rs-index path")
+
+    monkeypatch.setattr(GapStore, "select_in_block", refuse)
+    monkeypatch.setattr(GapStore, "rank_in_block", refuse)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, words.size * 32, 2000)
+    ranks = rng.integers(1, tr.count() + 1, 2000)
+    np.testing.assert_array_equal(tr.rank_batch(ids), jr.rank_batch(ids))
+    np.testing.assert_array_equal(tr.select_batch(ranks),
+                                  jr.select_batch(ranks))
+    assert tv.select(int(ranks[0])) == jv.select(int(ranks[0]))
