@@ -19,16 +19,11 @@ from .. import constants as C
 from ..core.blocks import (operand_args, runs_diff, runs_intersect,
                            runs_subtract_points, runs_total)
 from ..core.bitvector import BitVector
-from ..core.gapstore import const_extended, gap_metric_counts
 from ..ops import cuda_kernels as ck
 from ..ops.blockops import METRICS as _METRICS
 
 COUNT_AND, COUNT_XOR, COUNT_OR, COUNT_SUB_AB, COUNT_SUB_BA, COUNT_A, \
     COUNT_B = _METRICS
-
-_GAP_NAME = {COUNT_AND: "and_", COUNT_OR: "or_", COUNT_XOR: "xor_",
-             COUNT_SUB_AB: "sub_ab", COUNT_SUB_BA: "sub_ba",
-             COUNT_A: "a_", COUNT_B: "b_"}
 
 
 def distance_operation(a: BitVector, b: BitVector, metrics) -> dict:
@@ -43,8 +38,8 @@ def distance_operation(a: BitVector, b: BitVector, metrics) -> dict:
     a._flush()
     b._flush()
     # align on the union of allocated blocks; FULL/FULL and FULL/ZERO pairs
-    # resolve symbolically on host, only rows where at least one side is a
-    # BIT row reach the device
+    # resolve symbolically on host, every pair with a BIT or GAP side
+    # reaches the device
     cand = np.union1d(a._struct.nb, b._struct.nb)
     st_a, _ = a._struct.lookup(cand)
     st_b, _ = b._struct.lookup(cand)
@@ -71,25 +66,12 @@ def distance_operation(a: BitVector, b: BitVector, metrics) -> dict:
         COUNT_A: (n_ff + n_fz) * BB,
         COUNT_B: (n_ff + n_zf) * BB,
     }
-    # run-domain part: pairs where neither side is a dense row compute on
-    # the host from run boundaries; symbolic FULL/ZERO sides join as
-    # synthetic 1-run blocks
+    # device part: every other pair (K2, which sums each metric's
+    # per-block counts into int64 in its launch); GAP sides are expanded
+    # on the device by gap_expand, FULL and ZERO sides are the
+    # descriptor's full flag and slot -1
     vals = np.zeros(len(metrics), np.int64)
     kern = ~sym
-    gap_elig = kern & (st_a != 2) & (st_b != 2)
-    if gap_elig.any():
-        ext_a, za, fa = const_extended(a._gaps)
-        ext_b, zb, fb = const_extended(b._gaps)
-        st_ae, sl_ae = a._struct.lookup(cand[gap_elig])
-        st_be, sl_be = b._struct.lookup(cand[gap_elig])
-        sel_a = np.where(st_ae == 3, sl_ae, np.where(st_ae == 1, fa, za))
-        sel_b = np.where(st_be == 3, sl_be, np.where(st_be == 1, fb, zb))
-        mc = gap_metric_counts(ext_a, sel_a, ext_b, sel_b)
-        for i, m in enumerate(metrics):
-            vals[i] += int(mc[_GAP_NAME[m]].sum())
-        kern = kern & ~gap_elig
-    # device part: rows where at least one side is a dense BIT row (K2,
-    # which sums each metric's per-block counts into int64 in its launch)
     if kern.any():
         totals, _ = ck.count_metrics_total(
             tuple(metrics), operand_args(a, cand[kern]),

@@ -34,11 +34,11 @@ from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
 from ..ops.blockops import full_block_np, to_device_words
-from .blocks import (RUN_MIN, Structure, descriptor, expand_gap_operand,
+from .blocks import (RUN_MIN, Structure, descriptor,
                      operand_args, plan_binary, points_in_runs, runs_clip,
                      runs_diff, runs_normalize, runs_overlap_bits,
                      runs_subtract_points, runs_union, split_runs)
-from .gapstore import GapStore, from_positions, gap_binary_op
+from .gapstore import GapStore, compress_rows, from_positions
 
 _I64 = np.int64
 
@@ -1600,16 +1600,18 @@ _GAP_IDENT = {
             ("g", "f"): "comp_a", ("f", "g"): "comp_b"},
     "sub": {("g", "z"): "copy_a", ("f", "g"): "comp_b"},
 }
-# run-count bound above which a gap x gap pair routes to the device kernel
-# (a >4096-run result would cost more than the 8KB dense row)
+# run-count bound above which a gap x gap pair's result stays a dense BIT
+# row (a >4096-run result would cost more than the 8KB dense row)
 _GAP_MERGE_MAX_RUNS = 4096
 
 
 def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
-    """Binary set-op.  Kernel blocks route three ways: GAP identity
-    (metadata only), GAP x GAP host run-merge (gap_buff_op analog,
-    src/bmfunc.h:3738 — results stay succinct), and ONE launch of the
-    gather-fused K1 kernel for everything touching dense rows."""
+    """Binary set-op.  Kernel blocks route two ways: GAP identity
+    (metadata only) and ONE launch of the gather-fused K1 kernel for all
+    the rest, GAP operands expanded on the device by gap_expand.  The rows
+    of GAP x GAP pairs whose runs sum to at most _GAP_MERGE_MAX_RUNS come
+    back to D-GAP through gap_compress (the result of the reference's
+    gap_buff_op merge, src/bmfunc.h:3738: results stay succinct)."""
     if a._device != b._device:
         raise ValueError(f"operands on different devices: {a._device} "
                          f"and {b._device}")
@@ -1645,40 +1647,39 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
         small[both_gap] = lens <= _GAP_MERGE_MAX_RUNS
     else:
         small = both_gap
-    dev = (ident == "") & ~small
+    dense = (ident == "") & ~small
 
-    # --- device part: one K1 launch ------------------------------------
-    if dev.any():
-        a_desc = descriptor(a._pool, plan.a_slot[dev], plan.a_full[dev],
-                            *expand_gap_operand(a._gaps, plan.a_gap[dev]))
-        b_desc = descriptor(b._pool, plan.b_slot[dev], plan.b_full[dev],
-                            *expand_gap_operand(b._gaps, plan.b_gap[dev]))
+    # --- device part: one K1 launch, the BIT-result rows first ----------
+    drop = np.zeros(len(nb_all), bool)
+    parts = []            # stores in concat order
+    part_keys = []
+    pool = blockops.zero_pool(0, a._device)
+    if (ident == "").any():
+        rows = np.concatenate([np.flatnonzero(dense), np.flatnonzero(small)])
+        a_desc = descriptor(a._pool, plan.a_slot[rows], plan.a_full[rows],
+                            a._gaps, plan.a_gap[rows])
+        b_desc = descriptor(b._pool, plan.b_slot[rows], plan.b_full[rows],
+                            b._gaps, plan.b_gap[rows])
         # the digest is the reference's per-block wave digest of each
         # result row; as in the JAX package, an all-zero result row stays
         # a BIT row here (bitmagic_tpu/core/bitvector.py:1827), so the
         # digest is produced but not consulted
-        pool, _digest = ck.binary_op_digest(op, a_desc, b_desc)
-    else:
-        pool = blockops.zero_pool(0, a._device)
-
-    if dev.all():
+        out, _digest = ck.binary_op_digest(op, a_desc, b_desc)
+        n_dense = int(dense.sum())
+        pool = out if n_dense == rows.size else out[:n_dense].clone()
+        if small.any():
+            merged, zm, fm = compress_rows(out[n_dense:])
+            mpos = kpos[small]
+            cls_all[mpos] = C.CLS_GAP
+            cls_all[mpos[fm]] = C.CLS_FULL
+            drop[mpos[zm]] = True
+            keepm = ~(zm | fm)
+            if keepm.any():
+                parts.append(merged.subset(np.flatnonzero(keepm)))
+                part_keys.append(mpos[keepm])
+    if dense.all():
         return BitVector._from_parts(Structure(nb_all, cls_all, plan.runs),
                                      pool, size)
-    # --- gap x gap host merge ------------------------------------------
-    drop = np.zeros(len(nb_all), bool)
-    parts = []            # stores in concat order
-    part_keys = []
-    if small.any():
-        merged, zm, fm = gap_binary_op(
-            op, a._gaps, plan.a_gap[small], b._gaps, plan.b_gap[small])
-        mpos = kpos[small]
-        cls_all[mpos] = C.CLS_GAP
-        cls_all[mpos[fm]] = C.CLS_FULL
-        drop[mpos[zm]] = True
-        keepm = ~(zm | fm)
-        if keepm.any():
-            parts.append(merged.subset(np.flatnonzero(keepm)))
-            part_keys.append(mpos[keepm])
     # --- identity pass-through -----------------------------------------
     for act, store, gsl in (("copy_a", a._gaps, plan.a_gap),
                             ("comp_a", a._gaps, plan.a_gap),

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..constants import CLS_BIT, CLS_FULL, CLS_GAP, SET_BLOCK_SIZE
-from ..ops.blockops import gather_rows, to_device_words
+from ..ops import cuda_kernels as ck
+from ..ops.blockops import gather_rows
 
 # symbolic per-block operand state used during planning
 _Z, _F, _B, _G = 0, 1, 2, 3   # zero / full / bit-row / host GAP buffer
@@ -400,31 +401,40 @@ def gather_operand(pool, slot, full, aux=None, aux_slot=None):
     return gather_rows(pool, slot, full, aux, aux_slot)
 
 
-def expand_gap_operand(store, gap_slots: np.ndarray):
+def expand_gap_operand(store, gap_slots: np.ndarray, device=None):
     """Transient dense rows for the GAP blocks referenced by ``gap_slots``
-    (-1 = not GAP).  Returns (aux_rows_np[k, 2048], aux_slot[n]) where
+    (-1 = not GAP).  Returns (aux rows [k, 2048], aux_slot[n]) where
     aux_slot maps each input position to its row in aux (or -1).  The
-    batched gap_convert_to_bitset upload (src/bmfunc.h:5223)."""
+    batched gap_convert_to_bitset (src/bmfunc.h:5223): with ``device``
+    None the rows are host uint32 words, else int32 rows on ``device``
+    built there by kernel gap_expand from the store's mirror."""
     gap_slots = np.asarray(gap_slots, np.int64)
     used = np.unique(gap_slots[gap_slots >= 0])
     if used.size == 0 or store is None:
-        return (np.zeros((0, SET_BLOCK_SIZE), np.uint32),
-                np.full(gap_slots.shape, -1, np.int64))
-    rows = store.to_dense(used)
+        rows = (np.zeros((0, SET_BLOCK_SIZE), np.uint32) if device is None
+                else torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
+                                 device=device))
+        return rows, np.full(gap_slots.shape, -1, np.int64)
+    if device is None:
+        rows = store.to_dense(used)
+    else:
+        rows = ck.gap_expand(*store.device_arrays(device), torch.from_numpy(
+            used.astype(np.int32)).to(device))
     pos = np.searchsorted(used, np.maximum(gap_slots, 0))
     aux_slot = np.where(gap_slots >= 0, pos, -1)
     return rows, aux_slot.astype(np.int64)
 
 
-def descriptor(pool, slot, full, aux_np, aux_slot):
-    """Upload one operand's gather descriptor (pool, slot, full, aux,
-    aux_slot) to the pool's device: slots int32, full bool, aux rows from
-    host uint32 words."""
+def descriptor(pool, slot, full, store, gap_slots):
+    """One operand's gather descriptor (pool, slot, full, aux, aux_slot) on
+    the pool's device: slots int32, full bool, and the GAP blocks
+    ``gap_slots`` of ``store`` (-1 = not GAP) expanded there into aux."""
     dev = pool.device
+    aux, aux_slot = expand_gap_operand(store, gap_slots, dev)
     return (pool,
             torch.from_numpy(np.asarray(slot, np.int32)).to(dev),
             torch.from_numpy(np.asarray(full, bool)).to(dev),
-            to_device_words(aux_np, dev),
+            aux,
             torch.from_numpy(np.asarray(aux_slot, np.int32)).to(dev))
 
 
@@ -433,7 +443,5 @@ def operand_args(v, blocklist: np.ndarray):
     BitVector operand aligned on ``blocklist`` — the gather descriptor the
     set-op / metric kernels take."""
     st, slot = v._struct.lookup(blocklist)
-    aux_np, aux_slot = expand_gap_operand(
-        v._gaps, np.where(st == _G, slot, -1))
     return descriptor(v._pool, np.where(st == _B, slot, -1), st == _F,
-                      aux_np, aux_slot)
+                      v._gaps, np.where(st == _G, slot, -1))

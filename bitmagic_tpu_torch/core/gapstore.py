@@ -1,5 +1,5 @@
 """Host-resident D-GAP block store: the succinct in-memory representation
-(own copy of ``bitmagic_tpu/core/gapstore.py``; numpy only).
+(own copy of ``bitmagic_tpu/core/gapstore.py``).
 
 The reference keeps sparse blocks as D-GAP buffers (uint16 run boundaries,
 src/bmfunc.h gap_* family; storage src/bmblocks.h:1245 set_gap_block) so a
@@ -9,10 +9,15 @@ live here as one concatenated run-boundary table.  Device ops
 expand touched GAP blocks to transient dense rows (the batched analog of
 gap_convert_to_bitset, src/bmfunc.h:5223); queries (test/rank/count)
 answer directly from the runs with segmented searchsorted — the vectorized
-analog of gap_bfind / gap_test (src/bmfunc.h:1835,1943).  The one device
-copy is an rs-index's query tables (``core/rs_index.py``): the run ends,
-the inclusive ones counts and two int64 search keys, 24 B per run, built
-from this store once per index for its rank and select batches.
+analog of gap_bfind / gap_test (src/bmfunc.h:1835,1943).  Two device
+copies exist: the store's mirror (``device_arrays``: int32 ends and offs,
+uint8 first, about 4 B per run, uploaded once per device at first use),
+from which kernel gap_expand builds the rows of the set-op and metric
+kernels, and an rs-index's query tables (``core/rs_index.py``): the run
+ends, the inclusive ones counts and two int64 search keys, 24 B per run,
+built from this store once per index for its rank and select batches.
+Set-op results that stay D-GAP come back from rows through kernel
+gap_compress (``compress_rows``).
 
 Layout (all blocks concatenated, in the owner's CLS_GAP nb order):
 
@@ -29,8 +34,10 @@ core/gaps.py classification conventions.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import constants as C
+from ..ops import cuda_kernels as ck
 
 _I64 = np.int64
 _BPB = C.BITS_PER_BLOCK          # 65536
@@ -40,7 +47,7 @@ class GapStore:
     """Immutable batch of D-GAP blocks (rebuild on structural change)."""
 
     __slots__ = ("ends", "offs", "first", "_run_block", "_cum1", "_bc",
-                 "_dense", "_ends32")
+                 "_dense", "_ends32", "_mirror")
 
     def __init__(self, ends, offs, first):
         self.ends = np.asarray(ends, _I64)
@@ -51,6 +58,7 @@ class GapStore:
         self._bc = None
         self._dense = None        # cached full expansion (store is immutable)
         self._ends32 = None       # cached int32 ends (native stream-op view)
+        self._mirror = {}         # device -> (ends, offs, first) tensors
 
     def ends_i32(self) -> np.ndarray:
         """Block-local run ends as int32 (the native stream engine's
@@ -58,6 +66,29 @@ class GapStore:
         if self._ends32 is None:
             self._ends32 = self.ends.astype(np.int32)
         return self._ends32
+
+    def device_arrays(self, device):
+        """The store on ``device``: ``(ends int32[total], offs int32[m +
+        1], first uint8[m])``, uploaded at the first call for a device and
+        kept (the store is immutable) — kernel gap_expand's input."""
+        device = torch.device(device)
+        m = self._mirror.get(device)
+        if m is None:
+            m = self._mirror[device] = tuple(
+                torch.from_numpy(a).to(device) for a in (
+                    self.ends_i32(), self.offs.astype(np.int32),
+                    self.first))
+        return m
+
+    @classmethod
+    def from_device(cls, ends, offs, first) -> "GapStore":
+        """The host store of device arrays ``(ends int32, offs int32[n +
+        1], first uint8[n])`` (kernel gap_compress's output), in one
+        download."""
+        n = first.shape[0]
+        host = torch.cat([offs, first.to(torch.int32), ends]).cpu().numpy()
+        return cls(host[2 * n + 1:], host[:n + 1],
+                   host[n + 1:2 * n + 1].astype(np.uint8))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -358,6 +389,18 @@ def gap_binary_op(op: str, store_a: GapStore, sel_a, store_b: GapStore,
     zero_mask = one_run & (first_r == 0)
     full_mask = one_run & (first_r == 1)
     return res, zero_mask, full_mask
+
+
+def compress_rows(rows):
+    """D-GAP store of dense rows int32[k, 2048] on any device, re-encoded
+    there by kernel gap_compress (plain PyTorch on the CPU) and downloaded
+    once -> (store over the k rows, zero_mask bool[k], full_mask bool[k]),
+    the contract of ``gap_binary_op``: for the rows ``a OP b`` of the same
+    pairs both give the same store, since both are canonical D-GAP."""
+    store = GapStore.from_device(*ck.gap_compress(rows))
+    one_run = store.n_runs() == 1
+    return (store, one_run & (store.first == 0),
+            one_run & (store.first == 1))
 
 
 def gap_metric_counts(store_a: GapStore, sel_a, store_b: GapStore, sel_b):

@@ -1,12 +1,13 @@
 """Block-level ops over dense pools ``int32[n_blocks, 2048]`` — plain
 PyTorch versions (port of ``bitmagic_tpu/ops/blockops.py``).
 
-These are the canonical semantics.  Six families also have a hand-written
-Hopper kernel in ``cuda_kernels.py`` with the same signature:
+These are the canonical semantics.  Eight families also have a
+hand-written Hopper kernel in ``cuda_kernels.py`` with the same signature:
 ``block_counts`` (and its total form), ``count_op`` / ``count_metrics``
 (and its total form), ``logical_op_digest`` /
 ``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
-``pipeline_counts`` and ``scan_eq``.  The wrappers there run the plain
+``pipeline_counts``, ``scan_eq``, and the D-GAP conversions
+``gap_expand`` / ``gap_compress``.  The wrappers there run the plain
 version below only for tensors on the CPU; on the card they launch the
 kernel.  The other functions here have no kernel in the JAX package either
 and stay plain PyTorch on every device.
@@ -26,7 +27,7 @@ import torch
 
 from ..constants import (BITS_PER_BLOCK, BLOCK_WAVES, SET_BLOCK_SIZE,
                          WAVE_WORDS)
-from .bitops import clz32, ctz32, popcount, u32_to_i32
+from .bitops import as_u32_int64, clz32, ctz32, popcount, u32_to_i32
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -475,6 +476,67 @@ def scan_eq(n_planes, planes, value):
         p = planes[s]
         acc &= p if (s < 32 and (value >> s) & 1) else ~p
     return acc
+
+
+# ---------------------------------------------------------------------------
+# D-GAP blocks to dense rows and back (plain versions of gap_expand and
+# gap_compress, ops/csrc/gap_rows.cu); a store is the (ends, offs, first)
+# arrays of core/gapstore.GapStore
+# ---------------------------------------------------------------------------
+def gap_expand(ends, offs, first, sel):
+    """Dense rows int32[k, 2048] of the D-GAP blocks ``sel`` int[k] of the
+    store (ends, offs, first), as ``GapStore.to_dense(sel)``.  A row's bit
+    p is the parity of its toggles at or below p: bit 0 where the first run
+    is ones, and the bit after each run end but the last; word by word, a
+    prefix XOR inside the word and the parity of the words before it."""
+    dev = sel.device
+    sel = sel.to(_I64)
+    k = sel.shape[0]
+    lo = offs.to(_I64)[sel]
+    n = offs.to(_I64)[sel + 1] - lo
+    row = torch.repeat_interleave(torch.arange(k, device=dev), n)
+    start = torch.cumsum(n, 0) - n
+    run = (torch.arange(row.shape[0], device=dev)
+           - start[row] + lo[row])
+    e = ends.to(_I64)[run]
+    inner = e < BITS_PER_BLOCK - 1          # every run end but the last
+    ones = torch.nonzero(first.to(_I64)[sel] == 1).reshape(-1)
+    pos = torch.cat([row[inner] * BITS_PER_BLOCK + e[inner] + 1,
+                     ones * BITS_PER_BLOCK])
+    # one word may hold several toggles, never the same bit twice
+    tog = torch.zeros(k * SET_BLOCK_SIZE, dtype=_I64, device=dev)
+    tog.index_add_(0, pos >> 5, torch.ones_like(pos) << (pos & 31))
+    x = tog
+    for s in (1, 2, 4, 8, 16):
+        x = x ^ ((x << s) & 0xFFFFFFFF)
+    par = popcount(tog).reshape(k, SET_BLOCK_SIZE).to(_I64)
+    before = (torch.cumsum(par, 1) - par) & 1
+    return u32_to_i32(x.reshape(k, SET_BLOCK_SIZE) ^ (before * 0xFFFFFFFF))
+
+
+def gap_compress(rows):
+    """D-GAP encoding of rows int32[n, 2048] -> ``(ends int32[total], offs
+    int32[n + 1], first uint8[n])``, as ``GapStore.from_dense``: a run ends
+    at each bit that differs from the bit after it, and at bit 65535."""
+    n, dev = rows.shape[0], rows.device
+    w = as_u32_int64(rows)
+    after = torch.zeros_like(w)
+    after[:, :-1] = w[:, 1:] & 1
+    t = w ^ ((w >> 1) | (after << 31))
+    t[:, -1] &= 0x7FFFFFFF
+    counts = popcount(t).sum(dim=1, dtype=_I64)
+    r, c = torch.nonzero(t, as_tuple=True)
+    bit = torch.arange(32, device=dev)
+    hit = ((t[r, c][:, None] >> bit) & 1) == 1
+    at = ((r * BITS_PER_BLOCK + c * 32)[:, None] + bit)[hit]   # in order
+    offs = torch.zeros(n + 1, dtype=_I64, device=dev)
+    offs[1:] = torch.cumsum(counts + 1, 0)
+    ends = torch.full((int(offs[-1]),), BITS_PER_BLOCK - 1, dtype=_I32,
+                      device=dev)
+    # each row before a run end adds its closing end before it
+    ends[torch.arange(at.shape[0], device=dev) + (at >> 16)] = (
+        at & (BITS_PER_BLOCK - 1)).to(_I32)
+    return ends, offs.to(_I32), (w[:, 0] & 1).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Wrappers of the six hand-written Hopper kernels (``ops/csrc``).
+"""Wrappers of the port's hand-written Hopper kernels (``ops/csrc``).
 
 =====================  ===========================  =========================
 wrapper                kernel (source)              replaces (TPU kernel)
@@ -15,6 +15,9 @@ agg_and_sub_arena,                                  aggregator.py:80/108/875
 agg_and_sub_batch
 pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
 scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
+gap_expand,            gap_rows.cu                  no TPU kernel: the host
+gap_compress                                        GAP merges gapstore.py:313
+                                                    and :375
 =====================  ===========================  =========================
 
 Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``,
@@ -49,7 +52,8 @@ _I64 = torch.int64
 _LL = ctypes.c_longlong
 
 launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
-            "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0}
+            "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0,
+            "gap_expand": 0, "gap_compress": 0}
 # most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
 # memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
@@ -73,6 +77,9 @@ _SIGNATURES = {
                            [_VP, _LL, _VP, _INT, _VP, _INT, _VP, _VP, _INT,
                             _VP, _VP]),
     "bm_scan_eq": ("scan_eq.cu", [_VP, _INT, _INT, ctypes.c_uint, _VP, _VP]),
+    "bm_gap_expand": ("gap_rows.cu", [_VP, _VP, _VP, _VP, _INT, _VP, _VP]),
+    "bm_gap_count": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
+    "bm_gap_write": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
 }
 
 
@@ -503,3 +510,50 @@ def scan_eq(n_planes, planes, value):
         _launch("bm_scan_eq", "scan_eq", planes.device, _ptr(planes),
                 n_planes, nb, int(value) & 0xFFFFFFFF, _ptr(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# D-GAP blocks to dense rows and back (gap_rows.cu)
+# ---------------------------------------------------------------------------
+def gap_expand(ends, offs, first, sel):
+    """Dense rows int32[k, 2048] of the D-GAP blocks ``sel`` int32[k] of a
+    store's device mirror ``(ends int32, offs int32[m + 1], first
+    uint8[m])`` (``GapStore.device_arrays``), as ``GapStore.to_dense``."""
+    if not _on_cuda(ends, offs, first, sel):
+        return blockops.gap_expand(ends, offs, first, sel)
+    for t, what, dt in ((ends, "ends", _I32), (offs, "offs", _I32),
+                        (first, "first", torch.uint8), (sel, "sel", _I32)):
+        _check(t, what, dt, align=t.element_size())
+    if offs.shape[0] != first.shape[0] + 1:
+        raise ValueError("gap_expand: offs must have one entry more than "
+                         "first")
+    k = sel.shape[0]
+    out = torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=sel.device)
+    if k:
+        _launch("bm_gap_expand", "gap_expand", sel.device, _ptr(ends),
+                _ptr(offs), _ptr(first), _ptr(sel), k, _ptr(out))
+    return out
+
+
+def gap_compress(rows):
+    """D-GAP encoding of rows int32[n, 2048] -> ``(ends int32[total], offs
+    int32[n + 1], first uint8[n])`` on the rows' device, as
+    ``GapStore.from_dense``.  Two launches (the count pass, then the write
+    pass at the offsets the counts scan to) and one scalar sync between
+    them for the total."""
+    if not _on_cuda(rows):
+        return blockops.gap_compress(rows)
+    _rows(rows, "rows")
+    n, dev = rows.shape[0], rows.device
+    counts = torch.empty(n, dtype=_I32, device=dev)
+    first = torch.empty(n, dtype=torch.uint8, device=dev)
+    offs = torch.zeros(n + 1, dtype=_I32, device=dev)
+    if not n:
+        return torch.empty(0, dtype=_I32, device=dev), offs, first
+    _launch("bm_gap_count", "gap_compress", dev, _ptr(rows), n,
+            _ptr(counts), _ptr(first))
+    offs[1:] = torch.cumsum(counts + 1, 0, dtype=_I32)
+    ends = torch.empty(int(offs[-1]), dtype=_I32, device=dev)
+    _launch("bm_gap_write", "gap_compress", dev, _ptr(rows), n, _ptr(offs),
+            _ptr(ends))
+    return ends, offs, first

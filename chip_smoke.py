@@ -12,7 +12,7 @@ Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
 
  1. probe   — require CUDA; print the card's name and power limit;
- 2. build   — compile the six kernels from ``ops/csrc`` with nvcc, all at
+ 2. build   — compile the kernels from ``ops/csrc`` with nvcc, all at
               once;
  3. kernels — each kernel against its plain PyTorch version on the card,
               bit for bit: all four ops, every subset of the seven metrics,
@@ -26,16 +26,22 @@ only when every phase passed):
               pipeline counts (B5) for 1 / 7 / 130 / 256 values over 0 to
               400 planes (every ceiling of the register path, the shared
               path at its edges), with and without skipped planes; the
-              equality scan (B6) at config 4;
+              equality scan (B6) at config 4; gap_expand and gap_compress
+              at bvsetalgebra_rank_select's shapes (768 D-GAP blocks of 1
+              to 256 runs expanded, 400 AND rows re-encoded) and on edge
+              rows (1-run blocks, lone bits at 0 and 65535, 65536 runs);
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
               count_and/or/xor/sub, 64 count_range calls, build_rs_index
               plus 1M select and 1M rank, then SINGLE_CALLS one-query
               calls each of select, rank and BitVector.select (median
-              host wall); every answer against numpy;
-              count() and distance_operation each launch their kernel once
-              and a profiler trace shows no other kernel (no sum) in them;
+              host wall); every answer against numpy; GAP operands are
+              expanded by gap_expand and GAP x GAP results re-encoded by
+              gap_compress, both required;
+              count() launches K3 once and distance_operation K2 once, and
+              a profiler trace shows no other kernel (no sum) in them but
+              distance_operation's gap_expand of each operand;
  5. agg     — config 3 (bench.py:225): 200 vectors x 128 blocks mixing
               dense, GAP and FULL-run blocks; combine_and_sub with 100 AND /
               100 SUB and with 3 / 2, combine_and, combine_or,
@@ -190,8 +196,10 @@ only when every phase passed):
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
-              their total forms; the floor of a timed launch; K3 after a
-              flush that leaves L2 clean.
+              their total forms; gap_expand over 768 blocks and
+              gap_compress's two launches over 400 rows (and its whole
+              call, with the scalar sync between them); the floor of a
+              timed launch; K3 after a flush that leaves L2 clean.
 
 Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, each leg
 of 15, 16 and 17, and each step of 18) is driven with the launch counts set
@@ -272,8 +280,22 @@ KERNELS = {
     "scan_eq": dict(
         source="bitmagic_tpu_torch/ops/csrc/scan_eq.cu",
         replaces="bitmagic_tpu/ops/pallas_kernels.py:310"),
+    # no TPU kernel: the JAX package's host run-domain merges
+    "gap_expand": dict(
+        source="bitmagic_tpu_torch/ops/csrc/gap_rows.cu",
+        replaces="bitmagic_tpu/core/gapstore.py:375 (host numpy "
+                 "gap_metric_counts; no TPU kernel)"),
+    "gap_compress": dict(
+        source="bitmagic_tpu_torch/ops/csrc/gap_rows.cu",
+        replaces="bitmagic_tpu/core/gapstore.py:313 (host numpy "
+                 "gap_binary_op; no TPU kernel)"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
+# the D-GAP kernels the main path's set ops and metrics launch
+GAP_ROWS = ("gap_expand", "gap_compress")
+# bvsetalgebra_rank_select's D-GAP shapes: each vector holds about 768
+# D-GAP blocks of 1 to 256 runs; 400 block pairs are GAP in both
+GAP_BLOCKS, GAP_RUNS_MAX, GAP_PAIRS = 768, 256, 400
 # the kernel (launch counter, device function) an algo-phase entry point
 # must put on the card
 ALGO_KERNEL = {"insert": ("logical_op_digest", "binary_digest_kernel"),
@@ -418,10 +440,75 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
             blockops.count_metrics(sub, da, db))
     count_kernels_vs_plain(rng, device, cmp)
     search_kernels_vs_plain(rng, device, cmp)
+    gap_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
     return err, cases
+
+
+def gap_stores(rng):
+    """Two D-GAP stores drawn as bvsetalgebra_rank_select draws its GAP
+    blocks: GAP_BLOCKS blocks each, per block a run count uniform in [1,
+    GAP_RUNS_MAX] and twice that many bounds uniform in [1, 65536)
+    (duplicates dropped, an odd one dropped), bits alternating 0, 1."""
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    stores = []
+    for _ in range(2):
+        rows = np.zeros((GAP_BLOCKS, BPB), np.uint8)
+        for r in rows:
+            cuts = np.unique(rng.integers(1, BPB, 2 * int(
+                rng.integers(1, GAP_RUNS_MAX + 1))))
+            cuts = cuts[:cuts.size - cuts.size % 2].reshape(-1, 2)
+            for lo, hi in cuts:
+                r[lo:hi] = 1
+        stores.append(GapStore.from_dense(np.packbits(
+            rows, axis=1, bitorder="little").view(np.uint32)))
+    return stores
+
+
+def gap_edge_rows(device):
+    """Rows at the encoder's edges: all zero, all one, a lone bit at 0
+    and at 65535, ones up to bit 65534, and 65536 one-bit runs."""
+    rows = np.zeros((6, 2048), np.uint32)
+    rows[1] = 0xFFFFFFFF
+    rows[2, 0] = 1
+    rows[3, -1] = 0x80000000
+    rows[4] = 0xFFFFFFFF
+    rows[4, -1] = 0x7FFFFFFF
+    rows[5] = 0x55555555
+    return torch.from_numpy(rows.view(np.int32).copy()).to(device)
+
+
+def gap_kernels_vs_plain(rng, device, cmp):
+    """gap_expand over all GAP_BLOCKS blocks of a store drawn as
+    bvsetalgebra_rank_select's, and over a shuffled subset with repeats;
+    gap_compress over GAP_PAIRS AND rows of the two stores and over the
+    edge rows; each against its plain version on the card, and the
+    round trip back to the host store."""
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    sa, sb = gap_stores(rng)
+    ma, mb = sa.device_arrays(device), sb.device_arrays(device)
+    every = torch.arange(GAP_BLOCKS, dtype=torch.int32, device=device)
+    some = torch.from_numpy(rng.integers(0, GAP_BLOCKS, 300).astype(
+        np.int32)).to(device)
+    for m, sel in ((ma, every), (mb, every), (ma, some)):
+        cmp("gap_expand", ck.gap_expand(*m, sel),
+            blockops.gap_expand(*m, sel))
+    ra = ck.gap_expand(*ma, every)
+    check(np.array_equal(blockops.to_host_words(ra), sa.to_dense()),
+          "gap_expand equals GapStore.to_dense")
+    rows = ra[:GAP_PAIRS] & ck.gap_expand(*mb, every)[:GAP_PAIRS]
+    for r in (rows, gap_edge_rows(device)):
+        for g, w in zip(ck.gap_compress(r), blockops.gap_compress(r)):
+            cmp("gap_compress", g, w)
+    back = GapStore.from_device(*ck.gap_compress(rows))
+    want = GapStore.from_dense(blockops.to_host_words(rows))
+    for key in ("ends", "offs", "first"):
+        check(np.array_equal(getattr(back, key), getattr(want, key)),
+              f"gap_compress {key} equals GapStore.from_dense")
 
 
 def count_kernels_vs_plain(rng, device, cmp):
@@ -846,12 +933,13 @@ def device_kernels(fn):
 
 def k2_operands(a, b):
     """The gather descriptors distance_operation hands K2 for vectors a and
-    b: the candidate blocks where at least one side is a BIT row."""
+    b: the candidate blocks where at least one side is a BIT row or a GAP
+    block (expanded into aux rows)."""
     from bitmagic_tpu_torch.core.blocks import operand_args
     cand = np.union1d(a._struct.nb, b._struct.nb)
     st_a, _ = a._struct.lookup(cand)
     st_b, _ = b._struct.lookup(cand)
-    rows = cand[(st_a == 2) | (st_b == 2)]
+    rows = cand[(st_a >= 2) | (st_b >= 2)]
     return operand_args(a, rows), operand_args(b, rows)
 
 
@@ -4093,7 +4181,64 @@ def timings(device, card, cfg1):
                    None, nbytes, 0, n_popc * k * 2048)
             out["count_op", form + ms_name].update(
                 rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
+    gap_timings(rng, device, card, flush, out)
     return out
+
+
+def gap_timings(rng, device, card, flush, out):
+    """gap_expand over the GAP_BLOCKS blocks of a store drawn as
+    bvsetalgebra_rank_select's; gap_compress's two launches over
+    GAP_PAIRS AND rows of two such stores, and its whole call (both
+    launches, the scan and the scalar sync between them).  Bounds: the
+    bytes read and written once, at the card's memory rate."""
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    sa, sb = gap_stores(rng)
+    ma, mb = sa.device_arrays(device), sb.device_arrays(device)
+    every = torch.arange(GAP_BLOCKS, dtype=torch.int32, device=device)
+    # the runs of the selected blocks, their offs pair, first, sel; rows
+    nbytes = 4 * int(sa.offs[-1]) + GAP_BLOCKS * (8 + 1 + 4 + 8192)
+    record(out, ("gap_expand", "cell1_768"), card, flush,
+           lambda: ck.gap_expand(*ma, every),
+           lambda: blockops.gap_expand(*ma, every), None, nbytes, 0, 0)
+    out["gap_expand", "cell1_768"].update(rows=GAP_BLOCKS,
+                                          runs=int(sa.offs[-1]))
+    rows = (ck.gap_expand(*ma, every)[:GAP_PAIRS]
+            & ck.gap_expand(*mb, every)[:GAP_PAIRS])
+    ends, offs, first = ck.gap_compress(rows)
+    counts = torch.empty(GAP_PAIRS, dtype=torch.int32, device=device)
+    n = GAP_PAIRS
+
+    def two_launches():
+        ck._launch("bm_gap_count", "gap_compress", device, rows.data_ptr(),
+                   n, counts.data_ptr(), first.data_ptr())
+        ck._launch("bm_gap_write", "gap_compress", device, rows.data_ptr(),
+                   n, offs.data_ptr(), ends.data_ptr())
+
+    total = ends.shape[0]
+    nbytes = n * 8192 + 4 * total + 4 * (n + 1) + n
+    record(out, ("gap_compress", "cell1_400"), card, flush, two_launches,
+           lambda: blockops.gap_compress(rows), None, nbytes, 0, 0)
+    out["gap_compress", "cell1_400"].update(
+        rows=n, runs=total,
+        call_ms=time_ms(lambda: ck.gap_compress(rows), flush))
+    # what the kernels replace: the host's run-domain merge of the pairs
+    # and its metric sweep over them, the host expansion of every block
+    # and the host encoding of the pairs' rows (best host ms of 5 after a
+    # warm-up)
+    from bitmagic_tpu_torch.core import gapstore
+    pairs, blocks = np.arange(n), np.arange(GAP_BLOCKS)
+    host_rows = blockops.to_host_words(rows)
+    out["gap_host_ms"] = {
+        what: best_ms(fn, 5)[0]
+        for what, fn in (
+            ("gap_binary_op_and_400", lambda: gapstore.gap_binary_op(
+                "and", sa, pairs, sb, pairs)),
+            ("gap_metric_counts_400", lambda: gapstore.gap_metric_counts(
+                sa, pairs, sb, pairs)),
+            ("to_dense_768", lambda: sa.subset(blocks).to_dense()),
+            ("from_dense_400", lambda: gapstore.GapStore.from_dense(
+                host_rows)))}
 
 
 def _sweep_reads(rows_by_operand, n_and, slices, group=4):
@@ -4353,7 +4498,7 @@ def main():
     main_launches = dict(ck.launches)
     log(f"main: configs 1-2 passed in {time.perf_counter() - t0:.1f} s; "
         f"launches {main_launches}; phase ms {json.dumps(main_times)}")
-    for k in FIRST_SLICE:
+    for k in FIRST_SLICE + GAP_ROWS:
         check(main_launches[k] > 0, f"main path never launched {k}")
     log(f"main: one query per call, median host wall ms of "
         f"{SINGLE_CALLS} calls: select {main_times['one_select_ms']}, rank "
@@ -4361,10 +4506,10 @@ def main():
         f"{main_times['one_bv_select_ms']}; {smi}")
     a, b = state[0], state[1]
     r = a & b
-    for what, fn, kernel in (
-            ("count()", r.count, "block_counts_kernel"),
+    for what, fn, kernel, beside in (
+            ("count()", r.count, "block_counts_kernel", 0),
             ("distance_operation", lambda: tbm.distance_operation(
-                a, b, list(METRICS)), "count_metrics_kernel")):
+                a, b, list(METRICS)), "count_metrics_kernel", 2)):
         # one run of this check (torch 2.11, H100) once got a trace with
         # no event at all (PERF.md, open questions): trace again, at most
         # twice, when it recorded no kernel, and log how often
@@ -4374,7 +4519,10 @@ def main():
                 break
         log(f"main: {what} put these kernels on the card: {names}; "
             f"empty traces before this one: {retries}")
-        check(len(names) == 1 and kernel in names[0],
+        # beside K2, distance_operation expands each operand's GAP blocks
+        main = [n for n in names if "gap_expand_kernel" not in n]
+        check(len(main) == 1 and kernel in main[0]
+              and len(names) - len(main) <= beside,
               f"{what}: one launch of {kernel} and no sum kernel after it")
     cfg1 = (a._pool, *k2_operands(a, b))
     del a, b, r
@@ -4529,6 +4677,9 @@ def main():
     del cfg1
     log(json.dumps({"floor_ms": tm["floor"], "what": "one-element zero_() "
                     "timed like every kernel", "card": card["smi"]}))
+    log(json.dumps({"gap_host_ms": tm["gap_host_ms"], "what": "the host "
+                    "numpy that gap_expand and gap_compress replace, at "
+                    "bvsetalgebra_rank_select's shapes"}))
     tm.update(search_timings(device, card))
     kernels = []
     shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
@@ -4538,9 +4689,10 @@ def main():
                            "total_config1_1")
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
-                  scan_eq=("config4", "config4b"))
+                  scan_eq=("config4", "config4b"),
+                  gap_expand=("cell1_768",), gap_compress=("cell1_400",))
     for k, meta in KERNELS.items():
-        launches = (main_launches[k] if k in FIRST_SLICE
+        launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
                     else search_launches[k])
         for shape in shapes[k]:
             t = tm[(k, shape)]
@@ -4551,7 +4703,8 @@ def main():
                                   "rows_distinct", "rows_fetched",
                                   "rows_total", "singles_ms",
                                   "popcounts_per_word_pair",
-                                  "planes_staged", "planes_total")
+                                  "planes_staged", "planes_total", "runs",
+                                  "call_ms")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -4575,6 +4728,10 @@ def main():
             entry["note"] = ("its entry point is scan_throughput_program "
                              "(sharded phase); the main paths do not call "
                              "it")
+        if k == "gap_compress":
+            entry["call_ms"] = t["call_ms"]
+            entry["note"] = ("two launches per call (count pass, write "
+                             "pass); ms is both, call_ms the whole call")
         kernels.append(entry)
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(nvidia_smi("name,power.limit"))

@@ -4,8 +4,9 @@ The same API calls on the same numpy-seeded inputs go to both packages;
 the resulting states (``nb``, ``cls``, FULL runs, dense rows, GAP arrays,
 read through ``interop``) and every answer must be identical.  Covers both
 ``from_indices`` strategies, FULL runs from ``set_range``, ``optimize``,
-the four ops through all three ``_binary`` routes (GAP identity, GAP x GAP
-host merge, device kernel), counts, ranges, finds and 48-bit addresses.
+the four ops through both ``_binary`` routes (GAP identity, and the device
+kernel with its GAP x GAP rows re-encoded as D-GAP), counts, ranges,
+finds and 48-bit addresses.
 """
 import numpy as np
 import pytest
@@ -113,25 +114,32 @@ def test_binary_ops_all_routes(pairs, op):
 
 
 def test_binary_routes_taken(pairs, monkeypatch):
-    """All three routes run: GAP pass-through, host GAP x GAP merge and the
-    device kernel."""
+    """Both routes run: GAP pass-through and the device kernel, whose GAP x
+    GAP rows go back to D-GAP through gap_compress; the host run merge
+    does not run."""
     from bitmagic_tpu_torch.core import bitvector as tbv
+    from bitmagic_tpu_torch.core import gapstore as tgs
     (_, _), (ta, tb) = pairs
-    seen = {"merge": 0, "kernel": 0}
-    merge, kern = tbv.gap_binary_op, tbv.ck.binary_op_digest
+    seen = {"merge": 0, "compress": 0, "kernel": 0}
+    comp, kern = tbv.compress_rows, tbv.ck.binary_op_digest
 
     def _merge(*a, **k):
         seen["merge"] += 1
-        return merge(*a, **k)
+        raise AssertionError("host GAP x GAP merge called")
+
+    def _comp(*a, **k):
+        seen["compress"] += 1
+        return comp(*a, **k)
 
     def _kern(*a, **k):
         seen["kernel"] += 1
         return kern(*a, **k)
 
-    monkeypatch.setattr(tbv, "gap_binary_op", _merge)
+    monkeypatch.setattr(tgs, "gap_binary_op", _merge)
+    monkeypatch.setattr(tbv, "compress_rows", _comp)
     monkeypatch.setattr(tbv.ck, "binary_op_digest", _kern)
     r = ta ^ tb
-    assert seen == {"merge": 1, "kernel": 1}
+    assert seen == {"merge": 0, "compress": 1, "kernel": 1}
     # pass-through: b's GAP blocks under a's FULL run come out complemented
     gap_nb = r._struct.nb[r._struct.cls == C.CLS_GAP]
     assert ((gap_nb >= 20) & (gap_nb < 25)).any()

@@ -1,4 +1,4 @@
-"""The six hand-written Hopper kernels against their plain PyTorch
+"""The hand-written Hopper kernels against their plain PyTorch
 versions (or hand-worked counts), on the card.  Every test here needs
 CUDA (marker ``cuda``) and skips without it.  On a machine with an H100
 and no JAX, run them without the suite's conftest (which imports JAX):
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import bitmagic_tpu_torch as tbm
+from bitmagic_tpu_torch import constants as C
 from bitmagic_tpu_torch import interop
 from bitmagic_tpu_torch.ops import blockops
 from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -471,3 +472,82 @@ def test_sharded_steps_launch_per_shard(dev, rng):
                                   h.find_gt(500).to_words())
     np.testing.assert_array_equal(s.find_eq(7).to_words(),
                                   h.find_eq(7).to_words())
+
+
+# ---------------------------------------------------------------------------
+def _run_rows(rng, n):
+    """n rows of 1 to 3000 runs each at random bounds, plus edge rows: all
+    zero, all one, lone bits at 0 and 65535, 65536 one-bit runs."""
+    out = []
+    for k in rng.integers(1, 3000, n):
+        cuts = np.sort(rng.choice(np.arange(1, 65536), k - 1, replace=False))
+        val = (np.arange(k) + rng.integers(0, 2)) & 1
+        bits = np.repeat(val, np.diff(np.concatenate([[0], cuts, [65536]])))
+        out.append(np.packbits(bits.astype(np.uint8),
+                               bitorder="little").view(np.uint32))
+    edge = np.zeros((5, 2048), np.uint32)
+    edge[1] = 0xFFFFFFFF
+    edge[2, 0] = 1
+    edge[3, -1] = 0x80000000
+    edge[4] = 0x55555555
+    return np.concatenate([np.stack(out), edge])
+
+
+@pytest.mark.parametrize("n", [1, 40, 768])
+def test_gap_rows_kernels(dev, rng, n):
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    words = _run_rows(rng, n)
+    store = GapStore.from_dense(words)
+    sel = rng.permutation(words.shape[0]).astype(np.int32)
+    sel_d = torch.from_numpy(sel).to(dev)
+    got = ck.gap_expand(*store.device_arrays(dev), sel_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), blockops.gap_expand(
+        *store.device_arrays("cpu"), torch.from_numpy(sel)))
+    assert np.array_equal(blockops.to_host_words(got), words[sel])
+    for g, w in zip(ck.gap_compress(got), blockops.gap_compress(got.cpu())):
+        torch.cuda.synchronize()
+        assert torch.equal(g.cpu(), w)
+    assert ck.launches["gap_expand"] == 1
+    assert ck.launches["gap_compress"] == 2
+
+
+def test_gap_routes_on_card_match_cpu(dev, rng, monkeypatch):
+    """GAP x GAP, GAP x FULL and GAP x ZERO pairs through the four ops and
+    distance_operation on the card give the CPU's state and answers, and
+    neither host run merge runs."""
+    from bitmagic_tpu_torch.core import gapstore
+    size = 40 * 65536
+    runs = rng.integers(0, size - 300, 4000)
+    ids_a = (runs[:, None] + np.arange(100)).ravel()
+    ids_b = np.concatenate([(runs[:2000, None] + 150
+                             + np.arange(100)).ravel(),
+                            np.arange(65536 * 30, 65536 * 33)])
+    dense = rng.integers(0, 10 * 65536, 100000)      # BIT blocks 0-9
+
+    def refuse(*a, **k):
+        raise AssertionError("host run-domain merge called")
+
+    out = {}
+    for d in ("cpu", dev):
+        a = tbm.BitVector.from_indices(ids_a, size, device=d, strategy=1)
+        a |= tbm.BitVector.from_indices(dense, size, device=d)
+        b = tbm.BitVector.from_indices(ids_b, size, device=d, strategy=1)
+        a.optimize()
+        b.optimize()
+        assert (a._struct.cls == C.CLS_GAP).sum() > 20
+        assert (b._struct.cls == C.CLS_GAP).sum() > 20
+        with monkeypatch.context() as m:
+            m.setattr(gapstore, "gap_binary_op", refuse)
+            m.setattr(gapstore, "gap_metric_counts", refuse)
+            out[str(d)] = [interop.bitvector_to_parts(getattr(a, op)(b))
+                           for op in ("__and__", "__or__", "__xor__",
+                                      "__sub__")]
+            out[str(d)].append(tbm.distance_operation(
+                a, b, list(blockops.METRICS)))
+    got, want = out[str(dev)], out["cpu"]
+    for g, w in zip(got[:4], want[:4]):
+        for key in interop.PARTS:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    assert got[4] == want[4]
+    assert ck.launches["gap_expand"] and ck.launches["gap_compress"]
