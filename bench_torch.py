@@ -93,6 +93,9 @@ KERNELS = {
                    ("gap_expand_kernel",)),
     "gap_compress": ("gap_compress", CSRC + "gap_rows.cu",
                      ("gap_count_kernel", "gap_write_kernel")),
+    "sv_gather": ("sv_gather", CSRC + "sv_planes.cu", ("sv_gather_kernel",)),
+    "sv_transpose": ("sv_transpose", CSRC + "sv_planes.cu",
+                     ("sv_transpose_kernel",)),
 }
 
 
@@ -786,7 +789,7 @@ class RangeGatherTraffic:
         """Bytes K1 and K3 must move in one find_gt with its count: the
         descent's rows from the planes' and the NULL plane's block states
         (``descent_bytes``), K3 the result's dense rows and its total.
-        The gather launches no hand kernel."""
+        The gather's kernel, sv_gather, has no bytes here yet."""
         sv = self.sv
         if not sv.is_nullable():
             raise ValueError("bench_torch: the descent's bytes start from "

@@ -29,7 +29,7 @@ import torch
 
 from ..constants import CLS_BIT, CLS_FULL, CLS_GAP, SET_BLOCK_SIZE
 from ..ops import cuda_kernels as ck
-from ..ops.blockops import gather_rows
+from ..ops.blockops import PLANE_COLS, PlaneTable, gather_rows
 
 # symbolic per-block operand state used during planning
 _Z, _F, _B, _G = 0, 1, 2, 3   # zero / full / bit-row / host GAP buffer
@@ -445,3 +445,44 @@ def operand_args(v, blocklist: np.ndarray):
     st, slot = v._struct.lookup(blocklist)
     return descriptor(v._pool, np.where(st == _B, slot, -1), st == _F,
                       v._gaps, np.where(st == _G, slot, -1))
+
+
+def plane_table(planes, device) -> PlaneTable:
+    """The plane table kernel sv_gather reads (``blockops.PlaneTable``) of
+    ``planes``, a list of ``(bit, Structure, pool, GapStore or None)``
+    (bit -1: the NULL plane), on ``device``: O(blocks + runs) host work
+    from the structures' arrays, one upload, and each GAP store's device
+    mirror."""
+    P = len(planes)
+    meta = np.zeros((P, len(PLANE_COLS)), np.int64)
+    nbs, ents, runs, pools, gaps = [], [], [], [], []
+    nb_off = run_off = 0
+    for p, (bit, st, pool, store) in enumerate(planes):
+        is_bit, is_gap = st.cls == CLS_BIT, st.cls == CLS_GAP
+        if pool.shape[0] < int(is_bit.sum()) or (is_gap.any()
+                                                 and store is None):
+            raise ValueError("plane_table: structure and storage disagree")
+        mirror = store.device_arrays(device) if store is not None else None
+        ent = np.where(is_bit, st.slots(), -1)
+        ent = np.where(is_gap, -2 - st.gslots(), ent)
+        nbs.append(st.nb)
+        ents.append(ent.astype(np.int32))
+        runs.append(st.runs.reshape(-1))
+        pools.append(pool)
+        gaps.append(mirror)
+        gap_ptrs = ([m.data_ptr() for m in mirror] if mirror is not None
+                    else [0, 0, 0])
+        meta[p] = (nb_off, st.nb.size, run_off, st.runs.shape[0],
+                   pool.data_ptr(), *gap_ptrs, bit)
+        nb_off += st.nb.size
+        run_off += st.runs.shape[0]
+    ent = np.concatenate(ents + [np.zeros(nb_off % 2, np.int32)])
+    parts = [meta.ravel(), *nbs, *runs, ent.view(np.int64)]
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    at = np.cumsum([0, meta.size, nb_off, 2 * run_off])
+    ent = (buf[at[3]:].view(torch.int32)[:nb_off] if nb_off
+           else torch.zeros(0, dtype=torch.int32, device=buf.device))
+    return PlaneTable(
+        meta=meta, table=buf[:at[1]].view(P, len(PLANE_COLS)),
+        nb=buf[at[1]:at[2]], runs=buf[at[2]:at[3]].view(run_off, 2),
+        ent=ent, pools=pools, gaps=gaps)

@@ -22,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), os.pardir, "_build")
 BUILD_DIR = os.path.normpath(BUILD_DIR)
 SOURCES = ("block_counts.cu", "count_op.cu", "logical_op_digest.cu",
-           "agg_sub.cu", "pipeline_counts.cu", "scan_eq.cu", "gap_rows.cu")
+           "agg_sub.cu", "pipeline_counts.cu", "scan_eq.cu", "gap_rows.cu",
+           "sv_planes.cu")
 HEADERS = ("bm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,13 +1,14 @@
 """Block-level ops over dense pools ``int32[n_blocks, 2048]`` — plain
 PyTorch versions (port of ``bitmagic_tpu/ops/blockops.py``).
 
-These are the canonical semantics.  Eight families also have a
+These are the canonical semantics.  Ten families also have a
 hand-written Hopper kernel in ``cuda_kernels.py`` with the same signature:
 ``block_counts`` (and its total form), ``count_op`` / ``count_metrics``
 (and its total form), ``logical_op_digest`` /
 ``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
-``pipeline_counts``, ``scan_eq``, and the D-GAP conversions
-``gap_expand`` / ``gap_compress``.  The wrappers there run the plain
+``pipeline_counts``, ``scan_eq``, the D-GAP conversions
+``gap_expand`` / ``gap_compress``, and the SparseVector's multi-plane
+``sv_gather`` and import ``sv_transpose``.  The wrappers there run the plain
 version below only for tensors on the CPU; on the card they launch the
 kernel.  The other functions here have no kernel in the JAX package either
 and stay plain PyTorch on every device.
@@ -21,6 +22,8 @@ Conventions:
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -537,6 +540,100 @@ def gap_compress(rows):
     ends[torch.arange(at.shape[0], device=dev) + (at >> 16)] = (
         at & (BITS_PER_BLOCK - 1)).to(_I32)
     return ends, offs.to(_I32), (w[:, 0] & 1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# SparseVector planes: the multi-plane gather and the import transpose
+# ---------------------------------------------------------------------------
+# columns of a plane-table row (sv_planes.cu struct Plane)
+PLANE_COLS = ("nb_off", "nb_len", "run_off", "run_len", "pool", "ends",
+              "offs", "first", "bit")
+
+
+@dataclasses.dataclass
+class PlaneTable:
+    """The planes of one column, as ``sv_gather`` reads them
+    (``core/blocks.plane_table`` builds it).  Per plane ``p``, row ``p`` of
+    ``meta`` (int64[P, 9], columns ``PLANE_COLS``) gives its slices of
+    the concatenated ``nb`` (sorted block ids), ``ent`` (per block: pool
+    row >= 0 of a BIT block, -1 FULL, -2 - g D-GAP block g) and ``runs``
+    ([start, end) FULL block runs), the addresses of its pool and GAP
+    store mirror, and the value bit it sets (-1: the NULL plane, whose 0
+    bits zero the value).  ``table`` is ``meta`` on the device; ``pools``
+    and ``gaps`` hold the tensors it points into, and keep them alive."""
+    meta: np.ndarray
+    table: torch.Tensor
+    nb: torch.Tensor
+    ent: torch.Tensor
+    runs: torch.Tensor
+    pools: list
+    gaps: list
+
+
+def _plane_bits(t: PlaneTable, p, blk, nbit):
+    """bool[n]: bit ``nbit`` of block ``blk`` in plane ``p``."""
+    o, n, ro, rn = (int(x) for x in t.meta[p, :4])
+    val = torch.zeros(blk.shape, dtype=torch.bool, device=blk.device)
+    if rn:                          # the last run starting at or before blk
+        rs = t.runs[ro:ro + rn]
+        k = torch.searchsorted(rs[:, 0].contiguous(), blk, right=True) - 1
+        val = (k >= 0) & (blk < rs[k.clamp(min=0), 1])
+    if not n:
+        return val
+    nb = t.nb[o:o + n]
+    pos = torch.searchsorted(nb, blk).clamp(max=n - 1)
+    found = nb[pos] == blk
+    e = t.ent[o:o + n][pos].to(_I64)
+    val = torch.where(found, e == -1, val)
+    pool = t.pools[p]
+    if pool.shape[0]:
+        w = pool.reshape(-1)[e.clamp(min=0) * SET_BLOCK_SIZE + (nbit >> 5)]
+        val |= found & (e >= 0) & (((w >> (nbit & 31)) & 1) == 1)
+    if t.gaps[p] is not None:       # the first run ending at or after nbit
+        ends, offs, first = (a.to(_I64) for a in t.gaps[p])
+        g = (-2 - e).clamp(min=0)
+        run_blk = torch.repeat_interleave(
+            torch.arange(first.shape[0], device=blk.device), offs.diff())
+        r = torch.searchsorted(run_blk * BITS_PER_BLOCK + ends,
+                               g * BITS_PER_BLOCK + nbit)
+        val |= found & (e <= -2) & (((first[g] ^ (r - offs[g])) & 1) == 1)
+    return val
+
+
+def sv_gather(ids, table: PlaneTable):
+    """The value image ``u`` int64[n] of ids int64[n] over a column's
+    plane table: bit ``s`` of ``u`` is the id's bit in the plane of value
+    bit ``s``, and ``u`` is 0 where the NULL plane's bit is 0 (the JAX
+    package's ``_gather_decode_kernel`` with its FULL, D-GAP and NULL
+    patches)."""
+    blk = ids >> 16
+    nbit = ids & (BITS_PER_BLOCK - 1)
+    u = torch.zeros_like(ids)
+    assigned = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    for p in range(table.meta.shape[0]):
+        val = _plane_bits(table, p, blk, nbit)
+        bit = int(table.meta[p, -1])
+        if bit >= 0:
+            u |= val.to(_I64) << bit
+        else:
+            assigned = val
+    return torch.where(assigned, u, 0)
+
+
+def sv_transpose(vals, n_slices):
+    """Plane word image int32[n_slices, ceil(n / 32)] of values ``vals``
+    (int32 holding uint32 values, or int64 holding uint64): word w of
+    plane s holds bit s of values 32w .. 32w + 31, LSB first; values past
+    n read as 0 (the JAX package's ``_transpose_kernel``)."""
+    n = vals.shape[0]
+    n_words = -(-n // 32)
+    v = torch.zeros(n_words * 32, dtype=_I64, device=vals.device)
+    v[:n] = as_u32_int64(vals) if vals.dtype == _I32 else vals
+    v = v.reshape(n_words, 32)
+    out = torch.empty((n_slices, n_words), dtype=_I32, device=vals.device)
+    for s in range(n_slices):
+        out[s] = pack_bits_to_words((v >> s) & 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

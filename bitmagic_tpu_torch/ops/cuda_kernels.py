@@ -18,6 +18,10 @@ scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
 gap_expand,            gap_rows.cu                  no TPU kernel: the host
 gap_compress                                        GAP merges gapstore.py:313
                                                     and :375
+sv_gather              sv_planes.cu                 sv/sparse_vector.py:70
+                                                    (_gather_decode_kernel)
+sv_transpose           sv_planes.cu                 sv/sparse_vector.py:53
+                                                    (_transpose_kernel)
 =====================  ===========================  =========================
 
 Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``,
@@ -53,13 +57,16 @@ _LL = ctypes.c_longlong
 
 launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
             "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0,
-            "gap_expand": 0, "gap_compress": 0}
+            "gap_expand": 0, "gap_compress": 0, "sv_gather": 0,
+            "sv_transpose": 0}
 # most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
 # memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
 # most staged planes B5 keeps in registers (pipeline_counts.cu register
 # path); above it the shared-memory path runs
 PIPELINE_REG_PLANES = 72
+# most planes sv_gather takes: 64 value planes and the NULL plane
+SV_MAX_PLANES = 65
 
 _SIGNATURES = {
     "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP, _VP]),
@@ -80,6 +87,9 @@ _SIGNATURES = {
     "bm_gap_expand": ("gap_rows.cu", [_VP, _VP, _VP, _VP, _INT, _VP, _VP]),
     "bm_gap_count": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
     "bm_gap_write": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
+    "bm_sv_gather": ("sv_planes.cu",
+                     [_VP, _LL, _VP, _INT, _VP, _VP, _VP, _VP, _VP]),
+    "bm_sv_transpose": ("sv_planes.cu", [_VP, _LL, _INT, _INT, _VP, _VP]),
 }
 
 
@@ -557,3 +567,59 @@ def gap_compress(rows):
     _launch("bm_gap_write", "gap_compress", dev, _ptr(rows), n, _ptr(offs),
             _ptr(ends))
     return ends, offs, first
+
+
+# ---------------------------------------------------------------------------
+# SparseVector planes: multi-plane gather, import transpose (sv_planes.cu)
+# ---------------------------------------------------------------------------
+def sv_gather(ids, table):
+    """Value image int64[n] of ids int64[n] over a column's plane table
+    (``blockops.PlaneTable`` of ``core/blocks.plane_table``): bit s of an
+    id's image is its bit in the plane of value bit s, and the image is 0
+    where the NULL plane's bit is 0.  One launch."""
+    tensors = (ids, table.table, table.nb, table.ent, table.runs,
+               *table.pools, *(a for g in table.gaps if g is not None
+                               for a in g))
+    if not _on_cuda(*tensors):
+        return blockops.sv_gather(ids, table)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("sv_gather: ids and plane table on different "
+                         "devices")
+    _check(ids, "ids", _I64, align=8)
+    P = table.meta.shape[0]
+    if table.table.shape != (P, len(blockops.PLANE_COLS)):
+        raise ValueError("sv_gather: malformed plane table")
+    for t, what, dt in ((table.table, "table", _I64), (table.nb, "nb", _I64),
+                        (table.ent, "ent", _I32), (table.runs, "runs", _I64)):
+        _check(t, what, dt, tuple(t.shape[1:]), align=t.element_size())
+    if P > SV_MAX_PLANES:
+        raise ValueError(f"sv_gather: {P} planes; at most {SV_MAX_PLANES}")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=_I64, device=ids.device)
+    if n:
+        _launch("bm_sv_gather", "sv_gather", ids.device, _ptr(ids), n,
+                _ptr(table.table), P, _ptr(table.nb), _ptr(table.ent),
+                _ptr(table.runs), _ptr(out))
+    return out
+
+
+def sv_transpose(vals, n_slices):
+    """Plane word image int32[n_slices, ceil(n / 32)] of values ``vals``
+    int32[n] (uint32 values, n_slices <= 32) or int64[n] (uint64 values):
+    word w of plane s holds bit s of values 32w .. 32w + 31, LSB first."""
+    if not _on_cuda(vals):
+        return blockops.sv_transpose(vals, n_slices)
+    n_slices = int(n_slices)
+    if vals.dtype not in (_I32, _I64) or vals.dim() != 1:
+        raise TypeError("sv_transpose: values must be int32[n] or int64[n]")
+    _check(vals, "vals", vals.dtype, align=vals.element_size())
+    if not 1 <= n_slices <= (32 if vals.dtype == _I32 else 64):
+        raise ValueError(f"sv_transpose: {n_slices} slices of "
+                         f"{vals.element_size()}-byte values")
+    n = vals.shape[0]
+    out = torch.empty((n_slices, -(-n // 32)), dtype=_I32,
+                      device=vals.device)
+    if n:
+        _launch("bm_sv_transpose", "sv_transpose", vals.device, _ptr(vals),
+                n, vals.element_size(), n_slices, _ptr(out))
+    return out

@@ -11,9 +11,11 @@ magnitudes shifted up, src/bmbmatrix.h:2294), so ordering by slices works
 unchanged and the planes are bit-compatible with the reference BLOB format.
 
 Bulk ``from_array`` bit-transposes the values on the vector's device in
-plain PyTorch (the JAX package runs the same transpose as one XLA program,
-``_transpose_kernel``); ``gather`` decodes every plane's word of each
-queried element on the device (``_gather_decode_kernel`` there).
+one launch of kernel ``sv_transpose``, and ``gather`` assembles every
+queried value from every plane, NULL plane included, in one launch of
+kernel ``sv_gather`` over the column's plane table (``ops/csrc/
+sv_planes.cu``; the JAX package's ``_transpose_kernel`` and
+``_gather_decode_kernel``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 from .. import constants as C
 from ..config import resolve_device
 from ..core.bitvector import BitVector, check_writable
-from ..core.blocks import _B, _F, _G, Structure
-from ..ops.blockops import pack_bits_to_words
+from ..core.blocks import Structure, plane_table
+from ..ops import cuda_kernels as ck
 
 _I64 = np.int64
 
@@ -43,18 +45,17 @@ def value_fits(value, dtype) -> bool:
     return info.min <= v <= info.max
 
 
-def _transpose(u: np.ndarray, n_slices: int, n_words: int, device):
-    """Values (uint64, padded to n_words * 32) -> plane word image
-    int32[n_slices, n_words] on ``device``: word w of plane s holds bit s
-    of values 32w .. 32w + 31, LSB-first (the reference's import
-    transpose, src/bmsparsevec.h:1185-1330)."""
-    pad = np.zeros(n_words * 32, np.uint64)
-    pad[:u.size] = u
-    v = torch.from_numpy(pad.view(np.int64)).to(device).reshape(n_words, 32)
-    out = torch.empty((n_slices, n_words), dtype=torch.int32, device=device)
-    for s in range(n_slices):
-        out[s] = pack_bits_to_words((v >> s) & 1)
-    return out
+def _transpose(u: np.ndarray, n_slices: int, device):
+    """Values (uint64) -> plane word image int32[n_slices, ceil(n / 32)]
+    on ``device``: word w of plane s holds bit s of values 32w .. 32w +
+    31, LSB-first (the reference's import transpose,
+    src/bmsparsevec.h:1185-1330).  The values go up as 4 bytes each where
+    every one fits 32 bits."""
+    if n_slices <= 32:
+        v = u.astype(np.uint32).view(np.int32)
+    else:
+        v = np.ascontiguousarray(u).view(np.int64)
+    return ck.sv_transpose(torch.from_numpy(v).to(device), n_slices)
 
 
 def _bv_from_plane_words(words: torch.Tensor, word_offset: int
@@ -174,9 +175,7 @@ class SparseVector:
 
     def _import_aligned(self, u: np.ndarray, offset: int):
         n = u.size
-        n_words = -(-n // 32)
-        words = _transpose(u, self._effective_slices(u), n_words,
-                           self._device)
+        words = _transpose(u, self._effective_slices(u), self._device)
         n_sl = words.shape[0]
         nonzero = (words != 0).any(dim=1).cpu().numpy()
         word_off = offset // 32
@@ -335,50 +334,40 @@ class SparseVector:
     # bulk export (reference decode / gather, block-aligned extraction)
     # ------------------------------------------------------------------
     def gather(self, ids) -> np.ndarray:
-        """Values at the given indices (reference gather): every plane's
-        word of each element is read on the device and the value assembled
-        there; FULL and GAP blocks are patched in on the host."""
+        """Values at the given indices (reference gather): one upload of
+        the ids, one ``sv_gather`` launch over the plane table, one
+        download; NULL elements read 0."""
         self._flush()
         ids = np.asarray(ids, _I64)
-        dev = self._device
-        word_idx = torch.from_numpy((ids & C.SET_BLOCK_MASK) >> 5).to(dev)
-        bit_in = torch.from_numpy(ids & 31).to(dev)
-        blocks = ids >> C.SET_BLOCK_SHIFT
-        u_dev = torch.zeros(ids.shape, dtype=torch.int64, device=dev)
-        for s, p in enumerate(self.planes):
-            if p is None:
-                continue
-            p._flush()
-            if p._pool.shape[0] == 0:
-                continue
-            st, slot = p._struct.lookup(blocks)
-            sl = torch.from_numpy(np.where(st == _B, slot, -1)).to(dev)
-            w = p._pool.reshape(-1)[(sl * C.SET_BLOCK_SIZE
-                                     + word_idx).clamp(min=0)]
-            bit = torch.where(sl < 0, 0, (w >> bit_in) & 1)
-            u_dev |= bit << s
-        u = u_dev.cpu().numpy().view(np.uint64)
-        # host-side patch for FULL and GAP-resident blocks (rare)
-        for s, p in enumerate(self.planes):
-            if p is None:
-                continue
-            has_full = ((p._struct.cls == C.CLS_FULL).any()
-                        or p._struct.has_runs)
-            if not has_full and p._gaps is None:
-                continue
-            st, slot = p._struct.lookup(blocks)
-            fm = st == _F
-            if fm.any():
-                u[fm] |= np.uint64(1) << np.uint64(s)
-            gm = st == _G
-            if gm.any():
-                bits = p._gaps.test_bits(slot[gm], ids[gm] & C.SET_BLOCK_MASK)
-                u[gm] |= bits.astype(np.uint64) << np.uint64(s)
-        vals = self.u2s(u)
+        if ids.size == 0:
+            return np.zeros(ids.shape, self.dtype)
+        t = torch.from_numpy(np.ascontiguousarray(ids.reshape(-1)))
+        u = ck.sv_gather(t.to(self._device), self._plane_table())
+        return self.u2s(u.cpu().numpy().view(np.uint64).reshape(ids.shape))
+
+    def _plane_table(self):
+        """The column's plane table (value planes, then the NULL plane),
+        built at the first gather and kept while every plane holds the
+        same structure, pool and GAP store: no operation of the port
+        changes those in place (a change installs new ones), so a plane
+        that changed, or a plane list that did, misses the cache.  The
+        cache holds the objects it was built from, so none of them can be
+        freed and their identities reused while it stands."""
+        planes = [(s, p) for s, p in enumerate(self.planes) if p is not None]
         if self.nullable:
-            nm = ~self.null_plane.get_bits(ids)
-            vals = np.where(nm, np.asarray(0, self.dtype), vals)
-        return vals
+            planes.append((-1, self.null_plane))
+        for _, p in planes:
+            p._flush()
+        bits = (str(self._device), *(s for s, _ in planes))
+        objs = [x for _, p in planes
+                for x in (p, p._struct, p._pool, p._gaps)]
+        cached = getattr(self, "_gather_table", None)
+        if (cached is None or cached[0] != bits or len(cached[1]) != len(objs)
+                or any(a is not b for a, b in zip(cached[1], objs))):
+            cached = self._gather_table = (bits, objs, plane_table(
+                [(s, p._struct, p._pool, p._gaps) for s, p in planes],
+                self._device))
+        return cached[2]
 
     def decode(self, lo: int, n: int) -> np.ndarray:
         """Dense range export [lo, lo+n) (reference decode)."""

@@ -30,6 +30,11 @@ only when every phase passed):
               at bvsetalgebra_rank_select's shapes (768 D-GAP blocks of 1
               to 256 runs expanded, 400 AND rows re-encoded) and on edge
               rows (1-run blocks, lone bits at 0 and 65535, 65536 runs);
+              sv_gather over columns with BIT, D-GAP, FULL and FULL-run
+              blocks, absent planes, a NULL plane that is BIT and one
+              that is a FULL run, signed and 64-bit values and ids past
+              the end (and against the values), sv_transpose over 1 to 64
+              slices of 4- and 8-byte values;
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
@@ -50,7 +55,9 @@ only when every phase passed):
               mode (one B4 launch for the batch); every answer against
               numpy;
  6. scan    — config 4b (bench.py:280): a nullable 16M-element uint32
-              SparseVector (values < 2^20, ~1 % NULL); a prepared pipeline
+              SparseVector (values < 2^20, ~1 % NULL) from from_array
+              (sv_transpose's device time split out), a gather of 1M ids
+              (sv_gather; host wall and device busy); a prepared pipeline
               counting 256 values, pipeline_find_eq of 8 values, find_eq,
               find_first_eq, find_ne and find_nonzero against numpy;
  7. algo    — the rest of BitVector and the algorithms on configs 1-2's
@@ -198,7 +205,9 @@ only when every phase passed):
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; gap_expand over 768 blocks and
               gap_compress's two launches over 400 rows (and its whole
-              call, with the scalar sync between them); the floor of a
+              call, with the scalar sync between them); sv_gather at
+              column_range_gather's shape (16M rows, 1M ids) and
+              sv_transpose at 16M values and 20 slices; the floor of a
               timed launch; K3 after a flush that leaves L2 clean.
 
 Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, each leg
@@ -289,10 +298,22 @@ KERNELS = {
         source="bitmagic_tpu_torch/ops/csrc/gap_rows.cu",
         replaces="bitmagic_tpu/core/gapstore.py:313 (host numpy "
                  "gap_binary_op; no TPU kernel)"),
+    # the SparseVector's two jitted device programs (no Pallas)
+    "sv_gather": dict(
+        source="bitmagic_tpu_torch/ops/csrc/sv_planes.cu",
+        replaces="bitmagic_tpu/sv/sparse_vector.py:70 "
+                 "(_gather_decode_kernel, jitted XLA)"),
+    "sv_transpose": dict(
+        source="bitmagic_tpu_torch/ops/csrc/sv_planes.cu",
+        replaces="bitmagic_tpu/sv/sparse_vector.py:53 "
+                 "(_transpose_kernel, jitted XLA)"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
 # the D-GAP kernels the main path's set ops and metrics launch
 GAP_ROWS = ("gap_expand", "gap_compress")
+# the kernels config 4b's from_array and gather launch (scan path)
+SV_PLANES = ("sv_gather", "sv_transpose")
+SV_GATHER_IDS = 1_000_000       # config 4b's gather (column_range_gather's)
 # bvsetalgebra_rank_select's D-GAP shapes: each vector holds about 768
 # D-GAP blocks of 1 to 256 runs; 400 block pairs are GAP in both
 GAP_BLOCKS, GAP_RUNS_MAX, GAP_PAIRS = 768, 256, 400
@@ -441,6 +462,7 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
     count_kernels_vs_plain(rng, device, cmp)
     search_kernels_vs_plain(rng, device, cmp)
     gap_kernels_vs_plain(rng, device, cmp)
+    sv_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
@@ -509,6 +531,80 @@ def gap_kernels_vs_plain(rng, device, cmp):
     for key in ("ends", "offs", "first"):
         check(np.array_equal(getattr(back, key), getattr(want, key)),
               f"gap_compress {key} equals GapStore.from_dense")
+
+
+def sv_columns(tbm, rng, device):
+    """Columns on the card with every block kind, each with its values
+    as the gather must return them (NULL rows 0): a nullable uint32
+    column of 34 blocks (block 0 random BIT rows, blocks 1-2 D-GAP after
+    optimize, bit 21 set on every row, so plane 21 is one FULL run, planes
+    20 and 22-31 absent; 1 % NULL past block 0, so the NULL plane is FULL
+    then BIT), the same values with every row assigned (the NULL plane a
+    FULL run), a nullable int64 column at the dtype's edges and a
+    non-nullable int32 column."""
+    n = 34 * BPB + 777
+    v = rng.integers(0, 1 << SV_BITS, n).astype(np.uint32)
+    sparse = v[BPB:3 * BPB]
+    sparse[rng.random(sparse.size) > 0.002] = 0
+    v |= np.uint32(1 << 21)
+    nm = rng.random(n) < 0.01
+    nm[:BPB] = False
+    s64 = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                       200_000, endpoint=True)
+    s64[:3] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1]
+    s32 = s64.astype(np.int32)
+    out = []
+    for vals, kw, live in ((v, dict(null_mask=nm), np.where(nm, 0, v)),
+                           (v, dict(nullable=True), v),
+                           (s64, dict(nullable=True), s64), (s32, {}, s32)):
+        c = tbm.SparseVector.from_array(vals, device=device, **kw)
+        c.optimize()
+        out.append((c, live))
+    return out
+
+
+def sv_kernels_vs_plain(rng, device, cmp):
+    """sv_gather over the plane tables of ``sv_columns`` (every block kind
+    in value planes and NULL planes, signed and 64-bit values, ids past
+    the end) and sv_transpose over 1 to 64 slices of 4- and 8-byte values,
+    each against its plain version on the card; the gathers also against
+    the columns' values."""
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    kinds = set()
+    for c, live in sv_columns(tbm, rng, device):
+        for p in c.planes + [c.null_plane]:
+            if p is None:
+                kinds.add("absent")
+                continue
+            kinds.update(int(k) for k in np.unique(p._struct.cls))
+            if p._struct.has_runs:
+                kinds.add("runs")
+        n = live.size
+        ids = np.concatenate([rng.integers(0, n + 3 * BPB, 200_000),
+                              [0, n - 1, n, 1 << 40]])
+        table = c._plane_table()
+        d_ids = torch.from_numpy(ids).to(device)
+        cmp("sv_gather", ck.sv_gather(d_ids, table),
+            blockops.sv_gather(d_ids, table))
+        want = np.zeros(ids.size, live.dtype)
+        inside = ids < n
+        want[inside] = live[ids[inside]]
+        check(np.array_equal(c.gather(ids), want),
+              f"sv_gather: {c.dtype} column gather equals its values")
+    check(kinds >= {"absent", "runs", 1, 2, 3},
+          f"sv columns hold every block kind: {kinds}")
+    for n, n_slices, dt in ((32 * 999 + 5, 1, torch.int32),
+                            (32 * 999 + 5, 32, torch.int32),
+                            (SV_GATHER_IDS + 3, SV_BITS, torch.int32),
+                            (32 * 999 + 5, 33, torch.int64),
+                            (SV_GATHER_IDS + 3, 64, torch.int64)):
+        info = torch.iinfo(dt)
+        vals = torch.from_numpy(rng.integers(
+            info.min, info.max, n, endpoint=True)).to(dt).to(device)
+        cmp("sv_transpose", ck.sv_transpose(vals, n_slices),
+            blockops.sv_transpose(vals, n_slices))
 
 
 def count_kernels_vs_plain(rng, device, cmp):
@@ -1147,18 +1243,35 @@ def config4b_values():
 
 def scan_path(tbm, device):
     """Config 4b through the scanner's entry points: a nullable 16M-element
-    uint32 SparseVector with values < 2^20 and ~1 % NULL; answers against
-    np.bincount and ==."""
+    uint32 SparseVector with values < 2^20 and ~1 % NULL, built by
+    from_array (its wall split into sv_transpose's device time and the
+    rest), a gather of SV_GATHER_IDS ids (host wall and device busy);
+    answers against np.bincount, == and the values."""
     times = {}
     rng, vals, nm = config4b_values()
     live = np.where(nm, np.uint32(0), vals)
+
+    def build():
+        return tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
+                                           device=device)
+
     with Clock("from_array_16M_ms", times):
-        sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
-                                         device=device)
+        sv = build()
     check(sv.size == SV_N and sv.effective_slices() == SV_BITS,
           "config 4b planes")
-    ids = rng.integers(0, SV_N, 100_000)
+    ev = [e.device_time_total for e in traced_device_events(build)
+          if "sv_transpose_kernel" in e.name]
+    if ev:
+        times["from_array_16M_sv_transpose_device_ms"] = sum(ev) / 1e3
+        times["from_array_16M_rest_ms"] = (times["from_array_16M_ms"]
+                                           - sum(ev) / 1e3)
+    else:
+        times["from_array_16M_sv_transpose_device_ms"] = "not measured"
+    ids = rng.integers(0, SV_N, SV_GATHER_IDS)
     check(np.array_equal(sv.gather(ids), live[ids]), "config 4b gather")
+    wall, busy, top = device_busy(lambda: sv.gather(ids))
+    times["gather_1M_ms"], times["gather_1M_busy_ms"] = wall, busy
+    times["gather_1M_device_ms_by_kernel"] = top
     counts = np.bincount(vals[~nm], minlength=1 << SV_BITS)
     queries = rng.integers(1, 1 << SV_BITS, SV_QUERIES)
     queries[0] = 0                              # the find_zero route
@@ -4182,7 +4295,47 @@ def timings(device, card, cfg1):
             out["count_op", form + ms_name].update(
                 rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
     gap_timings(rng, device, card, flush, out)
+    sv_timings(rng, device, card, flush, out)
     return out
+
+
+def sv_gather_bytes(table, n_ids) -> int:
+    """Bytes sv_gather must move: each id read and its image written (8 B
+    each), the plane table, and every plane's BIT rows and D-GAP mirror
+    read once."""
+    nbytes = 16 * n_ids + sum(t.numel() * t.element_size() for t in (
+        table.table, table.nb, table.ent, table.runs))
+    nbytes += sum(p.shape[0] * 8192 for p in table.pools)
+    nbytes += sum(a.numel() * a.element_size() for g in table.gaps
+                  if g is not None for a in g)
+    return nbytes
+
+
+def sv_timings(rng, device, card, flush, out):
+    """sv_gather at column_range_gather's shape (16M nullable values <
+    2^20, every row assigned, SV_GATHER_IDS uniform ids) and sv_transpose
+    at config 4b's import (16M 4-byte values, 20 slices).  Bounds: the
+    bytes read and written once, at the card's memory rate."""
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    vals = rng.integers(0, 1 << SV_BITS, SV_N).astype(np.uint32)
+    sv = tbm.SparseVector.from_array(vals, nullable=True, device=device)
+    table = sv._plane_table()
+    ids = torch.from_numpy(rng.integers(0, SV_N, SV_GATHER_IDS)).to(device)
+    record(out, ("sv_gather", "cell3"), card, flush,
+           lambda: ck.sv_gather(ids, table),
+           lambda: blockops.sv_gather(ids, table), None,
+           sv_gather_bytes(table, SV_GATHER_IDS), 0, 0)
+    out["sv_gather", "cell3"].update(
+        ids=SV_GATHER_IDS, planes=table.meta.shape[0],
+        rows=sum(p.shape[0] for p in table.pools))
+    d = torch.from_numpy(vals.view(np.int32)).to(device)
+    n_words = -(-SV_N // 32)
+    record(out, ("sv_transpose", "16M_20"), card, flush,
+           lambda: ck.sv_transpose(d, SV_BITS),
+           lambda: blockops.sv_transpose(d, SV_BITS), None,
+           4 * SV_N + 4 * SV_BITS * n_words, 0, 0)
 
 
 def gap_timings(rng, device, card, flush, out):
@@ -4545,7 +4698,8 @@ def main():
         log(f"{path}: config {'3' if path == 'agg' else '4b'} passed in "
             f"{time.perf_counter() - t0:.1f} s; launches "
             f"{path_launches[path]}; phase ms {json.dumps(times)}")
-        for k in ("agg_and_sub", "pipeline_counts"):
+        for k in ("agg_and_sub", "pipeline_counts") + (
+                SV_PLANES if path == "scan" else ()):
             check(path_launches[path][k] > 0,
                   f"{path} path never launched {k}")
         if path == "agg":
@@ -4690,7 +4844,8 @@ def main():
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"),
-                  gap_expand=("cell1_768",), gap_compress=("cell1_400",))
+                  gap_expand=("cell1_768",), gap_compress=("cell1_400",),
+                  sv_gather=("cell3",), sv_transpose=("16M_20",))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
                     else search_launches[k])
@@ -4704,7 +4859,7 @@ def main():
                                   "rows_total", "singles_ms",
                                   "popcounts_per_word_pair",
                                   "planes_staged", "planes_total", "runs",
-                                  "call_ms")
+                                  "call_ms", "ids", "planes")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -4723,11 +4878,15 @@ def main():
                  "multihost_launches": multihost_launches[k],
                  "max_abs_err": err[k], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                 "bound_by": t["bound_by"], "bytes": t["bytes"],
+                 "library_ms": t["library_ms"]}
         if k == "scan_eq":
             entry["note"] = ("its entry point is scan_throughput_program "
                              "(sharded phase); the main paths do not call "
                              "it")
+        if k in SV_PLANES:
+            entry["note"] = ("launches: config 4b's from_array and gather "
+                             "(scan path)")
         if k == "gap_compress":
             entry["call_ms"] = t["call_ms"]
             entry["note"] = ("two launches per call (count pass, write "

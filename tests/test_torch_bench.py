@@ -441,7 +441,7 @@ def test_every_launch_counter_names_its_device_functions():
     is never given to two kernels."""
     assert set(ck.launches) == set(bt.KERNELS)
     fns = _device_functions()
-    assert len(fns) == 10, fns
+    assert len(fns) == 12, fns
     owner = {}
     for counter, (_, source, names) in bt.KERNELS.items():
         assert os.path.exists(os.path.join(ROOT, source)), source
@@ -642,16 +642,16 @@ def _tool(name):
 
 
 def test_the_gather_host_split(stepped):
-    """tools/gather_host_split.py profiles whole gathers: every plane's
-    block lookup of the ids (20 value planes and the NULL plane) inside
-    them, beside the untraced gather's wall; no device time off the
-    card."""
+    """tools/gather_host_split.py profiles whole gathers beside the
+    untraced gather's wall: the gather runs kernel sv_gather over the
+    column's plane table, so it counts no host block lookup inside them;
+    no device time off the card."""
     cell, _, _ = stepped[RANGE]
     got = _tool("gather_host_split").split(cell, CPU, rounds=2)
     assert len(got["rounds"]) == 2
     for r in got["rounds"]:
-        assert r["lookup_calls"] == 21
-        assert 0 < r["lookup_ms"] < r["profiled_gather_ms"]
+        assert r["lookup_calls"] == 0 and r["lookup_ms"] == 0
+        assert r["profiled_gather_ms"] > 0
         assert r["gather_ms"] > 0 and r["device_busy_ms"] is None
     assert "device_busy_ms" not in got["median"]
 

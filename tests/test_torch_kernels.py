@@ -551,3 +551,67 @@ def test_gap_routes_on_card_match_cpu(dev, rng, monkeypatch):
             np.testing.assert_array_equal(g[key], w[key], err_msg=key)
     assert got[4] == want[4]
     assert ck.launches["gap_expand"] and ck.launches["gap_compress"]
+
+
+def _sv_columns(rng, dev):
+    """Columns on the card and the same columns on the CPU, with BIT,
+    D-GAP, FULL and FULL-run blocks, absent planes and a NULL plane that is
+    BIT, then one that is FULL: (card column, CPU column, size) each."""
+    n = 34 * 65536 + 777
+    v = rng.integers(0, 1 << 20, n).astype(np.uint32) | np.uint32(1 << 21)
+    v[65536:3 * 65536] &= np.uint32(0xF)              # planes 4-19 zero
+    v[::7] = 0
+    nm = rng.random(n) < 0.01
+    nm[:65536] = False
+    s = rng.integers(-(1 << 62), 1 << 62, 200000)
+    s[:3] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1]
+    out = []
+    for vals, kw in ((v, {"null_mask": nm}), (v, {"nullable": True}),
+                     (s, {"nullable": True}), (s.astype(np.int32), {})):
+        pair = [tbm.SparseVector.from_array(vals, device=d, **kw)
+                for d in (dev, "cpu")]
+        for c in pair:
+            c.optimize()
+        out.append((*pair, vals.size))
+    return out
+
+
+def test_sv_planes_kernels(dev, rng):
+    """sv_gather and sv_transpose against their plain versions on the
+    card; one sv_gather launch per gather of non-empty ids, none for an
+    empty one; from_array launches sv_transpose; a bad input raises."""
+    cols = _sv_columns(rng, dev)
+    assert ck.launches["sv_transpose"] == len(cols)
+    kinds = set()
+    for card, cpu, n in cols:
+        for p in card.planes + [card.null_plane]:
+            if p is not None:
+                kinds.update(np.unique(p._struct.cls).tolist())
+                if p._struct.has_runs:
+                    kinds.add("runs")
+        ids = rng.integers(0, n + 3 * 65536, 100000)
+        table = card._plane_table()
+        d_ids = torch.from_numpy(ids).to(dev)
+        got = ck.sv_gather(d_ids, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, blockops.sv_gather(d_ids, table))
+        before = ck.launches["sv_gather"]
+        np.testing.assert_array_equal(card.gather(ids), cpu.gather(ids))
+        assert ck.launches["sv_gather"] == before + 1
+        card.gather(np.zeros(0, np.int64))
+        assert ck.launches["sv_gather"] == before + 1
+    assert kinds >= {1, 2, 3, "runs"}
+    for n_slices, dt in ((1, torch.int32), (20, torch.int32),
+                         (32, torch.int32), (33, torch.int64),
+                         (64, torch.int64)):
+        vals = torch.from_numpy(rng.integers(
+            -2**31 if dt == torch.int32 else -2**63, 2**31 - 1
+            if dt == torch.int32 else 2**63 - 1, 32 * 999 + 5)).to(dt)
+        vals = vals.to(dev)
+        got = ck.sv_transpose(vals, n_slices)
+        torch.cuda.synchronize()
+        assert torch.equal(got, blockops.sv_transpose(vals, n_slices))
+    with pytest.raises(TypeError):
+        ck.sv_gather(d_ids.to(torch.int32), table)
+    with pytest.raises(ValueError):
+        ck.sv_transpose(vals.to(torch.int32), 33)
