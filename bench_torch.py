@@ -96,6 +96,10 @@ KERNELS = {
     "sv_gather": ("sv_gather", CSRC + "sv_planes.cu", ("sv_gather_kernel",)),
     "sv_transpose": ("sv_transpose", CSRC + "sv_planes.cu",
                      ("sv_transpose_kernel",)),
+    "rs_select": ("rs_select", CSRC + "rs_select.cu",
+                  ("rs_select_kernel", "select_flat_kernel")),
+    "rs_rank": ("rs_rank", CSRC + "rs_select.cu",
+                ("rs_rank_kernel", "rank_flat_kernel")),
 }
 
 
@@ -384,7 +388,7 @@ class SetAlgebraTraffic:
     operations each with its count, distance_operation of 7 metrics, a
     select and a rank batch on A's rs-index, shift_right of a copy of A."""
     needs = ("logical_op_digest", "count_op", "block_counts", "gap_expand",
-             "gap_compress")
+             "gap_compress", "rs_select", "rs_rank")
     metric, headline = "bvsetalgebra_and_count_throughput", "and_count_gbps"
 
     def __init__(self, seed, sizes):

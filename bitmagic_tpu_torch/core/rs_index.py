@@ -12,14 +12,18 @@ running counts for O(1) rank and log-descent select, laid out as
     reference's three sub-blocks per block),
   * device: the D-GAP blocks' query tables (run ends, inclusive ones
     counts and two search keys; 24 B per run), built from the host
-    ``GapStore`` at the first query that needs them.
+    ``GapStore`` at the first query (empty without D-GAP blocks).
 
-Select descends rank -> segment (searchsorted over ``cum``) -> GAP run
-(searchsorted over the run keys) or wave (searchsorted over the wave
-prefix) -> word -> in-word position; rank searches the segment starts.
-All queries are batched and every step runs on the index's device: a
-call uploads its queries once and downloads its answers once.  The
-per-block counts of the build come from kernel K3.
+Select descends rank -> segment (a search of ``cum``) -> GAP run (a search
+of the run keys) or wave (a search of the slot's row of the wave prefix)
+-> word -> in-word position; rank searches the segment starts.  On the
+card a batch is one launch of the hand kernel ``rs_select`` or ``rs_rank``
+(``ops/csrc/rs_select.cu``) over these tables, with one upload of the
+queries and one download of the answers (pageable copies, which beat a
+pinned staging buffer for 1M-query batches on the card's host: PERF.md
+§6); on the CPU the same call runs their plain versions
+(``ops/select.py``).  The per-block counts of the build come from kernel
+K3.
 """
 
 from __future__ import annotations
@@ -29,14 +33,11 @@ import torch
 
 from .. import constants as C
 from ..ops import cuda_kernels as ck
-from ..ops.select import global_wave_prefix, rank_in_rows, select_flat
+from ..ops.select import (BASE, BEFORE, BITOFF, CA, CB, CLS, END, GKEY,
+                          GKEYS, GOFFS, SEG_COLS, SLOT, global_wave_prefix)
 
 _I64 = np.int64
 _BPB = C.BITS_PER_BLOCK
-# columns of the device segment table (RSIndex._segment_table)
-(_END, _CB, _CA, _BASE, _CLS, _GKEY, _GKEYS, _GOFFS, _SLOT, _BEFORE,
- _BITOFF) = range(11)
-_NCOLS = _BITOFF + 1
 
 
 def _to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -74,35 +75,35 @@ class RSIndex:
         self._nb_dev = _to_device(nb, torch.int64, dev)
         self._cum0_dev = _to_device(np.concatenate([[0], cum]), torch.int64,
                                     dev)
-        self._runs_dev = None          # GAP query tables, at first use
+        self._runs_dev = None          # GAP query tables, at first query
 
     def _segment_table(self) -> torch.Tensor:
         """The segment tables on the device, one int64 row per segment
         after a sentinel row 0 that no block hits (rank's "before the
-        first segment"): columns ``_END`` .. ``_BITOFF``, so one gather
+        first segment"): columns ``SEG_COLS`` (ops/select.py), so one gather
         gives a query all its segment's fields."""
         m, dev = len(self.nb), self.pool.device
         g = np.maximum(self.gslots, 0)
         offs = self.gaps.offs if self.gaps is not None else np.zeros(1, _I64)
-        cols = np.zeros((m + 1, _NCOLS), _I64)
-        cols[0, _END] = np.iinfo(_I64).min
-        cols[0, _CLS] = C.CLS_ZERO
+        cols = np.zeros((m + 1, len(SEG_COLS)), _I64)
+        cols[0, END] = np.iinfo(_I64).min
+        cols[0, CLS] = C.CLS_ZERO
         seg = cols[1:]
-        seg[:, _END] = self.nb + self.span
-        seg[:, _CB] = self.cum - np.diff(self.cum, prepend=0)
-        seg[:, _CA] = self.cum
-        seg[:, _BASE] = self.nb << C.SET_BLOCK_SHIFT
-        seg[:, _CLS] = self.cls
-        seg[:, _GKEY] = g * _BPB
-        seg[:, _GKEYS] = g * (_BPB + 1)
-        seg[:, _GOFFS] = np.where(self.gslots >= 0, offs[g], 0)
-        seg[:, _SLOT] = np.maximum(self.slots, 0)
-        seg[:, _BITOFF] = seg[:, _BASE] - seg[:, _SLOT] * _BPB
+        seg[:, END] = self.nb + self.span
+        seg[:, CB] = self.cum - np.diff(self.cum, prepend=0)
+        seg[:, CA] = self.cum
+        seg[:, BASE] = self.nb << C.SET_BLOCK_SHIFT
+        seg[:, CLS] = self.cls
+        seg[:, GKEY] = g * _BPB
+        seg[:, GKEYS] = g * (_BPB + 1)
+        seg[:, GOFFS] = np.where(self.gslots >= 0, offs[g], 0)
+        seg[:, SLOT] = np.maximum(self.slots, 0)
+        seg[:, BITOFF] = seg[:, BASE] - seg[:, SLOT] * _BPB
         out = _to_device(cols, torch.int64, dev)
         if self.gwc.numel():
             # pool-global rank before the slot's row, for the select descent
-            row0 = out[:, _SLOT] * C.BLOCK_WAVES
-            out[:, _BEFORE] = torch.where(
+            row0 = out[:, SLOT] * C.BLOCK_WAVES
+            out[:, BEFORE] = torch.where(
                 row0 > 0, self.gwc[(row0 - 1).clamp(min=0)].long(), 0)
         return out
 
@@ -136,18 +137,29 @@ class RSIndex:
         built once from the host store: block-local run ends and inclusive
         ones counts as int32 pairs ``[runs, 2]``, and the search keys
         ``run_block * 65536 + ends`` (rank) and ``run_block * 65537 +
-        cum1`` (select) as int64: 24 B per run."""
+        cum1`` (select) as int64: 24 B per run; empty tables when the
+        vector has no D-GAP block."""
         if self._runs_dev is None:
-            g, dev = self.gaps, self.pool.device
-            rb, cum1 = g.run_block(), g._ones_cum()
-            self._runs_dev = (
-                _to_device(np.stack([g.ends, cum1], 1), torch.int32, dev),
-                _to_device(rb * _BPB + g.ends, torch.int64, dev),
-                _to_device(rb * (_BPB + 1) + cum1, torch.int64, dev))
+            dev = self.pool.device
+            if self.gaps is not None and self.gaps.n_blocks > 0:
+                g = self.gaps
+                rb, cum1 = g.run_block(), g._ones_cum()
+                ends_ones = np.stack([g.ends, cum1], 1)
+                keys = (rb * _BPB + g.ends, rb * (_BPB + 1) + cum1)
+            else:
+                ends_ones = np.zeros((0, 2), np.int32)
+                keys = (np.zeros(0, _I64),) * 2
+            self._runs_dev = (_to_device(ends_ones, torch.int32, dev),
+                              *(_to_device(k, torch.int64, dev)
+                                for k in keys))
         return self._runs_dev
 
-    def _has_gaps(self) -> bool:
-        return self.gaps is not None and self.gaps.n_blocks > 0
+    def _batch(self, values, answer) -> np.ndarray:
+        """``answer(queries)`` over int64 ``values`` on the index's device:
+        one upload of the queries, one download of the answers."""
+        values = np.asarray(values, _I64)
+        q = _to_device(values.reshape(-1), torch.int64, self.pool.device)
+        return answer(q).cpu().numpy().reshape(values.shape)
 
     # ------------------------------------------------------------------
     def count(self) -> int:
@@ -155,76 +167,28 @@ class RSIndex:
 
     def rank_batch(self, ids) -> np.ndarray:
         """rank(i) = popcount[0, i] for each id (reference count_to with
-        rs_index, src/bm.h:1420); one upload of the ids, one download of
-        the ranks, every step on the index's device."""
+        rs_index, src/bm.h:1420): one ``rs_rank`` launch on the card."""
         ids = np.asarray(ids, _I64)
         if len(self.nb) == 0:
             return np.zeros(ids.shape, _I64)
-        q = _to_device(ids.reshape(-1), torch.int64, self.pool.device)
-        blocks = q >> C.SET_BLOCK_SHIFT
-        nbit = q & C.SET_BLOCK_MASK
-        # the segment at or before each block (row 0: none)
-        s = self._seg[torch.searchsorted(self._nb_dev, blocks, right=True)]
-        hit = blocks < s[:, _END]
-        kind = torch.where(hit, s[:, _CLS], C.CLS_ZERO)
-        # FULL segment containing i: in-segment offset + 1
-        inblk = torch.where(kind == C.CLS_FULL, q - s[:, _BASE] + 1, 0)
-        if self._has_gaps():
-            # GAP block: the run holding the bit (gap_bfind analog); with
-            # p the ones count minus the end of the run before it (1 for a
-            # block's first run), rank = min(cum1[r], p + nbit) holds for
-            # runs of ones and of zeros alike
-            ec, key_end, _ = self._gap_runs()
-            r = torch.searchsorted(key_end, s[:, _GKEY] + nbit)
-            prev = ec[(r - 1).clamp(min=0)]
-            p = torch.where(r > s[:, _GOFFS], prev[:, 1] - prev[:, 0], 1)
-            inblk = torch.where(kind == C.CLS_GAP,
-                                torch.minimum(ec[r, 1], p + nbit), inblk)
-        # whole segments before the block, plus the in-block count
-        out = torch.where(hit, s[:, _CB] + inblk, s[:, _CA])
-        # BIT block containing i: in-row partial popcount
-        bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
-        if bi.numel():
-            out[bi] += rank_in_rows(self.pool, self.gwc, s[bi, _SLOT],
-                                    nbit[bi]).long()
-        return out.cpu().numpy().reshape(ids.shape)
+        runs = self._gap_runs()
+        return self._batch(ids, lambda q: ck.rs_rank(
+            self._seg, self._nb_dev, runs, self.pool, self.gwc, q))
 
     def rank(self, i) -> int:
         return int(self.rank_batch(np.asarray([i]))[0])
 
     def select_batch(self, ranks) -> np.ndarray:
         """Position of each (1-based) rank's set bit; -1 if out of range
-        (reference select, src/bm.h:1705); one upload of the ranks, one
-        download of the positions, every step on the index's device."""
+        (reference select, src/bm.h:1705): one ``rs_select`` launch on the
+        card."""
         ranks = np.asarray(ranks, _I64)
         if self.total == 0:
             return np.full(ranks.shape, -1, _I64)
-        q = _to_device(ranks.reshape(-1), torch.int64, self.pool.device)
-        r = q.clamp(1, self.total)
-        s = self._seg[torch.searchsorted(self._cum0_dev, r)]
-        # 1-based rank within the segment (int64: FULL runs pass 2^31)
-        rem = r - s[:, _CB]
-        kind = s[:, _CLS]
-        out = s[:, _BASE] + rem - 1    # FULL
-        if self._has_gaps():
-            # GAP block: the first run whose ones count reaches rem ends
-            # cum1 - rem bits after the set bit
-            ec, _, key_cum = self._gap_runs()
-            rr = torch.searchsorted(key_cum, s[:, _GKEYS] + rem).clamp(
-                max=key_cum.shape[0] - 1)
-            run = ec[rr]
-            out = torch.where(kind == C.CLS_GAP,
-                              out + (run[:, 0] - run[:, 1] + 1), out)
-        bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
-        if bi.numel():
-            # the in-block rank in the pool's global rank space, resolved
-            # by one flat search over the global wave prefix
-            sb = s[bi]
-            out[bi] = sb[:, _BITOFF] + select_flat(
-                self.pool, self.gwc,
-                (rem[bi] + sb[:, _BEFORE]).to(torch.int32))
-        out = torch.where((q >= 1) & (q <= self.total), out, -1)
-        return out.cpu().numpy().reshape(ranks.shape)
+        runs = self._gap_runs()
+        return self._batch(ranks, lambda q: ck.rs_select(
+            self._seg, self._cum0_dev, runs, self.pool, self.gwc, q,
+            self.total))
 
     def select(self, rank) -> int:
         return int(self.select_batch(np.asarray([rank]))[0])

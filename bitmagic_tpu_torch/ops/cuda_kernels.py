@@ -22,10 +22,19 @@ sv_gather              sv_planes.cu                 sv/sparse_vector.py:70
                                                     (_gather_decode_kernel)
 sv_transpose           sv_planes.cu                 sv/sparse_vector.py:53
                                                     (_transpose_kernel)
+rs_select,             rs_select.cu                 ops/select.py:77
+select_flat                                         (select_flat), and
+                                                    core/rs_index.py:147
+                                                    (select_batch's numpy)
+rs_rank,               rs_select.cu                 core/rs_index.py:191
+rank_flat                                           (_rank_in_rows), and
+                                                    :106 (rank_batch's
+                                                    numpy)
 =====================  ===========================  =========================
 
-Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``,
-same signature) only when its tensors lie on the CPU.  On CUDA tensors it
+Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``;
+``ops/select.py`` for the rank/select kernels; same signature) only when
+its tensors lie on the CPU.  On CUDA tensors it
 launches the kernel on the current stream or raises: a failed build or
 launch is never answered by the plain version.  ``launches`` counts the
 launches of each kernel; a wrapper adds one where it launches and nowhere
@@ -46,6 +55,7 @@ import torch
 
 from ..constants import BLOCK_WAVES, SET_BLOCK_SIZE
 from . import _build, blockops
+from . import select as plain_select
 
 _I32 = torch.int32
 _VP = ctypes.c_void_p
@@ -58,7 +68,7 @@ _LL = ctypes.c_longlong
 launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
             "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0,
             "gap_expand": 0, "gap_compress": 0, "sv_gather": 0,
-            "sv_transpose": 0}
+            "sv_transpose": 0, "rs_select": 0, "rs_rank": 0}
 # most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
 # memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
@@ -90,6 +100,14 @@ _SIGNATURES = {
     "bm_sv_gather": ("sv_planes.cu",
                      [_VP, _LL, _VP, _INT, _VP, _VP, _VP, _VP, _VP]),
     "bm_sv_transpose": ("sv_planes.cu", [_VP, _LL, _INT, _INT, _VP, _VP]),
+    "bm_rs_select": ("rs_select.cu",
+                     [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
+                      _LL, _VP, _VP]),
+    "bm_select_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
+    "bm_rs_rank": ("rs_select.cu",
+                   [_VP, _VP, _LL, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
+                    _VP, _VP]),
+    "bm_rank_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
 }
 
 
@@ -622,4 +640,118 @@ def sv_transpose(vals, n_slices):
     if n:
         _launch("bm_sv_transpose", "sv_transpose", vals.device, _ptr(vals),
                 n, vals.element_size(), n_slices, _ptr(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank/select batches over an rs-index's device tables (rs_select.cu)
+# ---------------------------------------------------------------------------
+def _one_device(what, tensors):
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what}: tensors on different devices")
+    return tensors[0].device
+
+
+def _pool_tables(what, pool, gwc):
+    _rows(pool, f"{what}: pool")
+    _check(gwc, f"{what}: gwc", _I32, align=4)
+    if gwc.shape[0] != pool.shape[0] * BLOCK_WAVES:
+        raise ValueError(f"{what}: gwc must hold {BLOCK_WAVES} entries per "
+                         f"pool row")
+
+
+def _index_tables(what, seg, runs, pool, gwc):
+    """Check an rs-index's segment, D-GAP run and pool tables."""
+    _check(seg, f"{what}: seg", _I64, (len(plain_select.SEG_COLS),),
+           align=8)
+    ec, key_end, key_cum = runs
+    _check(ec, f"{what}: runs", _I32, (2,), align=4)
+    for t, name in ((key_end, "key_end"), (key_cum, "key_cum")):
+        _check(t, f"{what}: {name}", _I64, align=8)
+        if t.shape[0] != ec.shape[0]:
+            raise ValueError(f"{what}: {name} must have one key per run")
+    _pool_tables(what, pool, gwc)
+
+
+def rs_select(seg, cum0, runs, pool, gwc, ranks, total):
+    """Position of each 1-based rank int64[Q] of an rs-index's vector, -1
+    outside [1, total] -> int64[Q], in one launch (``ops/select.rs_select``
+    has the tables' layout)."""
+    tensors = (seg, cum0, *runs, pool, gwc, ranks)
+    if not _on_cuda(*tensors):
+        return plain_select.rs_select(seg, cum0, runs, pool, gwc, ranks,
+                                      total)
+    dev = _one_device("rs_select", tensors)
+    _index_tables("rs_select", seg, runs, pool, gwc)
+    _check(cum0, "rs_select: cum0", _I64, align=8)
+    _check(ranks, "rs_select: ranks", _I64, align=8)
+    if cum0.shape[0] != seg.shape[0] or seg.shape[0] < 1:
+        raise ValueError("rs_select: cum0 must have one entry per seg row")
+    n = ranks.shape[0]
+    out = torch.empty(n, dtype=_I64, device=dev)
+    if n:
+        _launch("bm_rs_select", "rs_select", dev, _ptr(seg), seg.shape[0],
+                _ptr(cum0), _ptr(runs[0]), _ptr(runs[2]), runs[0].shape[0],
+                _ptr(pool), _ptr(gwc), gwc.shape[0], _ptr(ranks), n,
+                int(total), _ptr(out))
+    return out
+
+
+def select_flat(pool, gwc, ranks):
+    """Global bit positions (pool_row * 65536 + offset) of 1-based int32
+    global ranks int32[Q] over a whole pool -> int64[Q] (the signature of
+    bitmagic_tpu ``select_flat``), in one ``rs_select`` launch."""
+    if not _on_cuda(pool, gwc, ranks):
+        return plain_select.select_flat(pool, gwc, ranks)
+    dev = _one_device("select_flat", (pool, gwc, ranks))
+    _pool_tables("select_flat", pool, gwc)
+    _check(ranks, "select_flat: ranks", _I32, align=4)
+    n = ranks.shape[0]
+    out = torch.empty(n, dtype=_I64, device=dev)
+    if n:
+        if not gwc.shape[0]:
+            raise ValueError("select_flat: ranks over an empty pool")
+        _launch("bm_select_flat", "rs_select", dev, _ptr(pool), _ptr(gwc),
+                gwc.shape[0], _ptr(ranks), n, _ptr(out))
+    return out
+
+
+def rs_rank(seg, nb, runs, pool, gwc, ids):
+    """rank(i) = popcount[0, i] for each id int64[Q] of an rs-index's
+    vector -> int64[Q], in one launch (``ops/select.rs_rank``)."""
+    tensors = (seg, nb, *runs, pool, gwc, ids)
+    if not _on_cuda(*tensors):
+        return plain_select.rs_rank(seg, nb, runs, pool, gwc, ids)
+    dev = _one_device("rs_rank", tensors)
+    _index_tables("rs_rank", seg, runs, pool, gwc)
+    _check(nb, "rs_rank: nb", _I64, align=8)
+    _check(ids, "rs_rank: ids", _I64, align=8)
+    if seg.shape[0] != nb.shape[0] + 1:
+        raise ValueError("rs_rank: seg must have one row per segment and "
+                         "the sentinel")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=_I64, device=dev)
+    if n:
+        _launch("bm_rs_rank", "rs_rank", dev, _ptr(seg), _ptr(nb),
+                nb.shape[0], _ptr(runs[0]), _ptr(runs[1]), runs[0].shape[0],
+                _ptr(pool), _ptr(gwc), gwc.shape[0], _ptr(ids), n,
+                _ptr(out))
+    return out
+
+
+def rank_flat(pool, gwc, rel):
+    """popcount of bits [0, rel] of a whole pool for each rel int64[Q] in
+    [0, rows * 65536) -> int64[Q], in one ``rs_rank`` launch."""
+    if not _on_cuda(pool, gwc, rel):
+        return plain_select.rank_flat(pool, gwc, rel)
+    dev = _one_device("rank_flat", (pool, gwc, rel))
+    _pool_tables("rank_flat", pool, gwc)
+    _check(rel, "rank_flat: rel", _I64, align=8)
+    n = rel.shape[0]
+    out = torch.empty(n, dtype=_I64, device=dev)
+    if n:
+        if not gwc.shape[0]:
+            raise ValueError("rank_flat: ids over an empty pool")
+        _launch("bm_rank_flat", "rs_rank", dev, _ptr(pool), _ptr(gwc),
+                gwc.shape[0], _ptr(rel), n, _ptr(out))
     return out

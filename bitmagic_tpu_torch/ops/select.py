@@ -1,5 +1,8 @@
-"""Batched in-pool select: rank -> bit position (port of
-``bitmagic_tpu/ops/select.py``), plain PyTorch on every device.
+"""Batched in-pool select and rank (port of ``bitmagic_tpu/ops/select.py``
+and of the rank/select batches of ``bitmagic_tpu/core/rs_index.py``): the
+plain PyTorch versions of the ``rs_select`` / ``rs_rank`` kernels
+(``ops/csrc/rs_select.cu``).  ``ops/cuda_kernels`` runs them only for
+tensors on the CPU; on the card the same signatures launch the kernels.
 
 The wave-descent formulation: instead of gathering the whole 8 KiB block
 row per query, search a per-wave popcount prefix table (256 B/row) and
@@ -9,6 +12,14 @@ sampled bucket search and f32 matmul cumsum were shaped for the TPU's
 vector and matrix units; here the wave search is one
 ``torch.searchsorted`` over the prefix (the same count of prefix entries
 below each rank) and the word prefix an int32 cumsum.
+
+``rs_select`` and ``rs_rank`` answer a whole batch over an rs-index's
+device tables: the segment table ``seg`` (columns ``SEG_COLS``, one row
+per segment after a sentinel row 0), ``cum0`` (0, then the inclusive ones
+prefix over segments), the segments' first blocks ``nb``, the D-GAP run
+tables ``runs = (ends_ones int32[R, 2], key_end int64[R], key_cum
+int64[R])`` (empty without D-GAP blocks), the pool and its global wave
+prefix ``gwc``.
 """
 
 from __future__ import annotations
@@ -20,6 +31,11 @@ from .bitops import popcount, u32_to_i32, word_select32
 
 _I32 = torch.int32
 _I64 = torch.int64
+# columns of an rs-index's segment table (core/rs_index.py; rs_select.cu)
+SEG_COLS = ("end", "cb", "ca", "base", "cls", "gkey", "gkeys", "goffs",
+            "slot", "before", "bitoff")
+(END, CB, CA, BASE, CLS, GKEY, GKEYS, GOFFS, SLOT, BEFORE,
+ BITOFF) = range(len(SEG_COLS))
 
 
 def wave_prefix(pool):
@@ -98,3 +114,81 @@ def rank_in_rows(pool, gwc, slots, in_block_bits):
     j = torch.arange(C.WAVE_WORDS, device=pool.device)[None, :]
     mask = torch.where(j < wi, -1, torch.where(j == wi, part, 0))
     return before + popcount(words & mask).sum(dim=1, dtype=_I32)
+
+
+def rank_flat(pool, gwc, rel):
+    """popcount of bits [0, rel] of a whole pool for each ``rel`` (int64 on
+    the pool's device, in [0, rows * 65536)) -> int64 (ShardedRSIndex's
+    shard-local rank): the rows before rel's from the prefix, then
+    ``rank_in_rows``."""
+    slots = rel >> C.SET_BLOCK_SHIFT
+    row_base = torch.where(slots > 0, gwc[(slots * C.BLOCK_WAVES - 1).clamp(
+        min=0)], 0)
+    return row_base.to(_I64) + rank_in_rows(
+        pool, gwc, slots, rel & C.SET_BLOCK_MASK).to(_I64)
+
+
+def rs_select(seg, cum0, runs, pool, gwc, ranks, total):
+    """Position of each 1-based rank (int64[Q]) of an rs-index's vector,
+    -1 outside [1, total] (reference select, src/bm.h:1705): the segment
+    by a search of ``cum0``, then FULL offset arithmetic, the D-GAP run
+    whose ones count reaches the rank, or for a BIT block the in-block
+    rank in the pool's global rank space resolved by ``select_flat``."""
+    if total <= 0:
+        return torch.full_like(ranks, -1)
+    r = ranks.clamp(1, total)
+    s = seg[torch.searchsorted(cum0, r)]
+    # 1-based rank within the segment (int64: FULL runs pass 2^31)
+    rem = r - s[:, CB]
+    kind = s[:, CLS]
+    out = s[:, BASE] + rem - 1    # FULL
+    ec, _, key_cum = runs
+    if key_cum.numel():
+        # GAP block: the first run whose ones count reaches rem ends
+        # cum1 - rem bits after the set bit
+        rr = torch.searchsorted(key_cum, s[:, GKEYS] + rem).clamp(
+            max=key_cum.shape[0] - 1)
+        run = ec[rr]
+        out = torch.where(kind == C.CLS_GAP,
+                          out + (run[:, 0] - run[:, 1] + 1), out)
+    bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
+    if bi.numel():
+        # the in-block rank in the pool's global rank space, resolved by
+        # one flat search over the global wave prefix
+        sb = s[bi]
+        out[bi] = sb[:, BITOFF] + select_flat(
+            pool, gwc, (rem[bi] + sb[:, BEFORE]).to(_I32))
+    return torch.where((ranks >= 1) & (ranks <= total), out, -1)
+
+
+def rs_rank(seg, nb, runs, pool, gwc, ids):
+    """rank(i) = popcount[0, i] for each id (int64[Q]) of an rs-index's
+    vector (reference count_to, src/bm.h:1420): the segment at or before
+    the id's block by a search of ``nb``, then FULL offset arithmetic,
+    the D-GAP run holding the bit, or ``rank_in_rows`` of a BIT block."""
+    blocks = ids >> C.SET_BLOCK_SHIFT
+    nbit = ids & C.SET_BLOCK_MASK
+    # the segment at or before each block (row 0: none)
+    s = seg[torch.searchsorted(nb, blocks, right=True)]
+    hit = blocks < s[:, END]
+    kind = torch.where(hit, s[:, CLS], C.CLS_ZERO)
+    # FULL segment containing i: in-segment offset + 1
+    inblk = torch.where(kind == C.CLS_FULL, ids - s[:, BASE] + 1, 0)
+    ec, key_end, _ = runs
+    if key_end.numel():
+        # GAP block: the run holding the bit (gap_bfind analog); with p
+        # the ones count minus the end of the run before it (1 for a
+        # block's first run), rank = min(cum1[r], p + nbit) holds for runs
+        # of ones and of zeros alike
+        r = torch.searchsorted(key_end, s[:, GKEY] + nbit)
+        prev = ec[(r - 1).clamp(min=0)]
+        p = torch.where(r > s[:, GOFFS], prev[:, 1] - prev[:, 0], 1)
+        inblk = torch.where(kind == C.CLS_GAP,
+                            torch.minimum(ec[r, 1], p + nbit), inblk)
+    # whole segments before the block, plus the in-block count
+    out = torch.where(hit, s[:, CB] + inblk, s[:, CA])
+    # BIT block containing i: in-row partial popcount
+    bi = torch.nonzero(kind == C.CLS_BIT).squeeze(1)
+    if bi.numel():
+        out[bi] += rank_in_rows(pool, gwc, s[bi, SLOT], nbit[bi]).long()
+    return out

@@ -26,10 +26,12 @@ CPU one):
     ``sharded_and_sub(_count)``, ``group_and_exchange``): B4
     ``agg_and_sub`` on a descriptor of that shard's rows;
   * ``pipeline_counts_program``: B5 per shard;
-  * ``scan_throughput_program``: B6 ``scan_eq`` and K3 per shard.
+  * ``scan_throughput_program``: B6 ``scan_eq`` and K3 per shard;
+  * ``ShardedRSIndex``'s select and rank batches: the flat forms of
+    ``rs_select`` and ``rs_rank`` (``select_flat``, ``rank_flat``).
 
-Digests, gathers, rank / select and range masks stay plain PyTorch, as in
-the single-device port.
+Digests, gathers and range masks stay plain PyTorch, as in the
+single-device port.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ from .. import constants as C
 from ..core.bitvector import BitVector
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
-from ..ops.bitops import popcount, u32_to_i32
-from ..ops.select import global_wave_prefix, select_flat
+from ..ops.select import global_wave_prefix
 from .mesh import Mesh, block_sharding, make_mesh, pad_rows, zero_rows
 
 _I64 = torch.int64
@@ -365,20 +366,6 @@ def _gwc(shard) -> torch.Tensor:
     return global_wave_prefix(shard)
 
 
-def _rank_local(shard, gwc, rel) -> torch.Tensor:
-    """popcount of bits [0, rel] of one shard (rel int64 on its device):
-    whole waves from the prefix, the query's wave masked."""
-    wave = rel >> 10
-    prev = torch.where(wave > 0, gwc[(wave - 1).clamp(min=0)], 0)
-    words = shard.reshape(-1, C.WAVE_WORDS)[wave]            # [q, 32]
-    bit = rel & 1023
-    wword = (bit >> 5)[:, None]
-    part = u32_to_i32((torch.full_like(bit, 2) << (bit & 31)) - 1)[:, None]
-    j = torch.arange(C.WAVE_WORDS, device=shard.device)[None, :]
-    mask = torch.where(j < wword, -1, torch.where(j == wword, part, 0))
-    return prev.to(_I64) + popcount(words & mask).sum(dim=1, dtype=_I64)
-
-
 # ---------------------------------------------------------------------------
 # persistent sharded rank/select index (the rs_index at mesh scale,
 # src/bmrs.h:28-40: shard-local wave prefixes built ONCE + host shard totals)
@@ -419,7 +406,7 @@ class ShardedRSIndex:
 
         def positions(i, _, sel):
             t = self.sbv.shards[i]
-            return select_flat(t, self.gwc[i], _index(
+            return ck.select_flat(t, self.gwc[i], _index(
                 local[sel].astype(np.int32), t.device)).cpu().numpy()
         pos = _answer_by_shard(self.mesh, tgt, positions,
                                np.zeros(rk.size, np.int64))
@@ -442,8 +429,8 @@ class ShardedRSIndex:
 
         def ranks(i, _, sel):
             t = self.sbv.shards[i]
-            return _rank_local(t, self.gwc[i],
-                               _index(rel[sel], t.device)).cpu().numpy()
+            return ck.rank_flat(t, self.gwc[i],
+                                _index(rel[sel], t.device)).cpu().numpy()
         part = _answer_by_shard(self.mesh, tgt, ranks,
                                 np.zeros(q.size, np.int64))
         out[ok] = self.before[tgt] + part

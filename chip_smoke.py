@@ -34,14 +34,23 @@ only when every phase passed):
               blocks, absent planes, a NULL plane that is BIT and one
               that is a FULL run, signed and 64-bit values and ids past
               the end (and against the values), sv_transpose over 1 to 64
-              slices of 4- and 8-byte values;
+              slices of 4- and 8-byte values; rs_select and rs_rank and
+              their flat forms (select_flat, rank_flat) at
+              bvsetalgebra_rank_select's shapes (1536 blocks, 768 of them
+              D-GAP of 1 to 256 runs, 1M uniform ranks and ids) and on an
+              edge vector (D-GAP blocks of one run and of 65536 runs, FULL
+              and FULL-run blocks, absent blocks, a BIT block emptied by a
+              SUB; ranks -1, 0, 1, total, total + 1, ids past the end);
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
               count_and/or/xor/sub, 64 count_range calls, build_rs_index
-              plus 1M select and 1M rank, then SINGLE_CALLS one-query
-              calls each of select, rank and BitVector.select (median
-              host wall); every answer against numpy; GAP operands are
+              plus 1M select and 1M rank (one rs_select / rs_rank
+              launch each, and a profiler trace of each batch shows that
+              kernel and its two copies and nothing else), then
+              SINGLE_CALLS one-query calls each of select, rank and
+              BitVector.select (median host wall, one launch each);
+              every answer against numpy; GAP operands are
               expanded by gap_expand and GAP x GAP results re-encoded by
               gap_compress, both required;
               count() launches K3 once and distance_operation K2 once, and
@@ -126,8 +135,9 @@ only when every phase passed):
               sparse vectors built from phase 9's columns (searches,
               pipelines, gather, checkpoint); then the bit-vector group and
               config 4b's searches on make_mesh() (every visible card);
-              exact per-step launch counts (one per shard) and a profile of
-              one steady pass;
+              exact per-step launch counts (one per shard; the select and
+              rank batches one select_flat / rank_flat launch per shard
+              that holds queries) and a profile of one steady pass;
 12. capi    — configs 1-2's A and B through the C-API facade
               (``bitmagic_tpu_torch.capi``): built with BM_bvector_construct
               + BM_bvector_set_bits and equal to phase 4's; the four
@@ -207,8 +217,10 @@ only when every phase passed):
               gap_compress's two launches over 400 rows (and its whole
               call, with the scalar sync between them); sv_gather at
               column_range_gather's shape (16M rows, 1M ids) and
-              sv_transpose at 16M values and 20 slices; the floor of a
-              timed launch; K3 after a flush that leaves L2 clean.
+              sv_transpose at 16M values and 20 slices; rs_select and
+              rs_rank at bvsetalgebra_rank_select's shape (1M queries) and
+              in their flat forms; the floor of a timed launch; K3 after a
+              flush that leaves L2 clean.
 
 Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, each leg
 of 15, 16 and 17, and each step of 18) is driven with the launch counts set
@@ -307,6 +319,16 @@ KERNELS = {
         source="bitmagic_tpu_torch/ops/csrc/sv_planes.cu",
         replaces="bitmagic_tpu/sv/sparse_vector.py:53 "
                  "(_transpose_kernel, jitted XLA)"),
+    # the rank/select index's batches: a jitted program each and the host
+    # numpy of RSIndex.select_batch / rank_batch around it
+    "rs_select": dict(
+        source="bitmagic_tpu_torch/ops/csrc/rs_select.cu",
+        replaces="bitmagic_tpu/ops/select.py:77 (select_flat, jitted XLA; "
+                 "with core/rs_index.py:147 select_batch's host numpy)"),
+    "rs_rank": dict(
+        source="bitmagic_tpu_torch/ops/csrc/rs_select.cu",
+        replaces="bitmagic_tpu/core/rs_index.py:191 (_rank_in_rows, "
+                 "jitted XLA; with :106 rank_batch's host numpy)"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
 # the D-GAP kernels the main path's set ops and metrics launch
@@ -314,6 +336,8 @@ GAP_ROWS = ("gap_expand", "gap_compress")
 # the kernels config 4b's from_array and gather launch (scan path)
 SV_PLANES = ("sv_gather", "sv_transpose")
 SV_GATHER_IDS = 1_000_000       # config 4b's gather (column_range_gather's)
+# the rank/select batches of the main path (bvsetalgebra_rank_select)
+RS_KERNELS = ("rs_select", "rs_rank")
 # bvsetalgebra_rank_select's D-GAP shapes: each vector holds about 768
 # D-GAP blocks of 1 to 256 runs; 400 block pairs are GAP in both
 GAP_BLOCKS, GAP_RUNS_MAX, GAP_PAIRS = 768, 256, 400
@@ -463,30 +487,32 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
     search_kernels_vs_plain(rng, device, cmp)
     gap_kernels_vs_plain(rng, device, cmp)
     sv_kernels_vs_plain(rng, device, cmp)
+    rs_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
     return err, cases
 
 
+def run_rows(rng, n):
+    """``n`` block rows drawn as bvsetalgebra_rank_select draws its GAP
+    blocks: per row a run count uniform in [1, GAP_RUNS_MAX] and twice
+    that many bounds uniform in [1, 65536) (duplicates dropped, an odd one
+    dropped), bits alternating 0, 1 -> uint32[n, 2048]."""
+    rows = np.zeros((n, BPB), np.uint8)
+    for r in rows:
+        cuts = np.unique(rng.integers(1, BPB, 2 * int(
+            rng.integers(1, GAP_RUNS_MAX + 1))))
+        cuts = cuts[:cuts.size - cuts.size % 2].reshape(-1, 2)
+        for lo, hi in cuts:
+            r[lo:hi] = 1
+    return np.packbits(rows, axis=1, bitorder="little").view(np.uint32)
+
+
 def gap_stores(rng):
-    """Two D-GAP stores drawn as bvsetalgebra_rank_select draws its GAP
-    blocks: GAP_BLOCKS blocks each, per block a run count uniform in [1,
-    GAP_RUNS_MAX] and twice that many bounds uniform in [1, 65536)
-    (duplicates dropped, an odd one dropped), bits alternating 0, 1."""
+    """Two D-GAP stores of GAP_BLOCKS blocks each, drawn by ``run_rows``."""
     from bitmagic_tpu_torch.core.gapstore import GapStore
-    stores = []
-    for _ in range(2):
-        rows = np.zeros((GAP_BLOCKS, BPB), np.uint8)
-        for r in rows:
-            cuts = np.unique(rng.integers(1, BPB, 2 * int(
-                rng.integers(1, GAP_RUNS_MAX + 1))))
-            cuts = cuts[:cuts.size - cuts.size % 2].reshape(-1, 2)
-            for lo, hi in cuts:
-                r[lo:hi] = 1
-        stores.append(GapStore.from_dense(np.packbits(
-            rows, axis=1, bitorder="little").view(np.uint32)))
-    return stores
+    return [GapStore.from_dense(run_rows(rng, GAP_BLOCKS)) for _ in range(2)]
 
 
 def gap_edge_rows(device):
@@ -605,6 +631,126 @@ def sv_kernels_vs_plain(rng, device, cmp):
             info.min, info.max, n, endpoint=True)).to(dt).to(device)
         cmp("sv_transpose", ck.sv_transpose(vals, n_slices),
             blockops.sv_transpose(vals, n_slices))
+
+
+def rs_cell_vector(tbm, rng, device):
+    """A vector drawn as bvsetalgebra_rank_select's A: N_BLOCKS blocks,
+    GAP_BLOCKS of them ``run_rows`` (D-GAP after optimize()), the rest
+    random dense words -> (vector, its words)."""
+    words = rng.integers(0, 2**32, (N_BLOCKS, 2048), dtype=np.uint64).astype(
+        np.uint32)
+    words[rng.permutation(N_BLOCKS)[:GAP_BLOCKS]] = run_rows(rng, GAP_BLOCKS)
+    bv = tbm.BitVector.from_words(words.ravel(), device=device)
+    bv.optimize()
+    return bv, words.ravel()
+
+
+def rs_edge_vector(pkg, device=None, gap=True, bit=True):
+    """48 blocks + 777 bits holding, by block: 0, 46 BIT; 2 a D-GAP run of
+    ones from bit 0; 3 one that starts with zeros; 4 65536 D-GAP runs; 5 a
+    run ending at bit 65535; 7 FULL; 10-43 a FULL run; 45 a BIT block with
+    no bit left after a SUB; the rest absent, 47 and the tail past the last
+    segment.  ``gap=False`` leaves out the D-GAP blocks, ``bit=False`` the
+    BIT ones.  ``pkg`` is the package whose BitVector is built (the tests
+    build the same vector in the JAX package, which takes no device)."""
+    from bitmagic_tpu_torch import constants as C
+    rng = np.random.default_rng(11)
+    kw = {} if device is None else {"device": device}
+    size = 48 * BPB + 777
+    bv = pkg.BitVector(size, **kw)
+    if gap:
+        g = np.concatenate([2 * BPB + np.arange(100),
+                            3 * BPB + np.arange(500, 900),
+                            5 * BPB + np.arange(BPB - 50, BPB)])
+        bv = pkg.BitVector.from_indices(g, size, strategy=C.BM_GAP, **kw)
+    bv.set_range(10 * BPB, 44 * BPB - 1)
+    bv.optimize()
+    if bit:
+        dense = np.concatenate([rng.integers(0, BPB, 9000),
+                                46 * BPB + rng.integers(0, BPB, 9000)])
+        bv |= pkg.BitVector.from_indices(dense, size, **kw)
+    bv.set_range(7 * BPB, 8 * BPB - 1)
+    if gap:
+        levels = pkg.config.gap_levels
+        try:
+            # a 65536-run block stays D-GAP only above the top GAP level
+            pkg.config.gap_levels = (128, 256, 512, BPB + 8)
+            bv |= pkg.BitVector.from_indices(
+                4 * BPB + np.arange(0, BPB, 2), size, strategy=C.BM_GAP,
+                **kw)
+        finally:
+            pkg.config.gap_levels = levels
+    if bit:
+        e = pkg.BitVector.from_indices(45 * BPB + np.arange(0, BPB, 7),
+                                       size, **kw)
+        bv |= e
+        bv -= e
+    return bv
+
+
+def rs_queries(rng, rs, size, n):
+    """``n`` uniform ranks and ids on an rs-index with the edges before
+    them: ranks -1, 0, 1, total, total + 1 and every segment's first and
+    last rank; ids -1, 0, size - 1, size and every block border."""
+    total = rs.total
+    ranks = np.concatenate([[-1, 0, 1, total, total + 1], rs.cum,
+                            rs.cum + 1, rng.integers(1, total + 1, n)])
+    borders = np.arange(-(-size // BPB) + 1) * BPB
+    ids = np.concatenate([[-1, 0, size - 1, size], borders - 1, borders,
+                          rng.integers(0, size, n)])
+    return ranks.astype(np.int64), ids.astype(np.int64)
+
+
+def rs_kernels_vs_plain(rng, device, cmp):
+    """rs_select and rs_rank, and their flat forms select_flat and
+    rank_flat, each against its plain version on the card: on a vector of
+    cell 1's shapes with 1M uniform ranks and ids, and on the edge vector;
+    the index's batches also against numpy."""
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    from bitmagic_tpu_torch import constants as C
+    cell, words = rs_cell_vector(tbm, rng, device)
+    edge = rs_edge_vector(tbm, device)
+    st = edge._struct
+    check(set(st.cls.tolist()) == {C.CLS_BIT, C.CLS_GAP, C.CLS_FULL}
+          and st.has_runs and int(np.diff(edge._gaps.offs).max()) == BPB,
+          "rs edge vector: BIT, D-GAP (65536 runs), FULL and FULL runs")
+    for v, n in ((cell, N_QUERIES), (edge, 20_000)):
+        rs = v.build_rs_index()
+        runs = rs._gap_runs()
+        ranks, ids = rs_queries(rng, rs, v.size, n)
+        q = torch.from_numpy(ranks).to(device)
+        i = torch.from_numpy(ids).to(device)
+        sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+        cmp("rs_select", ck.rs_select(*sargs, q, rs.total),
+            plain.rs_select(*sargs, q, rs.total))
+        rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
+        cmp("rs_rank", ck.rs_rank(*rargs, i), plain.rs_rank(*rargs, i))
+        g = rs.gwc.cpu().numpy().astype(np.int64)
+        pool_total = int(g[-1])
+        granks = np.concatenate([[1, pool_total], np.clip(g, 1, None),
+                                 rng.integers(1, pool_total + 1, n)])
+        granks = torch.from_numpy(granks.astype(np.int32)).to(device)
+        cmp("rs_select", ck.select_flat(rs.pool, rs.gwc, granks),
+            plain.select_flat(rs.pool, rs.gwc, granks))
+        n_bits = rs.pool.shape[0] * BPB
+        rel = np.concatenate([[0, n_bits - 1], np.arange(0, n_bits, 1024),
+                              rng.integers(0, n_bits, n)])
+        rel = torch.from_numpy(rel).to(device)
+        cmp("rs_rank", ck.rank_flat(rs.pool, rs.gwc, rel),
+            plain.rank_flat(rs.pool, rs.gwc, rel))
+        w = v.to_words().ravel() if v is edge else words
+        ones = np.flatnonzero(np.unpackbits(w.view(np.uint8),
+                                            bitorder="little"))
+        got = rs.select_batch(ranks)
+        ok = (ranks >= 1) & (ranks <= rs.total)
+        check(np.array_equal(got[ok], ones[ranks[ok] - 1])
+              and (got[~ok] == -1).all(), "rs_select: the index's select "
+              "batch equals numpy")
+        check(np.array_equal(rs.rank_batch(ids), np.searchsorted(
+            ones, ids, side="right")), "rs_rank: the index's rank batch "
+            "equals numpy")
 
 
 def count_kernels_vs_plain(rng, device, cmp):
@@ -922,6 +1068,7 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     total = rs.count()
     check(total == int(bits["a"].sum()), "rs_index count")
     ranks = rng.integers(1, total + 1, n_queries)
+    n0 = dict(ck.launches)
     with Clock("select_1M_ms", times):
         pos = rs.select_batch(ranks)
     check(np.array_equal(pos, np.flatnonzero(bits["a"])[ranks - 1]),
@@ -930,8 +1077,17 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     with Clock("rank_1M_ms", times):
         rk = rs.rank_batch(ids)
     check(np.array_equal(rk, oracle_rank(wa, ids)), "rank")
+    check({k: ck.launches[k] - n0[k] for k in RS_KERNELS}
+          == {"rs_select": 1, "rs_rank": 1},
+          "select_batch launched rs_select once, rank_batch rs_rank once")
+    n0 = dict(ck.launches)
     times.update(single_query_ms(a, rs, ranks, pos, ids, rk))
-    return times, (a, b, rs, ranks)
+    # each one-query call is one launch (and one warm-up call each)
+    check({k: ck.launches[k] - n0[k] for k in RS_KERNELS}
+          == {"rs_select": 2 * (SINGLE_CALLS + 1),
+              "rs_rank": SINGLE_CALLS + 1},
+          "one launch per one-query select, rank and BitVector.select")
+    return times, (a, b, rs, ranks, ids)
 
 
 def single_query_ms(a, rs, ranks, pos, ids, rk, calls=SINGLE_CALLS):
@@ -979,12 +1135,13 @@ def single_query_main(root):
     return 0
 
 
-def steady_pass(tbm, a, b, rs, ranks):
+def steady_pass(tbm, a, b, rs, ranks, ids):
     """One more pass of the main path's query work on built vectors."""
     for op in OPS:
         getattr(a, DUNDER[op])(b).count()
     tbm.distance_operation(a, b, list(METRICS))
     rs.select_batch(ranks)
+    rs.rank_batch(ids)
 
 
 def traced_device_events(fn):
@@ -2616,14 +2773,21 @@ def sharded_bitvectors(tbm, device, mesh, times, tag):
           == want.tolist(), "sharded count_range")
     total = a.count()
     ranks = rng.integers(1, total + 1, N_QUERIES)
+    before = dict(ck.launches)
     with Clock(f"{tag}_select_1M_ms", times):
         got = a.select_batch(ranks)
     check(a._rs is None, "2^30 bits: the select below the cap")
     check(np.array_equal(got, oracle_select(fa, ranks)), "sharded select")
+    # the flat forms: one launch per shard that holds queries
+    shard_launch_check("sharded select", before, {
+        "rs_select": np.unique(got // a.shard_span).size})
     ids = rng.integers(0, size, N_QUERIES)
+    before = dict(ck.launches)
     with Clock(f"{tag}_rank_1M_ms", times):
         got = a.build_rs_index().rank_batch(ids)
     check(np.array_equal(got, oracle_rank(fa, ids)), "sharded rank")
+    shard_launch_check("sharded rank", before, {
+        "rs_rank": np.unique(ids // a.shard_span).size})
     bits = ((fa[ids >> 5] >> (ids & 31).astype(np.uint32)) & 1).astype(bool)
     check(np.array_equal(a.get_bits(ids), bits), "sharded get_bits")
     one = a.reshard(Mesh([mesh.devices[0]]))
@@ -2650,16 +2814,22 @@ def sharded_bitvectors(tbm, device, mesh, times, tag):
           "2^31 + 2^16 bits: count")
     ranks = np.concatenate([rng.integers(1, total + 1, N_QUERIES),
                             [total, total + 1, 0]])
+    before = dict(ck.launches)
     with Clock(f"{tag}_big_select_1M_ms", times):
         got = c.select_batch(ranks)
     check(c._rs is not None, "2^31 + 2^16 bits: the select past the cap")
     want = np.full(ranks.size, -1, np.int64)
     want[:-2] = oracle_select(fc, ranks[:-2])
     check(np.array_equal(got, want), "2^31 + 2^16 bits: select")
+    shard_launch_check("2^31 + 2^16 bits: select", before, {
+        "rs_select": np.unique(got[got >= 0] // c.shard_span).size})
     ids = np.concatenate([rng.integers(0, BIG_BITS, N_QUERIES),
                           [BIG_BITS - 1, BIG_BITS - BPB + 5]])
+    before = dict(ck.launches)
     check(np.array_equal(c.build_rs_index().rank_batch(ids),
                          oracle_rank(fc, ids)), "2^31 + 2^16 bits: rank")
+    shard_launch_check("2^31 + 2^16 bits: rank", before, {
+        "rs_rank": np.unique(ids // c.shard_span).size})
     return a, b, wa, wb
 
 
@@ -4052,6 +4222,7 @@ def multihost_scale(tbm, mesh):
 MH_ONE_PER_SHARD = {**{op: ("logical_op_digest",) for op in OPS},
                     **{f"{op} count": ("block_counts",) for op in OPS},
                     "count": ("block_counts",),
+                    "select 1M": ("rs_select",), "rank 1M": ("rs_rank",),
                     "pipeline_find_eq": ("pipeline_counts",)}
 
 
@@ -4296,7 +4467,80 @@ def timings(device, card, cfg1):
                 rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
     gap_timings(rng, device, card, flush, out)
     sv_timings(rng, device, card, flush, out)
+    rs_timings(rng, device, card, flush, out)
     return out
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rs_timings(rng, device, card, flush, out):
+    """rs_select and rs_rank at cell 1's shape (a vector drawn as
+    bvsetalgebra_rank_select's A, N_QUERIES uniform ranks and ids) and
+    their flat forms over the same pool (N_QUERIES uniform pool ranks and
+    bit offsets).  Bounds: the queries read and the answers written once,
+    each 128 B wave that a query reaching a BIT block touches read once
+    (a wave many queries share comes from L2 after its first read, as
+    sv_gather_bytes counts each pool row once), the index's tables read
+    once (L2-resident); the popcounts these queries need (the wave's
+    words up to the answer's, and select's five in-word steps)."""
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch import constants as C
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    v, _ = rs_cell_vector(tbm, rng, device)
+    rs = v.build_rs_index()
+    runs = rs._gap_runs()
+    ec, key_end, key_cum = runs
+    n = N_QUERIES
+    q = torch.from_numpy(rng.integers(1, rs.total + 1, n)).to(device)
+    i = torch.from_numpy(rng.integers(0, v.size, n)).to(device)
+    sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
+    # which queries reach a BIT block, and the words their waves need
+    s_bit = rs._seg[torch.searchsorted(rs._cum0_dev, q), plain.CLS] \
+        == C.CLS_BIT
+    s_pos = ck.rs_select(*sargs, q, rs.total)
+    s_words = ((s_pos & 1023) >> 5) + 1
+    row = torch.searchsorted(rs._nb_dev, i >> 16, right=True)
+    r_bit = ((rs._seg[row, plain.CLS] == C.CLS_BIT)
+             & ((i >> 16) < rs._seg[row, plain.END]))
+    r_words = ((i & 1023) >> 5) + 1
+    tables = _nbytes(rs._seg, ec, rs.gwc)
+    g = torch.from_numpy(rng.integers(1, int(rs.gwc[-1]) + 1, n).astype(
+        np.int32)).to(device)
+    rel = torch.from_numpy(rng.integers(0, rs.pool.shape[0] * BPB, n)).to(
+        device)
+    f_pos = ck.select_flat(rs.pool, rs.gwc, g)
+    f_words = ((f_pos & 1023) >> 5) + 1
+    every = torch.ones(n, dtype=torch.bool, device=device)
+    for key, kern, pln, nbytes, popcs, bit, bits in (
+            (("rs_select", "cell1_1M"),
+             lambda: ck.rs_select(*sargs, q, rs.total),
+             lambda: plain.rs_select(*sargs, q, rs.total),
+             16 * n + tables + _nbytes(rs._cum0_dev, key_cum),
+             int((s_words + 5)[s_bit].sum()), s_bit, s_pos),
+            (("rs_rank", "cell1_1M"), lambda: ck.rs_rank(*rargs, i),
+             lambda: plain.rs_rank(*rargs, i),
+             16 * n + tables + _nbytes(rs._nb_dev, key_end),
+             int(r_words[r_bit].sum()), r_bit, i),
+            (("rs_select", "flat_1M"),
+             lambda: ck.select_flat(rs.pool, rs.gwc, g),
+             lambda: plain.select_flat(rs.pool, rs.gwc, g),
+             12 * n + _nbytes(rs.gwc), int((f_words + 5).sum()), every,
+             f_pos),
+            (("rs_rank", "flat_1M"),
+             lambda: ck.rank_flat(rs.pool, rs.gwc, rel),
+             lambda: plain.rank_flat(rs.pool, rs.gwc, rel),
+             16 * n + _nbytes(rs.gwc), int((((rel & 1023) >> 5) + 1).sum()),
+             every, rel)):
+        # the distinct waves the BIT-class queries touch: a BIT block is
+        # one pool row, so a bit position's >> 10 names its wave
+        waves = int(torch.unique(bits[bit] >> 10).numel())
+        record(out, key, card, flush, kern, pln, None,
+               nbytes + 128 * waves, 0, popcs)
+        out[key].update(queries=n, bit_queries=int(bit.sum()), waves=waves)
 
 
 def sv_gather_bytes(table, n_ids) -> int:
@@ -4651,7 +4895,7 @@ def main():
     main_launches = dict(ck.launches)
     log(f"main: configs 1-2 passed in {time.perf_counter() - t0:.1f} s; "
         f"launches {main_launches}; phase ms {json.dumps(main_times)}")
-    for k in FIRST_SLICE + GAP_ROWS:
+    for k in FIRST_SLICE + GAP_ROWS + RS_KERNELS:
         check(main_launches[k] > 0, f"main path never launched {k}")
     log(f"main: one query per call, median host wall ms of "
         f"{SINGLE_CALLS} calls: select {main_times['one_select_ms']}, rank "
@@ -4677,10 +4921,29 @@ def main():
         check(len(main) == 1 and kernel in main[0]
               and len(names) - len(main) <= beside,
               f"{what}: one launch of {kernel} and no sum kernel after it")
+    rs, ranks, ids = state[2:]
+    for what, fn, kernel in (
+            ("select_batch", lambda: rs.select_batch(ranks),
+             "rs_select_kernel"),
+            ("rank_batch", lambda: rs.rank_batch(ids), "rs_rank_kernel")):
+        fn()
+        sync()
+        for retries in range(3):
+            names = [e.name for e in traced_device_events(fn)]
+            if names:
+                break
+        main = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+        copies = sorted(n for n in names if n.startswith("Memcpy"))
+        log(f"main: one 1M {what} put these on the card: {names}; empty "
+            f"traces before this one: {retries}")
+        check(len(main) == 1 and kernel in main[0] and len(copies) == 2
+              and len(names) == 3, f"{what}: one {kernel} launch and its "
+              f"two copies, nothing else")
+    del rs, ranks, ids
     cfg1 = (a._pool, *k2_operands(a, b))
     del a, b, r
-    profile("steady pass (4 ops + counts, distance_operation, 1M select)",
-            lambda: steady_pass(tbm, *state))
+    profile("steady pass (4 ops + counts, distance_operation, 1M select, "
+            "1M rank)", lambda: steady_pass(tbm, *state))
     del state
 
     # 5-6. the search paths: config 3 (aggregator), config 4b (scanner)
@@ -4774,7 +5037,7 @@ def main():
         f"{sharded_launches}")
     require_launches("sharded phase", sharded_launches,
                      ("logical_op_digest", "block_counts", "agg_and_sub",
-                      "pipeline_counts", "scan_eq"))
+                      "pipeline_counts", "scan_eq") + RS_KERNELS)
     del cols
 
     # 12. the capi phase: configs 1-2's A and B through the BM_* facade
@@ -4845,10 +5108,12 @@ def main():
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"),
                   gap_expand=("cell1_768",), gap_compress=("cell1_400",),
-                  sv_gather=("cell3",), sv_transpose=("16M_20",))
+                  sv_gather=("cell3",), sv_transpose=("16M_20",),
+                  rs_select=("cell1_1M", "flat_1M"),
+                  rs_rank=("cell1_1M", "flat_1M"))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
-                    else search_launches[k])
+                    + RS_KERNELS else search_launches[k])
         for shape in shapes[k]:
             t = tm[(k, shape)]
             log(json.dumps({"kernel": k, "shape": shape, **{
@@ -4859,7 +5124,8 @@ def main():
                                   "rows_total", "singles_ms",
                                   "popcounts_per_word_pair",
                                   "planes_staged", "planes_total", "runs",
-                                  "call_ms", "ids", "planes")
+                                  "call_ms", "ids", "planes", "queries",
+                                  "bit_queries")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -4887,6 +5153,9 @@ def main():
         if k in SV_PLANES:
             entry["note"] = ("launches: config 4b's from_array and gather "
                              "(scan path)")
+        if k in RS_KERNELS:
+            entry["note"] = ("launches: one per 1M batch and per one-query "
+                             "call (main path); the flat forms count here")
         if k == "gap_compress":
             entry["call_ms"] = t["call_ms"]
             entry["note"] = ("two launches per call (count pass, write "

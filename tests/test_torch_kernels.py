@@ -615,3 +615,53 @@ def test_sv_planes_kernels(dev, rng):
         ck.sv_gather(d_ids.to(torch.int32), table)
     with pytest.raises(ValueError):
         ck.sv_transpose(vals.to(torch.int32), 33)
+
+
+def test_rs_select_kernels(dev, rng):
+    """rs_select and rs_rank, and their flat forms, against their plain
+    versions on the card; the index's batches against numpy with one
+    launch each, none for an empty batch; a wrong dtype raises."""
+    from bitmagic_tpu_torch.ops import select as plain
+    from chip_smoke import rs_edge_vector
+    bv = rs_edge_vector(tbm, dev)
+    rs = bv.build_rs_index()
+    runs = rs._gap_runs()
+    total, size = rs.total, bv.size
+    ranks = np.concatenate([[-1, 0, 1, total, total + 1], rs.cum,
+                            rs.cum + 1, rng.integers(1, total + 1, 50000)])
+    borders = np.arange(50) * C.BITS_PER_BLOCK
+    ids = np.concatenate([[-1, 0, size - 1, size], borders - 1, borders,
+                          rng.integers(0, size, 50000)])
+    q, i = torch.from_numpy(ranks).to(dev), torch.from_numpy(ids).to(dev)
+    sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
+    got = ck.rs_select(*sargs, q, total)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.rs_select(*sargs, q, total))
+    got = ck.rs_rank(*rargs, i)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.rs_rank(*rargs, i))
+    g = torch.from_numpy(rng.integers(1, int(rs.gwc[-1]) + 1, 50000).astype(
+        np.int32)).to(dev)
+    got = ck.select_flat(rs.pool, rs.gwc, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.select_flat(rs.pool, rs.gwc, g))
+    rel = torch.from_numpy(rng.integers(0, rs.pool.shape[0] * 65536,
+                                        50000)).to(dev)
+    got = ck.rank_flat(rs.pool, rs.gwc, rel)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.rank_flat(rs.pool, rs.gwc, rel))
+    assert ck.launches["rs_select"] == ck.launches["rs_rank"] == 2
+    ones = np.flatnonzero(np.unpackbits(bv.to_words().ravel().view(np.uint8),
+                                        bitorder="little"))
+    ok = (ranks >= 1) & (ranks <= total)
+    want = np.where(ok, ones[np.clip(ranks, 1, total) - 1], -1)
+    np.testing.assert_array_equal(rs.select_batch(ranks), want)
+    np.testing.assert_array_equal(rs.rank_batch(ids),
+                                  np.searchsorted(ones, ids, side="right"))
+    rs.select_batch(np.zeros(0, np.int64))
+    assert ck.launches["rs_select"] == ck.launches["rs_rank"] == 3
+    with pytest.raises(TypeError):
+        ck.rs_select(*sargs, q.to(torch.int32), total)
+    with pytest.raises(TypeError):
+        ck.select_flat(rs.pool, rs.gwc, g.long())

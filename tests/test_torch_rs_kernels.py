@@ -1,0 +1,249 @@
+"""The plain versions of the rank/select kernels (``ops/select.py``:
+``select_flat``, ``rank_in_rows``, ``rank_flat``, ``rs_select``,
+``rs_rank``; ``ops/csrc/rs_select.cu`` on the card) against the JAX
+package on the CPU: ``select_flat`` and ``_rank_in_rows`` directly, the
+batches through ``RSIndex`` against the JAX ``RSIndex`` on vectors that
+mix every block kind, and the sharded flat forms against the JAX
+``ShardedRSIndex`` on an 8-shard mesh.  Inputs come from a numpy seed.
+Tolerance: exact (bit-equal int64).  The kernels themselves are held
+against these on the card in tests/test_torch_kernels.py (marker
+``cuda``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bitmagic_tpu as jbm
+import bitmagic_tpu_torch as tbm
+from bitmagic_tpu.core import rs_index as jrs
+from bitmagic_tpu.ops import select as jsel
+from bitmagic_tpu.parallel import mesh as jmesh_mod
+from bitmagic_tpu.parallel import sharded as jsh
+from bitmagic_tpu_torch import constants as C
+from bitmagic_tpu_torch.ops import cuda_kernels as ck
+from bitmagic_tpu_torch.ops import select as tsel
+from bitmagic_tpu_torch.parallel import Mesh
+from bitmagic_tpu_torch.parallel import sharded as tsh
+from chip_smoke import rs_edge_vector
+
+torch.set_num_threads(1)
+
+BPB = C.BITS_PER_BLOCK
+N_QUERIES = 4096                  # one query shape: one JAX compile each
+
+
+@pytest.fixture(autouse=True)
+def cpu_device(monkeypatch):
+    monkeypatch.setattr(tbm.config, "device", "cpu")
+
+
+def _pool_words(kind, rng):
+    """uint32 pool rows: random words with a zero row, a full row and zero
+    waves; a sparse pool (most waves empty, so the wave prefix repeats);
+    one row of a few bits."""
+    if kind == "random":
+        p = rng.integers(0, 2**32, (6, 2048), dtype=np.uint64).astype(
+            np.uint32)
+        p[1] = 0
+        p[2] = 0xFFFFFFFF
+        p[3, :1024] = 0
+        p[3, ::64] = 0
+        return p
+    n = 5 if kind == "sparse" else 1
+    bits = np.zeros(n * BPB, np.uint8)
+    bits[rng.integers(0, n * BPB, 40 if kind == "sparse" else 7)] = 1
+    bits[[0, n * BPB - 1]] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint32).reshape(
+        n, 2048)
+
+
+def _fill(edges, rng, lo, hi):
+    """``edges`` then random draws in [lo, hi) up to N_QUERIES."""
+    edges = np.asarray(edges, np.int64)[:N_QUERIES]
+    return np.concatenate([edges, rng.integers(lo, hi,
+                                               N_QUERIES - edges.size)])
+
+
+def _torch_pool(words):
+    return torch.from_numpy(words.view(np.int32).copy())
+
+
+@pytest.mark.parametrize("kind", ["random", "sparse", "one_row"])
+def test_select_flat_matches_jax(kind):
+    rng = np.random.default_rng(7)
+    words = _pool_words(kind, rng)
+    tp = _torch_pool(words)
+    gwc = tsel.global_wave_prefix(tp)
+    jgwc = jsel.global_wave_prefix(jnp.asarray(words))
+    np.testing.assert_array_equal(gwc.numpy(), np.asarray(jgwc))
+    total = int(gwc[-1])
+    # every wave's first and last rank: ties where waves are empty
+    g = gwc.numpy().astype(np.int64)
+    ranks = _fill(np.clip(np.concatenate([[1, total], g, g + 1]), 1, total),
+                  rng, 1, total + 1).astype(np.int32)
+    want = np.asarray(jsel.select_flat(jnp.asarray(words), jgwc,
+                                       jnp.asarray(ranks))).astype(np.int64)
+    got = tsel.select_flat(tp, gwc, torch.from_numpy(ranks))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ck.select_flat(tp, gwc, torch.from_numpy(ranks)).numpy(), want)
+    ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little"))
+    np.testing.assert_array_equal(want, ones[ranks - 1])
+
+
+@pytest.mark.parametrize("kind", ["random", "sparse", "one_row"])
+def test_rank_in_rows_and_rank_flat_match_jax(kind):
+    rng = np.random.default_rng(8)
+    words = _pool_words(kind, rng)
+    tp = _torch_pool(words)
+    gwc = tsel.global_wave_prefix(tp)
+    n = words.shape[0]
+    edge_bits = [0, 31, 32, 1023, 1024, 1025, 65535]
+    bits = _fill(edge_bits * n, rng, 0, BPB).astype(np.int32)
+    slots = _fill(np.repeat(np.arange(n), len(edge_bits)), rng, 0,
+                  n).astype(np.int32)
+    want = np.asarray(jrs._rank_in_rows(jnp.asarray(words),
+                                        jnp.asarray(slots),
+                                        jnp.asarray(bits)))
+    got = tsel.rank_in_rows(tp, gwc, torch.from_numpy(slots),
+                            torch.from_numpy(bits))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the flat form counts every row before the slot too
+    rel = slots.astype(np.int64) * BPB + bits
+    before = np.concatenate([[0], np.cumsum(np.bitwise_count(words).sum(
+        1, dtype=np.int64))])[slots]
+    for fn in (tsel.rank_flat, ck.rank_flat):
+        got = fn(tp, gwc, torch.from_numpy(rel))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), before + want)
+
+
+def _counting(monkeypatch, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(ck, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ck, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("variant", ["all", "no_gap", "no_bit"])
+def test_rs_batches_match_jax(variant, monkeypatch):
+    """The port's RSIndex batches (rs_select / rs_rank, one call each)
+    against the JAX RSIndex and the word image on ``rs_edge_vector``
+    (chip_smoke.py) with and without its D-GAP or BIT blocks."""
+    parts = {"gap": variant != "no_gap", "bit": variant != "no_bit"}
+    jv = rs_edge_vector(jbm, **parts)
+    tv = rs_edge_vector(tbm, "cpu", **parts)
+    st = tv._struct
+    kinds = set(st.cls.tolist())
+    assert C.CLS_FULL in kinds and st.has_runs
+    assert (C.CLS_GAP in kinds) == (variant != "no_gap")
+    assert (C.CLS_BIT in kinds) == (variant != "no_bit")
+    if variant == "all":
+        assert np.diff(tv._gaps.offs).max() == BPB
+    words = tv.to_words().ravel()
+    np.testing.assert_array_equal(words, np.asarray(jv.to_words()).ravel())
+    jr, tr = jv.build_rs_index(), tv.build_rs_index()
+    np.testing.assert_array_equal(tr.cum, jr.cum)
+    if variant != "no_bit":
+        # the SUB's empty BIT block is a zero-count segment: cum repeats
+        assert (np.diff(tr.cum) == 0).any()
+    total, size = tr.count(), tv.size
+    rng = np.random.default_rng(12)
+    cum = tr.cum
+    ranks = np.concatenate([
+        [-1, 0, 1, total, total + 1, -(2**40), 2**40], cum, cum + 1,
+        np.concatenate([[0], cum[:-1]]) + 1,
+        rng.integers(1, total + 1, 1500)])
+    borders = np.arange(49) * BPB
+    gap_nb = st.nb[st.cls == C.CLS_GAP]
+    ids = np.concatenate([
+        [0, size - 1, size, 47 * BPB + 5, BPB + 3, 6 * BPB, 9 * BPB - 1,
+         44 * BPB, -1, -(2**40)], borders - 1, borders, borders + 1,
+        gap_nb * BPB, gap_nb * BPB + BPB - 1, 4 * BPB + np.arange(64),
+        45 * BPB + np.arange(0, BPB, 4099), rng.integers(0, size, 1500)])
+    calls = _counting(monkeypatch, ("rs_select", "rs_rank"))
+    got_s, got_r = tr.select_batch(ranks), tr.rank_batch(ids)
+    assert calls == {"rs_select": 1, "rs_rank": 1}
+    want_s, want_r = jr.select_batch(ranks), jr.rank_batch(ids)
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_r, want_r)
+    # and against the word image
+    ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little"))
+    ok = (ranks >= 1) & (ranks <= total)
+    np.testing.assert_array_equal(got_s[ok], ones[ranks[ok] - 1])
+    assert (got_s[~ok] == -1).all()
+    np.testing.assert_array_equal(
+        got_r, np.searchsorted(ones, np.clip(ids, -1, None), side="right"))
+    # one-query calls, a 2-D batch, an empty batch
+    for x in (1, total, int(ranks[-1])):
+        assert tr.select(x) == jr.select(x) == tv.select(x)
+    for i in (0, size - 1, int(ids[-1])):
+        assert tr.rank(i) == jr.rank(i)
+    np.testing.assert_array_equal(tr.select_batch(ranks[:6].reshape(2, 3)),
+                                  got_s[:6].reshape(2, 3))
+    assert tr.rank_batch(np.zeros(0, np.int64)).shape == (0,)
+    # the vector's select goes through its cached index: one call each
+    assert calls == {"rs_select": 8, "rs_rank": 5}
+
+
+def test_rs_wrappers_take_the_plain_route_on_cpu_tensors():
+    """On CPU tensors each wrapper is its plain version; a tensor on
+    another device kind is refused before any launch."""
+    tv = rs_edge_vector(tbm, "cpu")
+    tr = tv.build_rs_index()
+    runs = tr._gap_runs()
+    q = torch.arange(-2, tr.count() + 3, 997, dtype=torch.int64)
+    args = (tr._seg, tr._cum0_dev, runs, tr.pool, tr.gwc)
+    assert torch.equal(ck.rs_select(*args, q, tr.total),
+                       tsel.rs_select(*args, q, tr.total))
+    ids = torch.arange(-5, tv.size + 5, 1009, dtype=torch.int64)
+    args = (tr._seg, tr._nb_dev, runs, tr.pool, tr.gwc)
+    assert torch.equal(ck.rs_rank(*args, ids), tsel.rs_rank(*args, ids))
+    with pytest.raises(ValueError, match="devices"):
+        ck.rs_rank(*args, ids.to("meta"))
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jmesh_mod.make_mesh(8)
+
+
+def test_sharded_flat_forms_match_jax(jmesh, monkeypatch):
+    """ShardedRSIndex's select and rank (select_flat / rank_flat per shard
+    with queries) against the JAX ShardedRSIndex; one wrapper call per
+    shard that holds queries."""
+    rng = np.random.default_rng(13)
+    size = 16 * BPB + 333
+    ids = np.unique(np.concatenate([
+        rng.integers(0, 4 * BPB, 30_000),       # shards 0-1 dense
+        rng.integers(9 * BPB, 10 * BPB, 50),    # shard 4 sparse
+        [size - 1]])).astype(np.int64)
+    jv = jsh.ShardedBitVector.from_indices(ids, size, jmesh)
+    tv = tsh.ShardedBitVector.from_indices(ids, size, Mesh(["cpu"] * 8))
+    ji, ti = jv.build_rs_index(), tv.build_rs_index()
+    np.testing.assert_array_equal(ti.shard_totals, ji.shard_totals)
+    n = ids.size
+    ranks = np.concatenate([[-1, 0, 1, n, n + 1], rng.integers(1, n + 1,
+                                                                2000)])
+    qs = np.concatenate([[0, size - 1, size, -1, 5 * BPB, 9 * BPB],
+                         ids[:100], rng.integers(0, size, 2000)])
+    calls = _counting(monkeypatch, ("select_flat", "rank_flat"))
+    got_s, got_r = ti.select_batch(ranks), ti.rank_batch(qs)
+    shards_s = np.unique(np.searchsorted(ti.cum, ranks[(ranks >= 1)
+                                                       & (ranks <= n)]))
+    shards_r = np.unique(np.clip(qs[qs >= 0], 0, 16 * BPB - 1)
+                         // ti.shard_span)
+    assert calls == {"select_flat": shards_s.size,
+                     "rank_flat": shards_r.size}
+    np.testing.assert_array_equal(got_s, ji.select_batch(ranks))
+    np.testing.assert_array_equal(got_r, ji.rank_batch(qs))
+    ok = (ranks >= 1) & (ranks <= n)
+    np.testing.assert_array_equal(got_s[ok], ids[ranks[ok] - 1])
