@@ -60,7 +60,6 @@ import torch
 import bitmagic_tpu_torch as tbm
 from bitmagic_tpu_torch import constants as C
 from bitmagic_tpu_torch import parallel
-from bitmagic_tpu_torch.core import blocks
 from bitmagic_tpu_torch.ops import _build
 from bitmagic_tpu_torch.ops import cuda_kernels as ck
 
@@ -100,6 +99,8 @@ KERNELS = {
                   ("rs_select_kernel", "select_flat_kernel")),
     "rs_rank": ("rs_rank", CSRC + "rs_select.cu",
                 ("rs_rank_kernel", "rank_flat_kernel")),
+    "sv_descent": ("sv_descent", CSRC + "sv_descent.cu",
+                   ("sv_descent_kernel", "descent_rows_kernel")),
 }
 
 
@@ -678,51 +679,21 @@ class SearchTraffic:
                 f"median of {reps}")
 
 
-def binary_bytes(op, sa, sb) -> tuple[int, np.ndarray]:
-    """K1 bytes of one binary operation on operands whose blocks have the
-    states ``sa``, ``sb`` (a ``Structure.lookup`` state per block), and the
-    result's states.  As ``plan_binary`` resolves them, a block whose
-    result is zero or FULL is no kernel work; the rest is one K1 row that
-    reads each BIT or GAP operand row once and writes the row and its
-    digest.  A zero result row stays a BIT row."""
-    Z, F = blocks._Z, blocks._F
-    if op == "and":
-        drop, full = (sa == Z) | (sb == Z), (sa == F) & (sb == F)
-    elif op == "or":
-        drop, full = (sa == Z) & (sb == Z), (sa == F) | (sb == F)
-    elif op == "sub":
-        drop, full = (sa == Z) | (sb == F), (sa == F) & (sb == Z)
-    else:
-        raise ValueError(op)
-    kern = ~drop & ~full
-    k = int(kern.sum())
-    reads = int((kern & (sa > F)).sum() + (kern & (sb > F)).sum())
-    out = np.where(drop, Z, np.where(full, F, blocks._B))
-    return (reads + k) * ROW + 4 * C.BLOCK_WAVES * k, out
-
-
-def descent_bytes(planes, universe, value, n_bits, n_blocks) -> int:
-    """K1 bytes of the scanner's unsigned MSB-first descent (``gt``, ``eq``
-    from ``universe``; for each plane an AND where ``value`` has a one,
-    else an AND, an OR into ``gt`` and a SUB), from the block states of
-    the planes and the universe over the column's ``n_blocks``."""
-    nb = np.arange(n_blocks)
-    gt = np.full(n_blocks, blocks._Z)
-    eq = universe._struct.lookup(nb)[0]
-    moved = 0
-    for s in range(n_bits - 1, -1, -1):
-        p = planes[s] if s < len(planes) else None
-        if (value >> s) & 1:
-            if p is None:
-                break
-            b, eq = binary_bytes("and", eq, p._struct.lookup(nb)[0])
-            moved += b
-        elif p is not None:
-            ps = p._struct.lookup(nb)[0]
-            b1, t = binary_bytes("and", eq, ps)
-            b2, gt = binary_bytes("or", gt, t)
-            b3, eq = binary_bytes("sub", eq, ps)
-            moved += b1 + b2 + b3
+def descent_bytes(planes, universe, n_blocks, want_eq=False) -> int:
+    """Bytes sv_descent must move for one descent over ``planes`` (the
+    stepped planes) from ``universe`` (BitVectors) over ``n_blocks``
+    walked blocks: each plane's and the universe's BIT rows read once
+    (8 KiB), their D-GAP blocks (4 B a run, 9 B a block: its offsets and
+    first bit), the block ids (8 B), gt's rows and wave digests (and eq's
+    with ``want_eq``) written once and both classes (1 B each)."""
+    out = 1 + bool(want_eq)
+    moved = 10 * n_blocks + out * (ROW + 4 * C.BLOCK_WAVES) * n_blocks
+    for p in [*planes, universe]:
+        cls = p._struct.cls
+        moved += ROW * int((cls == C.CLS_BIT).sum())
+        if p._gaps is not None:
+            moved += (4 * int(p._gaps.offs[-1])
+                      + 9 * int((cls == C.CLS_GAP).sum()))
     return moved
 
 
@@ -731,7 +702,7 @@ class RangeGatherTraffic:
     find_gt of a constant with its count (BitMagic svsample10), then the
     values at random ids, late materialization in random order
     (sparse_vector<>::gather, rscsample06)."""
-    needs = ("logical_op_digest", "block_counts")
+    needs = ("sv_descent", "block_counts")
     metric, headline = "column_range_gather_throughput", "gather_mqps"
 
     def __init__(self, seed, sizes):
@@ -790,18 +761,22 @@ class RangeGatherTraffic:
                 "vectors": {"gt": r}}
 
     def kernel_bytes(self, answers) -> dict:
-        """Bytes K1 and K3 must move in one find_gt with its count: the
-        descent's rows from the planes' and the NULL plane's block states
-        (``descent_bytes``), K3 the result's dense rows and its total.
-        The gather's kernel, sv_gather, has no bytes here yet."""
+        """Bytes sv_descent and K3 must move in one find_gt with its
+        count: the descent's planes, NULL plane and results
+        (``descent_bytes``, over the blocks the planes or the NULL plane
+        hold), K3 the result's dense rows and its total.  The gather's
+        kernel, sv_gather, has no bytes here yet."""
         sv = self.sv
         if not sv.is_nullable():
             raise ValueError("bench_torch: the descent's bytes start from "
                              "the NULL plane; the column must be nullable")
+        table, steps, _ = tbm.scanner._descent_steps(sv, self.value,
+                                                     sv.n_slices)
+        bit = table.meta[:, -1]
+        planes = [sv.planes[int(bit[r])] for r, _, _ in steps]
+        walked = np.union1d(table.blocks, sv.null_plane._struct.nb).size
         res = answers["vectors"]["gt"].calc_stat()["bit_blocks"]
-        return {"logical_op_digest": descent_bytes(
-                    sv.planes, sv.null_plane, self.value, sv.n_slices,
-                    -(-sv.size // BLOCK_BITS)),
+        return {"sv_descent": descent_bytes(planes, sv.null_plane, walked),
                 "block_counts": res * ROW + 8}
 
     def metrics(self, ms) -> tuple[dict, dict]:

@@ -35,9 +35,10 @@ from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
 from ..ops.blockops import full_block_np, to_device_words
 from .blocks import (RUN_MIN, Structure, descriptor,
-                     operand_args, plan_binary, points_in_runs, runs_clip,
-                     runs_diff, runs_normalize, runs_overlap_bits,
-                     runs_subtract_points, runs_union, split_runs)
+                     operand_args, plan_binary, plane_table, points_in_runs,
+                     runs_clip, runs_diff, runs_intersect, runs_normalize,
+                     runs_overlap_bits, runs_subtract_points, runs_union,
+                     split_runs)
 from .gapstore import GapStore, compress_rows, from_positions
 
 _I64 = np.int64
@@ -1602,7 +1603,7 @@ _GAP_IDENT = {
 }
 # run-count bound above which a gap x gap pair's result stays a dense BIT
 # row (a >4096-run result would cost more than the 8KB dense row)
-_GAP_MERGE_MAX_RUNS = 4096
+_GAP_MERGE_MAX_RUNS = blockops.GAP_MERGE_MAX_RUNS
 
 
 def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
@@ -1702,6 +1703,80 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
     keep = ~drop
     return BitVector._from_parts(
         Structure(nb_all[keep], cls_all[keep], plan.runs), pool, size, gaps)
+
+
+# sv_descent's class codes (blockops.DESCENT_CLASSES) as block classes
+_DESCENT_CLS = np.asarray([255, C.CLS_FULL, 255, C.CLS_BIT, C.CLS_GAP],
+                          np.uint8)
+
+
+def descent(table, uni: BitVector, steps, want_eq=True):
+    """The MSB-first descent of an ordered search, as the chain
+    ``eq &= p`` (a 1-bit) or ``gt |= eq & p; eq -= p`` (a 0-bit) of set
+    operations from ``eq = uni``, ``gt = empty`` would leave both vectors,
+    block layout and all, in one sv_descent launch and one download of
+    the blocks' classes.  ``table``: the column's plane table; ``steps``:
+    ``(table row, value bit, the plane's Structure)`` in descent order.
+    The kernel walks every block that the planes or the universe hold an
+    entry for; FULL runs follow by interval algebra on the host, as
+    ``plan_binary`` runs them.  -> ``(gt, eq)`` (eq None without
+    want_eq)."""
+    uni._flush()
+    dev = uni._device
+    ust = uni._struct
+    if not steps:
+        return BitVector(C.ID_MAX48, device=dev), (uni.copy() if want_eq
+                                                   else None)
+    gt_runs, eq_runs = Structure.empty().runs, ust.runs
+    for _, bit, pst in steps:
+        t_runs = runs_intersect(eq_runs, pst.runs)
+        if bit:
+            eq_runs = t_runs
+        else:
+            gt_runs = runs_union(gt_runs, t_runs)
+            eq_runs = runs_subtract_points(runs_diff(eq_runs, pst.runs),
+                                           pst.nb)
+    blocks = np.union1d(table.blocks, ust.nb)
+    if blocks.size:
+        gt_rows, _, eq_rows, _, cls = ck.sv_descent(
+            table, *descent_args(uni, steps, blocks), want_eq)
+        cls = cls.cpu().numpy().reshape(2, -1)
+    else:                      # FULL runs only: nothing for the kernel
+        gt_rows = eq_rows = blockops.zero_pool(0, dev)
+        cls = np.zeros((2, 0), np.uint8)
+    gt = _descent_result(blocks, cls[0], gt_rows, gt_runs, C.ID_MAX48)
+    if not want_eq:
+        return gt, None
+    return gt, _descent_result(blocks, cls[1], eq_rows, eq_runs, uni._size)
+
+
+def descent_args(uni: BitVector, steps, blocks):
+    """sv_descent's arguments after the column's plane table: the
+    universe's one-plane table, the block ids (uploaded with it), the
+    steps' table rows and the value's bits (bit i: step i's)."""
+    utable = plane_table([(-1, uni._struct, uni._pool, uni._gaps)],
+                         uni._device, blocks)
+    bits = sum(bit << i for i, (_, bit, _) in enumerate(steps))
+    return utable, utable.extra, [r for r, _, _ in steps], bits
+
+
+def _descent_result(blocks, cls, rows, runs, size) -> BitVector:
+    """A BitVector from sv_descent's rows and classes of ``blocks``: its
+    BIT rows taken as they are, its D-GAP rows re-encoded (canonical
+    D-GAP, as the set operations' stores), FULL runs from ``runs``."""
+    c = _DESCENT_CLS[cls]
+    keep = c != 255
+    bit = np.flatnonzero(c == C.CLS_BIT)
+    if bit.size == blocks.size:
+        pool = rows
+    else:
+        pool = rows[torch.from_numpy(bit).to(rows.device)]
+    gap = np.flatnonzero(c == C.CLS_GAP)
+    gaps = None
+    if gap.size:
+        gaps = compress_rows(rows[torch.from_numpy(gap).to(rows.device)])[0]
+    return BitVector._from_parts(Structure(blocks[keep], c[keep], runs),
+                                 pool, size, gaps)
 
 
 def _assemble_shifted(nbs, rows_dev, new_nb, new_rows, size) -> BitVector:

@@ -447,12 +447,13 @@ def operand_args(v, blocklist: np.ndarray):
                       v._gaps, np.where(st == _G, slot, -1))
 
 
-def plane_table(planes, device) -> PlaneTable:
-    """The plane table kernel sv_gather reads (``blockops.PlaneTable``) of
-    ``planes``, a list of ``(bit, Structure, pool, GapStore or None)``
-    (bit -1: the NULL plane), on ``device``: O(blocks + runs) host work
-    from the structures' arrays, one upload, and each GAP store's device
-    mirror."""
+def plane_table(planes, device, extra=None) -> PlaneTable:
+    """The plane table kernels sv_gather and sv_descent read
+    (``blockops.PlaneTable``) of ``planes``, a list of ``(bit, Structure,
+    pool, GapStore or None)`` (bit -1: the NULL plane), on ``device``:
+    O(blocks + runs) host work from the structures' arrays, one upload
+    (with ``extra``, an int64 host array, when given), and each GAP
+    store's device mirror."""
     P = len(planes)
     meta = np.zeros((P, len(PLANE_COLS)), np.int64)
     nbs, ents, runs, pools, gaps = [], [], [], [], []
@@ -477,12 +478,16 @@ def plane_table(planes, device) -> PlaneTable:
         nb_off += st.nb.size
         run_off += st.runs.shape[0]
     ent = np.concatenate(ents + [np.zeros(nb_off % 2, np.int32)])
-    parts = [meta.ravel(), *nbs, *runs, ent.view(np.int64)]
+    extra = np.zeros(0, np.int64) if extra is None else np.asarray(
+        extra, np.int64)
+    parts = [meta.ravel(), *nbs, *runs, ent.view(np.int64), extra]
     buf = torch.from_numpy(np.concatenate(parts)).to(device)
-    at = np.cumsum([0, meta.size, nb_off, 2 * run_off])
-    ent = (buf[at[3]:].view(torch.int32)[:nb_off] if nb_off
+    at = np.cumsum([0, meta.size, nb_off, 2 * run_off, ent.size // 2])
+    ent = (buf[at[3]:at[4]].view(torch.int32)[:nb_off] if nb_off
            else torch.zeros(0, dtype=torch.int32, device=buf.device))
     return PlaneTable(
         meta=meta, table=buf[:at[1]].view(P, len(PLANE_COLS)),
         nb=buf[at[1]:at[2]], runs=buf[at[2]:at[3]].view(run_off, 2),
-        ent=ent, pools=pools, gaps=gaps)
+        ent=ent, pools=pools, gaps=gaps,
+        blocks=np.unique(np.concatenate([np.zeros(0, np.int64), *nbs])),
+        extra=buf[at[4]:] if extra.size else None)

@@ -1,17 +1,18 @@
 """Block-level ops over dense pools ``int32[n_blocks, 2048]`` — plain
 PyTorch versions (port of ``bitmagic_tpu/ops/blockops.py``).
 
-These are the canonical semantics.  Ten families also have a
+These are the canonical semantics.  Eleven families also have a
 hand-written Hopper kernel in ``cuda_kernels.py`` with the same signature:
 ``block_counts`` (and its total form), ``count_op`` / ``count_metrics``
 (and its total form), ``logical_op_digest`` /
 ``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
 ``pipeline_counts``, ``scan_eq``, the D-GAP conversions
-``gap_expand`` / ``gap_compress``, and the SparseVector's multi-plane
-``sv_gather`` and import ``sv_transpose``.  The wrappers there run the plain
-version below only for tensors on the CPU; on the card they launch the
-kernel.  The other functions here have no kernel in the JAX package either
-and stay plain PyTorch on every device.
+``gap_expand`` / ``gap_compress``, the SparseVector's multi-plane
+``sv_gather`` and import ``sv_transpose``, and the ordered searches'
+slice descent ``sv_descent`` / ``descent_rows``.  The wrappers there run
+the plain version below only for tensors on the CPU; on the card they
+launch the kernel.  The other functions here have no kernel in the JAX
+package either and stay plain PyTorch on every device.
 
 Conventions:
   * words are int32 tensors holding the reference's uint32 bits;
@@ -560,7 +561,10 @@ class PlaneTable:
     ([start, end) FULL block runs), the addresses of its pool and GAP
     store mirror, and the value bit it sets (-1: the NULL plane, whose 0
     bits zero the value).  ``table`` is ``meta`` on the device; ``pools``
-    and ``gaps`` hold the tensors it points into, and keep them alive."""
+    and ``gaps`` hold the tensors it points into, and keep them alive.
+    ``blocks`` (host) are the sorted ids of the blocks any plane holds an
+    entry for; ``extra`` is the device copy of the int64 array that
+    ``plane_table`` was asked to upload with the table, or None."""
     meta: np.ndarray
     table: torch.Tensor
     nb: torch.Tensor
@@ -568,6 +572,8 @@ class PlaneTable:
     runs: torch.Tensor
     pools: list
     gaps: list
+    blocks: np.ndarray
+    extra: torch.Tensor | None = None
 
 
 def _plane_bits(t: PlaneTable, p, blk, nbit):
@@ -634,6 +640,158 @@ def sv_transpose(vals, n_slices):
     for s in range(n_slices):
         out[s] = pack_bits_to_words((v >> s) & 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the MSB-first slice descent of the ordered searches (plain versions of
+# sv_descent and descent_rows, ops/csrc/sv_descent.cu)
+# ---------------------------------------------------------------------------
+# a block's class in the descent: absent, FULL, inside a FULL run, BIT,
+# D-GAP (sv_descent's class codes are the indices)
+DESCENT_CLASSES = ("zero", "full", "run", "bit", "gap")
+_DZ, _DF, _DR, _DB, _DG = range(len(DESCENT_CLASSES))
+# run-count bound above which a GAP x GAP pair's result stays a dense BIT
+# row (a >4096-run result would cost more than the 8 KB dense row)
+GAP_MERGE_MAX_RUNS = 4096
+_DESCENT_OPS = {"and": and_blocks, "or": or_blocks, "sub": sub_blocks}
+
+
+def _descent_operand(t: PlaneTable, p, blocks):
+    """Plane ``p`` of a plane table at the sorted block ids ``blocks``:
+    ``(class int64[K], rows int32[K, 2048], runs int64[K])``, the run
+    count of its D-GAP blocks."""
+    o, n, ro, rn = (int(x) for x in t.meta[p, :4])
+    dev, k = blocks.device, blocks.shape[0]
+    cls = torch.zeros(k, dtype=_I64, device=dev)
+    idx = torch.zeros(k, dtype=_I64, device=dev)
+    if rn:                          # the last run starting at or before
+        rs = t.runs[ro:ro + rn]
+        i = torch.searchsorted(rs[:, 0].contiguous(), blocks, right=True) - 1
+        cls[(i >= 0) & (blocks < rs[i.clamp(min=0), 1])] = _DR
+    if n:
+        nb = t.nb[o:o + n]
+        pos = torch.searchsorted(nb, blocks).clamp(max=n - 1)
+        e = t.ent[o:o + n][pos].to(_I64)
+        kind = torch.where(e >= 0, _DB, torch.where(e == -1, _DF, _DG))
+        cls = torch.where(nb[pos] == blocks, kind, cls)
+        idx = torch.where(e >= 0, e, -2 - e)
+    rows = zero_pool(k, dev)
+    rows[(cls == _DF) | (cls == _DR)] = -1
+    bit = cls == _DB
+    if bit.any():
+        rows[bit] = t.pools[p][idx[bit]]
+    runs = torch.zeros(k, dtype=_I64, device=dev)
+    gap = cls == _DG
+    if gap.any():
+        ends, offs, first = t.gaps[p]
+        rows[gap] = gap_expand(ends, offs, first, idx[gap])
+        o64 = offs.to(_I64)
+        runs[gap] = o64[idx[gap] + 1] - o64[idx[gap]]
+    return cls, rows, runs
+
+
+def _descent_pair(op, a, b):
+    """``a OP b`` of two ``(class, rows, runs)`` block states, with the
+    class the port's set operation gives the result (core/bitvector's
+    ``_binary``): the FULL / absent algebra and the FULL-run interval
+    algebra, the D-GAP pass-throughs, GAP x GAP pairs of at most
+    GAP_MERGE_MAX_RUNS runs in all merged (absent when zero, FULL when all
+    ones, else D-GAP), every other pair BIT."""
+    sa, xa, na = a
+    sb, xb, nb = b
+    x = _DESCENT_OPS[op](xa, xb)
+    ra, rb = sa == _DR, sb == _DR
+    za, zb = sa == _DZ, sb == _DZ
+    fa, fb = ra | (sa == _DF), rb | (sb == _DF)
+    ga, gb = sa == _DG, sb == _DG
+    cls = torch.full_like(sa, -1)
+    runs = torch.zeros_like(na)
+
+    def rule(cond, c, n=None):
+        m = (cls < 0) & cond
+        cls[m] = c
+        if n is not None:
+            runs[m] = n[m]
+
+    if op == "and":
+        rules = ((ra & rb, _DR), (za | zb, _DZ), (fa & fb, _DF),
+                 (ga & fb, _DG, na), (fa & gb, _DG, nb))
+    elif op == "or":
+        rules = ((ra | rb, _DR), (za & zb, _DZ), (fa | fb, _DF),
+                 (ga & zb, _DG, na), (za & gb, _DG, nb))
+    else:
+        rules = ((ra & zb, _DR), (za | fb, _DZ), (fa & zb, _DF),
+                 (ga & zb, _DG, na), (fa & gb, _DG, nb))
+    for r in rules:
+        rule(*r)
+    merge = (cls < 0) & ga & gb & (na + nb <= GAP_MERGE_MAX_RUNS)
+    if merge.any():
+        rule(merge & is_zero_blocks(x), _DZ)
+        rule(merge & is_full_blocks(x), _DF)
+        rule(merge, _DG, gap_counts(x).to(_I64))
+    rule(torch.ones_like(ga), _DB)
+    return cls, x, runs
+
+
+def sv_descent(table: PlaneTable, utable: PlaneTable, blocks, rows, bits,
+               want_eq=True):
+    """The MSB-first descent over the sorted block ids ``blocks`` int64[K]
+    (plain version of kernel sv_descent): eq starts as the universe (the
+    one plane of ``utable``) and gt empty; step i takes plane ``rows[i]``
+    of ``table`` and bit i of ``bits``, a 1 making ``eq &= p``, a 0
+    ``gt |= eq & p; eq -= p``.  Each step keeps per block the class the
+    port's set operation would give it (``_descent_pair``).  ->
+    ``(gt int32[K, 2048], its digest int32[K, 64], eq, its digest (both
+    None without want_eq), classes uint8[2K]: gt's, then eq's)``."""
+    k = blocks.shape[0]
+    eq = _descent_operand(utable, 0, blocks)
+    gt = (torch.zeros(k, dtype=_I64, device=blocks.device),
+          zero_pool(k, blocks.device),
+          torch.zeros(k, dtype=_I64, device=blocks.device))
+    for i, r in enumerate(rows):
+        if bool((eq[0] == _DZ).all()):    # nothing changes any more
+            break
+        p = _descent_operand(table, r, blocks)
+        if (bits >> i) & 1:
+            eq = _descent_pair("and", eq, p)
+        else:
+            gt = _descent_pair("or", gt, _descent_pair("and", eq, p))
+            eq = _descent_pair("sub", eq, p)
+    cls = torch.cat([gt[0], eq[0]]).to(torch.uint8)
+    if not want_eq:
+        return gt[1], calc_digest(gt[1]), None, None, cls
+    return gt[1], calc_digest(gt[1]), eq[1], calc_digest(eq[1]), cls
+
+
+def descent_rows(stack, uni, rows, bits, sign=None, mode=0):
+    """The MSB-first descent over one shard's stack int32[K, n, 2048]
+    (plain version of kernel descent_rows, the JAX package's
+    ``_descent_prog`` / ``_float_gt_prog`` loop): eq starts as ``uni``
+    int32[n, 2048] (mode 1: ``uni & ~sign``, mode 2: ``uni & sign``), gt
+    empty; step i takes stack row ``rows[i]`` (-1: a zero plane) and bit i
+    of ``bits``.  -> ``(gt, eq)`` int32[n, 2048]."""
+    eq = uni.clone() if mode == 0 else (sub_blocks(uni, sign) if mode == 1
+                                        else and_blocks(uni, sign))
+    gt = torch.zeros_like(uni)
+    for i, r in enumerate(rows):
+        p = stack[r] if r >= 0 else torch.zeros_like(uni)
+        if (bits >> i) & 1:
+            eq = eq & p
+        else:
+            gt = gt | (eq & p)
+            eq = sub_blocks(eq, p)
+    return gt, eq
+
+
+def descent_steps(rows_by_bit, value):
+    """The steps of a descent over all ``len(rows_by_bit)`` bits:
+    ``(rows, bits)``, the row of each value bit from the top bit down, and
+    the mask whose bit i is the value's bit at step i."""
+    n = len(rows_by_bit)
+    rows = [rows_by_bit[s] for s in range(n - 1, -1, -1)]
+    bits = sum(((value >> s) & 1) << i
+               for i, s in enumerate(range(n - 1, -1, -1)))
+    return rows, bits
 
 
 # ---------------------------------------------------------------------------

@@ -135,6 +135,21 @@ __device__ __forceinline__ int desc_word(const Operand& a, const Operand& b,
   return slot != nullptr ? slot[i] : i;
 }
 
+// One plane of a sparse column's plane table (sv_planes.cu,
+// sv_descent.cu); core/blocks.plane_table writes these as int64 columns
+// (ops/blockops.PLANE_COLS).
+struct Plane {
+  int64_t nb_off, nb_len;        // its entries nb[nb_off .. + nb_len)
+  int64_t run_off, run_len;      // its runs runs[run_off .. + run_len)
+  const uint32_t* pool;          // int32[rows, 2048]
+  const int32_t* ends;           // GAP mirror, or nullptr
+  const int32_t* offs;
+  const uint8_t* first;
+  int64_t bit;                   // value bit 0..63, or -1 (NULL plane)
+};
+constexpr int kPlaneCols = 9;
+static_assert(sizeof(Plane) == 8 * kPlaneCols, "Plane is 9 int64 columns");
+
 __device__ __forceinline__ void warp_sources(const Operand& a,
                                              const Operand& b, int w,
                                              RowSrc& sa, RowSrc& sb) {

@@ -36,10 +36,12 @@
 // ballots give the slice's 32 words, lane j keeping word j, and the warp
 // stores them in one coalesced 128-byte write.  Bound: the values read
 // once and the image written once.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bm_common.cuh"
 
 namespace {
+
+using bm::Plane;
+using bm::kPlaneCols;
 
 constexpr int kBlockWords = 2048;          // words per block row
 constexpr int kGatherThreads = 256;
@@ -48,19 +50,6 @@ constexpr int kTransposeThreads = 256;
 constexpr int kTransposeWarps = kTransposeThreads / 32;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
-// One plane of the table; core/blocks.plane_table writes these as int64
-// columns (ops/blockops.PLANE_COLS).
-struct Plane {
-  int64_t nb_off, nb_len;        // its entries nb[nb_off .. + nb_len)
-  int64_t run_off, run_len;      // its runs runs[run_off .. + run_len)
-  const uint32_t* pool;          // int32[rows, 2048]
-  const int32_t* ends;           // GAP mirror, or nullptr
-  const int32_t* offs;
-  const uint8_t* first;
-  int64_t bit;                   // value bit 0..63, or -1 (NULL plane)
-};
-constexpr int kPlaneCols = 9;
-static_assert(sizeof(Plane) == 8 * kPlaneCols, "Plane is 9 int64 columns");
 
 // Bit ``nbit`` of block ``blk`` in plane ``p``.
 __device__ __forceinline__ uint32_t plane_bit(const Plane& p,

@@ -30,6 +30,11 @@ rs_rank,               rs_select.cu                 core/rs_index.py:191
 rank_flat                                           (_rank_in_rows), and
                                                     :106 (rank_batch's
                                                     numpy)
+sv_descent,            sv_descent.cu                sv/scanner.py:210
+descent_rows                                        (_cmp_unsigned's chain),
+                                                    parallel/sharded_sv.py:
+                                                    1182 (_descent_prog),
+                                                    :1208 (_float_gt_prog)
 =====================  ===========================  =========================
 
 Each wrapper runs its kernel's plain PyTorch version (``ops/blockops.py``;
@@ -64,11 +69,14 @@ _OPERAND = [_VP, _INT, _VP, _VP, _VP, _INT, _VP]
 
 _I64 = torch.int64
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
             "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0,
             "gap_expand": 0, "gap_compress": 0, "sv_gather": 0,
-            "sv_transpose": 0, "rs_select": 0, "rs_rank": 0}
+            "sv_transpose": 0, "rs_select": 0, "rs_rank": 0,
+            "sv_descent": 0}
 # most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
 # memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
@@ -77,6 +85,8 @@ PIPELINE_MAX_PLANES = 400
 PIPELINE_REG_PLANES = 72
 # most planes sv_gather takes: 64 value planes and the NULL plane
 SV_MAX_PLANES = 65
+# most steps of one descent (sv_descent.cu kMaxSteps): a 64-bit value
+DESCENT_MAX_STEPS = 64
 
 _SIGNATURES = {
     "bm_block_counts": ("block_counts.cu", [_VP, _INT, _VP, _VP, _VP]),
@@ -108,6 +118,12 @@ _SIGNATURES = {
                    [_VP, _VP, _LL, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
                     _VP, _VP]),
     "bm_rank_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
+    "bm_sv_descent": ("sv_descent.cu",
+                      [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _LL, _IP, _INT, _ULL, _VP, _VP, _VP, _VP, _VP, _VP]),
+    "bm_descent_rows": ("sv_descent.cu",
+                        [_VP, _INT, _LL, _VP, _VP, _INT, _IP, _INT, _ULL,
+                         _VP, _VP, _VP]),
 }
 
 
@@ -755,3 +771,96 @@ def rank_flat(pool, gwc, rel):
         _launch("bm_rank_flat", "rs_rank", dev, _ptr(pool), _ptr(gwc),
                 gwc.shape[0], _ptr(rel), n, _ptr(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the ordered searches' MSB-first slice descent (sv_descent.cu)
+# ---------------------------------------------------------------------------
+def _table_tensors(t):
+    return (t.table, t.nb, t.ent, t.runs, *t.pools,
+            *(a for g in t.gaps if g is not None for a in g))
+
+
+def _check_table(t, what):
+    if t.table.shape != (t.meta.shape[0], len(blockops.PLANE_COLS)):
+        raise ValueError(f"{what}: malformed plane table")
+    for x, name, dt in ((t.table, "table", _I64), (t.nb, "nb", _I64),
+                        (t.ent, "ent", _I32), (t.runs, "runs", _I64)):
+        _check(x, f"{what}.{name}", dt, tuple(x.shape[1:]),
+               align=x.element_size())
+
+
+def _steps(what, rows, bits, lo, hi):
+    """The steps as the C interface takes them: a host int array."""
+    rows = [int(r) for r in rows]
+    if len(rows) > DESCENT_MAX_STEPS:
+        raise ValueError(f"{what}: {len(rows)} steps; at most "
+                         f"{DESCENT_MAX_STEPS}")
+    if any(not lo <= r < hi for r in rows) or not 0 <= bits < 1 << 64:
+        raise ValueError(f"{what}: a step's row or the bits out of range")
+    return (ctypes.c_int * max(len(rows), 1))(*rows), len(rows)
+
+
+def sv_descent(table, utable, blocks, rows, bits, want_eq=True):
+    """The MSB-first descent of a column's ordered search over the sorted
+    block ids ``blocks`` int64[K], in one launch: ``table`` the column's
+    plane table, ``utable`` the universe's one-plane table (both
+    ``core/blocks.plane_table``), step i the plane of table row
+    ``rows[i]`` with bit i of ``bits`` (``blockops.sv_descent`` has the
+    semantics).  -> ``(gt int32[K, 2048], its digest int32[K, 64], eq, its
+    digest (None without want_eq), classes uint8[2K])``."""
+    tensors = (blocks, *_table_tensors(table), *_table_tensors(utable))
+    if not _on_cuda(*tensors):
+        return blockops.sv_descent(table, utable, blocks, rows, bits,
+                                   want_eq)
+    dev = _one_device("sv_descent", tensors)
+    _check(blocks, "sv_descent: blocks", _I64, align=8)
+    _check_table(table, "sv_descent: table")
+    _check_table(utable, "sv_descent: universe")
+    if utable.meta.shape[0] != 1:
+        raise ValueError("sv_descent: the universe is a one-plane table")
+    steps, n = _steps("sv_descent", rows, bits, 0, table.meta.shape[0])
+    k = blocks.shape[0]
+    gt = torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=dev)
+    gt_dig = torch.empty((k, BLOCK_WAVES), dtype=_I32, device=dev)
+    eq = torch.empty_like(gt) if want_eq else None
+    eq_dig = torch.empty_like(gt_dig) if want_eq else None
+    cls = torch.empty(2 * k, dtype=torch.uint8, device=dev)
+    if k:
+        _launch("bm_sv_descent", "sv_descent", dev, _ptr(table.table),
+                table.meta.shape[0], _ptr(table.nb), _ptr(table.ent),
+                _ptr(table.runs), _ptr(utable.table), _ptr(utable.nb),
+                _ptr(utable.ent), _ptr(utable.runs), _ptr(blocks), k, steps,
+                n, bits, _ptr(gt), _ptr(gt_dig), _ptr(eq), _ptr(eq_dig),
+                _ptr(cls))
+    return gt, gt_dig, eq, eq_dig, cls
+
+
+def descent_rows(stack, uni, rows, bits, sign=None, mode=0):
+    """The MSB-first descent over one shard's stack int32[K, n, 2048] in
+    one launch: eq starts as ``uni`` int32[n, 2048] (mode 1: ``uni &
+    ~sign``, mode 2: ``uni & sign``), step i takes stack row ``rows[i]``
+    (-1: a zero plane) with bit i of ``bits``.  -> ``(gt, eq)``
+    int32[n, 2048] (``blockops.descent_rows``)."""
+    if mode not in (0, 1, 2) or (mode and sign is None):
+        raise ValueError(f"descent_rows: mode {mode} with sign {sign}")
+    tensors = (stack, uni, sign) if mode else (stack, uni)
+    if not _on_cuda(*tensors):
+        return blockops.descent_rows(stack, uni, rows, bits, sign, mode)
+    dev = _one_device("descent_rows", tensors)
+    n = stack.shape[1] if stack.dim() == 3 else -1
+    _check(stack, "descent_rows: stack", _I32, (n, SET_BLOCK_SIZE))
+    _check(uni, "descent_rows: uni", _I32, (SET_BLOCK_SIZE,))
+    if uni.shape[0] != n:
+        raise ValueError("descent_rows: uni must have the stack's rows")
+    if mode:
+        _check(sign, "descent_rows: sign", _I32, (SET_BLOCK_SIZE,))
+        if sign.shape != uni.shape:
+            raise ValueError("descent_rows: sign must have uni's shape")
+    steps, n_steps = _steps("descent_rows", rows, bits, -1, stack.shape[0])
+    gt, eq = torch.empty_like(uni), torch.empty_like(uni)
+    if n:
+        _launch("bm_descent_rows", "sv_descent", dev, _ptr(stack),
+                stack.shape[0], n, _ptr(uni), _ptr(sign if mode else None),
+                mode, steps, n_steps, bits, _ptr(gt), _ptr(eq))
+    return gt, eq

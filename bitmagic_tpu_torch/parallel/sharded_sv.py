@@ -22,7 +22,8 @@ CPU one):
   * ``find_eq``: a digest pre-pass on the host decides the survivor blocks,
     then ONE B4 launch per shard ANDs / AND-NOTs only the surviving rows;
   * ``find_gt/ge/lt/le/range``: the MSB-first slice descent of the
-    single-device scanner, up to three K1 launches per plane and shard;
+    single-device scanner, one ``descent_rows`` launch per shard (the
+    sign split and the closing unions K1);
   * ``pipeline_find_eq``: one B5 launch per shard for a whole value batch,
     the per-shard partials combined on the host in int64.
 Digests and gathers stay plain PyTorch.  On a mesh that spans processes
@@ -373,33 +374,18 @@ class ShardedSparseVector(_SelectorSearchBase):
                            or_mode=True)[0] for s in self.stack])
 
     # ------------------------------------------------------------------
-    # ordered searches: MSB-first slice descent per shard (K1)
+    # ordered searches: MSB-first slice descent per shard
     # ------------------------------------------------------------------
     def _descent(self, universe_mode: int, value: int, lo_row: int,
                  n_bits: int):
         """Per-shard (gt, eq) pools relative to the universe: 0 = UNI,
-        1 = UNI & ~sign, 2 = UNI & sign.  Up to three K1 launches per plane
-        and shard (the AND, the OR and the SUB)."""
-        gts, eqs = [], []
-        for s in self.stack:
-            eq = s[self.UNI]
-            if universe_mode == 1:            # non-negatives
-                eq = _k1("sub", eq, s[0])
-            elif universe_mode == 2:          # negatives
-                eq = _k1("and", eq, s[0])
-            gt = None
-            for b in range(n_bits - 1, -1, -1):
-                p = s[lo_row + b]
-                if (value >> b) & 1:
-                    eq = _k1("and", eq, p)
-                else:
-                    hit = _k1("and", eq, p)
-                    gt = hit if gt is None else _k1("or", gt, hit)
-                    eq = _k1("sub", eq, p)
-            gts.append(gt if gt is not None else zero_rows(s.shape[1],
-                                                           s.device))
-            eqs.append(eq)
-        return gts, eqs
+        1 = UNI & ~sign, 2 = UNI & sign.  One descent_rows launch per
+        shard."""
+        rows, bits = blockops.descent_steps(
+            [lo_row + b for b in range(n_bits)], value)
+        out = [ck.descent_rows(s, s[self.UNI], rows, bits, s[0],
+                               universe_mode) for s in self.stack]
+        return [g for g, _ in out], [e for _, e in out]
 
     def find_gt(self, value) -> ShardedBitVector:
         """Positions with element > value (find_gt_horizontal,
@@ -983,9 +969,11 @@ class ShardedFloatVector(_SelectorSearchBase):
     def _gt_eq(self, value):
         """Per-shard (x > value, x == value) pools of the float ordering
         (scanner find_gt_float semantics).  The zero-magnitude class is one
-        B4 launch (UNI AND-NOT every magnitude row), the descent K1."""
+        B4 launch (UNI AND-NOT every magnitude row), the sign classes K1,
+        the descent one descent_rows launch (a -1 row a zero plane)."""
         sign, exp, mant = self._parts(value)
-        mag = (exp << self._mb) | mant
+        rows, bits = blockops.descent_steps(self.rows,
+                                            (exp << self._mb) | mant)
         stored = [r for r in self.rows if r >= 0]
         gts, eqs = [], []
         for s in self.stack:
@@ -994,23 +982,7 @@ class ShardedFloatVector(_SelectorSearchBase):
                                           for r in [self.UNI] + stored])[0]
             pos = _k1("or", _k1("sub", uni, sgn), _k1("and", mag_zero, sgn))
             neg = _k1("sub", _k1("and", uni, sgn), mag_zero)
-            eq = neg if sign else pos
-            gt = None
-            for b in range(len(self.rows) - 1, -1, -1):
-                r = self.rows[b]
-                if r < 0:                  # a zero plane
-                    if (mag >> b) & 1:
-                        eq = zero_rows(s.shape[1], s.device)
-                    continue
-                p = s[r]
-                if (mag >> b) & 1:
-                    eq = _k1("and", eq, p)
-                else:
-                    hit = _k1("and", eq, p)
-                    gt = hit if gt is None else _k1("or", gt, hit)
-                    eq = _k1("sub", eq, p)
-            if gt is None:
-                gt = zero_rows(s.shape[1], s.device)
+            gt, eq = ck.descent_rows(s, neg if sign else pos, rows, bits)
             if sign:
                 gt = _k1("or", pos, _k1("sub", neg, _k1("or", gt, eq)))
             gts.append(gt)

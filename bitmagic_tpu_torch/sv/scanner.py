@@ -10,8 +10,9 @@ Equivalent of `bm::sparse_vector_scanner<SV>` (src/bmsparsevec_algo.h:612):
   * find_gt/ge/lt/le/range: MSB-first slice descent keeping (greater,
     prefix-equal) accumulators, the slice-algebra form of
     find_gt_horizontal (:1144+), with the signed split handled through the
-    s2u encoding (sign bit = slice 0); every AND, OR and SUB of the descent
-    is one launch of kernel K1;
+    s2u encoding (sign bit = slice 0); each descent is one launch of the
+    kernel sv_descent, its result the vectors the chain of set operations
+    would leave;
   * find_zero / find_nonzero (:1055-1082), find_ne, invert, find_eq_set,
     find_nonnegative;
   * sorted search: lower_bound / bfind_eq via a sample index (reference
@@ -37,7 +38,7 @@ import numpy as np
 
 from .. import constants as C
 from ..agg.aggregator import Aggregator
-from ..core.bitvector import BitVector, _range_vector
+from ..core.bitvector import BitVector, _range_vector, descent
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from .sparse_vector import SparseVector, value_fits
@@ -219,24 +220,36 @@ class SparseVectorScanner:
     # ------------------------------------------------------------------
     # ordered searches (slice descent)
     # ------------------------------------------------------------------
-    def _cmp_unsigned(self, planes, uni: BitVector, value: int, n_bits: int):
-        """MSB-first descent over the given planes: returns (gt, eq)
-        BitVectors relative to the universe.  Up to three K1 launches per
-        plane (the AND, the OR and the SUB)."""
-        gt = BitVector(C.ID_MAX48, device=uni.device)
-        eq = uni.copy()
-        for s in range(n_bits - 1, -1, -1):
-            p = planes[s] if s < len(planes) else None
-            if (value >> s) & 1:
-                if p is None:
-                    # all elements have 0 here: none can stay equal
-                    eq = BitVector(C.ID_MAX48, device=uni.device)
-                    break
-                eq.bit_and(p)
-            elif p is not None:
-                gt.bit_or(eq & p)
-                eq.bit_sub(p)
+    def _cmp_unsigned(self, sv, uni: BitVector, value: int, n_bits: int,
+                      lo: int = 0, want_eq: bool = True):
+        """MSB-first descent over planes lo .. lo + n_bits - 1 of ``sv``:
+        returns (gt, eq) BitVectors relative to the universe (eq None
+        without ``want_eq``), in one sv_descent launch over the column's
+        plane table (``core/bitvector.descent``)."""
+        table, steps, emptied = self._descent_steps(sv, value, n_bits, lo)
+        gt, eq = descent(table, uni, steps, want_eq and not emptied)
+        if emptied and want_eq:
+            eq = BitVector(C.ID_MAX48, device=uni.device)
         return gt, eq
+
+    @staticmethod
+    def _descent_steps(sv, value: int, n_bits: int, lo: int = 0):
+        """``(plane table, steps, emptied)`` of the descent over planes lo
+        .. lo + n_bits - 1 of ``sv``: a step ``(table row, value bit, the
+        plane's Structure)`` per present plane from the top down, up to a
+        1-bit on an absent plane, which empties eq (``emptied``)."""
+        table = sv._plane_table()
+        row = {int(b): i for i, b in enumerate(table.meta[:, -1])}
+        steps = []
+        for s in range(n_bits - 1, -1, -1):
+            p = sv.planes[s + lo] if s + lo < len(sv.planes) else None
+            bit = (value >> s) & 1
+            if p is not None:
+                steps.append((row[s + lo], bit, p._struct))
+            elif bit:
+                # all elements have 0 here: none can stay equal
+                return table, steps, True
+        return table, steps, False
 
     def find_gt(self, sv: SparseVector, value) -> BitVector:
         """Positions with element > value (reference find_gt,
@@ -252,21 +265,19 @@ class SparseVectorScanner:
             return _empty(sv)
         uni = _universe(sv)
         if not sv.signed:
-            gt, _ = self._cmp_unsigned(sv.planes, uni, value, sv.n_slices)
-            return gt
+            return self._cmp_unsigned(sv, uni, value, sv.n_slices,
+                                      want_eq=False)[0]
         # signed split: s2u keeps the sign in slice 0, |v|-1 magnitude above
         sign_p = sv.planes[0]
         neg = (uni & sign_p) if sign_p is not None else _empty(sv)
         pos = uni - neg        # non-negative elements (zero included)
-        mag_planes = sv.planes[1:]
         if value >= 0:
-            gt, _ = self._cmp_unsigned(mag_planes, pos, value,
-                                       sv.n_slices - 1)
-            return gt
+            return self._cmp_unsigned(sv, pos, value, sv.n_slices - 1, lo=1,
+                                      want_eq=False)[0]
         # value < 0: every non-negative qualifies, plus negatives x > value,
         # i.e. stored magnitude (-x-1) < (-value-1)
-        gtm, eqm = self._cmp_unsigned(mag_planes, neg, -value - 1,
-                                      sv.n_slices - 1)
+        gtm, eqm = self._cmp_unsigned(sv, neg, -value - 1, sv.n_slices - 1,
+                                      lo=1)
         return pos | (neg - gtm - eqm)
 
     def find_ge(self, sv: SparseVector, value) -> BitVector:
@@ -278,7 +289,7 @@ class SparseVectorScanner:
         if value > info.max:
             return _empty(sv)
         if not sv.signed:
-            gt, eq = self._cmp_unsigned(sv.planes, _universe(sv), value,
+            gt, eq = self._cmp_unsigned(sv, _universe(sv), value,
                                         sv.n_slices)
             return gt | eq
         return self.find_gt(sv, value - 1)
@@ -670,10 +681,10 @@ class FloatScannerMixin:
         def magnitude_gt(uni_part, or_eq=False):
             """Elements (within uni_part) whose (exp, mantissa) compare
             lexicographically greater than the query's (or equal too)."""
-            e_gt, e_eq = self._cmp_unsigned(fv.exponent.planes, uni_part,
-                                            exp, fv._eb)
-            m_gt, m_eq = self._cmp_unsigned(fv.mantissa.planes,
-                                            e_eq, mant, fv._mb)
+            e_gt, e_eq = self._cmp_unsigned(fv.exponent, uni_part, exp,
+                                            fv._eb)
+            m_gt, m_eq = self._cmp_unsigned(fv.mantissa, e_eq, mant, fv._mb,
+                                            want_eq=or_eq)
             out = e_gt
             out.bit_or(m_gt)
             if or_eq:

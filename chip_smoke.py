@@ -7,6 +7,8 @@ and check it.
                                      # only the one-query timing of the
                                      # main path, with the package under
                                      # ROOT (two trees in turns, one call)
+    python3 chip_smoke.py --descent  # phases 1-2, then only the ordered
+                                     # descent's checks and timings
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -41,6 +43,10 @@ only when every phase passed):
               edge vector (D-GAP blocks of one run and of 65536 runs, FULL
               and FULL-run blocks, absent blocks, a BIT block emptied by a
               SUB; ranks -1, 0, 1, total, total + 1, ids past the end);
+              sv_descent over columns with BIT, FULL-run, absent and 1-3000
+              run D-GAP blocks (GAP pairs of 4096 and 4097 runs) from
+              their universe and from a D-GAP plane, with and without eq,
+              and descent_rows in its three modes with zero planes;
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
@@ -114,7 +120,16 @@ only when every phase passed):
               find_first_mismatch, set2set_transform and BitMatrix rows on
               config 4b's column; every answer against numpy or Python.
               Each group has its own launch counts and required kernels;
-              it logs one find_gt's K1 launches and profiles a steady pass;
+              it logs one find_gt's launches and profiles a steady pass;
+ 9b. descent — the ordered searches' descent in one launch: on columns
+              with every block class (uint32 nullable and not, int16,
+              uint64), each descent equal in every part to the chain of
+              bit_and / bit_or / bit_sub on the card; config 4b's
+              find_gt(0x5A5A5) with its count, then find_ge / lt / le /
+              range against numpy (the path's launches): one sv_descent
+              and one K3 launch, its trace those two kernels only, its
+              result equal to the K1 chain's; a sharded find_gt on 8
+              shards one launch per shard and no K1;
 10. sv_serial — every column of phase 9 (config 4b's, the signed and
               float columns, the dictionary remapped and raw, the RSC
               column) through BMSV with XOR groups on and off,
@@ -202,7 +217,8 @@ only when every phase passed):
               find_eq_count and pipeline_find_eq); every answer against
               numpy in each process and equal to this process's run on
               one mesh of the 8 shards, one launch per local shard per
-              step; a worker's failure or timeout fails the phase;
+              step (find_gt one descent_rows); a worker's failure or
+              timeout fails the phase;
 19. fixtures — the reference C++ fixtures (tests/fixtures) through the port;
 20. scale   — two 2^30-bit vectors (16384 dense blocks, 128 MiB per pool)
               from seeded word images: the four ops, counts and metrics;
@@ -219,10 +235,12 @@ only when every phase passed):
               column_range_gather's shape (16M rows, 1M ids) and
               sv_transpose at 16M values and 20 slices; rs_select and
               rs_rank at bvsetalgebra_rank_select's shape (1M queries) and
-              in their flat forms; the floor of a timed launch; K3 after a
-              flush that leaves L2 clean.
+              in their flat forms; sv_descent at column_range_gather's
+              shape (20 steps over 245 blocks) and descent_rows at one
+              shard of it; the floor of a timed launch; K3 after a flush
+              that leaves L2 clean.
 
-Each path (4, 5, 6, 7, 8, 10, 12, 13, 14, each group of 9 and 11, each leg
+Each path (4, 5, 6, 7, 8, 9b, 10, 12, 13, 14, each group of 9 and 11, each leg
 of 15, 16 and 17, and each step of 18) is driven with the launch counts set
 to 0 just before and read just after; a kernel of the path launched no time
 fails it.
@@ -329,6 +347,13 @@ KERNELS = {
         source="bitmagic_tpu_torch/ops/csrc/rs_select.cu",
         replaces="bitmagic_tpu/core/rs_index.py:191 (_rank_in_rows, "
                  "jitted XLA; with :106 rank_batch's host numpy)"),
+    # the ordered searches' descent: a chain of set operations on one
+    # card, a fused jitted program per search over a sharded stack
+    "sv_descent": dict(
+        source="bitmagic_tpu_torch/ops/csrc/sv_descent.cu",
+        replaces="bitmagic_tpu/sv/scanner.py:210 (_cmp_unsigned's chain "
+                 "of set operations; with parallel/sharded_sv.py:1182 "
+                 "_descent_prog and :1208 _float_gt_prog, jitted XLA)"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
 # the D-GAP kernels the main path's set ops and metrics launch
@@ -488,6 +513,7 @@ def kernels_vs_plain(device, sizes=(0, 13, N_BLOCKS)):
     gap_kernels_vs_plain(rng, device, cmp)
     sv_kernels_vs_plain(rng, device, cmp)
     rs_kernels_vs_plain(rng, device, cmp)
+    descent_kernels_vs_plain(rng, device, cmp)
     for name, e in err.items():
         check(e == 0, f"{name} disagrees with its plain version: max "
                       f"abs err {e}")
@@ -751,6 +777,138 @@ def rs_kernels_vs_plain(rng, device, cmp):
         check(np.array_equal(rs.rank_batch(ids), np.searchsorted(
             ones, ids, side="right")), "rs_rank: the index's rank batch "
             "equals numpy")
+
+
+DESCENT_BLOCKS = 37             # descent_column: a 32-block FULL run fits
+DESCENT_GAP_LEVELS = (128, 256, 512, 4096)   # D-GAP blocks of 3000 runs
+DESCENT_GT = 0x5A5A5            # column_range_gather's find_gt value
+
+
+def _run_bits(rng, n_runs):
+    """One block's bits with exactly ``n_runs`` runs."""
+    cuts = rng.choice(np.arange(1, BPB), n_runs - 1, replace=False)
+    flips = np.zeros(BPB, np.int64)
+    flips[cuts] = 1
+    return (np.cumsum(flips) + rng.integers(0, 2)) % 2 == 1
+
+
+def descent_column(pkg, dtype, nullable=False, seed=7, device=None):
+    """A column of ``pkg`` (the port, or the JAX package in the tests)
+    with every block class in its planes: blocks 0-3 and 6 random values
+    (BIT rows; the dtype's edges first), blocks 4-5 D-GAP patterns of 1 to
+    3000 runs per plane, the two top planes 2000 + 2096 runs in block 4
+    (a GAP x GAP pair merged in the run domain) and 2000 + 2097 in block 5
+    (a BIT row); then grown to DESCENT_BLOCKS blocks, a FULL run over
+    blocks 4-35 in planes 1 and bits - 3, the NULL plane (20 % NULL in
+    blocks 0-3 and 6) a FULL run over blocks 5-36, plane bits // 2
+    absent."""
+    rng = np.random.default_rng(seed)
+    kw = {} if device is None else {"device": device}
+    bits = np.iinfo(dtype).bits
+    n = 6 * BPB + 777
+    u = rng.integers(0, 2**63, n, dtype=np.uint64) << np.uint64(1)
+    u |= rng.integers(0, 2, n, dtype=np.uint64)
+    if bits < 64:
+        u &= np.uint64((1 << bits) - 1)
+    for b, top in ((4, (2000, 2096)), (5, (2000, 2097))):
+        blk = np.zeros(BPB, np.uint64)
+        for s in range(bits):
+            runs = {bits - 1: top[0], bits - 2: top[1]}.get(
+                s, int(rng.integers(1, 9 if s % 5 == 0 else 3001)))
+            blk |= _run_bits(rng, runs).astype(np.uint64) << np.uint64(s)
+        u[b * BPB:(b + 1) * BPB] = blk
+    vals = pkg.SparseVector(dtype, **kw).u2s(u)
+    info = np.iinfo(dtype)
+    vals[:4] = [info.min, info.max, -1 if info.min else 1, 0]
+    if nullable:
+        nm = rng.random(n) < 0.2
+        nm[4 * BPB:6 * BPB] = False
+        kw["null_mask"] = nm
+    levels = pkg.config.gap_levels
+    try:
+        pkg.config.gap_levels = DESCENT_GAP_LEVELS
+        sv = pkg.SparseVector.from_array(vals, **kw)
+        sv.optimize()
+    finally:
+        pkg.config.gap_levels = levels
+    size = DESCENT_BLOCKS * BPB + 99
+    sv.resize(size)
+    for s in (1, bits - 3):
+        sv.planes[s].set_range(3 * BPB + 17, DESCENT_BLOCKS * BPB - 1)
+    if nullable:
+        sv.null_plane.set_range(4 * BPB, size - 1)
+    sv.planes[bits // 2] = None
+    return sv
+
+
+def descent_chain(tbm, planes, uni, value, n_bits):
+    """The descent as the chain of set operations sv_descent replaces:
+    ``(gt, eq)`` from ``eq = uni``, for each bit from the top a 1-bit
+    ``eq &= p``, a 0-bit ``gt |= eq & p; eq -= p`` (K1 on the card)."""
+    kw = {"device": uni.device}
+    gt = tbm.BitVector(tbm.constants.ID_MAX48, **kw)
+    eq = uni.copy()
+    for s in range(n_bits - 1, -1, -1):
+        p = planes[s] if s < len(planes) else None
+        if (value >> s) & 1:
+            if p is None:
+                return gt, tbm.BitVector(tbm.constants.ID_MAX48, **kw)
+            eq.bit_and(p)
+        elif p is not None:
+            gt.bit_or(eq & p)
+            eq.bit_sub(p)
+    return gt, eq
+
+
+def descent_queries(bits):
+    """Descent values over ``bits`` planes: the ends, both top bits, a
+    1-bit on descent_column's absent plane, a few inside."""
+    top = 1 << (bits - 1)
+    return sorted({0, 1, top, top - 1, top | (top >> 1), (1 << bits) - 2,
+                   (1 << (bits // 2)) | 5, 12345 % (1 << bits),
+                   0x5A5A5A5A5A5A5A5A % (1 << bits)})
+
+
+def descent_kernels_vs_plain(rng, device, cmp):
+    """sv_descent over descent_column's columns (uint32 nullable and not,
+    int16 nullable; the column's universe and a D-GAP plane as universe;
+    descent_queries) and descent_rows over a random stack with zero rows
+    and zero planes in its three modes, each against its plain version on
+    the card."""
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.core.bitvector import descent_args
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.sv.scanner import _universe
+    sc = tbm.SparseVectorScanner()
+    for dtype, nullable in ((np.uint32, False), (np.uint32, True),
+                            (np.int16, True)):
+        c = descent_column(tbm, dtype, nullable, device=device)
+        bits = np.iinfo(dtype).bits
+        for uni in (_universe(c), c.planes[bits - 1]):
+            for q in descent_queries(bits):
+                table, steps, _ = sc._descent_steps(c, q, bits)
+                blocks = np.union1d(table.blocks, uni._struct.nb)
+                args = descent_args(uni, steps, blocks)
+                for want_eq in (True, False):
+                    got = ck.sv_descent(table, *args, want_eq)
+                    want = blockops.sv_descent(table, *args, want_eq)
+                    for g, w in zip(got, want):
+                        if w is not None:
+                            cmp("sv_descent", g, w)
+    n, k = 29, 24
+    stack = _rand_pool(rng, k * n, device).reshape(k, n, 2048)
+    stack[3] = 0
+    stack[:, 5] = 0
+    rows = [7, -1, 3, 0, 12, -1, 22, 9, 1, 2, 4, 6, 8, 10, 11, 13]
+    for mode in (0, 1, 2):
+        for bits in (0, 0b1011001110001011, 0xFFFF, 0x5A5A):
+            got = ck.descent_rows(stack, stack[23], rows, bits, stack[0],
+                                  mode)
+            want = blockops.descent_rows(stack, stack[23], rows, bits,
+                                         stack[0], mode)
+            for g, w in zip(got, want):
+                cmp("sv_descent", g, w)
 
 
 def count_kernels_vs_plain(rng, device, cmp):
@@ -2122,11 +2280,12 @@ def sv_4b_ordered(tbm, ck, sv, vals, nm, times):
                  np.flatnonzero((v64 >= lo) & (v64 <= hi) & ok),
                  f"config 4b find_range({lo}, {hi})")
     check(sc.find_nonnegative(sv).count() == SV_N, "config 4b nonnegative")
-    # one find_gt alone: the K1 launches of one ordered descent
-    before = ck.launches["logical_op_digest"]
+    # one find_gt alone: the launches of one ordered descent
+    before = dict(ck.launches)
     with Clock("find_gt_ms", times):
         sc.find_gt(sv, drawn)
-    times["find_gt_k1_launches"] = ck.launches["logical_op_digest"] - before
+    times["find_gt_launches"] = {k: v - before[k] for k, v in
+                                 ck.launches.items() if v > before[k]}
     mask_ids = np.flatnonzero(rng.random(SV_N) < 0.5)
     in_mask = np.zeros(SV_N, bool)
     in_mask[mask_ids] = True
@@ -2366,12 +2525,12 @@ def sv_algorithms(tbm, sv, vals, nm):
 
 # the kernels (launch counters) each group of the sv phase must launch
 SV_GROUP_KERNELS = {
-    "config 4b ordered": ("logical_op_digest",),
-    "signed": ("logical_op_digest",),
+    "config 4b ordered": ("sv_descent", "logical_op_digest"),
+    "signed": ("sv_descent", "logical_op_digest"),
     "sorted": (),
-    "float": ("logical_op_digest", "agg_and_sub"),
+    "float": ("sv_descent", "logical_op_digest", "agg_and_sub"),
     "strings": ("agg_and_sub", "pipeline_counts", "block_counts"),
-    "rsc": ("agg_and_sub", "logical_op_digest"),
+    "rsc": ("agg_and_sub", "logical_op_digest", "sv_descent"),
     "sv algorithms": ("logical_op_digest",),
 }
 
@@ -2409,8 +2568,7 @@ def sv_phase(tbm, device, card, sv, vals, nm):
             total[k] += launches[k]
     log(f"sv: phase ms {json.dumps(times)}")
     log(json.dumps({"sv_find_gt_config4b": {
-        "ms": times["find_gt_ms"],
-        "k1_launches": times["find_gt_k1_launches"],
+        "ms": times["find_gt_ms"], "launches": times["find_gt_launches"],
         "planes": SV_BITS}, "card": card["smi"]}))
     sc, drawn = state["ordered"]
     sc.reset_and_mask()
@@ -2435,6 +2593,127 @@ def sv_phase(tbm, device, card, sv, vals, nm):
             "float": state["fv"], "dict": (cat, raw, names, queries, nums),
             "rsc": (rsc, rsc_idx, rsc_vals)}
     return total, cols
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: descent — the ordered searches' slice descent in one launch
+# ---------------------------------------------------------------------------
+def same_parts(a, b, what):
+    """Every ``interop.PARTS`` field of two BitVectors equal."""
+    from bitmagic_tpu_torch import interop
+    pa, pb = interop.bitvector_to_parts(a), interop.bitvector_to_parts(b)
+    for key in interop.PARTS:
+        check(np.array_equal(np.asarray(pa[key]), np.asarray(pb[key])),
+              f"{what}: {key}")
+
+
+def descent_phase(tbm, device, card, sv, vals, nm):
+    """Phase 9b.  (1) On descent_column's mixed-block columns on the card
+    (uint32 nullable and not, int16 nullable, uint64), every descent of
+    descent_queries, from the column's universe and from a D-GAP plane,
+    equals in every part the same descent chained from bit_and / bit_or /
+    bit_sub on the card (K1); the ordered searches equal the same column's
+    on the CPU.  (2) Config 4b's column with the counts set to 0 just
+    before and read just after: find_gt(DESCENT_GT) with its count, then
+    find_ge / lt / le and find_range against numpy (the path's launches).
+    One find_gt with its count is one sv_descent and one K3 launch, its
+    trace sv_descent_kernel and block_counts_kernel and no other kernel,
+    its result equal in every part to the K1 chain's.  (3) A sharded
+    find_gt on SHARDS shards is one descent_rows launch per shard and no
+    K1.  Returns (the path's launches, ms)."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import Mesh, ShardedSparseVector
+    from bitmagic_tpu_torch.sv.scanner import _universe
+    sc = tbm.SparseVectorScanner()
+    times = {}
+    t0 = time.perf_counter()
+    n = 0
+    for dtype, nullable in ((np.uint32, False), (np.uint32, True),
+                            (np.int16, True), (np.uint64, False)):
+        c = descent_column(tbm, dtype, nullable, device=device)
+        bits = np.iinfo(dtype).bits
+        name = np.dtype(dtype).name
+        for uni in (_universe(c), c.planes[bits - 1]):
+            for q in descent_queries(bits):
+                fused = sc._cmp_unsigned(c, uni, q, bits)
+                chain = descent_chain(tbm, c.planes, uni, q, bits)
+                for f, w, what in zip(fused, chain, ("gt", "eq")):
+                    same_parts(f, w, f"descent {name} {what}({q})")
+                n += 1
+        if dtype == np.int16:
+            cpu = descent_column(tbm, dtype, nullable, device="cpu")
+            for q in (-32768, -1, 0, 77, 32767):
+                for op in ORDER_OPS:
+                    same_parts(getattr(sc, op)(c, q), getattr(sc, op)(cpu, q),
+                               f"descent int16 {op}({q}) card vs CPU")
+    times["mixed_columns_s"] = time.perf_counter() - t0
+    log(f"descent: {n} descents over mixed-block columns equal the K1 "
+        f"chain in every part ({times['mixed_columns_s']:.1f} s)")
+    # (2) config 4b's column: the path
+    v64, ok = vals.astype(np.int64), ~nm
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    r = sc.find_gt(sv, DESCENT_GT)
+    check(r.count() == int(((v64 > DESCENT_GT) & ok).sum()),
+          "config 4b find_gt count")
+    sync()
+    one = {k: v for k, v in ck.launches.items() if v}
+    for name, op in ORDER_OPS.items():
+        same_ids(getattr(sc, name)(sv, DESCENT_GT),
+                 np.flatnonzero(op(v64, DESCENT_GT) & ok),
+                 f"config 4b {name}({DESCENT_GT})")
+    same_ids(sc.find_range(sv, 1000, DESCENT_GT),
+             np.flatnonzero((v64 >= 1000) & (v64 <= DESCENT_GT) & ok),
+             "config 4b find_range")
+    sync()
+    launches = dict(ck.launches)
+    times["path_ms"] = (time.perf_counter() - t0) * 1e3
+    require_launches("descent path", launches, ("sv_descent",))
+    check(one == {"sv_descent": 1, "block_counts": 1},
+          f"config 4b find_gt + count launched {one}, not one sv_descent "
+          f"and one K3")
+    for retries in range(3):
+        names = device_kernels(lambda: sc.find_gt(sv, DESCENT_GT).count())
+        if names:
+            break
+    log(f"descent: config 4b find_gt + count put these kernels on the "
+        f"card: {short_kernel_names(names)}; empty traces before this "
+        f"one: {retries}")
+    check(len(names) == 2 and sum("sv_descent_kernel" in x for x in names)
+          == 1 and sum("block_counts_kernel" in x for x in names) == 1,
+          "config 4b find_gt + count: one sv_descent_kernel, one "
+          "block_counts_kernel, no other kernel")
+    walls = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        sc.find_gt(sv, DESCENT_GT)
+        sync()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    times["find_gt_ms_median"] = float(np.median(walls))
+    before = ck.launches["logical_op_digest"]
+    uni = _universe(sv)
+    chain = descent_chain(tbm, sv.planes, uni, DESCENT_GT, sv.n_slices)[0]
+    times["chain_k1_launches"] = ck.launches["logical_op_digest"] - before
+    same_parts(sc.find_gt(sv, DESCENT_GT), chain,
+               "config 4b find_gt: fused vs K1 chain")
+    profile("descent: config 4b find_gt + count",
+            lambda: sc.find_gt(sv, DESCENT_GT).count())
+    # (3) one launch per shard
+    ssv = ShardedSparseVector.from_sparse_vector(sv, Mesh([device] * SHARDS))
+    before = dict(ck.launches)
+    hits = ssv.find_gt(DESCENT_GT)
+    sync()
+    shard_launch_check("sharded find_gt", before,
+                       {"sv_descent": SHARDS, "logical_op_digest": 0})
+    check(np.array_equal(hits.to_bitvector().indices(),
+                         np.flatnonzero((v64 > DESCENT_GT) & ok)),
+          "sharded find_gt")
+    log(json.dumps({"descent_config4b": {
+        "find_gt_count_launches": one, "find_gt_ms_median":
+        times["find_gt_ms_median"], "chain_k1_launches":
+        times["chain_k1_launches"], "sharded_launches_per_find_gt":
+        SHARDS}, "card": card["smi"]}))
+    return launches, times
 
 
 # ---------------------------------------------------------------------------
@@ -2956,10 +3235,11 @@ def sharded_svs(tbm, device, mesh, cols, times):
     check(np.array_equal(hits(ssv.find_range(1000, 1 << 19)),
                          np.flatnonzero((v64 >= 1000) & (v64 <= 1 << 19)
                                         & ok)), "4b sharded find_range")
-    before = ck.launches["logical_op_digest"]
+    before = dict(ck.launches)
     with Clock("find_gt_ms", times):
         ssv.find_gt(drawn)
-    times["find_gt_k1_launches"] = ck.launches["logical_op_digest"] - before
+    shard_launch_check("4b sharded find_gt", before,
+                       {"sv_descent": mesh.size, "logical_op_digest": 0})
     ids = rng.integers(0, SV_N, SV_GATHER)
     with Clock("sv_4b_gather_1M_ms", times):
         got = ssv.gather(ids)
@@ -3053,7 +3333,8 @@ def sharded_phase(tbm, device, card, cols):
         ("and groups", ("agg_and_sub",),
          lambda: sharded_and_groups(tbm, device, mesh, times)),
         ("sparse vectors", ("logical_op_digest", "agg_and_sub",
-                            "pipeline_counts", "scan_eq", "block_counts"),
+                            "pipeline_counts", "scan_eq", "block_counts",
+                            "sv_descent"),
          lambda: state.update(sv=sharded_svs(tbm, device, mesh, cols,
                                              times))))
     for name, need, run in groups:
@@ -3089,7 +3370,7 @@ def sharded_phase(tbm, device, card, cols):
     log(f"sharded: phase ms {json.dumps(times)}")
     log(json.dumps({"sharded_find_gt_config4b": {
         "shards": SHARDS, "ms": times["find_gt_ms"],
-        "k1_launches": times["find_gt_k1_launches"]}, "card": card["smi"]}))
+        "sv_descent_launches": SHARDS}, "card": card["smi"]}))
     a, b = state["bv"][0], state["bv"][1]
     ssv = state["sv"][0]
     ranks = np.random.default_rng(SEED + 35).integers(1, a.count() + 1,
@@ -4221,7 +4502,7 @@ def multihost_scale(tbm, mesh):
 # the steps with exactly one launch of these kernels per shard
 MH_ONE_PER_SHARD = {**{op: ("logical_op_digest",) for op in OPS},
                     **{f"{op} count": ("block_counts",) for op in OPS},
-                    "count": ("block_counts",),
+                    "count": ("block_counts",), "find_gt": ("sv_descent",),
                     "select 1M": ("rs_select",), "rank 1M": ("rs_rank",),
                     "pipeline_find_eq": ("pipeline_counts",)}
 
@@ -4468,6 +4749,7 @@ def timings(device, card, cfg1):
     gap_timings(rng, device, card, flush, out)
     sv_timings(rng, device, card, flush, out)
     rs_timings(rng, device, card, flush, out)
+    descent_timings(rng, device, card, flush, out)
     return out
 
 
@@ -4580,6 +4862,56 @@ def sv_timings(rng, device, card, flush, out):
            lambda: ck.sv_transpose(d, SV_BITS),
            lambda: blockops.sv_transpose(d, SV_BITS), None,
            4 * SV_N + 4 * SV_BITS * n_words, 0, 0)
+
+
+def descent_timings(rng, device, card, flush, out):
+    """sv_descent at column_range_gather's shape (16M nullable values <
+    2^20, every row assigned; find_gt(DESCENT_GT): 20 steps over 245
+    blocks, gt only) and descent_rows at one shard of the same column's
+    SHARDS-shard stack; each first held bit for bit against its plain
+    version.  Bounds: the bytes read and written once
+    (``bench_torch.descent_bytes``; the dense form reads every stepped
+    row and the universe and writes gt and eq)."""
+    import bitmagic_tpu_torch as tbm
+    from bench_torch import descent_bytes
+    from bitmagic_tpu_torch.core.bitvector import descent_args
+    from bitmagic_tpu_torch.ops import blockops
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.parallel import Mesh, ShardedSparseVector
+    vals = rng.integers(0, 1 << SV_BITS, SV_N).astype(np.uint32)
+    sv = tbm.SparseVector.from_array(vals, nullable=True, device=device)
+    table, steps, _ = tbm.scanner._descent_steps(sv, DESCENT_GT,
+                                                 sv.n_slices)
+    uni = sv.null_plane
+    blocks = np.union1d(table.blocks, uni._struct.nb)
+    args = descent_args(uni, steps, blocks)
+    for g, w in zip(ck.sv_descent(table, *args, False),
+                    blockops.sv_descent(table, *args, False)):
+        check(g is None and w is None or torch.equal(g, w),
+              "sv_descent at the cell's shape = plain")
+    bit = table.meta[:, -1]
+    planes = [sv.planes[int(bit[r])] for r, _, _ in steps]
+    k = blocks.size
+    record(out, ("sv_descent", "cell3"), card, flush,
+           lambda: ck.sv_descent(table, *args, False),
+           lambda: blockops.sv_descent(table, *args, False), None,
+           descent_bytes(planes, uni, k), 4 * 2048 * k * len(steps), 0)
+    out["sv_descent", "cell3"].update(
+        blocks=k, steps=len(steps),
+        rows=sum(p._struct.n_rows() for p in planes) + uni._struct.n_rows())
+    ssv = ShardedSparseVector.from_sparse_vector(sv, Mesh([device] * SHARDS))
+    st = ssv.stack[0]
+    rows, bits = blockops.descent_steps(list(range(ssv.n_eff)), DESCENT_GT)
+    got = ck.descent_rows(st, st[ssv.UNI], rows, bits)
+    want = blockops.descent_rows(st, st[ssv.UNI], rows, bits)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "descent_rows at the shard's shape = plain")
+    nb = st.shape[1]
+    record(out, ("sv_descent", "shard4b"), card, flush,
+           lambda: ck.descent_rows(st, st[ssv.UNI], rows, bits),
+           lambda: blockops.descent_rows(st, st[ssv.UNI], rows, bits), None,
+           (len(rows) + 3) * nb * 8192, 4 * 2048 * nb * len(rows), 0)
+    out["sv_descent", "shard4b"].update(blocks=nb, steps=len(rows))
 
 
 def gap_timings(rng, device, card, flush, out):
@@ -4837,23 +5169,13 @@ def nvidia_smi(fields):
     return r.stdout.strip().splitlines()[0]
 
 
-def main():
-    if sys.argv[1:2] == ["--multihost-worker"]:
-        rank, world, init, out_dir, device = sys.argv[2:7]
-        return multihost_worker(int(rank), int(world), init, out_dir, device)
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "drives the port on an NVIDIA card and has nothing to run "
-              "here", file=sys.stderr)
-        return 2
-    if sys.argv[1:2] == ["--single-query"]:
-        return single_query_main(sys.argv[2])
+def probe_and_build():
+    """Phases 1-2: the card (name, power limit, the peak rates the bounds
+    use), then every kernel built from ops/csrc at once.  -> (device,
+    card)."""
     sys.path.insert(0, ROOT)
     import bitmagic_tpu_torch as tbm
     from bitmagic_tpu_torch.ops import _build
-    from bitmagic_tpu_torch.ops import cuda_kernels as ck
-
-    # 1. probe
     device = torch.device("cuda")
     smi = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
@@ -4870,8 +5192,6 @@ def main():
         f"{props.multi_processor_count} SMs, max SM clock {max_clk_mhz} MHz; "
         f"peak memory bandwidth used for bounds {peak_bw / 1e12} TB/s")
     check(tbm.simd_version() == "cuda:kernel", "simd_version")
-
-    # 2. build
     t0 = time.perf_counter()
     _build.build_all()
     for src in _build.SOURCES:
@@ -4882,6 +5202,61 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {src}: {line.strip()}")
+    return device, card
+
+
+def descent_main():
+    """``--descent``: phases 1-2, then the descent's checks alone: its
+    kernels against their plain versions, the descent phase on config 4b's
+    column and the kernels' timings (one line each)."""
+    import bitmagic_tpu_torch as tbm
+    device, card = probe_and_build()
+    errs = []
+
+    def cmp(name, got, want):
+        sync()
+        check(got.shape == want.shape and got.dtype == want.dtype, name)
+        errs.append(int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                        .max()) if got.numel() else 0)
+
+    descent_kernels_vs_plain(np.random.default_rng(SEED + 1), device, cmp)
+    check(max(errs) == 0, "sv_descent disagrees with its plain version")
+    log(f"kernels: sv_descent bit-identical to its plain version: "
+        f"{len(errs)} cases")
+    _, vals, nm = config4b_values()
+    sv = tbm.SparseVector.from_array(vals, null_mask=nm, device=device)
+    launches, times = descent_phase(tbm, device, card, sv, vals, nm)
+    log(f"descent: launches {launches}; phase ms {json.dumps(times)}")
+    out = {}
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
+    descent_timings(np.random.default_rng(SEED + 4), device, card, flush,
+                    out)
+    for (k, shape), t in out.items():
+        log(json.dumps({"kernel": k, "shape": shape, **t,
+                        "card": card["smi"]}))
+    return 0
+
+
+def main():
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        rank, world, init, out_dir, device = sys.argv[2:7]
+        return multihost_worker(int(rank), int(world), init, out_dir, device)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on an NVIDIA card and has nothing to run "
+              "here", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--single-query"]:
+        return single_query_main(sys.argv[2])
+    if sys.argv[1:2] == ["--descent"]:
+        return descent_main()
+    sys.path.insert(0, ROOT)
+    import bitmagic_tpu_torch as tbm
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+
+    # 1-2. probe and build
+    device, card = probe_and_build()
+    smi = card["smi"]
 
     # 3. kernels against their plain versions
     err, cases = kernels_vs_plain(device)
@@ -5023,7 +5398,14 @@ def main():
         f"{sv_launches}")
     require_launches("sv phase", sv_launches,
                      ("logical_op_digest", "agg_and_sub", "pipeline_counts",
-                      "block_counts"))
+                      "block_counts", "sv_descent"))
+
+    # 9b. the descent phase: the ordered searches' descent in one launch
+    t0 = time.perf_counter()
+    descent_launches, descent_times = descent_phase(tbm, device, card, sv,
+                                                    vals, nm)
+    log(f"descent: passed in {time.perf_counter() - t0:.1f} s; launches "
+        f"{descent_launches}; phase ms {json.dumps(descent_times)}")
 
     # 10. the sv_serial phase: the sv phase's columns through BMSV and the
     # reference's sparse-vector format, then its five fixtures
@@ -5037,7 +5419,8 @@ def main():
         f"{sharded_launches}")
     require_launches("sharded phase", sharded_launches,
                      ("logical_op_digest", "block_counts", "agg_and_sub",
-                      "pipeline_counts", "scan_eq") + RS_KERNELS)
+                      "pipeline_counts", "scan_eq", "sv_descent")
+                     + RS_KERNELS)
     del cols
 
     # 12. the capi phase: configs 1-2's A and B through the BM_* facade
@@ -5110,10 +5493,12 @@ def main():
                   gap_expand=("cell1_768",), gap_compress=("cell1_400",),
                   sv_gather=("cell3",), sv_transpose=("16M_20",),
                   rs_select=("cell1_1M", "flat_1M"),
-                  rs_rank=("cell1_1M", "flat_1M"))
+                  rs_rank=("cell1_1M", "flat_1M"),
+                  sv_descent=("cell3", "shard4b"))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
-                    + RS_KERNELS else search_launches[k])
+                    + RS_KERNELS else descent_launches[k]
+                    if k == "sv_descent" else search_launches[k])
         for shape in shapes[k]:
             t = tm[(k, shape)]
             log(json.dumps({"kernel": k, "shape": shape, **{
@@ -5125,7 +5510,7 @@ def main():
                                   "popcounts_per_word_pair",
                                   "planes_staged", "planes_total", "runs",
                                   "call_ms", "ids", "planes", "queries",
-                                  "bit_queries")
+                                  "bit_queries", "blocks", "steps")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -5133,6 +5518,7 @@ def main():
                  "algo_launches": algo_launches[k],
                  "serial_launches": serial_launches[k],
                  "sv_launches": sv_launches[k],
+                 "descent_launches": descent_launches[k],
                  "sv_serial_launches": sv_serial_launches[k],
                  "sharded_launches": sharded_launches[k],
                  "capi_launches": capi_launches[k],
@@ -5156,6 +5542,11 @@ def main():
         if k in RS_KERNELS:
             entry["note"] = ("launches: one per 1M batch and per one-query "
                              "call (main path); the flat forms count here")
+        if k == "sv_descent":
+            entry["note"] = ("launches: config 4b's find_gt with its count "
+                             "and its find_ge / lt / le / range (descent "
+                             "phase); descent_rows, the dense form, counts "
+                             "here")
         if k == "gap_compress":
             entry["call_ms"] = t["call_ms"]
             entry["note"] = ("two launches per call (count pass, write "

@@ -441,7 +441,7 @@ def test_every_launch_counter_names_its_device_functions():
     is never given to two kernels."""
     assert set(ck.launches) == set(bt.KERNELS)
     fns = _device_functions()
-    assert len(fns) == 16, fns
+    assert len(fns) == 18, fns
     owner = {}
     for counter, (_, source, names) in bt.KERNELS.items():
         assert os.path.exists(os.path.join(ROOT, source)), source
@@ -506,67 +506,73 @@ def test_gap_kernel_bytes(stepped, monkeypatch):
 
 
 def _recorded_range_bytes(cell, monkeypatch):
-    """The bytes one find_gt with its count hands the K1 and K3 wrappers:
-    each operand row read once (a FULL or absent row reads nothing, an
-    expanded GAP row is read from its expansion), each result row and
-    digest or count written once; with the find_gt's answers."""
-    moved = {"logical_op_digest": 0, "block_counts": 0}
-    digest, totals = ck.binary_op_digest, ck.block_counts_total
+    """The bytes one find_gt with its count hands the sv_descent and K3
+    wrappers: each stepped plane's and the universe's BIT rows and D-GAP
+    runs read once (counted from the plane tables' entries), the walked
+    block ids, gt's rows and digests (and eq's when asked) written once
+    and the classes; K3 the result's rows and its total; with the
+    number of sv_descent calls and the find_gt's answers."""
+    moved = {"sv_descent": 0, "block_counts": 0}
+    calls = []
+    descent, totals = ck.sv_descent, ck.block_counts_total
 
-    def rows_read(desc):
-        _, slot, full, _, aux_slot = desc
-        return int(((aux_slot >= 0)
-                    | ((slot >= 0) & ~full.to(torch.bool))).sum())
+    def plane(t, p):
+        o, n = (int(x) for x in t.meta[p, :2])
+        ent = t.ent[o:o + n]
+        runs = int(t.gaps[p][1][-1]) if t.gaps[p] is not None else 0
+        return (ROW * int((ent >= 0).sum()) + 4 * runs
+                + 9 * int((ent <= -2).sum()))
 
-    def k1(op, a_desc, b_desc):
-        k = a_desc[1].shape[0]
-        moved["logical_op_digest"] += (
-            (rows_read(a_desc) + rows_read(b_desc) + k) * ROW
-            + 4 * C.BLOCK_WAVES * k)
-        return digest(op, a_desc, b_desc)
+    def rec(table, utable, blocks, rows, bits, want_eq=True):
+        k = blocks.shape[0]
+        calls.append(len(rows))
+        moved["sv_descent"] += (
+            sum(plane(table, r) for r in rows) + plane(utable, 0) + 10 * k
+            + (1 + bool(want_eq)) * (ROW + 4 * C.BLOCK_WAVES) * k)
+        return descent(table, utable, blocks, rows, bits, want_eq)
 
     def k3(pool, per_block=False):
         moved["block_counts"] += pool.shape[0] * (ROW + 4 * per_block) + 8
         return totals(pool, per_block)
 
     with monkeypatch.context() as mp:
-        mp.setattr(ck, "binary_op_digest", k1)
+        mp.setattr(ck, "sv_descent", rec)
         mp.setattr(ck, "block_counts_total", k3)
         count, r = cell.find_gt_count()
-    return moved, {"count": count, "vectors": {"gt": r}}
+    return moved, calls, {"count": count, "vectors": {"gt": r}}
 
 
 def test_range_kernel_bytes(stepped, monkeypatch):
-    """The descent's 40 K1 launches each hold all 4 blocks: eq starts as
-    the NULL plane (4 FULL blocks, nothing read) and gt empty, so the
-    first AND and SUB read one operand, as does the first OR (gt has no
-    rows); the other 37 read two.  K3 counts the result's 4 rows.  The
-    count from the block states equals what the wrappers are handed."""
+    """The descent is one sv_descent launch of 20 steps over the column's
+    4 blocks: the 20 value planes' 80 BIT rows read once (the NULL plane's
+    4 FULL blocks read nothing), the 4 block ids, gt's 4 rows and digests
+    written, 8 bytes of classes.  K3 counts the result's 4 rows.  The count
+    from the planes equals what the wrappers are handed."""
     cell, ans, _ = stepped[RANGE]
     assert cell.structure()["null_plane"]["full_blocks"] == 4
     got = cell.kernel_bytes(ans)
-    rows = 4 * (3 * 2 + 37 * 3)
-    assert got == {"logical_op_digest": rows * ROW + 40 * 4 * 4
-                   * C.BLOCK_WAVES,
+    assert got == {"sv_descent": 80 * ROW + 4 * (10 + ROW
+                                                 + 4 * C.BLOCK_WAVES),
                    "block_counts": 4 * ROW + 8}
-    moved, again = _recorded_range_bytes(cell, monkeypatch)
+    moved, calls, again = _recorded_range_bytes(cell, monkeypatch)
+    assert calls == [20]
     assert moved == got == cell.kernel_bytes(again)
 
 
 def test_range_kernel_bytes_with_a_partial_block(monkeypatch):
     """A column that ends inside a block, as config 4b's 16M rows do:
-    the NULL plane's last block is a BIT row that the first AND and SUB
-    read beside the plane's rows, which the block states count."""
+    the NULL plane's last block is a BIT row that the descent reads
+    beside the planes' rows, which the planes' block states count."""
     sizes = dict(cut(RANGE), column_rows=200_000,
                  value_plane_bytes=20 * 4 * ROW)
     cell = traffic(RANGE, sizes)
     cell.build(CPU)
     st = cell.structure()["null_plane"]
     assert st["full_blocks"] == 3 and st["bit_blocks"] == 1
-    moved, ans = _recorded_range_bytes(cell, monkeypatch)
-    assert cell.kernel_bytes(ans) == moved
-    assert moved["logical_op_digest"] == (
-        (4 * (3 * 2 + 37 * 3) + 2) * ROW + 40 * 4 * 4 * C.BLOCK_WAVES)
+    moved, calls, ans = _recorded_range_bytes(cell, monkeypatch)
+    assert cell.kernel_bytes(ans) == moved and calls == [20]
+    assert moved["sv_descent"] == (
+        (80 + 1) * ROW + 4 * (10 + ROW + 4 * C.BLOCK_WAVES))
 
 
 def test_layer_metrics_of_three_traces():

@@ -665,3 +665,58 @@ def test_rs_select_kernels(dev, rng):
         ck.rs_select(*sargs, q.to(torch.int32), total)
     with pytest.raises(TypeError):
         ck.select_flat(rs.pool, rs.gwc, g.long())
+
+
+def _same_parts(a, b):
+    pa, pb = interop.bitvector_to_parts(a), interop.bitvector_to_parts(b)
+    for key in interop.PARTS:
+        np.testing.assert_array_equal(np.asarray(pa[key]),
+                                      np.asarray(pb[key]), err_msg=key)
+
+
+def test_sv_descent_kernels(dev, rng):
+    """sv_descent and descent_rows against their plain versions on the
+    card over columns with every block class (chip_smoke.descent_column);
+    the fused descent equals the chain of set operations on the card in
+    every part; an unsigned find_gt is one sv_descent launch and no K1;
+    a bad step raises."""
+    from chip_smoke import descent_chain, descent_column, descent_queries
+    from bitmagic_tpu_torch.core.bitvector import descent_args
+    from bitmagic_tpu_torch.sv.scanner import _universe
+    sc = tbm.SparseVectorScanner()
+    for dtype, nullable in ((np.uint32, False), (np.uint32, True),
+                            (np.int16, True)):
+        c = descent_column(tbm, dtype, nullable, device=dev)
+        bits = np.iinfo(dtype).bits
+        uni = _universe(c)
+        for q in descent_queries(bits):
+            table, steps, _ = sc._descent_steps(c, q, bits)
+            args = descent_args(uni, steps, np.union1d(table.blocks,
+                                                       uni._struct.nb))
+            got = ck.sv_descent(table, *args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, blockops.sv_descent(table, *args)):
+                assert torch.equal(g, w)
+            fused = sc._cmp_unsigned(c, uni, q, bits)
+            for f, w in zip(fused, descent_chain(tbm, c.planes, uni, q,
+                                                 bits)):
+                _same_parts(f, w)
+    c = descent_column(tbm, np.uint32, True, device=dev)
+    ck.reset_launches()
+    sc.find_gt(c, 12345)
+    assert ck.launches["sv_descent"] == 1
+    assert ck.launches["logical_op_digest"] == 0
+    stack = _pool(rng, 8 * 13, dev).reshape(8, 13, 2048)
+    rows = [5, -1, 0, 3, 7, 2]
+    for mode in (0, 1, 2):
+        got = ck.descent_rows(stack, stack[6], rows, 0b100101, stack[1],
+                              mode)
+        torch.cuda.synchronize()
+        want = blockops.descent_rows(stack, stack[6], rows, 0b100101,
+                                     stack[1], mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        ck.sv_descent(table, *args[:2], [0] * 65, 0)
+    with pytest.raises(ValueError):
+        ck.descent_rows(stack, stack[6], [8], 0)
