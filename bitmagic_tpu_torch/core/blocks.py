@@ -29,7 +29,8 @@ import torch
 
 from ..constants import CLS_BIT, CLS_FULL, CLS_GAP, SET_BLOCK_SIZE
 from ..ops import cuda_kernels as ck
-from ..ops.blockops import PLANE_COLS, PlaneTable, gather_rows
+from ..ops.blockops import (DIR_ZERO, PLANE_COLS, PlaneTable,
+                            gather_rows)
 
 # symbolic per-block operand state used during planning
 _Z, _F, _B, _G = 0, 1, 2, 3   # zero / full / bit-row / host GAP buffer
@@ -447,13 +448,35 @@ def operand_args(v, blocklist: np.ndarray):
                       v._gaps, np.where(st == _G, slot, -1))
 
 
+def plane_directory(nbs, ents, runs):
+    """The block directory of planes given by their sorted block ids
+    ``nbs``, entry codes ``ents`` and FULL runs ``runs`` (int64[k, 2]
+    each): the sorted breakpoints and int32[breakpoints + 1, P], row ``r``
+    holding every plane's code for the blocks with ``r`` breakpoints at or
+    below them (``blockops.PlaneTable``)."""
+    P = len(nbs)
+    pts = np.unique(np.concatenate(
+        [np.zeros(0, np.int64)] + [x for nb in nbs for x in (nb, nb + 1)]
+        + [r.reshape(-1) for r in runs]))
+    rows = pts.size + 1
+    d = np.full((rows, P), DIR_ZERO, np.int32)
+    for p in range(P):
+        if runs[p].shape[0]:
+            cover = np.zeros(rows + 1, np.int64)
+            np.add.at(cover, np.searchsorted(pts, runs[p][:, 0]) + 1, 1)
+            np.add.at(cover, np.searchsorted(pts, runs[p][:, 1]) + 1, -1)
+            d[np.cumsum(cover)[:rows] > 0, p] = -1
+        d[np.searchsorted(pts, nbs[p]) + 1, p] = ents[p]
+    return pts, d
+
+
 def plane_table(planes, device, extra=None) -> PlaneTable:
     """The plane table kernels sv_gather and sv_descent read
     (``blockops.PlaneTable``) of ``planes``, a list of ``(bit, Structure,
     pool, GapStore or None)`` (bit -1: the NULL plane), on ``device``:
-    O(blocks + runs) host work from the structures' arrays, one upload
-    (with ``extra``, an int64 host array, when given), and each GAP
-    store's device mirror."""
+    O(blocks + runs) host work from the structures' arrays and the block
+    directory, one upload (with ``extra``, an int64 host array, when
+    given), and each GAP store's device mirror."""
     P = len(planes)
     meta = np.zeros((P, len(PLANE_COLS)), np.int64)
     nbs, ents, runs, pools, gaps = [], [], [], [], []
@@ -468,7 +491,7 @@ def plane_table(planes, device, extra=None) -> PlaneTable:
         ent = np.where(is_gap, -2 - st.gslots(), ent)
         nbs.append(st.nb)
         ents.append(ent.astype(np.int32))
-        runs.append(st.runs.reshape(-1))
+        runs.append(st.runs.reshape(-1, 2))
         pools.append(pool)
         gaps.append(mirror)
         gap_ptrs = ([m.data_ptr() for m in mirror] if mirror is not None
@@ -477,17 +500,31 @@ def plane_table(planes, device, extra=None) -> PlaneTable:
                    pool.data_ptr(), *gap_ptrs, bit)
         nb_off += st.nb.size
         run_off += st.runs.shape[0]
-    ent = np.concatenate(ents + [np.zeros(nb_off % 2, np.int32)])
+    pts, dirs = plane_directory(nbs, ents, runs)
+
+    def words(a):                   # int32 -> int64 words, zero padded
+        return np.concatenate([a.ravel(), np.zeros(a.size % 2, np.int32)]
+                              ).view(np.int64)
+
     extra = np.zeros(0, np.int64) if extra is None else np.asarray(
         extra, np.int64)
-    parts = [meta.ravel(), *nbs, *runs, ent.view(np.int64), extra]
+    parts = [meta.ravel(), *nbs, *(r.ravel() for r in runs),
+             words(np.concatenate(ents + [np.zeros(0, np.int32)])), pts,
+             words(dirs), extra]
     buf = torch.from_numpy(np.concatenate(parts)).to(device)
-    at = np.cumsum([0, meta.size, nb_off, 2 * run_off, ent.size // 2])
-    ent = (buf[at[3]:at[4]].view(torch.int32)[:nb_off] if nb_off
-           else torch.zeros(0, dtype=torch.int32, device=buf.device))
+    at = np.cumsum([0, meta.size, nb_off, 2 * run_off, -(-nb_off // 2),
+                    pts.size, -(-dirs.size // 2), extra.size])
+
+    def int32s(k, n):
+        if not n:
+            return torch.zeros(0, dtype=torch.int32, device=buf.device)
+        return buf[at[k]:at[k + 1]].view(torch.int32)[:n]
+
     return PlaneTable(
         meta=meta, table=buf[:at[1]].view(P, len(PLANE_COLS)),
         nb=buf[at[1]:at[2]], runs=buf[at[2]:at[3]].view(run_off, 2),
-        ent=ent, pools=pools, gaps=gaps,
+        ent=int32s(3, nb_off), pools=pools, gaps=gaps,
         blocks=np.unique(np.concatenate([np.zeros(0, np.int64), *nbs])),
-        extra=buf[at[4]:] if extra.size else None)
+        bps=buf[at[4]:at[5]], dir=int32s(5, dirs.size).view(pts.size + 1, P),
+        bit_rows=int((dirs >= 0).any(axis=1).sum()) if P else 0,
+        extra=buf[at[6]:at[7]] if extra.size else None)

@@ -15,8 +15,11 @@ running counts for O(1) rank and log-descent select, laid out as
     ``GapStore`` at the first query (empty without D-GAP blocks).
 
 Select descends rank -> segment (a search of ``cum``) -> GAP run (a search
-of the run keys) or wave (a search of the slot's row of the wave prefix)
--> word -> in-word position; rank searches the segment starts.  On the
+of the block's runs' ones counts) or wave (the slot's row of the wave
+prefix) -> word -> in-word position; rank searches the segment starts.
+``rs_select`` also reads ``ops/select.select_tables`` of the index (the
+segments' select records, samples of the wave prefix and of the runs'
+ones counts, each wave's sector prefix), built at the first select.  On the
 card a batch is one launch of the hand kernel ``rs_select`` or ``rs_rank``
 (``ops/csrc/rs_select.cu``) over these tables, with one upload of the
 queries and one download of the answers (pageable copies, which beat a
@@ -34,7 +37,8 @@ import torch
 from .. import constants as C
 from ..ops import cuda_kernels as ck
 from ..ops.select import (BASE, BEFORE, BITOFF, CA, CB, CLS, END, GKEY,
-                          GKEYS, GOFFS, SEG_COLS, SLOT, global_wave_prefix)
+                          GKEYS, GOFFS, SEG_COLS, SLOT, global_wave_prefix,
+                          select_tables)
 
 _I64 = np.int64
 _BPB = C.BITS_PER_BLOCK
@@ -76,6 +80,7 @@ class RSIndex:
         self._cum0_dev = _to_device(np.concatenate([[0], cum]), torch.int64,
                                     dev)
         self._runs_dev = None          # GAP query tables, at first query
+        self._sel_dev = None           # rs_select's tables, at first select
 
     def _segment_table(self) -> torch.Tensor:
         """The segment tables on the device, one int64 row per segment
@@ -154,6 +159,16 @@ class RSIndex:
                                 for k in keys))
         return self._runs_dev
 
+    def _select_tables(self):
+        """``ops/select.select_tables`` of the index (the segments'
+        select records and the wave and run samples ``rs_select``
+        searches), built once on the index's device at the first
+        select."""
+        if self._sel_dev is None:
+            self._sel_dev = select_tables(self._seg, self._gap_runs(),
+                                          self.pool, self.gwc)
+        return self._sel_dev
+
     def _batch(self, values, answer) -> np.ndarray:
         """``answer(queries)`` over int64 ``values`` on the index's device:
         one upload of the queries, one download of the answers."""
@@ -185,10 +200,10 @@ class RSIndex:
         ranks = np.asarray(ranks, _I64)
         if self.total == 0:
             return np.full(ranks.shape, -1, _I64)
-        runs = self._gap_runs()
+        runs, tables = self._gap_runs(), self._select_tables()
         return self._batch(ranks, lambda q: ck.rs_select(
             self._seg, self._cum0_dev, runs, self.pool, self.gwc, q,
-            self.total))
+            self.total, tables))
 
     def select(self, rank) -> int:
         return int(self.select_batch(np.asarray([rank]))[0])

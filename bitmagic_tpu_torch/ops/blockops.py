@@ -551,6 +551,11 @@ PLANE_COLS = ("nb_off", "nb_len", "run_off", "run_len", "pool", "ends",
               "offs", "first", "bit")
 
 
+# the block directory's code of a plane with no bit in an interval (its
+# other codes are ``ent``'s: pool row >= 0, -1 FULL, -2 - g D-GAP block g)
+DIR_ZERO = -(1 << 31)
+
+
 @dataclasses.dataclass
 class PlaneTable:
     """The planes of one column, as ``sv_gather`` reads them
@@ -564,7 +569,15 @@ class PlaneTable:
     and ``gaps`` hold the tensors it points into, and keep them alive.
     ``blocks`` (host) are the sorted ids of the blocks any plane holds an
     entry for; ``extra`` is the device copy of the int64 array that
-    ``plane_table`` was asked to upload with the table, or None."""
+    ``plane_table`` was asked to upload with the table, or None.
+
+    The block directory: ``bps`` (int64[B], sorted) are the block ids
+    where any plane's state changes (each entry's block and the block
+    after it, each FULL run's ends), and row ``r`` of ``dir``
+    (int32[B + 1, P]) holds every plane's entry code for the blocks ``b``
+    with ``r`` breakpoints at or below ``b`` (row 0: before the first;
+    ``DIR_ZERO`` where the plane has no bit there, -1 inside a FULL run).
+    ``bit_rows`` counts the rows with a BIT entry."""
     meta: np.ndarray
     table: torch.Tensor
     nb: torch.Tensor
@@ -573,36 +586,46 @@ class PlaneTable:
     pools: list
     gaps: list
     blocks: np.ndarray
+    bps: torch.Tensor
+    dir: torch.Tensor
+    bit_rows: int
     extra: torch.Tensor | None = None
+
+
+def plane_entries(t: PlaneTable, p, blk):
+    """int64[n]: plane ``p``'s entry code for blocks ``blk`` by searches
+    of its block ids and FULL runs (the directory's codes)."""
+    o, n, ro, rn = (int(x) for x in t.meta[p, :4])
+    code = torch.full(blk.shape, DIR_ZERO, dtype=_I64, device=blk.device)
+    if rn:                          # the last run starting at or before blk
+        rs = t.runs[ro:ro + rn]
+        k = torch.searchsorted(rs[:, 0].contiguous(), blk, right=True) - 1
+        code[(k >= 0) & (blk < rs[k.clamp(min=0), 1])] = -1
+    if n:
+        nb = t.nb[o:o + n]
+        pos = torch.searchsorted(nb, blk).clamp(max=n - 1)
+        code = torch.where(nb[pos] == blk, t.ent[o:o + n][pos].to(_I64),
+                           code)
+    return code
 
 
 def _plane_bits(t: PlaneTable, p, blk, nbit):
     """bool[n]: bit ``nbit`` of block ``blk`` in plane ``p``."""
-    o, n, ro, rn = (int(x) for x in t.meta[p, :4])
-    val = torch.zeros(blk.shape, dtype=torch.bool, device=blk.device)
-    if rn:                          # the last run starting at or before blk
-        rs = t.runs[ro:ro + rn]
-        k = torch.searchsorted(rs[:, 0].contiguous(), blk, right=True) - 1
-        val = (k >= 0) & (blk < rs[k.clamp(min=0), 1])
-    if not n:
-        return val
-    nb = t.nb[o:o + n]
-    pos = torch.searchsorted(nb, blk).clamp(max=n - 1)
-    found = nb[pos] == blk
-    e = t.ent[o:o + n][pos].to(_I64)
-    val = torch.where(found, e == -1, val)
+    e = plane_entries(t, p, blk)
+    val = e == -1
     pool = t.pools[p]
     if pool.shape[0]:
         w = pool.reshape(-1)[e.clamp(min=0) * SET_BLOCK_SIZE + (nbit >> 5)]
-        val |= found & (e >= 0) & (((w >> (nbit & 31)) & 1) == 1)
+        val |= (e >= 0) & (((w >> (nbit & 31)) & 1) == 1)
     if t.gaps[p] is not None:       # the first run ending at or after nbit
         ends, offs, first = (a.to(_I64) for a in t.gaps[p])
-        g = (-2 - e).clamp(min=0)
+        gap = (e <= -2) & (e != DIR_ZERO)
+        g = torch.where(gap, -2 - e, 0)
         run_blk = torch.repeat_interleave(
             torch.arange(first.shape[0], device=blk.device), offs.diff())
         r = torch.searchsorted(run_blk * BITS_PER_BLOCK + ends,
                                g * BITS_PER_BLOCK + nbit)
-        val |= found & (e <= -2) & (((first[g] ^ (r - offs[g])) & 1) == 1)
+        val |= gap & (((first[g] ^ (r - offs[g])) & 1) == 1)
     return val
 
 

@@ -160,4 +160,67 @@ __device__ __forceinline__ void warp_sources(const Operand& a,
                   __shfl_sync(all, w, 5));
 }
 
+// What a launcher learns once per device for one kernel (devices past
+// kMaxDevices ask again at every launch): the dynamic shared memory limit
+// it has raised the kernel to, the CTAs an SM holds at the shared memory
+// size last asked, and the card's SM count.  Zero-initialised as a
+// static; one per kernel.
+constexpr int kMaxDevices = 16;
+struct LaunchCache {
+  int granted[kMaxDevices];
+  int asked[kMaxDevices];
+  int per_sm[kMaxDevices];
+  int sms[kMaxDevices];
+};
+
+// Raise ``kernel``'s dynamic shared memory limit to ``smem`` bytes (above
+// the default 48 KiB and what was granted before) -> CUDA error.
+template <typename K>
+inline int allow_smem(K kernel, int smem, LaunchCache& c, int dev) {
+  const bool known = dev < kMaxDevices;
+  if (smem <= 48 * 1024 || (known && smem <= c.granted[dev])) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (!err && known) c.granted[dev] = smem;
+  return err;
+}
+
+inline int sm_count(LaunchCache& c, int dev) {
+  if (dev < kMaxDevices && c.sms[dev] > 0) return c.sms[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  sms = sms > 0 ? sms : 1;
+  if (dev < kMaxDevices) c.sms[dev] = sms;
+  return sms;
+}
+
+// Grid of a persistent launch of ``kernel`` on the current device: ``want``
+// CTAs of ``threads`` threads and ``smem`` bytes of dynamic shared memory,
+// at most as many as the card holds at once; raises the kernel's shared
+// memory limit as needed.  -> CUDA error (0: *grid is set).
+template <typename K>
+inline int persistent_grid(K kernel, LaunchCache& c, int threads, int smem,
+                           long long want, int* grid) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int err = allow_smem(kernel, smem, c, dev);
+  if (err) return err;
+  int per_sm = 0;
+  if (dev < kMaxDevices && c.per_sm[dev] > 0 && c.asked[dev] == smem) {
+    per_sm = c.per_sm[dev];
+  } else {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, static_cast<size_t>(smem)));
+    if (err) return err;
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (dev < kMaxDevices) {
+      c.per_sm[dev] = per_sm;
+      c.asked[dev] = smem;
+    }
+  }
+  const long long cap = static_cast<long long>(per_sm) * sm_count(c, dev);
+  *grid = static_cast<int>(want < cap ? want : cap);
+  return 0;
+}
+
 }  // namespace bm

@@ -85,6 +85,20 @@ PIPELINE_MAX_PLANES = 400
 PIPELINE_REG_PLANES = 72
 # most planes sv_gather takes: 64 value planes and the NULL plane
 SV_MAX_PLANES = 65
+# sv_gather's cut-over (measured on the card in turns, PERF.md): a gather
+# of at most GATHER_DIRECT_MAX ids, or of fewer than GATHER_ROW_IDS ids
+# per directory row with a BIT entry on average, is one direct launch;
+# else three grouped ones.  GATHER_STAGE_BPS: sv_planes.cu's kStageBps,
+# the most breakpoints its passes hold in shared memory
+GATHER_DIRECT_MAX = 16384
+GATHER_ROW_IDS = 1280
+GATHER_STAGE_BPS = 4096
+# rs_select / select_flat (rs_select.cu): every batch stages its search
+# tables in shared memory, up to RS_STAGE_BYTES a CTA (a cum0 beyond it as
+# a sample of at most RS_CUM_SAMPLE_BYTES); the tables past the budget
+# are read in global memory
+RS_STAGE_BYTES = 200 * 1024
+RS_CUM_SAMPLE_BYTES = 32 * 1024
 # most steps of one descent (sv_descent.cu kMaxSteps): a 64-bit value
 DESCENT_MAX_STEPS = 64
 
@@ -108,12 +122,15 @@ _SIGNATURES = {
     "bm_gap_count": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
     "bm_gap_write": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
     "bm_sv_gather": ("sv_planes.cu",
-                     [_VP, _LL, _VP, _INT, _VP, _VP, _VP, _VP, _VP]),
+                     [_VP, _LL, _VP, _INT, _VP, _LL, _VP, _INT, _VP, _VP,
+                      _VP, _VP]),
     "bm_sv_transpose": ("sv_planes.cu", [_VP, _LL, _INT, _INT, _VP, _VP]),
     "bm_rs_select": ("rs_select.cu",
-                     [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
-                      _LL, _VP, _VP]),
-    "bm_select_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
+                     [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _LL,
+                      _VP, _LL, _LL, _VP, _INT, _INT, _INT, _INT, _LL, _VP]),
+    "bm_select_flat": ("rs_select.cu",
+                       [_VP, _VP, _VP, _VP, _LL, _VP, _LL, _VP, _INT, _LL,
+                        _VP]),
     "bm_rs_rank": ("rs_select.cu",
                    [_VP, _VP, _LL, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
                     _VP, _VP]),
@@ -606,34 +623,64 @@ def gap_compress(rows):
 # ---------------------------------------------------------------------------
 # SparseVector planes: multi-plane gather, import transpose (sv_planes.cu)
 # ---------------------------------------------------------------------------
+def _gather_grouped(n, table):
+    """Whether a gather of ``n`` ids takes the grouped passes: more than
+    GATHER_DIRECT_MAX ids, and on average at least GATHER_ROW_IDS of them
+    per directory row with a BIT entry."""
+    return (n > GATHER_DIRECT_MAX
+            and n >= GATHER_ROW_IDS * max(table.bit_rows, 1))
+
+
 def sv_gather(ids, table):
     """Value image int64[n] of ids int64[n] over a column's plane table
     (``blockops.PlaneTable`` of ``core/blocks.plane_table``): bit s of an
     id's image is its bit in the plane of value bit s, and the image is 0
-    where the NULL plane's bit is 0.  One launch."""
-    tensors = (ids, table.table, table.nb, table.ent, table.runs,
-               *table.pools, *(a for g in table.gaps if g is not None
-                               for a in g))
+    where the NULL plane's bit is 0.  One direct launch, or (where
+    ``_gather_grouped``) three: the ids grouped by directory row, then
+    each group answered from its staged BIT rows."""
+    tensors = (ids, table.table, table.nb, table.ent, table.runs, table.bps,
+               table.dir, *table.pools,
+               *(a for g in table.gaps if g is not None for a in g))
     if not _on_cuda(*tensors):
         return blockops.sv_gather(ids, table)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("sv_gather: ids and plane table on different "
                          "devices")
+    return _gather(ids, table, _gather_grouped(ids.shape[0], table))
+
+
+def _gather(ids, table, grouped):
+    """``sv_gather`` on the card through the route ``grouped`` names (the
+    timing tools call it to hold the two routes against each other)."""
     _check(ids, "ids", _I64, align=8)
     P = table.meta.shape[0]
     if table.table.shape != (P, len(blockops.PLANE_COLS)):
         raise ValueError("sv_gather: malformed plane table")
+    B = table.bps.shape[0]
     for t, what, dt in ((table.table, "table", _I64), (table.nb, "nb", _I64),
-                        (table.ent, "ent", _I32), (table.runs, "runs", _I64)):
+                        (table.ent, "ent", _I32), (table.runs, "runs", _I64),
+                        (table.bps, "bps", _I64), (table.dir, "dir", _I32)):
         _check(t, what, dt, tuple(t.shape[1:]), align=t.element_size())
+    if table.dir.shape != (B + 1, P):
+        raise ValueError("sv_gather: the directory must hold one row per "
+                         "breakpoint and one before them, a column per plane")
     if P > SV_MAX_PLANES:
         raise ValueError(f"sv_gather: {P} planes; at most {SV_MAX_PLANES}")
+    if any(p.numel() and p.data_ptr() % 16 for p in table.pools):
+        raise ValueError("sv_gather: pools must be 16-byte aligned")
     n = ids.shape[0]
     out = torch.empty(n, dtype=_I64, device=ids.device)
-    if n:
-        _launch("bm_sv_gather", "sv_gather", ids.device, _ptr(ids), n,
-                _ptr(table.table), P, _ptr(table.nb), _ptr(table.ent),
-                _ptr(table.runs), _ptr(out))
+    if not n:
+        return out
+    scratch = perm = None
+    if grouped:
+        scratch = torch.empty(4 * (B + 1) + 2, dtype=_I64, device=ids.device)
+        perm = torch.empty(n, dtype=_I64, device=ids.device)
+    _launch("bm_sv_gather", "sv_gather", ids.device, _ptr(ids), n,
+            _ptr(table.table), P, _ptr(table.bps), B, _ptr(table.dir),
+            int(bool(grouped)), _ptr(scratch), _ptr(perm), _ptr(out))
+    if grouped:                     # the hist and scatter passes
+        launches["sv_gather"] += 2
     return out
 
 
@@ -689,10 +736,64 @@ def _index_tables(what, seg, runs, pool, gwc):
     _pool_tables(what, pool, gwc)
 
 
-def rs_select(seg, cum0, runs, pool, gwc, ranks, total):
+def _r16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def _select_staging(seg_rows, n_waves, n_runs):
+    """(cum_stride, stage_sel, stage_gws, stage_gcs, bytes) of an
+    ``rs_select`` launch (rs_select.cu SelectArgs): in this order while
+    RS_STAGE_BYTES last, cum0 (whole, or every S-th entry in at most
+    RS_CUM_SAMPLE_BYTES), sel, gws and gcs."""
+    budget = RS_STAGE_BYTES
+    stride = 1
+    if _r16(8 * seg_rows) > budget:
+        stride = -(-seg_rows // (RS_CUM_SAMPLE_BYTES // 8))
+    used = _r16(8 * -(-seg_rows // stride))
+    flags = []
+    for nbytes in (16 * seg_rows, 4 * (n_waves // plain_select.SAMPLE),
+                   4 * (n_runs // plain_select.SAMPLE)):
+        flags.append(int(used + _r16(nbytes) <= budget))
+        used += _r16(nbytes) * flags[-1]
+    return (stride, *flags, used)
+
+
+def _flat_staging(n_samples):
+    """(gws_stride, bytes) of a ``select_flat`` launch: every S-th of the
+    ``n_samples`` gws entries, the whole table where it fits
+    RS_STAGE_BYTES."""
+    stride = max(1, -(-4 * n_samples // RS_STAGE_BYTES))
+    return stride, _r16(4 * -(-n_samples // stride))
+
+
+def _checked_tables(what, tables, key, sizes, staging):
+    """The launch plan cached on ``tables`` (``select.SelectTables``) for
+    an index of shape ``key``: on first use (or another key) its tensors
+    are checked to hold ``sizes`` entries each (None: not read) and the
+    plan is ``staging()``."""
+    got = tables.staging
+    if got is not None and got[0] == key:
+        return got[1]
+    for name, n in sizes.items():
+        t = getattr(tables, name)
+        if n is None:
+            continue
+        # the kernels read sel, gws and wsp (and gwc, runs) in 16 B loads
+        _check(t, f"{what}: {name}", _I64 if name == "sel" else _I32,
+               (2,) if name == "sel" else (),
+               align=4 if name == "gcs" else 16)
+        if t.shape[0] != n or t.device != key[-1]:
+            raise ValueError(f"{what}: tables.{name} is not the index's "
+                             f"select_tables")
+    tables.staging = (key, staging())
+    return tables.staging[1]
+
+
+def rs_select(seg, cum0, runs, pool, gwc, ranks, total, tables):
     """Position of each 1-based rank int64[Q] of an rs-index's vector, -1
     outside [1, total] -> int64[Q], in one launch (``ops/select.rs_select``
-    has the tables' layout)."""
+    has the tables' layout).  ``tables``: ``select.select_tables`` of the
+    index, built once by it (``RSIndex._select_tables``)."""
     tensors = (seg, cum0, *runs, pool, gwc, ranks)
     if not _on_cuda(*tensors):
         return plain_select.rs_select(seg, cum0, runs, pool, gwc, ranks,
@@ -703,32 +804,51 @@ def rs_select(seg, cum0, runs, pool, gwc, ranks, total):
     _check(ranks, "rs_select: ranks", _I64, align=8)
     if cum0.shape[0] != seg.shape[0] or seg.shape[0] < 1:
         raise ValueError("rs_select: cum0 must have one entry per seg row")
+    if gwc.data_ptr() % 16 or runs[0].data_ptr() % 16:
+        raise ValueError("rs_select: gwc and runs must be 16-byte aligned")
+    m1, W, R = seg.shape[0], gwc.shape[0], runs[0].shape[0]
+    S = plain_select.SAMPLE
+    stage = _checked_tables(
+        "rs_select", tables, ("rs_select", m1, W, R, dev),
+        {"sel": m1, "gws": W // S, "gcs": R // S, "wsp": W},
+        lambda: _select_staging(m1, W, R))
     n = ranks.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
     if n:
-        _launch("bm_rs_select", "rs_select", dev, _ptr(seg), seg.shape[0],
-                _ptr(cum0), _ptr(runs[0]), _ptr(runs[2]), runs[0].shape[0],
-                _ptr(pool), _ptr(gwc), gwc.shape[0], _ptr(ranks), n,
-                int(total), _ptr(out))
+        _launch("bm_rs_select", "rs_select", dev, _ptr(cum0), m1,
+                _ptr(tables.sel), _ptr(runs[0]), _ptr(tables.gcs), R,
+                _ptr(pool), _ptr(gwc), _ptr(tables.gws), _ptr(tables.wsp),
+                W, _ptr(ranks), n, int(total), _ptr(out), *stage)
     return out
 
 
-def select_flat(pool, gwc, ranks):
+def select_flat(pool, gwc, ranks, tables):
     """Global bit positions (pool_row * 65536 + offset) of 1-based int32
     global ranks int32[Q] over a whole pool -> int64[Q] (the signature of
-    bitmagic_tpu ``select_flat``), in one ``rs_select`` launch."""
+    bitmagic_tpu ``select_flat``), in one ``rs_select`` launch.
+    ``tables``: ``select.flat_tables`` of the pool, built once by the
+    index that owns it (``ShardedRSIndex.flat_tables``)."""
     if not _on_cuda(pool, gwc, ranks):
         return plain_select.select_flat(pool, gwc, ranks)
     dev = _one_device("select_flat", (pool, gwc, ranks))
     _pool_tables("select_flat", pool, gwc)
     _check(ranks, "select_flat: ranks", _I32, align=4)
+    if gwc.data_ptr() % 16:
+        raise ValueError("select_flat: gwc must be 16-byte aligned")
+    W = gwc.shape[0]
+    S = plain_select.SAMPLE
+    stage = _checked_tables(
+        "select_flat", tables, ("select_flat", W, dev),
+        {"sel": None, "gws": W // S, "gcs": None, "wsp": W},
+        lambda: _flat_staging(W // S))
     n = ranks.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
     if n:
-        if not gwc.shape[0]:
+        if not W:
             raise ValueError("select_flat: ranks over an empty pool")
         _launch("bm_select_flat", "rs_select", dev, _ptr(pool), _ptr(gwc),
-                gwc.shape[0], _ptr(ranks), n, _ptr(out))
+                _ptr(tables.gws), _ptr(tables.wsp), W, _ptr(ranks), n,
+                _ptr(out), *stage)
     return out
 
 

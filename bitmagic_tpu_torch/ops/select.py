@@ -38,6 +38,80 @@ SEG_COLS = ("end", "cb", "ca", "base", "cls", "gkey", "gkeys", "goffs",
  BITOFF) = range(len(SEG_COLS))
 
 
+# one sample per SAMPLE entries of the global wave prefix and of the D-GAP
+# runs' ones counts (select_tables); the select kernels search the samples
+# in shared memory and finish in one 32-byte sector of the table
+SAMPLE = 8
+
+
+class SelectTables:
+    """The tables kernel ``rs_select`` reads besides ``cum0``
+    (``select_tables``; ``flat_tables`` holds only ``gws`` and ``wsp``,
+    what ``select_flat`` reads), built once by the index that owns the
+    pool.  ``staging`` is ``ops/cuda_kernels``' checked launch plan for
+    them, set at the first launch; the tensors are not replaced after."""
+
+    __slots__ = ("sel", "gws", "gcs", "wsp", "staging")
+
+    def __init__(self, sel, gws, gcs, wsp):
+        self.sel, self.gws, self.gcs, self.wsp = sel, gws, gcs, wsp
+        self.staging = None
+
+
+def select_tables(seg, runs, pool, gwc) -> SelectTables:
+    """The tables kernel ``rs_select`` reads besides ``cum0``, built once
+    with an rs-index (``core/rs_index.py``) from its segment table, D-GAP
+    run tables, pool and global wave prefix:
+
+    ``sel`` int64[m + 1, 2]: per segment row the position its answers
+        count from (``BASE``; ``BITOFF`` for a BIT block) and one packed
+        word, low half ``a`` and high half ``b`` (int32 each): a BIT block
+        has ``a`` = its pool slot and ``b`` = the pool-global rank before
+        its row (``BEFORE``); a D-GAP block ``a`` = -2 - its first run
+        and ``b`` = the run after its last; any other row ``a`` = -1.
+    ``gws`` int32[waves / SAMPLE]: ``gwc[SAMPLE - 1 :: SAMPLE]``, the
+        prefix at the end of every SAMPLE waves (8 per pool row).
+    ``gcs`` int32[runs // SAMPLE]: the D-GAP runs' inclusive ones counts
+        at every SAMPLE-th run, ``runs[0][SAMPLE - 1 :: SAMPLE, 1]``.
+    ``wsp`` int32[waves]: ``wave_sectors(pool)``."""
+    ec = runs[0]
+    kind = seg[:, CLS]
+    bit = (kind == C.CLS_BIT) & (gwc.shape[0] > 0)
+    gap = (kind == C.CLS_GAP) & (ec.shape[0] > 0)
+    p = torch.where(bit, seg[:, BITOFF], seg[:, BASE])
+    # a D-GAP block's runs end where the next D-GAP block's begin
+    gi = torch.nonzero(gap).squeeze(1)
+    first = seg[gi, GOFFS]
+    end = torch.cat([first[1:], torch.full((min(gi.numel(), 1),),
+                                           ec.shape[0], dtype=_I64,
+                                           device=seg.device)])
+    a = torch.full_like(p, -1)
+    b = torch.zeros_like(p)
+    a[bit], b[bit] = seg[bit, SLOT], seg[bit, BEFORE]
+    a[gi], b[gi] = -2 - first, end
+    sel = torch.stack([p, (b << 32) | (a & 0xFFFFFFFF)], 1).contiguous()
+    flat = flat_tables(pool, gwc)
+    return SelectTables(sel, flat.gws, ec[SAMPLE - 1::SAMPLE, 1].contiguous(),
+                        flat.wsp)
+
+
+def flat_tables(pool, gwc) -> SelectTables:
+    """``select_tables``' ``gws`` and ``wsp`` of a pool and its global
+    wave prefix (``sel`` and ``gcs`` None): what ``select_flat`` reads."""
+    return SelectTables(None, gwc[SAMPLE - 1::SAMPLE].contiguous(), None,
+                        wave_sectors(pool))
+
+
+def wave_sectors(pool):
+    """int32[rows * 64]: per 128 B wave the ones of its first 1, 2 and 3
+    32-byte sectors, 10 bits each (bits 0-9, 10-19, 20-29), so a select
+    reads only the sector holding its bit."""
+    pc = popcount(pool.reshape(-1, 4, C.WAVE_WORDS // 4)).sum(
+        dim=-1, dtype=_I32)
+    e = torch.cumsum(pc[:, :3], dim=1, dtype=_I32)
+    return (e[:, 0] | (e[:, 1] << 10) | (e[:, 2] << 20)).contiguous()
+
+
 def wave_prefix(pool):
     """Inclusive per-wave popcount prefix -> int32[n_rows, 64]."""
     n = pool.shape[0]

@@ -44,7 +44,7 @@ from .. import constants as C
 from ..core.bitvector import BitVector
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
-from ..ops.select import global_wave_prefix
+from ..ops.select import flat_tables, global_wave_prefix
 from .mesh import Mesh, block_sharding, make_mesh, pad_rows, zero_rows
 
 _I64 = torch.int64
@@ -386,12 +386,22 @@ class ShardedRSIndex:
         assert self.shard_span < 2**31, \
             "per-shard span exceeds the int32 prefix bound; add shards"
         self.gwc = [_gwc(s) for s in sbv.shards]       # local shards
+        # each shard's select_flat tables, at its first select
+        self._flat = [None] * len(self.gwc)
         self.shard_totals = np.asarray(_host_fetch(self.mesh, [
             np.asarray(int(g[-1]) if g.numel() else 0, np.int64)
             for g in self.gwc]), np.int64)
         self.cum = np.cumsum(self.shard_totals)
         self.before = np.concatenate([[0], self.cum[:-1]]).astype(np.int64)
         self.total = int(self.cum[-1])
+
+    def flat_tables(self, i):
+        """``ops/select.flat_tables`` of shard ``i`` (the ``select_flat``
+        kernel's wave samples and sector prefixes), built at its first
+        select."""
+        if self._flat[i] is None:
+            self._flat[i] = flat_tables(self.sbv.shards[i], self.gwc[i])
+        return self._flat[i]
 
     def select_batch(self, ranks) -> np.ndarray:
         """Batched select1; -1 for out-of-range ranks."""
@@ -407,7 +417,8 @@ class ShardedRSIndex:
         def positions(i, _, sel):
             t = self.sbv.shards[i]
             return ck.select_flat(t, self.gwc[i], _index(
-                local[sel].astype(np.int32), t.device)).cpu().numpy()
+                local[sel].astype(np.int32), t.device),
+                self.flat_tables(i)).cpu().numpy()
         pos = _answer_by_shard(self.mesh, tgt, positions,
                                np.zeros(rk.size, np.int64))
         out[ok] = tgt * self.shard_span + pos

@@ -9,6 +9,8 @@ and check it.
                                      # ROOT (two trees in turns, one call)
     python3 chip_smoke.py --descent  # phases 1-2, then only the ordered
                                      # descent's checks and timings
+    python3 chip_smoke.py --trace-find-gt  # the descent phase's trace of
+                                           # config 4b's find_gt, alone
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -35,14 +37,26 @@ only when every phase passed):
               sv_gather over columns with BIT, D-GAP, FULL and FULL-run
               blocks, absent planes, a NULL plane that is BIT and one
               that is a FULL run, signed and 64-bit values and ids past
-              the end (and against the values), sv_transpose over 1 to 64
-              slices of 4- and 8-byte values; rs_select and rs_rank and
-              their flat forms (select_flat, rank_flat) at
-              bvsetalgebra_rank_select's shapes (1536 blocks, 768 of them
-              D-GAP of 1 to 256 runs, 1M uniform ranks and ids) and on an
-              edge vector (D-GAP blocks of one run and of 65536 runs, FULL
-              and FULL-run blocks, absent blocks, a BIT block emptied by a
-              SUB; ranks -1, 0, 1, total, total + 1, ids past the end);
+              the end (and against the values), and over gather_cases
+              (every id in one block, sorted ids, duplicates, ids past
+              the end and in absent blocks, sparse ids over a 2100-block
+              column and 2.8M ids grouped over it, its directory too large
+              for shared memory; 65 planes staged 24 rows at a time), each
+              on the route its size gives it,
+              sv_transpose over 1 to 64 slices of 4- and 8-byte values;
+              rs_select and rs_rank and their flat forms (select_flat,
+              rank_flat) at bvsetalgebra_rank_select's shapes (1536
+              blocks, 768 of them D-GAP of 1 to 256 runs, 1M uniform
+              ranks and ids) and on an edge vector (D-GAP blocks of one
+              run and of 65536 runs, FULL and FULL-run blocks, absent
+              blocks, a BIT block emptied by a SUB; ranks -1, 0, 1,
+              total, total + 1, ids past the end); rs_select over
+              select_cases on both and on FULL-, D-GAP- and BIT-only
+              indices and on one of 26,100 segments (one rank, one wave,
+              segment edges, ranks outside [1, total]; the large index
+              stages only a sample of cum0, and select_flat over its
+              pool only a sample of gws), and select_flat per shard of an
+              8-shard index;
               sv_descent over columns with BIT, FULL-run, absent and 1-3000
               run D-GAP blocks (GAP pairs of 4096 and 4097 runs) from
               their universe and from a D-GAP plane, with and without eq,
@@ -361,6 +375,10 @@ GAP_ROWS = ("gap_expand", "gap_compress")
 # the kernels config 4b's from_array and gather launch (scan path)
 SV_PLANES = ("sv_gather", "sv_transpose")
 SV_GATHER_IDS = 1_000_000       # config 4b's gather (column_range_gather's)
+# traces taken before a check of a trace's kernels gives up on a trace that
+# recorded no event (torch.profiler on the card's machine sometimes
+# records none; PERF.md, open questions)
+TRACE_TRIES = 8
 # the rank/select batches of the main path (bvsetalgebra_rank_select)
 RS_KERNELS = ("rs_select", "rs_rank")
 # bvsetalgebra_rank_select's D-GAP shapes: each vector holds about 768
@@ -615,6 +633,61 @@ def sv_columns(tbm, rng, device):
     return out
 
 
+def wide_sparse_column(tbm, rng, device, blocks=2100):
+    """A uint32 column of ``blocks`` one-value blocks with an absent block
+    after each (values 1-15): its block directory has 2 * blocks
+    breakpoints, more than the gather's passes hold in shared memory
+    (``GATHER_STAGE_BPS``) -> (column, the values' ids, the values)."""
+    ids = (np.arange(blocks, dtype=np.int64) * 2 * BPB
+           + rng.integers(0, BPB, blocks))
+    vals = rng.integers(1, 16, blocks).astype(np.uint32)
+    c = tbm.SparseVector(np.uint32, device=device)
+    c._write(ids, np.zeros(blocks, bool), vals)
+    c._size = int(ids[-1]) + 1
+    return c, ids, vals
+
+
+def gather_cases(tbm, rng, device):
+    """The cases the grouped gather makes risky, each (name, column, ids
+    int64 on the card, whether its size takes the grouped route), over
+    ``sv_columns``' first (every block kind) and third (65 planes)
+    columns and ``wide_sparse_column``: every id in one block (one
+    directory row cut into many chunks), sorted ids, duplicates, ids past
+    the end and in absent blocks, sparse ids over the wide column (the
+    direct launch, its breakpoints searched in global memory), 2.8M ids
+    over the wide column (grouped: its breakpoints and 4201 row counts
+    too many for shared memory), 65 planes (staged 24 rows at a time)
+    and uniform ids."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    cols = sv_columns(tbm, rng, device)
+    (c0, live0), (c64, live64) = cols[0], cols[2]
+    n0, n64 = live0.size, live64.size
+    wide, wide_ids, _ = wide_sparse_column(tbm, rng, device)
+    check(wide._plane_table().bps.shape[0] > ck.GATHER_STAGE_BPS,
+          "the wide column's directory exceeds the gather's shared memory")
+
+    def d(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(device)
+
+    many = rng.integers(0, n0, 200_000)
+    past = np.concatenate([rng.integers(n0, n0 + 40 * BPB, 60_000),
+                           [n0, 1 << 40, (1 << 47) - 1]])
+    n_wide = 2_800_000
+    spread = (rng.integers(0, 2 * len(wide_ids), n_wide) * BPB
+              + rng.integers(0, BPB, n_wide))
+    return [
+        ("one_block", c0, d(5 * BPB + rng.integers(0, BPB, 60_000)), True),
+        ("sorted", c0, d(np.sort(many)), True),
+        ("duplicates", c0, d(np.repeat(many[:2000], 50)), True),
+        ("past_end_absent", c0, d(past), True),
+        ("sparse_direct", wide, d(wide_ids[::3]), False),
+        ("wide_directory", wide, d(np.concatenate([
+            np.repeat(wide_ids[:8], 4096), spread])), True),
+        ("planes65", c64, d(rng.integers(0, n64, 100_000)), True),
+        ("uniform", c0, d(many), True),
+    ]
+
+
 def sv_kernels_vs_plain(rng, device, cmp):
     """sv_gather over the plane tables of ``sv_columns`` (every block kind
     in value planes and NULL planes, signed and 64-bit values, ids past
@@ -647,6 +720,13 @@ def sv_kernels_vs_plain(rng, device, cmp):
               f"sv_gather: {c.dtype} column gather equals its values")
     check(kinds >= {"absent", "runs", 1, 2, 3},
           f"sv columns hold every block kind: {kinds}")
+    for name, c, ids, grouped in gather_cases(tbm, rng, device):
+        table = c._plane_table()
+        check(ck._gather_grouped(ids.shape[0], table) == grouped,
+              f"sv_gather case {name}: its size takes the "
+              f"{'grouped' if grouped else 'direct'} route")
+        cmp("sv_gather", ck.sv_gather(ids, table),
+            blockops.sv_gather(ids, table))
     for n, n_slices, dt in ((32 * 999 + 5, 1, torch.int32),
                             (32 * 999 + 5, 32, torch.int32),
                             (SV_GATHER_IDS + 3, SV_BITS, torch.int32),
@@ -727,6 +807,74 @@ def rs_queries(rng, rs, size, n):
     return ranks.astype(np.int64), ids.astype(np.int64)
 
 
+def class_vectors(tbm, rng, device):
+    """Vectors whose rank/select index holds one block class: FULL (block
+    1 and a FULL run over blocks 3-37), D-GAP (40 ``run_rows`` blocks
+    after optimize()) and BIT (40 random dense blocks), by name."""
+    from bitmagic_tpu_torch import constants as C
+    full = tbm.BitVector(40 * BPB, device=device)
+    full.set_range(BPB, 2 * BPB - 1)
+    full.set_range(3 * BPB, 38 * BPB - 1)
+    gap = tbm.BitVector.from_words(run_rows(rng, 40).ravel(), device=device)
+    gap.optimize()
+    dense = rng.integers(0, 2**32, (40, 2048), dtype=np.uint64).astype(
+        np.uint32)
+    bit = tbm.BitVector.from_words(dense.ravel(), device=device)
+    for v, want in ((full, {C.CLS_FULL}), (gap, {C.CLS_GAP}),
+                    (bit, {C.CLS_BIT})):
+        check(set(v._struct.cls.tolist()) == want,
+              f"class vector holds {want} only")
+    check(full._struct.has_runs, "the FULL vector holds a FULL run")
+    return {"full_only": full, "gap_only": gap, "bit_only": bit}
+
+
+def wide_index_vector(tbm, rng, device, blocks=26_100):
+    """A vector of ``blocks`` blocks, every 4th random dense words (BIT),
+    the others 16 random bits each (D-GAP after optimize()): its
+    rank/select index has 26,101 segment rows, so ``rs_select`` stages
+    only a sample of cum0 and reads sel, gws and the ~600K runs' samples
+    in global memory, and ``select_flat`` over its 417,600 waves stages
+    only a sample of gws (``RS_STAGE_BYTES``)."""
+    words = np.zeros((blocks, 2048), np.uint32)
+    bit = np.arange(0, blocks, 4)
+    words[bit] = rng.integers(0, 2**32, (bit.size, 2048),
+                              dtype=np.uint64).astype(np.uint32)
+    gap = np.setdiff1d(np.arange(blocks), bit)
+    pos = rng.integers(0, BPB, (gap.size, 16))
+    np.bitwise_or.at(words, (np.repeat(gap, 16), (pos >> 5).ravel()),
+                     (np.uint32(1) << (pos & 31).astype(np.uint32)).ravel())
+    bv = tbm.BitVector.from_words(words.ravel(), device=device)
+    bv.optimize()
+    return bv
+
+
+def select_cases(rs, rng, n=5000):
+    """The rank batches the redesigned select makes risky on index
+    ``rs``, each (name, int64 ranks): uniform ranks and the edges, one
+    rank, every rank in one wave, the ranks at segment boundaries, and
+    ranks outside [1, total]."""
+    from bitmagic_tpu_torch import constants as C
+    total = rs.total
+    ranks, _ = rs_queries(rng, rs, rs.size, n)
+    out = [("batch", ranks),
+           ("one", ranks[-1:]),
+           ("segment_edges", np.resize(np.concatenate(
+               [rs.cum, rs.cum + 1, np.maximum(rs.cum - 1, 1)]), n)),
+           ("out_of_range", np.resize(np.asarray(
+               [-5, -1, 0, total + 1, total + 2, 1 << 40, -(1 << 40), 1,
+                total]), n))]
+    bit = np.flatnonzero(rs.cls == C.CLS_BIT)
+    if bit.size:
+        s = int(bit[len(bit) // 2])
+        before = int(rs.cum[s - 1]) if s else 0
+        slot = int(rs.slots[s])
+        g = rs.gwc.cpu().numpy()
+        ones = int(g[slot * 64]) - (int(g[slot * 64 - 1]) if slot else 0)
+        if ones:
+            out.append(("one_wave", before + 1 + rng.integers(0, ones, n)))
+    return [(name, r.astype(np.int64)) for name, r in out]
+
+
 def rs_kernels_vs_plain(rng, device, cmp):
     """rs_select and rs_rank, and their flat forms select_flat and
     rank_flat, each against its plain version on the card: on a vector of
@@ -749,8 +897,10 @@ def rs_kernels_vs_plain(rng, device, cmp):
         q = torch.from_numpy(ranks).to(device)
         i = torch.from_numpy(ids).to(device)
         sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
-        cmp("rs_select", ck.rs_select(*sargs, q, rs.total),
+        cmp("rs_select", ck.rs_select(*sargs, q, rs.total,
+                                      rs._select_tables()),
             plain.rs_select(*sargs, q, rs.total))
+        select_vs_plain(rs, rng, cmp)
         rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
         cmp("rs_rank", ck.rs_rank(*rargs, i), plain.rs_rank(*rargs, i))
         g = rs.gwc.cpu().numpy().astype(np.int64)
@@ -758,8 +908,11 @@ def rs_kernels_vs_plain(rng, device, cmp):
         granks = np.concatenate([[1, pool_total], np.clip(g, 1, None),
                                  rng.integers(1, pool_total + 1, n)])
         granks = torch.from_numpy(granks.astype(np.int32)).to(device)
-        cmp("rs_select", ck.select_flat(rs.pool, rs.gwc, granks),
+        flat = plain.flat_tables(rs.pool, rs.gwc)
+        cmp("rs_select", ck.select_flat(rs.pool, rs.gwc, granks, flat),
             plain.select_flat(rs.pool, rs.gwc, granks))
+        cmp("rs_select", ck.select_flat(rs.pool, rs.gwc, granks[-1:], flat),
+            plain.select_flat(rs.pool, rs.gwc, granks[-1:]))
         n_bits = rs.pool.shape[0] * BPB
         rel = np.concatenate([[0, n_bits - 1], np.arange(0, n_bits, 1024),
                               rng.integers(0, n_bits, n)])
@@ -777,6 +930,67 @@ def rs_kernels_vs_plain(rng, device, cmp):
         check(np.array_equal(rs.rank_batch(ids), np.searchsorted(
             ones, ids, side="right")), "rs_rank: the index's rank batch "
             "equals numpy")
+    for name, v in class_vectors(tbm, rng, device).items():
+        select_vs_plain(v.build_rs_index(), rng, cmp)
+    wide = wide_index_vector(tbm, rng, device).build_rs_index()
+    m1, W = len(wide.nb) + 1, wide.gwc.shape[0]
+    R = wide._gap_runs()[0].shape[0]
+    check(ck._select_staging(m1, W, R)[:4] == (-(-m1 // (
+        ck.RS_CUM_SAMPLE_BYTES // 8)), 0, 0, 0) and ck._flat_staging(
+        W // 8)[0] > 1, f"the wide index ({m1} segment rows, {W} waves, {R} "
+        f"runs) stages only a sample of cum0, and its flat form of gws")
+    select_vs_plain(wide, rng, cmp)
+    g = wide.gwc.cpu().numpy().astype(np.int64)
+    granks = torch.from_numpy(np.concatenate([
+        [1, int(g[-1])], np.clip(g[::97], 1, None),
+        rng.integers(1, int(g[-1]) + 1, 20_000)]).astype(np.int32)).to(device)
+    cmp("rs_select", ck.select_flat(wide.pool, wide.gwc, granks,
+                                    plain.flat_tables(wide.pool, wide.gwc)),
+        plain.select_flat(wide.pool, wide.gwc, granks))
+    sharded_select_vs_plain(cell, words, device, rng, cmp)
+
+
+def select_vs_plain(rs, rng, cmp):
+    """rs_select over ``select_cases`` of index ``rs`` against its plain
+    version on the card."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    dev = rs.pool.device
+    runs = rs._gap_runs()
+    sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    for name, ranks in select_cases(rs, rng):
+        q = torch.from_numpy(ranks).to(dev)
+        cmp("rs_select", ck.rs_select(*sargs, q, rs.total,
+                                      rs._select_tables()),
+            plain.rs_select(*sargs, q, rs.total))
+
+
+def sharded_select_vs_plain(bv, words, device, rng, cmp):
+    """select_flat on each shard of an 8-shard ShardedRSIndex of ``bv`` on
+    ``device`` against its plain version, and the index's select batch
+    against numpy."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    from bitmagic_tpu_torch.parallel import Mesh, ShardedBitVector
+    sbv = ShardedBitVector.from_bitvector(bv, Mesh([device] * 8))
+    srs = sbv.build_rs_index()
+    for i, (t, g) in enumerate(zip(sbv.shards, srs.gwc)):
+        if not g.numel() or int(g[-1]) == 0:
+            continue
+        flat = srs.flat_tables(i)
+        granks = torch.from_numpy(rng.integers(
+            1, int(g[-1]) + 1, 20_000).astype(np.int32)).to(device)
+        cmp("rs_select", ck.select_flat(t, g, granks, flat),
+            plain.select_flat(t, g, granks))
+    ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little"))
+    ranks = np.concatenate([[-1, 0, 1, ones.size, ones.size + 1],
+                            rng.integers(1, ones.size + 1, 100_000)])
+    ok = (ranks >= 1) & (ranks <= ones.size)
+    got = srs.select_batch(ranks)
+    check(np.array_equal(got[ok], ones[ranks[ok] - 1])
+          and (got[~ok] == -1).all(),
+          "rs_select: an 8-shard index's select batch equals numpy")
 
 
 DESCENT_BLOCKS = 37             # descent_column: a 32-block FULL run fits
@@ -1331,6 +1545,13 @@ def device_busy(fn):
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return wall, busy, {k[:60]: round(v / 1e3, 4) for k, v in top}
+
+
+def trace_retry_pause(what):
+    """Log a trace that recorded no kernel, and wait a second before the
+    next."""
+    log(f"{what}: a trace recorded no kernel; tracing again")
+    time.sleep(1.0)
 
 
 def device_kernels(fn):
@@ -2672,13 +2893,26 @@ def descent_phase(tbm, device, card, sv, vals, nm):
     check(one == {"sv_descent": 1, "block_counts": 1},
           f"config 4b find_gt + count launched {one}, not one sv_descent "
           f"and one K3")
-    for retries in range(3):
+    for retries in range(TRACE_TRIES):
         names = device_kernels(lambda: sc.find_gt(sv, DESCENT_GT).count())
         if names:
             break
-    log(f"descent: config 4b find_gt + count put these kernels on the "
-        f"card: {short_kernel_names(names)}; empty traces before this "
-        f"one: {retries}")
+        trace_retry_pause("descent: config 4b find_gt + count")
+    if names:
+        log(f"descent: config 4b find_gt + count put these kernels on the "
+            f"card: {short_kernel_names(names)}; empty traces before this "
+            f"one: {retries}")
+    else:
+        # the profiler has lost every device event of a trace late in the
+        # run (PERF.md, open questions); the check then rests on a trace
+        # of the same entry point on the same column taken in a separate
+        # interpreter, which is not this run's trace
+        names = fresh_find_gt_trace()
+        log(f"descent: NOT CHECKED IN THIS RUN: all {TRACE_TRIES} traces "
+            f"of config 4b find_gt + count in this process recorded no "
+            f"device event; the kernel check below is of a separate "
+            f"interpreter's trace (--trace-find-gt), not of this run: "
+            f"{short_kernel_names(names)}")
     check(len(names) == 2 and sum("sv_descent_kernel" in x for x in names)
           == 1 and sum("block_counts_kernel" in x for x in names) == 1,
           "config 4b find_gt + count: one sv_descent_kernel, one "
@@ -3815,9 +4049,9 @@ def utils_path(tbm, device, a, b, bits, sv, vals, nm, times):
 
         # profiler_trace: a trace file that names a kernel of the port.
         # One run (torch 2.11, H100) wrote a trace with no kernel in it,
-        # as the main phase's traces once did: trace again, at most
-        # twice, when it names none, and log how often
-        for retries in range(3):
+        # as the main phase's traces once did: trace again, up to
+        # TRACE_TRIES times in all, when it names none, and log how often
+        for retries in range(TRACE_TRIES):
             td = os.path.join(d, f"trace{retries}")
             with Clock("profiler_trace_ms", times), \
                     timer.profiler_trace(td):
@@ -4780,10 +5014,12 @@ def rs_timings(rng, device, card, flush, out):
     i = torch.from_numpy(rng.integers(0, v.size, n)).to(device)
     sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
     rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
+    st = rs._select_tables()
+    flat = plain.flat_tables(rs.pool, rs.gwc)
     # which queries reach a BIT block, and the words their waves need
     s_bit = rs._seg[torch.searchsorted(rs._cum0_dev, q), plain.CLS] \
         == C.CLS_BIT
-    s_pos = ck.rs_select(*sargs, q, rs.total)
+    s_pos = ck.rs_select(*sargs, q, rs.total, st)
     s_words = ((s_pos & 1023) >> 5) + 1
     row = torch.searchsorted(rs._nb_dev, i >> 16, right=True)
     r_bit = ((rs._seg[row, plain.CLS] == C.CLS_BIT)
@@ -4794,12 +5030,12 @@ def rs_timings(rng, device, card, flush, out):
         np.int32)).to(device)
     rel = torch.from_numpy(rng.integers(0, rs.pool.shape[0] * BPB, n)).to(
         device)
-    f_pos = ck.select_flat(rs.pool, rs.gwc, g)
+    f_pos = ck.select_flat(rs.pool, rs.gwc, g, flat)
     f_words = ((f_pos & 1023) >> 5) + 1
     every = torch.ones(n, dtype=torch.bool, device=device)
     for key, kern, pln, nbytes, popcs, bit, bits in (
             (("rs_select", "cell1_1M"),
-             lambda: ck.rs_select(*sargs, q, rs.total),
+             lambda: ck.rs_select(*sargs, q, rs.total, st),
              lambda: plain.rs_select(*sargs, q, rs.total),
              16 * n + tables + _nbytes(rs._cum0_dev, key_cum),
              int((s_words + 5)[s_bit].sum()), s_bit, s_pos),
@@ -4808,7 +5044,7 @@ def rs_timings(rng, device, card, flush, out):
              16 * n + tables + _nbytes(rs._nb_dev, key_end),
              int(r_words[r_bit].sum()), r_bit, i),
             (("rs_select", "flat_1M"),
-             lambda: ck.select_flat(rs.pool, rs.gwc, g),
+             lambda: ck.select_flat(rs.pool, rs.gwc, g, flat),
              lambda: plain.select_flat(rs.pool, rs.gwc, g),
              12 * n + _nbytes(rs.gwc), int((f_words + 5).sum()), every,
              f_pos),
@@ -5205,6 +5441,38 @@ def probe_and_build():
     return device, card
 
 
+def find_gt_trace_main():
+    """``--trace-find-gt``: config 4b's column on the card (as the scan
+    path builds it) and the kernels one ``find_gt`` with its count puts
+    there, traced in this process; prints one JSON line
+    ``{"names": [...]}``.  The kernels are built already."""
+    import bitmagic_tpu_torch as tbm
+    device = torch.device("cuda")
+    _, vals, nm = config4b_values()
+    sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
+                                     device=device)
+    names = []
+    for _ in range(TRACE_TRIES):
+        names = device_kernels(
+            lambda: tbm.scanner.find_gt(sv, DESCENT_GT).count())
+        if names:
+            break
+        time.sleep(1.0)
+    print(json.dumps({"names": names}))
+    return 0
+
+
+def fresh_find_gt_trace():
+    """The kernel names of ``find_gt_trace_main`` in a fresh interpreter
+    (which ends before this returns)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--trace-find-gt"], capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"--trace-find-gt exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])["names"]
+
+
 def descent_main():
     """``--descent``: phases 1-2, then the descent's checks alone: its
     kernels against their plain versions, the descent phase on config 4b's
@@ -5250,6 +5518,8 @@ def main():
         return single_query_main(sys.argv[2])
     if sys.argv[1:2] == ["--descent"]:
         return descent_main()
+    if sys.argv[1:2] == ["--trace-find-gt"]:
+        return find_gt_trace_main()
     sys.path.insert(0, ROOT)
     import bitmagic_tpu_torch as tbm
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -5283,12 +5553,14 @@ def main():
             ("distance_operation", lambda: tbm.distance_operation(
                 a, b, list(METRICS)), "count_metrics_kernel", 2)):
         # one run of this check (torch 2.11, H100) once got a trace with
-        # no event at all (PERF.md, open questions): trace again, at most
-        # twice, when it recorded no kernel, and log how often
-        for retries in range(3):
+        # no event at all (PERF.md, open questions): trace again, up to
+        # TRACE_TRIES times in all, when it recorded no kernel, and log
+        # how often
+        for retries in range(TRACE_TRIES):
             names = device_kernels(fn)
             if names:
                 break
+            trace_retry_pause(f"main: {what}")
         log(f"main: {what} put these kernels on the card: {names}; "
             f"empty traces before this one: {retries}")
         # beside K2, distance_operation expands each operand's GAP blocks
@@ -5303,10 +5575,11 @@ def main():
             ("rank_batch", lambda: rs.rank_batch(ids), "rs_rank_kernel")):
         fn()
         sync()
-        for retries in range(3):
+        for retries in range(TRACE_TRIES):
             names = [e.name for e in traced_device_events(fn)]
             if names:
                 break
+            trace_retry_pause(f"main: {what}")
         main = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
         copies = sorted(n for n in names if n.startswith("Memcpy"))
         log(f"main: one 1M {what} put these on the card: {names}; empty "

@@ -441,7 +441,7 @@ def test_every_launch_counter_names_its_device_functions():
     is never given to two kernels."""
     assert set(ck.launches) == set(bt.KERNELS)
     fns = _device_functions()
-    assert len(fns) == 18, fns
+    assert len(fns) == 21, fns
     owner = {}
     for counter, (_, source, names) in bt.KERNELS.items():
         assert os.path.exists(os.path.join(ROOT, source)), source

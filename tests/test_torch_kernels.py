@@ -578,8 +578,9 @@ def _sv_columns(rng, dev):
 
 def test_sv_planes_kernels(dev, rng):
     """sv_gather and sv_transpose against their plain versions on the
-    card; one sv_gather launch per gather of non-empty ids, none for an
-    empty one; from_array launches sv_transpose; a bad input raises."""
+    card; three sv_gather launches per grouped gather, one per direct one
+    (100 ids), none for an empty one; from_array launches sv_transpose; a
+    bad input raises."""
     cols = _sv_columns(rng, dev)
     assert ck.launches["sv_transpose"] == len(cols)
     kinds = set()
@@ -597,9 +598,12 @@ def test_sv_planes_kernels(dev, rng):
         assert torch.equal(got, blockops.sv_gather(d_ids, table))
         before = ck.launches["sv_gather"]
         np.testing.assert_array_equal(card.gather(ids), cpu.gather(ids))
-        assert ck.launches["sv_gather"] == before + 1
+        grouped = ck._gather_grouped(ids.size, table)
+        assert ck.launches["sv_gather"] == before + (3 if grouped else 1)
+        np.testing.assert_array_equal(card.gather(ids[:100]),
+                                      cpu.gather(ids[:100]))
         card.gather(np.zeros(0, np.int64))
-        assert ck.launches["sv_gather"] == before + 1
+        assert ck.launches["sv_gather"] == before + (4 if grouped else 2)
     assert kinds >= {1, 2, 3, "runs"}
     for n_slices, dt in ((1, torch.int32), (20, torch.int32),
                          (32, torch.int32), (33, torch.int64),
@@ -615,6 +619,97 @@ def test_sv_planes_kernels(dev, rng):
         ck.sv_gather(d_ids.to(torch.int32), table)
     with pytest.raises(ValueError):
         ck.sv_transpose(vals.to(torch.int32), 33)
+
+
+GATHER_CASES = ["one_block", "sorted", "duplicates", "past_end_absent",
+                "sparse_direct", "wide_directory", "planes65", "uniform"]
+
+
+@pytest.fixture(scope="module")
+def gather_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    from chip_smoke import gather_cases as cases
+    got = {name: (c, ids, grouped) for name, c, ids, grouped in cases(
+        tbm, np.random.default_rng(7), torch.device("cuda"))}
+    assert sorted(got) == sorted(GATHER_CASES)
+    return got
+
+
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_sv_gather_cases(dev, gather_cases, name):
+    """The grouped gather's risky cases (chip_smoke.gather_cases) against
+    the plain version, bit for bit, each on the route its size gives it;
+    a grouped gather is three launches."""
+    c, ids, grouped = gather_cases[name]
+    table = c._plane_table()
+    assert ck._gather_grouped(ids.shape[0], table) == grouped
+    got = ck.sv_gather(ids, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blockops.sv_gather(ids, table))
+    assert ck.launches["sv_gather"] == (3 if grouped else 1)
+
+
+SELECT_VECTORS = ["cell", "edge", "full_only", "gap_only", "bit_only",
+                  "wide"]
+
+
+@pytest.fixture(scope="module")
+def select_indices():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    import chip_smoke as cs
+    rng = np.random.default_rng(8)
+    dev = torch.device("cuda")
+    vecs = {"cell": cs.rs_cell_vector(tbm, rng, dev)[0],
+            "edge": cs.rs_edge_vector(tbm, dev),
+            "wide": cs.wide_index_vector(tbm, rng, dev),
+            **cs.class_vectors(tbm, rng, dev)}
+    return {k: v.build_rs_index() for k, v in vecs.items()}
+
+
+@pytest.mark.parametrize("vec", SELECT_VECTORS)
+def test_rs_select_cases(dev, select_indices, vec):
+    """rs_select over chip_smoke.select_cases of each index (one launch
+    per case; the wide index stages only a sample of cum0), and
+    select_flat over its pool (the wide one's gws staged as a sample),
+    against the plain versions."""
+    from bitmagic_tpu_torch.ops import select as plain
+    import chip_smoke as cs
+    rs = select_indices[vec]
+    rng = np.random.default_rng(9)
+    runs = rs._gap_runs()
+    sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    cases = cs.select_cases(rs, rng)
+    for name, ranks in cases:
+        q = torch.from_numpy(ranks).to(dev)
+        got = ck.rs_select(*sargs, q, rs.total, rs._select_tables())
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.rs_select(*sargs, q, rs.total)), name
+    assert ck.launches["rs_select"] == len(cases)
+    if rs.gwc.numel() and int(rs.gwc[-1]):
+        g = torch.from_numpy(rng.integers(
+            -3, int(rs.gwc[-1]) + 3, 20000).astype(np.int32)).to(dev)
+        got = ck.select_flat(rs.pool, rs.gwc, g,
+                             plain.flat_tables(rs.pool, rs.gwc))
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.select_flat(rs.pool, rs.gwc, g))
+
+
+def test_sharded_select_flat(dev, select_indices):
+    """select_flat per shard of an 8-shard ShardedRSIndex on one card
+    against its plain version; the index's batch against numpy."""
+    import chip_smoke as cs
+    rng = np.random.default_rng(10)
+    bv, words = cs.rs_cell_vector(tbm, rng, dev)
+    errs = []
+
+    def cmp(name, got, want):
+        torch.cuda.synchronize()
+        errs.append(bool(torch.equal(got, want)))
+
+    cs.sharded_select_vs_plain(bv, words, dev, rng, cmp)
+    assert errs and all(errs)
 
 
 def test_rs_select_kernels(dev, rng):
@@ -635,7 +730,7 @@ def test_rs_select_kernels(dev, rng):
     q, i = torch.from_numpy(ranks).to(dev), torch.from_numpy(ids).to(dev)
     sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
     rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
-    got = ck.rs_select(*sargs, q, total)
+    got = ck.rs_select(*sargs, q, total, rs._select_tables())
     torch.cuda.synchronize()
     assert torch.equal(got, plain.rs_select(*sargs, q, total))
     got = ck.rs_rank(*rargs, i)
@@ -643,7 +738,8 @@ def test_rs_select_kernels(dev, rng):
     assert torch.equal(got, plain.rs_rank(*rargs, i))
     g = torch.from_numpy(rng.integers(1, int(rs.gwc[-1]) + 1, 50000).astype(
         np.int32)).to(dev)
-    got = ck.select_flat(rs.pool, rs.gwc, g)
+    flat = plain.flat_tables(rs.pool, rs.gwc)
+    got = ck.select_flat(rs.pool, rs.gwc, g, flat)
     torch.cuda.synchronize()
     assert torch.equal(got, plain.select_flat(rs.pool, rs.gwc, g))
     rel = torch.from_numpy(rng.integers(0, rs.pool.shape[0] * 65536,
@@ -662,9 +758,9 @@ def test_rs_select_kernels(dev, rng):
     rs.select_batch(np.zeros(0, np.int64))
     assert ck.launches["rs_select"] == ck.launches["rs_rank"] == 3
     with pytest.raises(TypeError):
-        ck.rs_select(*sargs, q.to(torch.int32), total)
+        ck.rs_select(*sargs, q.to(torch.int32), total, rs._select_tables())
     with pytest.raises(TypeError):
-        ck.select_flat(rs.pool, rs.gwc, g.long())
+        ck.select_flat(rs.pool, rs.gwc, g.long(), flat)
 
 
 def _same_parts(a, b):

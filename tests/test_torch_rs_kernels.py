@@ -87,7 +87,8 @@ def test_select_flat_matches_jax(kind):
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        ck.select_flat(tp, gwc, torch.from_numpy(ranks)).numpy(), want)
+        ck.select_flat(tp, gwc, torch.from_numpy(ranks),
+                       tsel.flat_tables(tp, gwc)).numpy(), want)
     ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
                                         bitorder="little"))
     np.testing.assert_array_equal(want, ones[ranks - 1])
@@ -202,7 +203,7 @@ def test_rs_wrappers_take_the_plain_route_on_cpu_tensors():
     runs = tr._gap_runs()
     q = torch.arange(-2, tr.count() + 3, 997, dtype=torch.int64)
     args = (tr._seg, tr._cum0_dev, runs, tr.pool, tr.gwc)
-    assert torch.equal(ck.rs_select(*args, q, tr.total),
+    assert torch.equal(ck.rs_select(*args, q, tr.total, tr._select_tables()),
                        tsel.rs_select(*args, q, tr.total))
     ids = torch.arange(-5, tv.size + 5, 1009, dtype=torch.int64)
     args = (tr._seg, tr._nb_dev, runs, tr.pool, tr.gwc)
@@ -247,3 +248,158 @@ def test_sharded_flat_forms_match_jax(jmesh, monkeypatch):
     np.testing.assert_array_equal(got_r, ji.rank_batch(qs))
     ok = (ranks >= 1) & (ranks <= n)
     np.testing.assert_array_equal(got_s[ok], ids[ranks[ok] - 1])
+
+
+# ---------------------------------------------------------------------------
+# rs_select's tables (ops/select.select_tables): each equals what it is
+# built from, and the kernel's sampled searches over them (mirrored here
+# in numpy, index for index) give what the plain version's searches give
+# ---------------------------------------------------------------------------
+def _index_of(kind):
+    """A port RSIndex on the CPU: the edge vector (every class, a
+    65536-run D-GAP block), cell 1's mix at 48 blocks, or one class."""
+    import chip_smoke as cs
+    rng = np.random.default_rng(21)
+    if kind == "edge":
+        return rs_edge_vector(tbm, "cpu").build_rs_index()
+    if kind == "mix":
+        words = rng.integers(0, 2**32, (48, 2048), dtype=np.uint64).astype(
+            np.uint32)
+        words[rng.permutation(48)[:24]] = cs.run_rows(rng, 24)
+        bv = tbm.BitVector.from_words(words.ravel(), device="cpu")
+        bv.optimize()
+        return bv.build_rs_index()
+    return cs.class_vectors(tbm, rng, "cpu")[kind].build_rs_index()
+
+
+def _sampled_gap_run(cum1, gcs, lo, hi, rem):
+    """rs_select.cu gap_run: the block's runs [lo, hi) through the sample
+    gcs (every 8th run's ones count) and an 8-run window."""
+    jlo, jhi = lo >> 3, hi >> 3
+    J = jlo + int(np.searchsorted(gcs[jlo:jhi], rem))
+    s0, s1 = max(lo, 8 * J), (8 * J + 7 if J < jhi else hi)
+    r = s0 + int(np.searchsorted(cum1[s0:s1], rem))
+    return min(r, cum1.size - 1)
+
+
+def _sector_select(words, wsp_e, rem):
+    """rs_select.cu wave_select on one wave's 32 words."""
+    e = [0, wsp_e & 1023, (wsp_e >> 10) & 1023, wsp_e >> 20]
+    k = sum(int(x < rem) for x in e[1:])
+    before = e[k]
+    for j in range(8):
+        x = int(words[8 * k + j])
+        after = before + bin(x).count("1")
+        if after >= rem or j == 7:
+            break
+        before = after
+    r, pos, cur = rem - before, 0, x           # bitops.word_select32
+    for width in (16, 8, 4, 2, 1):
+        low = cur & ((1 << width) - 1)
+        c = bin(low).count("1")
+        if r > c:
+            r, pos, cur = r - c, pos + width, cur >> width
+        else:
+            cur = low
+    return (8 * k + j) * 32 + pos
+
+
+@pytest.mark.parametrize("kind", ["edge", "mix", "full_only", "gap_only",
+                                  "bit_only"])
+def test_select_tables_match_their_searches(kind):
+    rs = _index_of(kind)
+    seg = rs._seg.numpy()
+    ec = rs._gap_runs()[0].numpy()
+    key_cum = rs._gap_runs()[2].numpy()
+    gwc = rs.gwc.numpy().astype(np.int64)
+    pool = rs.pool.numpy().view(np.uint32)
+    t = rs._select_tables()
+    sel, gws, gcs, wsp = (x.numpy() for x in (t.sel, t.gws, t.gcs, t.wsp))
+    flat = tsel.flat_tables(rs.pool, rs.gwc)
+    np.testing.assert_array_equal(flat.gws.numpy(), gws)
+    np.testing.assert_array_equal(flat.wsp.numpy(), wsp)
+    assert flat.sel is None and flat.gcs is None
+    a = (sel[:, 1] & 0xFFFFFFFF).astype(np.int64)
+    a = np.where(a >= 2**31, a - 2**32, a)
+    b = sel[:, 1] >> 32
+    cls = seg[:, tsel.CLS]
+    bit = (cls == C.CLS_BIT) & (gwc.size > 0)
+    gap = (cls == C.CLS_GAP) & (ec.shape[0] > 0)
+    np.testing.assert_array_equal(
+        sel[:, 0], np.where(bit, seg[:, tsel.BITOFF], seg[:, tsel.BASE]))
+    np.testing.assert_array_equal(a[bit], seg[bit, tsel.SLOT])
+    np.testing.assert_array_equal(b[bit], seg[bit, tsel.BEFORE])
+    assert (a[~bit & ~gap] == -1).all()
+    first = seg[gap, tsel.GOFFS]
+    np.testing.assert_array_equal(-2 - a[gap], first)
+    np.testing.assert_array_equal(b[gap], np.append(first[1:], ec.shape[0])
+                                  if first.size else b[gap])
+    np.testing.assert_array_equal(gws, gwc[7::8])
+    np.testing.assert_array_equal(gcs, ec[7::8, 1])
+    pc = np.bitwise_count(pool.reshape(-1, 4, 8)).sum(-1)
+    e = np.cumsum(pc[:, :3], 1)
+    np.testing.assert_array_equal(wsp, e[:, 0] | e[:, 1] << 10
+                                  | e[:, 2] << 20)
+    # every segment's rank range, through the kernel's sampled searches
+    rng = np.random.default_rng(22)
+    cum0 = rs._cum0_dev.numpy()
+    ranks = np.unique(np.concatenate([cum0[1:], cum0[1:] - 1,
+                                      rng.integers(1, rs.total + 1, 3000)]))
+    ranks = ranks[(ranks >= 1) & (ranks <= rs.total)]
+    got = []
+    for x in ranks:
+        s = int(np.searchsorted(cum0, x))
+        rem = int(x - cum0[s - 1])
+        pos = int(sel[s, 0]) + rem - 1
+        if a[s] <= -2:
+            r = _sampled_gap_run(ec[:, 1], gcs, -2 - a[s], b[s], rem)
+            assert r == min(int(np.searchsorted(
+                key_cum, seg[s, tsel.GKEYS] + rem)), ec.shape[0] - 1)
+            pos += int(ec[r, 0] - ec[r, 1]) + 1
+        elif a[s] >= 0:
+            w0, g = 64 * int(a[s]), rem + int(b[s])
+            J = int((gws[8 * int(a[s]):8 * int(a[s]) + 8] < g).sum())
+            assert J < 8
+            c = int((gwc[w0 + 8 * J:w0 + 8 * J + 8] < g).sum())
+            wave = w0 + 8 * J + c
+            assert wave == int(np.searchsorted(gwc, g))
+            prev = int(gwc[wave - 1]) if wave else 0
+            pos += 1 - rem + wave * 1024 + _sector_select(
+                pool.reshape(-1, 32)[wave], int(wsp[wave]), g - prev)
+        got.append(pos)
+    q = torch.from_numpy(ranks.astype(np.int64))
+    np.testing.assert_array_equal(got, tsel.rs_select(
+        rs._seg, rs._cum0_dev, rs._gap_runs(), rs.pool, rs.gwc, q,
+        rs.total).numpy())
+
+
+@pytest.mark.parametrize("shape", ["cell", "big_cum0", "many_waves",
+                                   "many_runs"])
+def test_select_staging_plan(shape):
+    """The staging plan of an rs_select launch over an index of m + 1
+    segment rows, W waves and R D-GAP runs: cum0 whole, or as a sample
+    that fits RS_CUM_SAMPLE_BYTES when it is past the budget; then sel,
+    gws and gcs, in that order, each staged while the budget lasts; and
+    select_flat's gws, whole or as the sample that fits the budget."""
+    m1, W, R = {"cell": (1537, 768 * 64, 196_412),
+                "big_cum0": (30_001, 768 * 64, 196_412),
+                "many_waves": (1537, 8000 * 64, 196_412),
+                "many_runs": (1537, 768 * 64, 2_000_000)}[shape]
+    budget = ck.RS_STAGE_BYTES
+    stride, s_sel, s_gws, s_gcs, used = ck._select_staging(m1, W, R)
+    cum = ck._r16(8 * -(-m1 // stride))
+    assert (stride == 1) == (ck._r16(8 * m1) <= budget)
+    assert cum <= budget and (stride == 1 or cum <= ck.RS_CUM_SAMPLE_BYTES)
+    sizes = [ck._r16(16 * m1), ck._r16(4 * W // 8), ck._r16(4 * (R // 8))]
+    assert used == cum + sum(f * n for f, n in zip(
+        (s_sel, s_gws, s_gcs), sizes))
+    assert used <= budget
+    left = budget - cum
+    for flag, n in zip((s_sel, s_gws, s_gcs), sizes):
+        assert flag == int(n <= left)
+        left -= n * flag
+    expect = {"cell": (1, 1, 1, 1), "big_cum0": (8, 0, 1, 1),
+              "many_waves": (1, 1, 0, 1), "many_runs": (1, 1, 1, 0)}[shape]
+    assert (stride, s_sel, s_gws, s_gcs) == expect
+    f_stride, f_bytes = ck._flat_staging(W // 8)
+    assert f_bytes <= budget and (f_stride == 1) == (4 * W // 8 <= budget)

@@ -293,10 +293,103 @@ def test_gather_cache_invalidation(monkeypatch):
     for name, step in steps:
         before = len(built)
         vals = rng.integers(-9, 9, 5000).astype(np.int32)
+        old = t._plane_table()
         for c in (j, t):
             step(c, vals)
         same(t.gather(ids), j.gather(ids))
         rebuilt = len(built) - before
         assert rebuilt == (0 if name == "none" else 1), name
+        # the block directory is rebuilt with the table, and is current
+        table = t._plane_table()
+        assert (table.dir is old.dir) == (name == "none"), name
+        planes = [(s, p) for s, p in enumerate(t.planes) if p is not None]
+        planes.append((-1, t.null_plane))
+        fresh = real([(s, p._struct, p._pool, p._gaps) for s, p in planes],
+                     "cpu")
+        assert torch.equal(table.bps, fresh.bps), name
+        assert torch.equal(table.dir, fresh.dir), name
         same(t.gather(ids), j.gather(ids))
         assert len(built) - before == rebuilt, f"{name}: table not kept"
+
+
+# ---------------------------------------------------------------------------
+# the plane table's block directory (core/blocks.plane_directory): entry
+# for entry what the per-plane searches of the plain version give
+# ---------------------------------------------------------------------------
+def directory_columns(name):
+    """The port column of one directory case."""
+    if name == "empty":
+        return TSV(np.int64, device="cpu")
+    if name == "empty_nullable":
+        return TSV(np.int64, nullable=True, device="cpu")
+    if name == "runs":              # FULL runs beside absent planes
+        n = 34 * BPB + 1000
+        v = (np.random.default_rng(4).integers(0, 4, n) | 32).astype(
+            np.uint32)
+        return build(v, "all_assigned")[1]
+    if name == "planes65":
+        t = build(column_values("bit", np.int64, seed=30), "some")[1]
+        assert len([p for p in t.planes if p is not None]) == 64
+        return t
+    kind, dtype = name.split("-")
+    nulls = "some" if kind in ("bit", "gap") else "all_assigned"
+    return build(column_values(kind, np.dtype(dtype).type, seed=31),
+                 nulls)[1]
+
+
+@pytest.mark.parametrize("name", ["bit-uint32", "bit-int64", "gap-uint32",
+                                  "gap-int64", "full-uint32", "full-int64",
+                                  "absent-uint32", "absent-int64", "runs",
+                                  "planes65", "empty", "empty_nullable"])
+def test_block_directory_matches_plane_searches(name):
+    t = directory_columns(name)
+    table = t._plane_table()
+    P = table.meta.shape[0]
+    bps, d = table.bps.numpy(), table.dir.numpy()
+    assert d.shape == (bps.size + 1, P)
+    assert (np.diff(bps) > 0).all()
+    # each row's first block (row 0: one before the first breakpoint),
+    # every breakpoint's neighbours and blocks past the column
+    rng = np.random.default_rng(32)
+    top = int(bps[-1]) + 3 if bps.size else 4
+    first = np.concatenate([[bps[0] - 1 if bps.size else -1], bps])
+    probe = np.concatenate([first, bps - 1, bps + 1, [top, 1 << 31],
+                            rng.integers(-2, top, 300)])
+    rows = np.searchsorted(bps, probe, side="right")
+    blk = torch.from_numpy(probe.astype(np.int64))
+    for p in range(P):
+        np.testing.assert_array_equal(
+            d[rows, p], blockops.plane_entries(table, p, blk).numpy(),
+            err_msg=f"plane {p}")
+    # a BIT or D-GAP entry's interval is one block
+    single = np.diff(np.append(bps, bps[-1] + 1 if bps.size else 0))
+    held = (d[1:] >= 0) | ((d[1:] <= -2) & (d[1:] != blockops.DIR_ZERO))
+    if bps.size:
+        assert (single[held.any(axis=1)] == 1).all()
+    assert table.bit_rows == int((d >= 0).any(axis=1).sum())
+    kinds = {int(c) for c in np.unique(d)}
+    if name == "runs":
+        assert -1 in kinds and blockops.DIR_ZERO in kinds
+    if name.startswith("gap"):
+        assert any(k <= -2 and k != blockops.DIR_ZERO for k in kinds)
+
+
+@pytest.mark.parametrize("name", ["bit-int64", "runs", "empty_nullable"])
+def test_gather_routes_agree_on_cpu(name):
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; the route a card would take is direct up to
+    GATHER_DIRECT_MAX ids and below GATHER_ROW_IDS ids per BIT directory
+    row, else grouped."""
+    t = directory_columns(name)
+    table = t._plane_table()
+    ids = torch.from_numpy(query_ids(max(t.size, 1), seed=33))
+    ck.reset_launches()
+    assert torch.equal(ck.sv_gather(ids, table),
+                       blockops.sv_gather(ids, table))
+    assert not any(ck.launches.values())
+    rows = max(table.bit_rows, 1)
+    many = max(ck.GATHER_DIRECT_MAX + 1, ck.GATHER_ROW_IDS * rows)
+    assert not ck._gather_grouped(ck.GATHER_DIRECT_MAX, table)
+    assert ck._gather_grouped(many, table)
+    if many > ck.GATHER_DIRECT_MAX + 1:     # too few ids per BIT row
+        assert not ck._gather_grouped(many - 1, table)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Two measurements of the rs-index's select and rank batches on one
-NVIDIA card, each taken in turns in one process.
+"""Measurements of the rs-index's select and rank batches on one NVIDIA
+card, each taken in turns in one process.
 
     python3 tools/torch_rs_turns.py [--rounds 6] [--steps 20] [--seed 42]
+    python3 tools/torch_rs_turns.py --kernels _archive/parent
 
 staging: ``RSIndex.select_batch`` / ``rank_batch`` on 1M queries and on
     one query, as the index runs them (one pageable copy each way), and
@@ -22,6 +23,16 @@ route: the step of cell ``bvsetalgebra_rank_select`` (``bench_torch.py``,
     Per route, the median host wall ms of every entry point of the step,
     so a change in the set operations that follow one route's batches
     shows beside the batches' own.
+
+kernels (``--kernels PARENT``, instead of the two above): rs_select and
+    select_flat at ``chip_smoke.rs_timings``' shape (a vector drawn as the
+    cell's A, 1M uniform ranks) against the versions of the commit
+    unpacked at PARENT (its ``rs_select.cu``, built by
+    ``torch_gather_turns.build_old`` and called through its C interface),
+    parent, new, new, parent; then, per batch size from 1 to 1M, the
+    parent's and the new one.  Medians of 25 runs between CUDA events, L2
+    evicted before each (``chip_smoke.time_ms``); every answer must equal
+    the plain version's.
 
 Prints one JSON line per measurement, then the card's name and power
 limit.
@@ -63,9 +74,14 @@ class Answers:
     def on_card(self, what, route):
         rs, runs = self.rs, self.runs
         mod = plain if route == "plain" else ck
+        if what == "select" and route == "plain":
+            return lambda q: plain.rs_select(rs._seg, rs._cum0_dev, runs,
+                                             rs.pool, rs.gwc, q, rs.total)
         if what == "select":
-            return lambda q: mod.rs_select(rs._seg, rs._cum0_dev, runs,
-                                           rs.pool, rs.gwc, q, rs.total)
+            tables = rs._select_tables()
+            return lambda q: ck.rs_select(rs._seg, rs._cum0_dev, runs,
+                                          rs.pool, rs.gwc, q, rs.total,
+                                          tables)
         return lambda q: mod.rs_rank(rs._seg, rs._nb_dev, runs, rs.pool,
                                      rs.gwc, q)
 
@@ -143,16 +159,106 @@ def routes(cell, ans, oracle, dev, rounds, steps) -> dict:
             for r, w in walls.items()}
 
 
+BATCHES = (1, 64, 1024, 4096, 16384, 65536, 262144, 1_000_000)
+
+
+def kernel_turns(parent, dev):
+    """The ``kernels`` measurement's JSON lines (module docstring)."""
+    import ctypes
+
+    import chip_smoke as cs
+    import bitmagic_tpu_torch as tbm
+    from torch_gather_turns import VP, INT, LL, build_old, log_new_build
+    log_new_build()
+    lib = build_old(os.path.join(parent, "bitmagic_tpu_torch", "ops",
+                                 "csrc"), ("rs_select.cu",))["rs_select.cu"]
+    old_sel, old_flat = lib.bm_rs_select, lib.bm_select_flat
+    old_sel.argtypes = [VP, LL, VP, VP, VP, LL, VP, VP, LL, VP, LL, LL, VP,
+                        VP]
+    old_flat.argtypes = [VP, VP, LL, VP, LL, VP, VP]
+    old_sel.restype = old_flat.restype = INT
+    rng = np.random.default_rng(cs.SEED + 21)
+    v, _ = cs.rs_cell_vector(tbm, rng, dev)
+    rs = v.build_rs_index()
+    runs, tables = rs._gap_runs(), rs._select_tables()
+    sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=dev)
+    card = bt.card_line()
+
+    def parent_select(q):
+        out = torch.empty_like(q)
+        err = old_sel(rs._seg.data_ptr(), rs._seg.shape[0],
+                      rs._cum0_dev.data_ptr(), runs[0].data_ptr(),
+                      runs[2].data_ptr(), runs[0].shape[0],
+                      rs.pool.data_ptr(), rs.gwc.data_ptr(),
+                      rs.gwc.shape[0], q.data_ptr(), q.shape[0], rs.total,
+                      out.data_ptr(), stream)
+        cs.check(err == 0, f"parent rs_select: CUDA error {err}")
+        return out
+
+    def parent_flat(g):
+        out = torch.empty(g.shape[0], dtype=torch.int64, device=dev)
+        err = old_flat(rs.pool.data_ptr(), rs.gwc.data_ptr(),
+                       rs.gwc.shape[0], g.data_ptr(), g.shape[0],
+                       out.data_ptr(), stream)
+        cs.check(err == 0, f"parent select_flat: CUDA error {err}")
+        return out
+
+    sel = {"parent": parent_select,
+           "new": lambda q: ck.rs_select(*sargs, q, rs.total, tables)}
+    ftables = plain.flat_tables(rs.pool, rs.gwc)
+    flat = {"parent": parent_flat,
+            "new": lambda g: ck.select_flat(rs.pool, rs.gwc, g, ftables)}
+    plain_of = {id(sel): lambda q: plain.rs_select(*sargs, q, rs.total),
+                id(flat): lambda g: plain.select_flat(rs.pool, rs.gwc, g)}
+
+    def queries(fns, n):
+        if fns is sel:
+            return torch.from_numpy(rng.integers(1, rs.total + 1, n)).to(dev)
+        return torch.from_numpy(rng.integers(
+            1, int(rs.gwc[-1]) + 1, n).astype(np.int32)).to(dev)
+
+    def timed(fns, q, name):
+        got = fns[name](q)
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, plain_of[id(fns)](q)),
+                 f"{name} equals the plain version")
+        return cs.time_ms(lambda: fns[name](q), flush)
+
+    lines = []
+    for what, fns in (("rs_select", sel), ("select_flat", flat)):
+        q = queries(fns, cs.N_QUERIES)
+        ms = {"parent": [], "new": []}
+        for name in ("parent", "new", "new", "parent"):
+            ms[name].append(timed(fns, q, name))
+        lines.append({"measure": "turns", "kernel": what,
+                      "queries": cs.N_QUERIES, "ms": ms, "card": card})
+        for n in BATCHES:
+            q = queries(fns, n)
+            lines.append({"measure": "batch", "kernel": what, "queries": n,
+                          "ms": {"parent": timed(fns, q, "parent"),
+                                 "new": timed(fns, q, "new")},
+                          "card": card})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--kernels", metavar="PARENT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_rs_turns: no CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.kernels:
+        for line in kernel_turns(args.kernels, dev):
+            print(json.dumps(line), flush=True)
+        print(bt.card_line())
+        return 0
     workload, cfg = bt.load_workload(CELL)
     cell = bt.TRAFFIC[workload["traffic"]](args.seed, cfg["sizes"])
     oracle = cell.oracle()
