@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants as C
-from ..core.blocks import (operand_args, runs_diff, runs_intersect,
+from ..core.blocks import (operand_args_pair, runs_diff, runs_intersect,
                            runs_subtract_points, runs_total)
 from ..core.bitvector import BitVector
 from ..ops import cuda_kernels as ck
@@ -74,8 +74,7 @@ def distance_operation(a: BitVector, b: BitVector, metrics) -> dict:
     kern = ~sym
     if kern.any():
         totals, _ = ck.count_metrics_total(
-            tuple(metrics), operand_args(a, cand[kern]),
-            operand_args(b, cand[kern]))
+            tuple(metrics), *operand_args_pair(a, b, cand[kern]))
         vals += totals.cpu().numpy()
     return {m: int(v) + table[m] for m, v in zip(metrics, vals)}
 

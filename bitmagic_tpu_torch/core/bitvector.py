@@ -34,7 +34,7 @@ from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
 from ..ops.blockops import full_block_np, to_device_words
-from .blocks import (RUN_MIN, Structure, descriptor,
+from .blocks import (RUN_MIN, Structure, descriptor_pair,
                      operand_args, plan_binary, plane_table, points_in_runs,
                      runs_clip, runs_diff, runs_intersect, runs_normalize,
                      runs_overlap_bits, runs_subtract_points, runs_union,
@@ -1657,10 +1657,11 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
     pool = blockops.zero_pool(0, a._device)
     if (ident == "").any():
         rows = np.concatenate([np.flatnonzero(dense), np.flatnonzero(small)])
-        a_desc = descriptor(a._pool, plan.a_slot[rows], plan.a_full[rows],
-                            a._gaps, plan.a_gap[rows])
-        b_desc = descriptor(b._pool, plan.b_slot[rows], plan.b_full[rows],
-                            b._gaps, plan.b_gap[rows])
+        a_desc, b_desc = descriptor_pair(
+            (a._pool, plan.a_slot[rows], plan.a_full[rows], a._gaps,
+             plan.a_gap[rows]),
+            (b._pool, plan.b_slot[rows], plan.b_full[rows], b._gaps,
+             plan.b_gap[rows]))
         # the digest is the reference's per-block wave digest of each
         # result row; as in the JAX package, an all-zero result row stays
         # a BIT row here (bitmagic_tpu/core/bitvector.py:1827), so the

@@ -439,13 +439,52 @@ def descriptor(pool, slot, full, store, gap_slots):
             torch.from_numpy(np.asarray(aux_slot, np.int32)).to(dev))
 
 
+def descriptor_pair(a, b):
+    """Both operands' gather descriptors of a binary op, each given as
+    ``(pool, slot, full, store, gap_slots)`` (see ``descriptor``), with
+    the GAP blocks of both expanded by one ``gap_expand`` launch from one
+    upload of their store indices: one aux tensor, a's rows first, whose
+    halves are the two descriptors' aux."""
+    dev = a[0].device
+    used = [np.unique(np.asarray(g, np.int64)[np.asarray(g) >= 0])
+            if store is not None else np.zeros(0, np.int64)
+            for _, _, _, store, g in (a, b)]
+    k_a = used[0].size
+    sel = torch.from_numpy(np.concatenate(used).astype(np.int32)).to(dev)
+    aux = ck.gap_expand_pair(*(
+        x[3].device_arrays(dev) if u.size else None
+        for x, u in ((a, used[0]), (b, used[1]))), sel, k_a)
+    out = []
+    for (pool, slot, full, _, g), u, rows in zip(
+            (a, b), used, (aux[:k_a], aux[k_a:])):
+        g = np.asarray(g, np.int64)
+        aux_slot = np.where(g >= 0, np.searchsorted(u, np.maximum(g, 0)), -1)
+        out.append((pool,
+                    torch.from_numpy(np.asarray(slot, np.int32)).to(dev),
+                    torch.from_numpy(np.asarray(full, bool)).to(dev),
+                    rows,
+                    torch.from_numpy(aux_slot.astype(np.int32)).to(dev)))
+    return tuple(out)
+
+
 def operand_args(v, blocklist: np.ndarray):
     """Device-ready 5-tuple (pool, slot, full, aux, aux_slot) for one
     BitVector operand aligned on ``blocklist`` — the gather descriptor the
     set-op / metric kernels take."""
+    return descriptor(*_operand_parts(v, blocklist))
+
+
+def _operand_parts(v, blocklist):
     st, slot = v._struct.lookup(blocklist)
-    return descriptor(v._pool, np.where(st == _B, slot, -1), st == _F,
-                      v._gaps, np.where(st == _G, slot, -1))
+    return (v._pool, np.where(st == _B, slot, -1), st == _F, v._gaps,
+            np.where(st == _G, slot, -1))
+
+
+def operand_args_pair(a, b, blocklist: np.ndarray):
+    """``operand_args`` of vectors a and b on one blocklist, their GAP
+    blocks expanded in one launch (``descriptor_pair``)."""
+    return descriptor_pair(_operand_parts(a, blocklist),
+                           _operand_parts(b, blocklist))
 
 
 def plane_directory(nbs, ents, runs):

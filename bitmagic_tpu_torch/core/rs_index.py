@@ -19,7 +19,9 @@ of the block's runs' ones counts) or wave (the slot's row of the wave
 prefix) -> word -> in-word position; rank searches the segment starts.
 ``rs_select`` also reads ``ops/select.select_tables`` of the index (the
 segments' select records, samples of the wave prefix and of the runs'
-ones counts, each wave's sector prefix), built at the first select.  On the
+ones counts, each wave's sector prefix), built at the first select, and
+``rs_rank`` its ``rank_tables`` (the segments' rank records, samples of
+the runs' ends, the same sector prefix), built at the first rank.  On the
 card a batch is one launch of the hand kernel ``rs_select`` or ``rs_rank``
 (``ops/csrc/rs_select.cu``) over these tables, with one upload of the
 queries and one download of the answers (pageable copies, which beat a
@@ -38,7 +40,7 @@ from .. import constants as C
 from ..ops import cuda_kernels as ck
 from ..ops.select import (BASE, BEFORE, BITOFF, CA, CB, CLS, END, GKEY,
                           GKEYS, GOFFS, SEG_COLS, SLOT, global_wave_prefix,
-                          select_tables)
+                          rank_tables, select_tables)
 
 _I64 = np.int64
 _BPB = C.BITS_PER_BLOCK
@@ -81,6 +83,7 @@ class RSIndex:
                                     dev)
         self._runs_dev = None          # GAP query tables, at first query
         self._sel_dev = None           # rs_select's tables, at first select
+        self._rank_dev = None          # rs_rank's tables, at first rank
 
     def _segment_table(self) -> torch.Tensor:
         """The segment tables on the device, one int64 row per segment
@@ -169,6 +172,16 @@ class RSIndex:
                                           self.pool, self.gwc)
         return self._sel_dev
 
+    def _rank_tables(self):
+        """``ops/select.rank_tables`` of the index (the segments' rank
+        records, the run-end samples ``rs_rank`` searches and each wave's
+        rank pair, from the select tables' sector prefix), built once on
+        the index's device at the first rank."""
+        if self._rank_dev is None:
+            self._rank_dev = rank_tables(self._seg, self._gap_runs(),
+                                         self.gwc, self._select_tables().wsp)
+        return self._rank_dev
+
     def _batch(self, values, answer) -> np.ndarray:
         """``answer(queries)`` over int64 ``values`` on the index's device:
         one upload of the queries, one download of the answers."""
@@ -186,9 +199,9 @@ class RSIndex:
         ids = np.asarray(ids, _I64)
         if len(self.nb) == 0:
             return np.zeros(ids.shape, _I64)
-        runs = self._gap_runs()
+        runs, tables = self._gap_runs(), self._rank_tables()
         return self._batch(ids, lambda q: ck.rs_rank(
-            self._seg, self._nb_dev, runs, self.pool, self.gwc, q))
+            self._seg, self._nb_dev, runs, self.pool, self.gwc, q, tables))
 
     def rank(self, i) -> int:
         return int(self.rank_batch(np.asarray([i]))[0])

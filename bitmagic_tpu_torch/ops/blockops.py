@@ -7,12 +7,13 @@ hand-written Hopper kernel in ``cuda_kernels.py`` with the same signature:
 (and its total form), ``logical_op_digest`` /
 ``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
 ``pipeline_counts``, ``scan_eq``, the D-GAP conversions
-``gap_expand`` / ``gap_compress``, the SparseVector's multi-plane
-``sv_gather`` and import ``sv_transpose``, and the ordered searches'
-slice descent ``sv_descent`` / ``descent_rows``.  The wrappers there run
-the plain version below only for tensors on the CPU; on the card they
-launch the kernel.  The other functions here have no kernel in the JAX
-package either and stay plain PyTorch on every device.
+``gap_expand`` (and its pair form) / ``gap_compress``, the
+SparseVector's multi-plane ``sv_gather`` and import ``sv_transpose``, and
+the ordered searches' slice descent ``sv_descent`` / ``descent_rows``.
+The wrappers there run the plain version below only for tensors on the
+CPU; on the card they launch the kernel.  The other functions here have
+no kernel in the JAX package either and stay plain PyTorch on every
+device.
 
 Conventions:
   * words are int32 tensors holding the reference's uint32 bits;
@@ -516,6 +517,19 @@ def gap_expand(ends, offs, first, sel):
     par = popcount(tog).reshape(k, SET_BLOCK_SIZE).to(_I64)
     before = (torch.cumsum(par, 1) - par) & 1
     return u32_to_i32(x.reshape(k, SET_BLOCK_SIZE) ^ (before * 0xFFFFFFFF))
+
+
+def gap_expand_pair(mirror_a, mirror_b, sel, k_a):
+    """Dense rows of two stores' D-GAP blocks: ``gap_expand`` of blocks
+    ``sel[:k_a]`` of ``mirror_a``, then of ``sel[k_a:]`` of ``mirror_b``
+    (a mirror None where its side selects no block)."""
+    parts = [gap_expand(*m, s) for m, s in ((mirror_a, sel[:k_a]),
+                                            (mirror_b, sel[k_a:]))
+             if s.shape[0]]
+    if not parts:
+        return torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
+                           device=sel.device)
+    return torch.cat(parts)
 
 
 def gap_compress(rows):

@@ -14,11 +14,25 @@
 //   offs  int32[m + 1]  block b's runs are ends[offs[b] .. offs[b + 1])
 //   first uint8[m]      bit value of block b's first run (runs alternate)
 //
-// gap_expand: one CTA of 256 threads per selected block.  A thread owns 8
-// consecutive words (256 bits): it binary-searches the block's ends for
-// the run holding its first bit, walks forward run by run filling spans
-// of its words, and stores them as two 16-byte vectors.  Bound: the 8 KiB
-// written per row (the ends read are 4 B per run).
+// gap_expand: one CTA of 128 threads per selected block; one launch
+// expands a pair of operands' blocks from their two mirrors (CTA i < k_a:
+// mirror a, else mirror b), into one tensor whose first k_a rows are a's.
+// The first port had every thread binary-search the block's ends in
+// global memory for its first bit, then walk them: a chain of ~12
+// dependent L2 loads per thread, which was the launch, not the 8 KiB it
+// writes per row.  Now a block's sel, then its offs and first, then its
+// ends are read, the ends once and coalesced, and the rest is in shared
+// memory: each run end but the last marks the bit after it in an 8 KiB
+// transition bitmap (bit 0 too where the first run is ones), and a row's
+// bit is the parity of the marks at or below it: a prefix XOR inside each
+// word, and a CTA scan of the parities (a ballot per warp).  Any run count
+// takes this path: nothing is staged that a block's runs could exceed.
+// 128 threads a row let an operand pair's 1536 rows run in one wave (16
+// CTAs an SM); thread t owns vectors t, t + 128, t + 256 and t + 384 of
+// its row, so each warp store writes 512 contiguous bytes.  Measured
+// against a search of the ends staged in shared memory and against 256
+// threads a row, and kept (PERF.md).
+// Bound: the 8 KiB written per row (the ends read are 4 B per run).
 //
 // gap_compress: two passes of one CTA per row, the rows read once each.
 // A transition word t = w ^ ((w >> 1) | (next word << 31)) has bit b set
@@ -36,59 +50,91 @@ constexpr int kWordsPerThread = bm::kBlockWords / bm::kThreads;   // 8
 constexpr int kBitsPerThread = kWordsPerThread * 32;               // 256
 constexpr int kLastBit = bm::kBlockWords * 32 - 1;                 // 65535
 
-// Bits lo..hi of a word, 0 <= lo <= hi <= 31.
-__device__ __forceinline__ uint32_t span_mask(int lo, int hi) {
-  return static_cast<uint32_t>((2ull << hi) - (1ull << lo));
-}
+// A D-GAP store's device mirror (GapStore.device_arrays).
+struct Mirror {
+  const int32_t* ends;
+  const int32_t* offs;
+  const uint8_t* first;
+};
 
-__global__ void __launch_bounds__(bm::kThreads)
-gap_expand_kernel(const int32_t* __restrict__ ends,
-                  const int32_t* __restrict__ offs,
-                  const uint8_t* __restrict__ first,
-                  const int32_t* __restrict__ sel, uint4* __restrict__ out) {
+constexpr int kRowThreads = 128;                        // gap_expand's CTA
+constexpr int kRowVec = bm::kBlockVec / kRowThreads;    // 4 vectors a thread
+constexpr int kRowWarps = kRowThreads / 32;
+
+// Row i of the output (see the top of the file).  A vector's carry is the
+// parity of the marks in the chunks before it (every warp) and before it
+// in its own chunk (the warps before, then the lanes before: a ballot
+// each).
+__global__ void __launch_bounds__(kRowThreads)
+gap_expand_kernel(Mirror a, Mirror b, const int32_t* __restrict__ sel,
+                  int k_a, uint4* __restrict__ out) {
+  __shared__ uint4 tog[bm::kBlockVec];            // 8 KiB of marks
+  __shared__ uint32_t warp_par[kRowVec][kRowWarps];
+  const Mirror m = static_cast<int>(blockIdx.x) < k_a ? a : b;
   const int blk = sel[blockIdx.x];
-  const int r0 = offs[blk];
-  const int bit0 = threadIdx.x * kBitsPerThread;
-  // the run holding bit0: the first whose end is >= bit0 (the block's last
-  // run ends at 65535, so the search stays inside the block)
-  int lo = r0;
-  int hi = offs[blk + 1] - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(ends + mid) < bit0) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  int r = lo;
-  int e = __ldg(ends + r);
-  uint32_t val = (static_cast<uint32_t>(first[blk]) ^
-                  static_cast<uint32_t>(r - r0)) & 1u;
-  uint32_t w[kWordsPerThread];
+  const int r0 = __ldg(m.offs + blk);
+  const int r1 = __ldg(m.offs + blk + 1) - 1;     // the last run: no mark
+  const uint32_t v0 = __ldg(m.first + blk);
+  const int t = threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < kWordsPerThread; ++j) {
-    const int wb = bit0 + 32 * j;
-    const int wl = wb + 31;
-    if (e < wb) {          // the run ended on the last bit of the word before
-      e = __ldg(ends + ++r);
-      val ^= 1u;
-    }
-    uint32_t word = 0u;
-    int p = wb;
-    while (e < wl) {       // runs that end inside this word (e < 65535)
-      if (val) word |= span_mask(p - wb, e - wb);
-      p = e + 1;
-      e = __ldg(ends + ++r);
-      val ^= 1u;
-    }
-    if (val) word |= span_mask(p - wb, 31);
-    w[j] = word;
+  for (int j = 0; j < kRowVec; ++j) {
+    tog[t + j * kRowThreads] = make_uint4(0u, 0u, 0u, 0u);
   }
-  uint4* dst = out + static_cast<size_t>(blockIdx.x) * bm::kBlockVec +
-               2 * threadIdx.x;
-  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  __syncthreads();
+  uint32_t* marks = reinterpret_cast<uint32_t*>(tog);
+  if (t == 0 && (v0 & 1u)) atomicOr(marks, 1u);
+  for (int r = r0 + t; r < r1; r += 4 * kRowThreads) {
+    int p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rj = r + j * kRowThreads;
+      p[j] = rj < r1 ? __ldg(m.ends + rj) + 1 : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (p[j] >= 0) atomicOr(marks + (p[j] >> 5), 1u << (p[j] & 31));
+    }
+  }
+  __syncthreads();
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  uint4 v[kRowVec];
+  unsigned bal[kRowVec];
+#pragma unroll
+  for (int j = 0; j < kRowVec; ++j) {
+    v[j] = tog[t + j * kRowThreads];
+    bal[j] = __ballot_sync(0xFFFFFFFFu, bm::popc4(v[j]) & 1u);
+    if (lane == 0) warp_par[j][warp] = __popc(bal[j]) & 1u;
+  }
+  __syncthreads();
+  uint32_t before = 0u;            // the parity of the chunks before j
+  uint4* dst = out + static_cast<size_t>(blockIdx.x) * bm::kBlockVec + t;
+#pragma unroll
+  for (int j = 0; j < kRowVec; ++j) {
+    uint32_t carry = before ^ (__popc(bal[j] & ((1u << lane) - 1u)) & 1u);
+    uint32_t chunk = 0u;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) {
+      const uint32_t pw = warp_par[j][w];
+      if (w < warp) carry ^= pw;
+      chunk ^= pw;
+    }
+    before ^= chunk;
+    uint32_t x[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t y = x[k];
+      const uint32_t pk = __popc(y) & 1u;
+      y ^= y << 1;
+      y ^= y << 2;
+      y ^= y << 4;
+      y ^= y << 8;
+      y ^= y << 16;
+      x[k] = y ^ (0u - carry);
+      carry ^= pk;
+    }
+    dst[j * kRowThreads] = make_uint4(x[0], x[1], x[2], x[3]);
+  }
 }
 
 // This thread's transition words of row ``row``; ``head`` (shared, one
@@ -178,16 +224,26 @@ gap_write_kernel(const uint4* __restrict__ rows,
 
 }  // namespace
 
-// out int32[k, 2048]: row i = block sel[i] of the mirror (ends, offs,
-// first).  Returns the CUDA error of the launch (0 = launched).  k >= 1.
-extern "C" int bm_gap_expand(const void* ends, const void* offs,
-                             const void* first, const void* sel, int k,
-                             void* out, void* stream) {
-  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  gap_expand_kernel<<<k, bm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ends), static_cast<const int32_t*>(offs),
-      static_cast<const uint8_t*>(first), static_cast<const int32_t*>(sel),
-      static_cast<uint4*>(out));
+// out int32[k, 2048]: row i = block sel[i] of mirror a (i < k_a) or of
+// mirror b (i >= k_a), each (ends, offs, first); a mirror no row reads
+// may be null.  Returns the CUDA error of the launch (0 = launched).
+// k >= 1, 0 <= k_a <= k.
+extern "C" int bm_gap_expand(const void* ends_a, const void* offs_a,
+                             const void* first_a, const void* ends_b,
+                             const void* offs_b, const void* first_b,
+                             const void* sel, int k_a, int k, void* out,
+                             void* stream) {
+  if (k <= 0 || k_a < 0 || k_a > k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Mirror a{static_cast<const int32_t*>(ends_a),
+                 static_cast<const int32_t*>(offs_a),
+                 static_cast<const uint8_t*>(first_a)};
+  const Mirror b{static_cast<const int32_t*>(ends_b),
+                 static_cast<const int32_t*>(offs_b),
+                 static_cast<const uint8_t*>(first_b)};
+  gap_expand_kernel<<<k, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, static_cast<const int32_t*>(sel), k_a, static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,26 +8,27 @@
 // them (rs_index.py:106-185: the segment search, the FULL offsets, the
 // GAP rank_in_block / select_in_block).
 //
-// The index's device tables (core/rs_index.py, ops/select.py SEG_COLS and
-// select_tables):
-//   seg     int64[m + 1, 11]  per segment (row 0 a sentinel) its end block,
-//                             ones before / after it, first bit, class, GAP
-//                             search keys and first run, pool slot, pool
-//                             rank before the slot's row, bit offset
+// The index's device tables (core/rs_index.py, ops/select.py SEG_COLS,
+// select_tables and rank_tables):
 //   cum0    int64[m + 1]      0, then the inclusive ones prefix over segments
 //   sel     int64[m + 1, 2]   per segment the position its answers count
 //                             from and (a, b): BIT slot / rank before its
 //                             row, D-GAP -2 - first run / run after its last
 //   nb      int64[m]          the segments' first blocks
+//   rec     int64[m + 2, 2]   per segment row (row 0 a sentinel, row m + 1
+//                             the total) the ones before it and a packed
+//                             word: route (bits 0-1) and its payload
+//                             (select.rank_tables)
 //   runs    int32[R, 2]       per D-GAP run its block-local end and its
 //                             block's inclusive ones count up to it
-//   key     int64[R]          the runs' rank search keys: run_block * 65536
-//                             + end
 //   pool    uint32[r, 2048], gwc int32[r * 64] (inclusive wave prefix)
 //   gws     int32[r * 8]      gwc at the end of every 8 waves
 //   gcs     int32[R / 8]      the runs' ones counts at every 8th run
+//   ges     int32[R / 8]      the runs' ends at every 8th run
 //   wsp     int32[r * 64]     per wave the ones of its first 1, 2 and 3
 //                             32-byte sectors, 10 bits each
+//   wrk     int32[r * 64, 2]  per wave the ones before it (gwc's exclusive
+//                             form) beside its wsp entry
 //
 // rs_select, per 1-based rank x in [1, total] (else -1): the segment is
 // the lower bound of x in cum0 and rem = x - cum0[segment - 1].  FULL:
@@ -57,13 +58,26 @@
 // measured and lost (instruction-bound; PERF.md).
 //
 // rs_rank, per id: an upper-bound search of its block in nb gives the
-// segment (row 0: before the first); outside it the answer is the ones up
-// to its end.  FULL: ones before + offset + 1; GAP: a lower-bound search
-// of the run key, then min(ones up to the run, p + bit) with p the ones
-// before the run less its start (rs_index.py); BIT: the wave prefix less
-// the row's base, plus the masked popcount of the id's 128 B wave.
-// rank_flat is that BIT step over a whole pool (ShardedRSIndex).  The rank
-// kernels are the first port's: a thread per query, tables in L2.
+// segment s (0: before the first); outside it (a block past the segment's
+// end) the answer is the ones before segment s + 1, rec[s + 1].  FULL:
+// ones before + offset + 1; D-GAP: the block's first run whose end
+// reaches the bit, then its ones count, less (end - bit) for a run of
+// ones (what min(ones up to the run, p + bit) of ops/select.rs_rank
+// gives); BIT: the ones before the wave less the row's base, the sector
+// prefix of the wave's wsp entry (both in one 8-byte wrk entry), and the
+// masked popcount of the one 32-byte sector holding the bit.  rank_flat is
+// that BIT step over a whole pool (ShardedRSIndex).  The first port ran a
+// thread per id through an 11-step search of nb, up to 6 loads of its 88 B
+// segment row, a 17-step search of every run key and eight 16 B loads of
+// the wave, all dependent L2 loads.
+// This design: persistent CTAs of 1024 threads stage nb (whole, or every
+// S-th entry), the 16 B rank record per segment and every 8th run end in
+// shared memory (those that fit the wrapper's budget, in that order), so
+// an id leaves L2 only for one 8-run window of the runs (D-GAP: 64 B) or
+// for its wave's wrk entry and one 32-byte sector of the wave (BIT), each
+// group issued together.  wrk interleaves gwc and wsp so that a rank reads
+// one line where it read two (measured: rank_flat 0.0315 against 0.0383
+// ms at 1M ids; PERF.md).
 //
 // Lower and upper bounds reproduce torch.searchsorted left and right on
 // ties (zero-count segments and empty waves repeat prefix values).
@@ -76,12 +90,11 @@ constexpr int kStageThreads = 1024;          // the select kernels' CTAs
 constexpr int kWaveWords = 32;
 constexpr int kWaveVec = kWaveWords / 4;     // uint4 per 128 B wave
 constexpr int kBlockWaves = 64;
-constexpr int kClsFull = 1;
-constexpr int kClsBit = 2;
-constexpr int kClsGap = 3;
-// the columns of seg (ops/select.py SEG_COLS) that rs_rank reads
-constexpr int kEnd = 0, kCb = 1, kCa = 2, kBase = 3, kCls = 4, kGkey = 5,
-              kGoffs = 7, kSlot = 8, kCols = 11;
+// rs_rank's record routes (ops/select.rank_tables: bits 0-1 of a record's
+// packed word, its payload above them)
+constexpr int kRouteFull = 1;
+constexpr int kRouteBit = 2;
+constexpr int kRouteGap = 3;
 
 // First i in [0, n) with a[i] >= v (n if none): searchsorted left.
 template <typename T>
@@ -137,25 +150,38 @@ __device__ __forceinline__ int word_select32(uint32_t w, int r) {
   return pos;
 }
 
-// Ones among bits [0, bit] of a 128 B wave (bit in [0, 1024)).
-__device__ __forceinline__ int wave_rank(const uint4* __restrict__ wave,
-                                         int bit) {
-  const int wi = bit >> 5;
-  const uint32_t part = (bit & 31) == 31 ? 0xFFFFFFFFu
-                        : (2u << (bit & 31)) - 1u;
-  int n = 0;
+// Ones among bits [0, bit] of a 128 B wave (bit in [0, 1024)), from its
+// wsp entry e (the ones of its first 1, 2 and 3 32-byte sectors) and the
+// sector holding the bit, (lo, hi).
+__device__ __forceinline__ int sector_ones(uint4 lo, uint4 hi, uint32_t e,
+                                           int bit) {
+  const int k = bit >> 8;
+  const int wi = (bit >> 5) & 7;
+  const uint32_t part = (2u << (bit & 31)) - 1u;   // all 32 bits at 31
+  const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int n = k == 0 ? 0 : static_cast<int>((e >> (10 * (k - 1))) & 1023u);
 #pragma unroll
-  for (int j = 0; j < kWaveVec; ++j) {
-    if (4 * j > wi) break;
-    const uint4 q = __ldg(wave + j);
-    const uint32_t x[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int idx = 4 * j + k;
-      n += idx < wi ? __popc(x[k]) : idx == wi ? __popc(x[k] & part) : 0;
-    }
+  for (int j = 0; j < 8; ++j) {
+    n += j < wi ? __popc(x[j]) : j == wi ? __popc(x[j] & part) : 0;
   }
   return n;
+}
+
+// Ones among bits [0, bit] of wave ``wave`` of the pool and every wave
+// before it (bit in [0, 1024)): the wave's wrk entry (the ones before it,
+// its sector prefix) and the one 32-byte sector holding the bit (its
+// second half only where the bit lies there), the loads issued together
+// (the sector's without an L1 line: ids rarely share one).
+__device__ __forceinline__ int64_t pool_rank(const uint4* __restrict__ pool,
+                                             const int2* __restrict__ wrk,
+                                             long long wave, int bit) {
+  const uint4* sec = pool + wave * kWaveVec + 2 * (bit >> 8);
+  const uint4 lo = bm::load_once(sec);
+  const uint4 hi = (bit & 128) ? bm::load_once(sec + 1)
+                               : make_uint4(0u, 0u, 0u, 0u);
+  const int2 w = __ldg(wrk + wave);
+  return static_cast<int64_t>(w.x) +
+         sector_ones(lo, hi, static_cast<uint32_t>(w.y), bit);
 }
 
 // The select kernels' arguments.  cum_stride S >= 1: every S-th entry of
@@ -542,51 +568,189 @@ select_flat_kernel(SelectArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-rs_rank_kernel(const int64_t* __restrict__ seg,
-               const int64_t* __restrict__ nb, int64_t n_seg,
-               const int32_t* __restrict__ runs,
-               const int64_t* __restrict__ key_end, int64_t n_runs,
-               const uint4* __restrict__ pool,
-               const int32_t* __restrict__ gwc, int64_t n_waves,
-               const int64_t* __restrict__ ids, int64_t n,
-               int64_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const int64_t q = ids[i];
-  const int64_t blk = q >> 16;
-  const int nbit = static_cast<int>(q & 0xFFFF);
-  const int64_t* s = seg + upper_bound(nb, n_seg, blk) * kCols;
-  if (!(blk < __ldg(s + kEnd))) {                      // past its segment
-    out[i] = __ldg(s + kCa);
-    return;
+// rs_rank's arguments.  nb_stride S >= 1: every S-th entry of nb is staged
+// in shared memory (S = 1: the whole table); stage_rec / stage_ges: the
+// records and the run-end samples staged whole (1) or read in global
+// memory (0).
+struct RankArgs {
+  const int64_t* nb;
+  long long n_seg;               // m
+  const longlong2* rec;          // [m + 2]
+  const int32_t* runs;           // int32[n_runs, 2]
+  const int32_t* ges;            // int32[n_runs / 8]
+  long long n_runs;
+  const uint4* pool;
+  const int2* wrk;               // int32[n_waves, 2]
+  const int64_t* ids;
+  long long n;
+  int64_t* out;
+  int nb_stride;
+  int stage_rec, stage_ges;
+};
+
+struct RankStaged {
+  const int64_t* nb;
+  const longlong2* rec;
+  const int32_t* ges;
+};
+
+__device__ __forceinline__ RankStaged stage_rank(const RankArgs& a,
+                                                 uint4* smem) {
+  char* p = reinterpret_cast<char*>(smem);
+  RankStaged t{nullptr, nullptr, nullptr};
+  stage_sample(reinterpret_cast<int64_t*>(p), a.nb, a.n_seg, a.nb_stride);
+  t.nb = reinterpret_cast<const int64_t*>(p);
+  p += round16((a.n_seg + a.nb_stride - 1) / a.nb_stride * 8);
+  if (a.stage_rec) {
+    stage_bytes(p, a.rec, (a.n_seg + 2) * 16);
+    t.rec = reinterpret_cast<const longlong2*>(p);
+    p += round16((a.n_seg + 2) * 16);
   }
-  const int64_t cls = __ldg(s + kCls);
-  int64_t inblk = 0;
-  if (cls == kClsFull) {
-    inblk = q - __ldg(s + kBase) + 1;
-  } else if (cls == kClsGap && n_runs > 0) {
-    const int64_t r = lower_bound(key_end, n_runs, __ldg(s + kGkey) + nbit);
-    const int64_t p = r > __ldg(s + kGoffs)
-        ? static_cast<int64_t>(__ldg(runs + 2 * r - 1)) -
-              __ldg(runs + 2 * r - 2)
-        : 1;
-    const int64_t ones = __ldg(runs + 2 * r + 1);
-    inblk = ones < p + nbit ? ones : p + nbit;
-  } else if (cls == kClsBit && n_waves > 0) {
-    const int64_t w0 = __ldg(s + kSlot) * kBlockWaves;
-    const int64_t wave = w0 + (nbit >> 10);
-    const int32_t base = w0 > 0 ? __ldg(gwc + w0 - 1) : 0;
-    const int32_t before = wave > w0 ? __ldg(gwc + wave - 1) : base;
-    inblk = (before - base) + wave_rank(pool + wave * kWaveVec, nbit & 1023);
+  if (a.stage_ges) {
+    stage_bytes(p, a.ges, (a.n_runs / 8) * 4);
+    t.ges = reinterpret_cast<const int32_t*>(p);
   }
-  out[i] = __ldg(s + kCb) + inblk;
+  __syncthreads();
+  return t;
+}
+
+// Upper bound in shared memory (plain loads).
+__device__ __forceinline__ long long ub_smem(const int64_t* a, long long n,
+                                             int64_t v) {
+  long long lo = 0;
+  long long hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (a[mid] <= v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Upper bound of v in a[0, n) (global) through its staged sample of
+// stride S >= 1, as sampled_lb.
+__device__ __forceinline__ long long sampled_ub(const int64_t* smp, int S,
+                                                const int64_t* a, long long n,
+                                                int64_t v) {
+  const long long ns = (n + S - 1) / S;
+  const long long J = ub_smem(smp, ns, v);
+  if (J == ns) return n;
+  const long long lo = J * S;
+  const long long hi = lo + S - 1 < n - 1 ? lo + S - 1 : n - 1;
+  return lo + upper_bound(a + lo, hi - lo, v);
+}
+
+// The first run of a D-GAP block's runs [lo, hi) whose end reaches bit
+// (the block's last run ends at 65535, so one does), as (end, ones); r
+// becomes its index.  With the run-end samples staged, their search names
+// an 8-run window read in one round trip (4 x 16 B); else a binary search
+// of the block's runs in global memory.
+__device__ __forceinline__ int2 rank_run(const RankArgs& a,
+                                         const RankStaged& t, long long lo,
+                                         long long hi, int bit,
+                                         long long& r) {
+  if (a.stage_ges) {
+    const long long jlo = lo >> 3;
+    const long long jhi = hi >> 3;
+    const long long w = 8 * (jlo + lb_smem(t.ges + jlo, jhi - jlo,
+                                           static_cast<int32_t>(bit)));
+    int32_t e[16];
+    if (w + 8 <= a.n_runs) {
+      const uint4* q = reinterpret_cast<const uint4*>(a.runs) + w / 2;
+      const uint4 v0 = __ldg(q), v1 = __ldg(q + 1), v2 = __ldg(q + 2),
+                  v3 = __ldg(q + 3);
+      const uint32_t u[16] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
+                              v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) e[j] = static_cast<int32_t>(u[j]);
+    } else {                              // the table's last, short window
+      const int2* q = reinterpret_cast<const int2*>(a.runs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 v = w + j < a.n_runs ? __ldg(q + w + j) : make_int2(0, 0);
+        e[2 * j] = v.x;
+        e[2 * j + 1] = v.y;
+      }
+    }
+    // the window's runs of this block before the one reached
+    const long long s0 = w > lo ? w : lo;
+    const long long s1 = w + 8 < hi ? w + 8 : hi;
+    int k = static_cast<int>(s0 - w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      k += (w + j >= s0 && w + j < s1 && e[2 * j] < bit) ? 1 : 0;
+    }
+    int2 out = make_int2(e[0], e[1]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      if (k == j) out = make_int2(e[2 * j], e[2 * j + 1]);
+    }
+    r = w + k;
+    return out;
+  }
+  long long l = lo;
+  long long h = hi - 1;
+  while (l < h) {
+    const long long mid = (l + h) >> 1;
+    if (__ldg(a.runs + 2 * mid) < bit) {
+      l = mid + 1;
+    } else {
+      h = mid;
+    }
+  }
+  r = l;
+  return __ldg(reinterpret_cast<const int2*>(a.runs) + l);
+}
+
+__global__ void __launch_bounds__(kStageThreads, 1)
+rs_rank_kernel(RankArgs a) {
+  extern __shared__ uint4 smem[];
+  const RankStaged t = stage_rank(a, smem);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                threadIdx.x;
+  int64_t q = i < a.n ? __ldg(a.ids + i) : 0;
+  for (; i < a.n; i += stride) {
+    const int64_t q_next = i + stride < a.n ? __ldg(a.ids + i + stride) : 0;
+    const int64_t blk = q >> 16;
+    const int bit = static_cast<int>(q & 0xFFFF);
+    const long long s = sampled_ub(t.nb, a.nb_stride, a.nb, a.n_seg, blk);
+    const longlong2 rec = a.stage_rec ? t.rec[s] : __ldg(a.rec + s);
+    const int64_t b0 = s == 0 ? 0
+                       : a.nb_stride == 1 ? t.nb[s - 1]
+                                          : __ldg(a.nb + s - 1);
+    const int route = static_cast<int>(rec.y & 3);
+    const int64_t pay = rec.y >> 2;
+    int64_t ans = rec.x;
+    if (s == 0 || (route == kRouteFull ? blk >= pay : blk != b0)) {
+      // past the segment: the ones before the next one
+      ans = a.stage_rec ? t.rec[s + 1].x : __ldg(a.rec + s + 1).x;
+    } else if (route == kRouteFull) {
+      ans += q - (b0 << 16) + 1;
+    } else if (route == kRouteGap) {
+      const long long lo = pay & 0x7FFFFFFF;
+      long long r;
+      const int2 e = rank_run(a, t, lo, lo + ((pay >> 31) & 0x1FFFF), bit,
+                              r);
+      // a run of ones when its parity from the block's first run says so
+      const bool ones = (((pay >> 48) ^ (r - lo)) & 1) != 0;
+      ans += ones ? e.y - (e.x - bit) : e.y;
+    } else if (route == kRouteBit) {
+      const long long wave = (pay & ((1LL << 30) - 1)) * kBlockWaves +
+                             (bit >> 10);
+      ans += pool_rank(a.pool, a.wrk, wave, bit & 1023) - (pay >> 30);
+    }
+    a.out[i] = ans;
+    q = q_next;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
 rank_flat_kernel(const uint4* __restrict__ pool,
-                 const int32_t* __restrict__ gwc, int64_t n_waves,
+                 const int2* __restrict__ wrk, int64_t n_waves,
                  const int64_t* __restrict__ rel, int64_t n,
                  int64_t* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -598,9 +762,7 @@ rank_flat_kernel(const uint4* __restrict__ pool,
     out[i] = -1;
     return;
   }
-  const int64_t prev = wave > 0 ? __ldg(gwc + wave - 1) : 0;
-  out[i] = prev + wave_rank(pool + wave * kWaveVec,
-                            static_cast<int>(b & 1023));
+  out[i] = pool_rank(pool, wrk, wave, static_cast<int>(b & 1023));
 }
 
 int grid(long long n) {
@@ -611,14 +773,14 @@ bool bad_count(long long n) {
   return n <= 0 || (n + kThreads - 1) / kThreads > 0x7FFFFFFFLL;
 }
 
-bm::LaunchCache g_select, g_flat;
+bm::LaunchCache g_select, g_flat, g_rank;
 
-// Launch a select kernel as persistent CTAs of kStageThreads with ``smem``
+// Launch a staging kernel as persistent CTAs of kStageThreads with ``smem``
 // bytes of staged tables, as many CTAs as the queries need and the card
 // holds at once.
-template <typename K>
-int launch_select(K kernel, const SelectArgs& a, long long smem,
-                  cudaStream_t st, bm::LaunchCache& cache) {
+template <typename K, typename A>
+int launch_staged(K kernel, const A& a, long long smem, cudaStream_t st,
+                  bm::LaunchCache& cache) {
   int blocks = 0;
   const int err = bm::persistent_grid(
       kernel, cache, kStageThreads, static_cast<int>(smem),
@@ -674,7 +836,7 @@ extern "C" int bm_rs_select(const void* cum0, long long seg_rows,
   a.stage_sel = stage_sel;
   a.stage_gws = stage_gws;
   a.stage_gcs = stage_gcs;
-  return launch_select(rs_select_kernel, a, smem,
+  return launch_staged(rs_select_kernel, a, smem,
                        static_cast<cudaStream_t>(stream), g_select);
 }
 
@@ -702,35 +864,49 @@ extern "C" int bm_select_flat(const void* pool, const void* gwc,
   a.n = n;
   a.out = static_cast<int64_t*>(out);
   a.cum_stride = gws_stride;
-  return launch_select(select_flat_kernel, a, smem,
+  return launch_staged(select_flat_kernel, a, smem,
                        static_cast<cudaStream_t>(stream), g_flat);
 }
 
 // out int64[n]: ones among bits [0, id] of the vector for each id of ids
-// int64[n].  seg holds n_seg + 1 rows (n_seg = 0: every answer 0).
-extern "C" int bm_rs_rank(const void* seg, const void* nb, long long n_seg,
-                          const void* runs, const void* key_end,
+// int64[n], over nb int64[n_seg], rec int64[n_seg + 2, 2], runs int32[n_runs,
+// 2], ges int32[n_runs / 8], pool and wrk (ops/select.rank_tables).
+// n_seg may be 0 (every answer rec[1]), n_runs 0 (no D-GAP block).
+// Staging: every nb_stride-th entry of nb (>= 1), stage_rec / stage_ges
+// (0 or 1), ``smem`` the bytes they take (16 to 227 KiB).
+extern "C" int bm_rs_rank(const void* nb, long long n_seg, const void* rec,
+                          const void* runs, const void* ges,
                           long long n_runs, const void* pool,
-                          const void* gwc, long long n_waves,
-                          const void* ids, long long n, void* out,
-                          void* stream) {
-  if (bad_count(n) || n_seg < 0 || n_runs < 0 || n_waves < 0) {
+                          const void* wrk, const void* ids, long long n,
+                          void* out, int nb_stride, int stage_rec,
+                          int stage_ges, long long smem, void* stream) {
+  if (bad_count(n) || n_seg < 0 || n_runs < 0 || nb_stride < 1 ||
+      smem < 16 || smem > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rs_rank_kernel<<<grid(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(seg), static_cast<const int64_t*>(nb),
-      n_seg, static_cast<const int32_t*>(runs),
-      static_cast<const int64_t*>(key_end), n_runs,
-      static_cast<const uint4*>(pool), static_cast<const int32_t*>(gwc),
-      n_waves, static_cast<const int64_t*>(ids), n,
-      static_cast<int64_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  RankArgs a{};
+  a.nb = static_cast<const int64_t*>(nb);
+  a.n_seg = n_seg;
+  a.rec = static_cast<const longlong2*>(rec);
+  a.runs = static_cast<const int32_t*>(runs);
+  a.ges = static_cast<const int32_t*>(ges);
+  a.n_runs = n_runs;
+  a.pool = static_cast<const uint4*>(pool);
+  a.wrk = static_cast<const int2*>(wrk);
+  a.ids = static_cast<const int64_t*>(ids);
+  a.n = n;
+  a.out = static_cast<int64_t*>(out);
+  a.nb_stride = nb_stride;
+  a.stage_rec = stage_rec;
+  a.stage_ges = stage_ges;
+  return launch_staged(rs_rank_kernel, a, smem,
+                       static_cast<cudaStream_t>(stream), g_rank);
 }
 
 // out int64[n]: ones among bits [0, rel] of the whole pool for each rel of
-// rel int64[n] in [0, n_waves * 1024) (-1 outside); n_waves >= 1.
-extern "C" int bm_rank_flat(const void* pool, const void* gwc,
+// rel int64[n] in [0, n_waves * 1024) (-1 outside), over wrk int32[n_waves,
+// 2]; n_waves >= 1.
+extern "C" int bm_rank_flat(const void* pool, const void* wrk,
                             long long n_waves, const void* rel, long long n,
                             void* out, void* stream) {
   if (bad_count(n) || n_waves < 1) {
@@ -738,7 +914,7 @@ extern "C" int bm_rank_flat(const void* pool, const void* gwc,
   }
   rank_flat_kernel<<<grid(n), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(pool), static_cast<const int32_t*>(gwc),
+      static_cast<const uint4*>(pool), static_cast<const int2*>(wrk),
       n_waves, static_cast<const int64_t*>(rel), n,
       static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());

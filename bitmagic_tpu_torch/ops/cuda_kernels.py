@@ -16,8 +16,8 @@ agg_and_sub_batch
 pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
 scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
 gap_expand,            gap_rows.cu                  no TPU kernel: the host
-gap_compress                                        GAP merges gapstore.py:313
-                                                    and :375
+gap_expand_pair,                                    GAP merges gapstore.py:313
+gap_compress                                        and :375
 sv_gather              sv_planes.cu                 sv/sparse_vector.py:70
                                                     (_gather_decode_kernel)
 sv_transpose           sv_planes.cu                 sv/sparse_vector.py:53
@@ -93,10 +93,10 @@ SV_MAX_PLANES = 65
 GATHER_DIRECT_MAX = 16384
 GATHER_ROW_IDS = 1280
 GATHER_STAGE_BPS = 4096
-# rs_select / select_flat (rs_select.cu): every batch stages its search
-# tables in shared memory, up to RS_STAGE_BYTES a CTA (a cum0 beyond it as
-# a sample of at most RS_CUM_SAMPLE_BYTES); the tables past the budget
-# are read in global memory
+# rs_select / select_flat / rs_rank (rs_select.cu): every batch stages its
+# search tables in shared memory, up to RS_STAGE_BYTES a CTA (a cum0 or nb
+# beyond it as a sample of at most RS_CUM_SAMPLE_BYTES); the tables past
+# the budget are read in global memory
 RS_STAGE_BYTES = 200 * 1024
 RS_CUM_SAMPLE_BYTES = 32 * 1024
 # most steps of one descent (sv_descent.cu kMaxSteps): a 64-bit value
@@ -118,7 +118,9 @@ _SIGNATURES = {
                            [_VP, _LL, _VP, _INT, _VP, _INT, _VP, _VP, _INT,
                             _VP, _VP]),
     "bm_scan_eq": ("scan_eq.cu", [_VP, _INT, _INT, ctypes.c_uint, _VP, _VP]),
-    "bm_gap_expand": ("gap_rows.cu", [_VP, _VP, _VP, _VP, _INT, _VP, _VP]),
+    "bm_gap_expand": ("gap_rows.cu",
+                      [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
+                       _VP]),
     "bm_gap_count": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
     "bm_gap_write": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
     "bm_sv_gather": ("sv_planes.cu",
@@ -132,8 +134,8 @@ _SIGNATURES = {
                        [_VP, _VP, _VP, _VP, _LL, _VP, _LL, _VP, _INT, _LL,
                         _VP]),
     "bm_rs_rank": ("rs_select.cu",
-                   [_VP, _VP, _LL, _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL,
-                    _VP, _VP]),
+                   [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _VP, _LL, _VP,
+                    _INT, _INT, _INT, _LL, _VP]),
     "bm_rank_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
     "bm_sv_descent": ("sv_descent.cu",
                       [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -582,17 +584,47 @@ def gap_expand(ends, offs, first, sel):
     uint8[m])`` (``GapStore.device_arrays``), as ``GapStore.to_dense``."""
     if not _on_cuda(ends, offs, first, sel):
         return blockops.gap_expand(ends, offs, first, sel)
-    for t, what, dt in ((ends, "ends", _I32), (offs, "offs", _I32),
-                        (first, "first", torch.uint8), (sel, "sel", _I32)):
-        _check(t, what, dt, align=t.element_size())
-    if offs.shape[0] != first.shape[0] + 1:
-        raise ValueError("gap_expand: offs must have one entry more than "
-                         "first")
+    return _gap_expand((ends, offs, first), None, sel, sel.shape[0])
+
+
+def gap_expand_pair(mirror_a, mirror_b, sel, k_a):
+    """Dense rows int32[k, 2048] of two stores' D-GAP blocks in one
+    launch: rows [0, k_a) are blocks ``sel[:k_a]`` of ``mirror_a``, the
+    rest blocks ``sel[k_a:]`` of ``mirror_b`` (each a
+    ``GapStore.device_arrays``; None for a side that selects no block)."""
+    tensors = (*(mirror_a or ()), *(mirror_b or ()), sel)
+    if not _on_cuda(*tensors):
+        return blockops.gap_expand_pair(mirror_a, mirror_b, sel, k_a)
+    _one_device("gap_expand_pair", tensors)
+    return _gap_expand(mirror_a, mirror_b, sel, k_a)
+
+
+def _gap_expand(mirror_a, mirror_b, sel, k_a):
+    _check(sel, "gap_expand: sel", _I32, align=4)
     k = sel.shape[0]
+    if not 0 <= k_a <= k:
+        raise ValueError(f"gap_expand: {k_a} rows of the first store of {k}")
+    args = []
+    for m, rows, what in ((mirror_a, k_a, "a"), (mirror_b, k - k_a, "b")):
+        if m is None:
+            if rows:
+                raise ValueError(f"gap_expand: no mirror {what} for {rows} "
+                                 f"rows")
+            args += [None, None, None]
+            continue
+        ends, offs, first = m
+        for t, name, dt in ((ends, "ends", _I32), (offs, "offs", _I32),
+                            (first, "first", torch.uint8)):
+            _check(t, f"gap_expand: {what}.{name}", dt,
+                   align=t.element_size())
+        if offs.shape[0] != first.shape[0] + 1:
+            raise ValueError("gap_expand: offs must have one entry more "
+                             "than first")
+        args += [_ptr(ends), _ptr(offs), _ptr(first)]
     out = torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=sel.device)
     if k:
-        _launch("bm_gap_expand", "gap_expand", sel.device, _ptr(ends),
-                _ptr(offs), _ptr(first), _ptr(sel), k, _ptr(out))
+        _launch("bm_gap_expand", "gap_expand", sel.device, *args, _ptr(sel),
+                k_a, k, _ptr(out))
     return out
 
 
@@ -740,22 +772,38 @@ def _r16(nbytes):
     return -(-nbytes // 16) * 16
 
 
-def _select_staging(seg_rows, n_waves, n_runs):
-    """(cum_stride, stage_sel, stage_gws, stage_gcs, bytes) of an
-    ``rs_select`` launch (rs_select.cu SelectArgs): in this order while
-    RS_STAGE_BYTES last, cum0 (whole, or every S-th entry in at most
-    RS_CUM_SAMPLE_BYTES), sel, gws and gcs."""
+def _staging(n, item, sizes):
+    """(stride, flags..., bytes) of a staged launch: a search table of
+    ``n`` entries of ``item`` bytes, whole or (past RS_STAGE_BYTES) every
+    stride-th entry in at most RS_CUM_SAMPLE_BYTES; then the tables of
+    ``sizes`` bytes in order, each staged (flag 1) while the budget
+    lasts."""
     budget = RS_STAGE_BYTES
     stride = 1
-    if _r16(8 * seg_rows) > budget:
-        stride = -(-seg_rows // (RS_CUM_SAMPLE_BYTES // 8))
-    used = _r16(8 * -(-seg_rows // stride))
+    if _r16(item * n) > budget:
+        stride = -(-n // (RS_CUM_SAMPLE_BYTES // item))
+    used = _r16(item * -(-n // stride))
     flags = []
-    for nbytes in (16 * seg_rows, 4 * (n_waves // plain_select.SAMPLE),
-                   4 * (n_runs // plain_select.SAMPLE)):
+    for nbytes in sizes:
         flags.append(int(used + _r16(nbytes) <= budget))
         used += _r16(nbytes) * flags[-1]
-    return (stride, *flags, used)
+    return (stride, *flags, max(used, 16))
+
+
+def _select_staging(seg_rows, n_waves, n_runs):
+    """(cum_stride, stage_sel, stage_gws, stage_gcs, bytes) of an
+    ``rs_select`` launch (rs_select.cu SelectArgs): cum0, then sel, gws
+    and gcs."""
+    S = plain_select.SAMPLE
+    return _staging(seg_rows, 8, (16 * seg_rows, 4 * (n_waves // S),
+                                  4 * (n_runs // S)))
+
+
+def _rank_staging(n_seg, n_runs):
+    """(nb_stride, stage_rec, stage_ges, bytes) of an ``rs_rank`` launch
+    (rs_select.cu RankArgs): nb, then rec and ges."""
+    return _staging(n_seg, 8, (16 * (n_seg + 2),
+                               4 * (n_runs // plain_select.SAMPLE)))
 
 
 def _flat_staging(n_samples):
@@ -766,25 +814,21 @@ def _flat_staging(n_samples):
     return stride, _r16(4 * -(-n_samples // stride))
 
 
-def _checked_tables(what, tables, key, sizes, staging):
-    """The launch plan cached on ``tables`` (``select.SelectTables``) for
-    an index of shape ``key``: on first use (or another key) its tensors
-    are checked to hold ``sizes`` entries each (None: not read) and the
-    plan is ``staging()``."""
+def _checked_tables(what, tables, key, specs, staging):
+    """The launch plan cached on ``tables`` (``select.SelectTables`` or
+    ``RankTables``) for an index of shape ``key``: on first use (or
+    another key) each table ``name`` of ``specs`` is checked to be
+    ``(entries, dtype, shape tail, alignment)`` on the key's device, and
+    the plan is ``staging()``."""
     got = tables.staging
     if got is not None and got[0] == key:
         return got[1]
-    for name, n in sizes.items():
+    for name, (n, dtype, tail, align) in specs.items():
         t = getattr(tables, name)
-        if n is None:
-            continue
-        # the kernels read sel, gws and wsp (and gwc, runs) in 16 B loads
-        _check(t, f"{what}: {name}", _I64 if name == "sel" else _I32,
-               (2,) if name == "sel" else (),
-               align=4 if name == "gcs" else 16)
+        _check(t, f"{what}: {name}", dtype, tail, align=align)
         if t.shape[0] != n or t.device != key[-1]:
             raise ValueError(f"{what}: tables.{name} is not the index's "
-                             f"select_tables")
+                             f"own")
     tables.staging = (key, staging())
     return tables.staging[1]
 
@@ -810,7 +854,8 @@ def rs_select(seg, cum0, runs, pool, gwc, ranks, total, tables):
     S = plain_select.SAMPLE
     stage = _checked_tables(
         "rs_select", tables, ("rs_select", m1, W, R, dev),
-        {"sel": m1, "gws": W // S, "gcs": R // S, "wsp": W},
+        {"sel": (m1, _I64, (2,), 16), "gws": (W // S, _I32, (), 16),
+         "gcs": (R // S, _I32, (), 4), "wsp": (W, _I32, (), 16)},
         lambda: _select_staging(m1, W, R))
     n = ranks.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
@@ -839,7 +884,7 @@ def select_flat(pool, gwc, ranks, tables):
     S = plain_select.SAMPLE
     stage = _checked_tables(
         "select_flat", tables, ("select_flat", W, dev),
-        {"sel": None, "gws": W // S, "gcs": None, "wsp": W},
+        {"gws": (W // S, _I32, (), 16), "wsp": (W, _I32, (), 16)},
         lambda: _flat_staging(W // S))
     n = ranks.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
@@ -852,9 +897,11 @@ def select_flat(pool, gwc, ranks, tables):
     return out
 
 
-def rs_rank(seg, nb, runs, pool, gwc, ids):
+def rs_rank(seg, nb, runs, pool, gwc, ids, tables):
     """rank(i) = popcount[0, i] for each id int64[Q] of an rs-index's
-    vector -> int64[Q], in one launch (``ops/select.rs_rank``)."""
+    vector -> int64[Q], in one launch (``ops/select.rs_rank``).
+    ``tables``: ``select.rank_tables`` of the index, built once by it
+    (``RSIndex._rank_tables``)."""
     tensors = (seg, nb, *runs, pool, gwc, ids)
     if not _on_cuda(*tensors):
         return plain_select.rs_rank(seg, nb, runs, pool, gwc, ids)
@@ -865,31 +912,45 @@ def rs_rank(seg, nb, runs, pool, gwc, ids):
     if seg.shape[0] != nb.shape[0] + 1:
         raise ValueError("rs_rank: seg must have one row per segment and "
                          "the sentinel")
+    if runs[0].data_ptr() % 16:
+        raise ValueError("rs_rank: runs must be 16-byte aligned")
+    m, W, R = nb.shape[0], gwc.shape[0], runs[0].shape[0]
+    stage = _checked_tables(
+        "rs_rank", tables, ("rs_rank", m, W, R, dev),
+        {"rec": (m + 2, _I64, (2,), 16),
+         "ges": (R // plain_select.SAMPLE, _I32, (), 4),
+         "wrk": (W, _I32, (2,), 8)},
+        lambda: _rank_staging(m, R))
     n = ids.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
     if n:
-        _launch("bm_rs_rank", "rs_rank", dev, _ptr(seg), _ptr(nb),
-                nb.shape[0], _ptr(runs[0]), _ptr(runs[1]), runs[0].shape[0],
-                _ptr(pool), _ptr(gwc), gwc.shape[0], _ptr(ids), n,
-                _ptr(out))
+        _launch("bm_rs_rank", "rs_rank", dev, _ptr(nb), m, _ptr(tables.rec),
+                _ptr(runs[0]), _ptr(tables.ges), R, _ptr(pool),
+                _ptr(tables.wrk), _ptr(ids), n, _ptr(out), *stage)
     return out
 
 
-def rank_flat(pool, gwc, rel):
+def rank_flat(pool, gwc, rel, tables):
     """popcount of bits [0, rel] of a whole pool for each rel int64[Q] in
-    [0, rows * 65536) -> int64[Q], in one ``rs_rank`` launch."""
+    [0, rows * 65536) -> int64[Q], in one ``rs_rank`` launch.
+    ``tables``: ``select.flat_rank_tables`` of the pool, built once by the
+    index that owns it (``ShardedRSIndex.rank_tables``)."""
     if not _on_cuda(pool, gwc, rel):
         return plain_select.rank_flat(pool, gwc, rel)
     dev = _one_device("rank_flat", (pool, gwc, rel))
     _pool_tables("rank_flat", pool, gwc)
     _check(rel, "rank_flat: rel", _I64, align=8)
+    W, wrk = gwc.shape[0], tables.wrk
+    _check(wrk, "rank_flat: wrk", _I32, (2,), align=8)
+    if wrk.shape[0] != W or wrk.device != dev:
+        raise ValueError("rank_flat: tables.wrk is not the pool's own")
     n = rel.shape[0]
     out = torch.empty(n, dtype=_I64, device=dev)
     if n:
-        if not gwc.shape[0]:
+        if not W:
             raise ValueError("rank_flat: ids over an empty pool")
-        _launch("bm_rank_flat", "rs_rank", dev, _ptr(pool), _ptr(gwc),
-                gwc.shape[0], _ptr(rel), n, _ptr(out))
+        _launch("bm_rank_flat", "rs_rank", dev, _ptr(pool), _ptr(wrk), W,
+                _ptr(rel), n, _ptr(out))
     return out
 
 

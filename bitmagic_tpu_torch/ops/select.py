@@ -19,7 +19,9 @@ per segment after a sentinel row 0), ``cum0`` (0, then the inclusive ones
 prefix over segments), the segments' first blocks ``nb``, the D-GAP run
 tables ``runs = (ends_ones int32[R, 2], key_end int64[R], key_cum
 int64[R])`` (empty without D-GAP blocks), the pool and its global wave
-prefix ``gwc``.
+prefix ``gwc``.  The kernels also read tables built from these once per
+index (``select_tables``, ``rank_tables``, ``flat_tables``,
+``flat_rank_tables``).
 """
 
 from __future__ import annotations
@@ -93,6 +95,79 @@ def select_tables(seg, runs, pool, gwc) -> SelectTables:
     flat = flat_tables(pool, gwc)
     return SelectTables(sel, flat.gws, ec[SAMPLE - 1::SAMPLE, 1].contiguous(),
                         flat.wsp)
+
+
+class RankTables:
+    """The tables kernel ``rs_rank`` reads besides ``nb``, the D-GAP runs
+    and the pool (``rank_tables``; ``flat_rank_tables`` holds only
+    ``wrk``, what ``rank_flat`` reads), built once by the index that owns
+    the pool; ``staging`` as ``SelectTables``'."""
+
+    __slots__ = ("rec", "ges", "wrk", "staging")
+
+    def __init__(self, rec, ges, wrk):
+        self.rec, self.ges, self.wrk = rec, ges, wrk
+        self.staging = None
+
+
+# the routes of rank_tables' records (rs_select.cu kRoute*): what a hit in
+# the segment adds to the ones before it
+ROUTE_FULL, ROUTE_BIT, ROUTE_GAP = 1, 2, 3
+
+
+def rank_tables(seg, runs, gwc, wsp) -> RankTables:
+    """The tables kernel ``rs_rank`` reads besides ``nb``, the D-GAP runs
+    and the pool, built once with an rs-index from its segment table,
+    D-GAP run tables, global wave prefix and ``wave_sectors`` of its pool:
+
+    ``rec`` int64[m + 2, 2]: per segment row the ones before it (``CB``)
+    and one word, its route in bits 0-1 and a payload above them: FULL
+    (``ROUTE_FULL``) its end block; BIT (``ROUTE_BIT``) its pool slot in
+    30 bits, then the pool-global rank before its row (``BEFORE``); D-GAP
+    (``ROUTE_GAP``) its first run in 31 bits, its run count in 17, then
+    1 where its first run is of ones; 0 for the sentinel row 0 and any
+    other row.  Row m + 1: the total (the ones before a segment past the
+    last), route 0.
+    ``ges`` int32[runs // SAMPLE]: the runs' block-local ends at every
+    SAMPLE-th run, ``runs[0][SAMPLE - 1 :: SAMPLE, 0]``.
+    ``wrk``: ``wave_ranks(gwc, wsp)``."""
+    ec = runs[0]
+    kind = seg[:, CLS]
+    full = kind == C.CLS_FULL
+    bit = (kind == C.CLS_BIT) & (gwc.shape[0] > 0)
+    gi = torch.nonzero((kind == C.CLS_GAP) & (ec.shape[0] > 0)).squeeze(1)
+    slot = seg[bit, SLOT]
+    if slot.numel() and int(slot.max()) >= 1 << 30:
+        raise ValueError("rank_tables: pool slots past 2^30")
+    word = torch.zeros_like(kind)
+    word[full] = ROUTE_FULL | (seg[full, END] << 2)
+    word[bit] = ROUTE_BIT | ((slot | (seg[bit, BEFORE] << 30)) << 2)
+    # a D-GAP block's runs end where the next D-GAP block's begin
+    first = seg[gi, GOFFS]
+    end = torch.cat([first[1:], torch.full((min(gi.numel(), 1),),
+                                           ec.shape[0], dtype=_I64,
+                                           device=seg.device)])
+    ones = (ec[first, 1] > 0).to(_I64)
+    word[gi] = ROUTE_GAP | ((first | ((end - first) << 31) | (ones << 48))
+                            << 2)
+    rec = torch.stack([torch.cat([seg[:, CB], seg[-1:, CA]]),
+                       torch.cat([word, word.new_zeros(1)])], 1)
+    return RankTables(rec.contiguous(), ec[SAMPLE - 1::SAMPLE, 0].contiguous(),
+                      wave_ranks(gwc, wsp))
+
+
+def flat_rank_tables(gwc, wsp) -> RankTables:
+    """``rank_tables``' ``wrk`` of a pool's global wave prefix and wave
+    sectors (``rec`` and ``ges`` None): what ``rank_flat`` reads."""
+    return RankTables(None, None, wave_ranks(gwc, wsp))
+
+
+def wave_ranks(gwc, wsp):
+    """int32[waves, 2]: per wave the ones of the waves before it (``gwc``'s
+    exclusive form) beside its ``wsp`` entry, so that a rank reads both
+    in one 8-byte load."""
+    before = torch.cat([gwc.new_zeros(min(gwc.shape[0], 1)), gwc[:-1]])
+    return torch.stack([before, wsp], 1).contiguous()
 
 
 def flat_tables(pool, gwc) -> SelectTables:

@@ -44,7 +44,7 @@ from .. import constants as C
 from ..core.bitvector import BitVector
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
-from ..ops.select import flat_tables, global_wave_prefix
+from ..ops.select import flat_rank_tables, flat_tables, global_wave_prefix
 from .mesh import Mesh, block_sharding, make_mesh, pad_rows, zero_rows
 
 _I64 = torch.int64
@@ -386,8 +386,10 @@ class ShardedRSIndex:
         assert self.shard_span < 2**31, \
             "per-shard span exceeds the int32 prefix bound; add shards"
         self.gwc = [_gwc(s) for s in sbv.shards]       # local shards
-        # each shard's select_flat tables, at its first select
+        # each shard's select_flat and rank_flat tables, at its first
+        # select and rank
         self._flat = [None] * len(self.gwc)
+        self._rank = [None] * len(self.gwc)
         self.shard_totals = np.asarray(_host_fetch(self.mesh, [
             np.asarray(int(g[-1]) if g.numel() else 0, np.int64)
             for g in self.gwc]), np.int64)
@@ -398,10 +400,18 @@ class ShardedRSIndex:
     def flat_tables(self, i):
         """``ops/select.flat_tables`` of shard ``i`` (the ``select_flat``
         kernel's wave samples and sector prefixes), built at its first
-        select."""
+        select or rank."""
         if self._flat[i] is None:
             self._flat[i] = flat_tables(self.sbv.shards[i], self.gwc[i])
         return self._flat[i]
+
+    def rank_tables(self, i):
+        """``ops/select.flat_rank_tables`` of shard ``i`` (what the
+        ``rank_flat`` kernel reads), built at its first rank."""
+        if self._rank[i] is None:
+            self._rank[i] = flat_rank_tables(self.gwc[i],
+                                             self.flat_tables(i).wsp)
+        return self._rank[i]
 
     def select_batch(self, ranks) -> np.ndarray:
         """Batched select1; -1 for out-of-range ranks."""
@@ -440,8 +450,8 @@ class ShardedRSIndex:
 
         def ranks(i, _, sel):
             t = self.sbv.shards[i]
-            return ck.rank_flat(t, self.gwc[i],
-                                _index(rel[sel], t.device)).cpu().numpy()
+            return ck.rank_flat(t, self.gwc[i], _index(rel[sel], t.device),
+                                self.rank_tables(i)).cpu().numpy()
         part = _answer_by_shard(self.mesh, tgt, ranks,
                                 np.zeros(q.size, np.int64))
         out[ok] = self.before[tgt] + part

@@ -9,8 +9,6 @@ and check it.
                                      # ROOT (two trees in turns, one call)
     python3 chip_smoke.py --descent  # phases 1-2, then only the ordered
                                      # descent's checks and timings
-    python3 chip_smoke.py --trace-find-gt  # the descent phase's trace of
-                                           # config 4b's find_gt, alone
 
 Phases (any failure raises and exits non-zero; the last line is printed
 only when every phase passed):
@@ -33,7 +31,12 @@ only when every phase passed):
               equality scan (B6) at config 4; gap_expand and gap_compress
               at bvsetalgebra_rank_select's shapes (768 D-GAP blocks of 1
               to 256 runs expanded, 400 AND rows re-encoded) and on edge
-              rows (1-run blocks, lone bits at 0 and 65535, 65536 runs);
+              rows (1-run blocks, lone bits at 0 and 65535, 65536 runs),
+              gap_expand's pair launch (two stores' blocks in one launch)
+              over gap_cases (1-run blocks, runs ending on bits 31 and 32
+              of a word and on 65534, 1280 runs, the default top GAP
+              level, and above it: 1281, 3000 and 65536, either side
+              empty);
               sv_gather over columns with BIT, D-GAP, FULL and FULL-run
               blocks, absent planes, a NULL plane that is BIT and one
               that is a FULL run, signed and 64-bit values and ids past
@@ -55,8 +58,11 @@ only when every phase passed):
               indices and on one of 26,100 segments (one rank, one wave,
               segment edges, ranks outside [1, total]; the large index
               stages only a sample of cum0, and select_flat over its
-              pool only a sample of gws), and select_flat per shard of an
-              8-shard index;
+              pool only a sample of gws); rs_rank over rank_cases and
+              rank_flat over the pool on the same six indices (segment
+              edges, one id, ids in zero blocks, past the vector and at
+              2^31 + bits; the large index stages only a sample of nb);
+              select_flat and rank_flat per shard of an 8-shard index;
               sv_descent over columns with BIT, FULL-run, absent and 1-3000
               run D-GAP blocks (GAP pairs of 4096 and 4097 runs) from
               their universe and from a D-GAP plane, with and without eq,
@@ -72,7 +78,9 @@ only when every phase passed):
               BitVector.select (median host wall, one launch each);
               every answer against numpy; GAP operands are
               expanded by gap_expand and GAP x GAP results re-encoded by
-              gap_compress, both required;
+              gap_compress, both required; one set-algebra step shaped as
+              bvsetalgebra_rank_select's (cell1_step) launches gap_expand
+              CELL1_GAP_EXPANDS = 7 times, one per operand pair;
               count() launches K3 once and distance_operation K2 once, and
               a profiler trace shows no other kernel (no sum) in them but
               distance_operation's gap_expand of each operand;
@@ -88,7 +96,10 @@ only when every phase passed):
               (sv_transpose's device time split out), a gather of 1M ids
               (sv_gather; host wall and device busy); a prepared pipeline
               counting 256 values, pipeline_find_eq of 8 values, find_eq,
-              find_first_eq, find_ne and find_nonzero against numpy;
+              find_first_eq, find_ne and find_nonzero against numpy; then
+              the trace of the column's find_gt with its count that the
+              descent phase checks (find_gt_trace: up to TRACE_TRIES
+              traces, early in the run, where the profiler records);
  7. algo    — the rest of BitVector and the algorithms on configs 1-2's
               vectors A and B: insert and erase (a block edge, mid-block,
               bit 0), shift_left, flip, compare / find_first_mismatch,
@@ -141,8 +152,9 @@ only when every phase passed):
               bit_and / bit_or / bit_sub on the card; config 4b's
               find_gt(0x5A5A5) with its count, then find_ge / lt / le /
               range against numpy (the path's launches): one sv_descent
-              and one K3 launch, its trace those two kernels only, its
-              result equal to the K1 chain's; a sharded find_gt on 8
+              and one K3 launch, its trace (phase 6's) those two
+              kernels only, its result equal to the K1 chain's; a
+              sharded find_gt on 8
               shards one launch per shard and no K1;
 10. sv_serial — every column of phase 9 (config 4b's, the signed and
               float columns, the dictionary remapped and raw, the RSC
@@ -243,8 +255,9 @@ only when every phase passed):
               call at the main paths' shapes (CUDA events, L2 flushed
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
-              their total forms; gap_expand over 768 blocks and
-              gap_compress's two launches over 400 rows (and its whole
+              their total forms; gap_expand over 768 blocks and in one
+              pair launch over two stores' 1536, gap_compress's two
+              launches over 400 rows (and its whole
               call, with the scalar sync between them); sv_gather at
               column_range_gather's shape (16M rows, 1M ids) and
               sv_transpose at 16M values and 20 slices; rs_select and
@@ -572,12 +585,70 @@ def gap_edge_rows(device):
     return torch.from_numpy(rows.view(np.int32).copy()).to(device)
 
 
+def runs_row(ends, first):
+    """uint32[2048]: the block whose runs end at ``ends`` (inclusive, the
+    last 65535), the first of value ``first``, then alternating."""
+    ends = np.asarray(ends, np.int64)
+    val = (np.arange(ends.size) + first) & 1
+    bits = np.repeat(val, np.diff(np.concatenate([[-1], ends])))
+    return np.packbits(bits.astype(np.uint8), bitorder="little").view(
+        np.uint32)
+
+
+# gap_expand's cases (gap_cases), by name
+GAP_CASES = ("edges", "one_row", "top_level", "above_top_level", "pair",
+             "pair_a_empty", "pair_b_empty")
+
+
+def gap_cases(rng, device):
+    """gap_expand's risky inputs, each (name, mirror a or None, mirror b or
+    None, sel int32 on ``device``, k_a) for ``gap_expand_pair``: store A's
+    blocks are 1-run (zero, full), runs ending on bits 31 and 32 of a word,
+    on 65534 and 65535, 1280 runs (the default top GAP level) and more
+    (1281, 3000 and 65536 runs, which only a raised GAP level table
+    makes; rows 5-8); store B's are drawn as cell 1's
+    (``run_rows``).  One store alone, and both in one launch with repeats
+    and with either side empty."""
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    cut = lambda n: np.sort(rng.choice(  # noqa: E731
+        np.arange(BPB - 1), n - 1, replace=False))
+    rows_a = np.stack([
+        runs_row([BPB - 1], 0), runs_row([BPB - 1], 1),
+        runs_row([31, 32, 63, 64, 95, BPB - 1], 1),
+        runs_row([30, 31, BPB - 2, BPB - 1], 0),
+        runs_row([0, 31, 32, 33, BPB - 33, BPB - 32, BPB - 1], 1),
+        runs_row(np.append(cut(1280), BPB - 1), 0),
+        runs_row(np.append(cut(1281), BPB - 1), 1),
+        runs_row(np.append(cut(3000), BPB - 1), 0),
+        np.full(2048, 0x55555555, np.uint32)])
+    sa, sb = GapStore.from_dense(rows_a), GapStore.from_dense(
+        run_rows(rng, 64))
+    check(list(np.diff(sa.offs)[5:]) == [1280, 1281, 3000, BPB],
+          "gap cases: blocks of 1280, 1281, 3000 and 65536 runs")
+    ma, mb = sa.device_arrays(device), sb.device_arrays(device)
+
+    def sel(*parts):
+        return torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(
+            device)
+    edges = np.arange(5)
+    pa = np.asarray([8, 0, 2, 2, 5, 7, 3, 6, 1])
+    pb = rng.integers(0, 64, 40)
+    return [("edges", ma, None, sel(edges), 5),
+            ("one_row", ma, None, sel([3]), 1),
+            ("top_level", ma, None, sel([5, 5]), 2),
+            ("above_top_level", ma, None, sel([6, 7, 8]), 3),
+            ("pair", ma, mb, sel(pa, pb), pa.size),
+            ("pair_a_empty", None, mb, sel(pb), 0),
+            ("pair_b_empty", ma, None, sel(pa), pa.size)]
+
+
 def gap_kernels_vs_plain(rng, device, cmp):
     """gap_expand over all GAP_BLOCKS blocks of a store drawn as
-    bvsetalgebra_rank_select's, and over a shuffled subset with repeats;
-    gap_compress over GAP_PAIRS AND rows of the two stores and over the
-    edge rows; each against its plain version on the card, and the
-    round trip back to the host store."""
+    bvsetalgebra_rank_select's, over a shuffled subset with repeats, both
+    in one pair launch, and over ``gap_cases``; gap_compress over
+    GAP_PAIRS AND rows of the two stores and over the edge rows; each
+    against its plain version on the card, and the round trip back to the
+    host store."""
     from bitmagic_tpu_torch.core.gapstore import GapStore
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -592,6 +663,13 @@ def gap_kernels_vs_plain(rng, device, cmp):
     ra = ck.gap_expand(*ma, every)
     check(np.array_equal(blockops.to_host_words(ra), sa.to_dense()),
           "gap_expand equals GapStore.to_dense")
+    pair = ck.gap_expand_pair(ma, mb, torch.cat([every, some]), GAP_BLOCKS)
+    cmp("gap_expand", pair, torch.cat([ra, ck.gap_expand(*mb, some)]))
+    cases = gap_cases(rng, device)
+    check(tuple(c[0] for c in cases) == GAP_CASES, "gap cases by name")
+    for name, *args in cases:
+        cmp("gap_expand", ck.gap_expand_pair(*args),
+            blockops.gap_expand_pair(*args))
     rows = ra[:GAP_PAIRS] & ck.gap_expand(*mb, every)[:GAP_PAIRS]
     for r in (rows, gap_edge_rows(device)):
         for g, w in zip(ck.gap_compress(r), blockops.gap_compress(r)):
@@ -901,8 +979,8 @@ def rs_kernels_vs_plain(rng, device, cmp):
                                       rs._select_tables()),
             plain.rs_select(*sargs, q, rs.total))
         select_vs_plain(rs, rng, cmp)
-        rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
-        cmp("rs_rank", ck.rs_rank(*rargs, i), plain.rs_rank(*rargs, i))
+        rank_vs_plain(rs, i, cmp)
+        rank_cases_vs_plain(rs, rng, cmp)
         g = rs.gwc.cpu().numpy().astype(np.int64)
         pool_total = int(g[-1])
         granks = np.concatenate([[1, pool_total], np.clip(g, 1, None),
@@ -917,8 +995,11 @@ def rs_kernels_vs_plain(rng, device, cmp):
         rel = np.concatenate([[0, n_bits - 1], np.arange(0, n_bits, 1024),
                               rng.integers(0, n_bits, n)])
         rel = torch.from_numpy(rel).to(device)
-        cmp("rs_rank", ck.rank_flat(rs.pool, rs.gwc, rel),
+        frank = plain.flat_rank_tables(rs.gwc, flat.wsp)
+        cmp("rs_rank", ck.rank_flat(rs.pool, rs.gwc, rel, frank),
             plain.rank_flat(rs.pool, rs.gwc, rel))
+        cmp("rs_rank", ck.rank_flat(rs.pool, rs.gwc, rel[-1:], frank),
+            plain.rank_flat(rs.pool, rs.gwc, rel[-1:]))
         w = v.to_words().ravel() if v is edge else words
         ones = np.flatnonzero(np.unpackbits(w.view(np.uint8),
                                             bitorder="little"))
@@ -932,7 +1013,12 @@ def rs_kernels_vs_plain(rng, device, cmp):
             "equals numpy")
     for name, v in class_vectors(tbm, rng, device).items():
         select_vs_plain(v.build_rs_index(), rng, cmp)
+        rank_cases_vs_plain(v.build_rs_index(), rng, cmp)
     wide = wide_index_vector(tbm, rng, device).build_rs_index()
+    check(ck._rank_staging(len(wide.nb), wide._gap_runs()[0].shape[0])[:3]
+          == (-(-len(wide.nb) // (ck.RS_CUM_SAMPLE_BYTES // 8)), 0, 0),
+          "the wide index's rank stages only a sample of nb")
+    rank_cases_vs_plain(wide, rng, cmp)
     m1, W = len(wide.nb) + 1, wide.gwc.shape[0]
     R = wide._gap_runs()[0].shape[0]
     check(ck._select_staging(m1, W, R)[:4] == (-(-m1 // (
@@ -948,6 +1034,56 @@ def rs_kernels_vs_plain(rng, device, cmp):
                                     plain.flat_tables(wide.pool, wide.gwc)),
         plain.select_flat(wide.pool, wide.gwc, granks))
     sharded_select_vs_plain(cell, words, device, rng, cmp)
+
+
+def rank_cases(rs, rng, n=5000):
+    """The id batches the redesigned rank makes risky on index ``rs``,
+    each (name, int64 ids): uniform ids with every block border, one id,
+    each segment's first and last bit and the bits around them, ids in
+    zero blocks and past the vector (2^31 + bits, 2^40, negative)."""
+    size = rs.size
+    _, ids = rs_queries(rng, rs, size, n)
+    nb = rs.nb.astype(np.int64)
+    end = nb + rs.span
+    edges = np.concatenate([nb << 16, (nb << 16) + 1, (end << 16) - 1,
+                            end << 16, (end << 16) + 31, (nb << 16) + 32])
+    out = [("batch", ids), ("one", ids[-1:]),
+           ("segment_edges", np.resize(edges, n)),
+           ("outside", np.resize(np.asarray(
+               [-1, -(1 << 40), size, size + 1, (1 << 31) + 5, 1 << 40,
+                size - 1, 0]), n))]
+    return [(name, r.astype(np.int64)) for name, r in out]
+
+
+def rank_vs_plain(rs, ids, cmp):
+    """rs_rank over int64 ids ``ids`` (on the card) of index ``rs``
+    against its plain version."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    rargs = (rs._seg, rs._nb_dev, rs._gap_runs(), rs.pool, rs.gwc)
+    cmp("rs_rank", ck.rs_rank(*rargs, ids, rs._rank_tables()),
+        plain.rs_rank(*rargs, ids))
+
+
+def rank_cases_vs_plain(rs, rng, cmp):
+    """rs_rank over ``rank_cases`` of index ``rs``, and rank_flat over its
+    pool (every wave's first and last bit, uniform offsets, one offset),
+    against their plain versions on the card."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    from bitmagic_tpu_torch.ops import select as plain
+    dev = rs.pool.device
+    for _, ids in rank_cases(rs, rng):
+        rank_vs_plain(rs, torch.from_numpy(ids).to(dev), cmp)
+    n_bits = rs.pool.shape[0] * BPB
+    if n_bits:
+        rel = np.concatenate([np.arange(0, n_bits, 1024),
+                              np.arange(1023, n_bits, 1024),
+                              rng.integers(0, n_bits, 20_000)])
+        rel = torch.from_numpy(rel).to(dev)
+        frank = plain.flat_rank_tables(rs.gwc, rs._select_tables().wsp)
+        for r in (rel, rel[-1:]):
+            cmp("rs_rank", ck.rank_flat(rs.pool, rs.gwc, r, frank),
+                plain.rank_flat(rs.pool, rs.gwc, r))
 
 
 def select_vs_plain(rs, rng, cmp):
@@ -966,9 +1102,9 @@ def select_vs_plain(rs, rng, cmp):
 
 
 def sharded_select_vs_plain(bv, words, device, rng, cmp):
-    """select_flat on each shard of an 8-shard ShardedRSIndex of ``bv`` on
-    ``device`` against its plain version, and the index's select batch
-    against numpy."""
+    """select_flat and rank_flat on each shard of an 8-shard
+    ShardedRSIndex of ``bv`` on ``device`` against their plain versions,
+    and the index's select and rank batches against numpy."""
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     from bitmagic_tpu_torch.ops import select as plain
     from bitmagic_tpu_torch.parallel import Mesh, ShardedBitVector
@@ -982,6 +1118,10 @@ def sharded_select_vs_plain(bv, words, device, rng, cmp):
             1, int(g[-1]) + 1, 20_000).astype(np.int32)).to(device)
         cmp("rs_select", ck.select_flat(t, g, granks, flat),
             plain.select_flat(t, g, granks))
+        rel = torch.from_numpy(rng.integers(0, t.shape[0] * BPB,
+                                            20_000)).to(device)
+        cmp("rs_rank", ck.rank_flat(t, g, rel, srs.rank_tables(i)),
+            plain.rank_flat(t, g, rel))
     ones = np.flatnonzero(np.unpackbits(words.view(np.uint8),
                                         bitorder="little"))
     ranks = np.concatenate([[-1, 0, 1, ones.size, ones.size + 1],
@@ -991,6 +1131,11 @@ def sharded_select_vs_plain(bv, words, device, rng, cmp):
     check(np.array_equal(got[ok], ones[ranks[ok] - 1])
           and (got[~ok] == -1).all(),
           "rs_select: an 8-shard index's select batch equals numpy")
+    ids = np.concatenate([[-1, 0, bv.size - 1, bv.size],
+                          rng.integers(0, bv.size, 100_000)])
+    check(np.array_equal(srs.rank_batch(ids), np.searchsorted(
+        ones, ids, side="right")), "rs_rank: an 8-shard index's rank batch "
+        "equals numpy")
 
 
 DESCENT_BLOCKS = 37             # descent_column: a 32-block FULL run fits
@@ -1424,6 +1569,13 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
     check(pair == (dist["count_and"], dist["count_or"], dist["count_xor"],
                    dist["count_sub_ab"]), "count_* free functions")
 
+    n0 = ck.launches["gap_expand"]
+    cell1_step(tbm, a, b)
+    check(ck.launches["gap_expand"] - n0 == CELL1_GAP_EXPANDS,
+          f"a bvsetalgebra_rank_select step launched gap_expand "
+          f"{ck.launches['gap_expand'] - n0} times, not "
+          f"{CELL1_GAP_EXPANDS}")
+
     size = n_blocks * BPB
     lo = rng.integers(0, size, N_RANGES)
     hi = np.minimum(lo + rng.integers(0, size // 4, N_RANGES), size - 1)
@@ -1460,6 +1612,25 @@ def main_path(tbm, device, n_blocks=N_BLOCKS, n_queries=N_QUERIES):
               "rs_rank": SINGLE_CALLS + 1},
           "one launch per one-query select, rank and BitVector.select")
     return times, (a, b, rs, ranks, ids)
+
+
+# gap_expand launches in one bvsetalgebra_rank_select step (cell1_step):
+# one per operand pair in count_and, the four operations and
+# distance_operation, one for the shifted copy of A
+CELL1_GAP_EXPANDS = 7
+
+
+def cell1_step(tbm, a, b):
+    """The set algebra of one bvsetalgebra_rank_select step
+    (bench_torch.SetAlgebraTraffic) on vectors a and b that both hold
+    D-GAP blocks: count_and, the four operations each with its count,
+    distance_operation of 7 metrics, shift_right of a copy of a with its
+    count."""
+    tbm.count_and(a, b)
+    for op in OPS:
+        getattr(a, DUNDER[op])(b).count()
+    tbm.distance_operation(a, b, list(METRICS))
+    a.copy().shift_right().count()
 
 
 def single_query_ms(a, rs, ranks, pos, ids, rk, calls=SINGLE_CALLS):
@@ -1567,12 +1738,12 @@ def k2_operands(a, b):
     """The gather descriptors distance_operation hands K2 for vectors a and
     b: the candidate blocks where at least one side is a BIT row or a GAP
     block (expanded into aux rows)."""
-    from bitmagic_tpu_torch.core.blocks import operand_args
+    from bitmagic_tpu_torch.core.blocks import operand_args_pair
     cand = np.union1d(a._struct.nb, b._struct.nb)
     st_a, _ = a._struct.lookup(cand)
     st_b, _ = b._struct.lookup(cand)
     rows = cand[(st_a >= 2) | (st_b >= 2)]
-    return operand_args(a, rows), operand_args(b, rows)
+    return operand_args_pair(a, b, rows)
 
 
 def profile(what, fn):
@@ -2828,7 +2999,26 @@ def same_parts(a, b, what):
               f"{what}: {key}")
 
 
-def descent_phase(tbm, device, card, sv, vals, nm):
+def find_gt_trace(tbm, sv):
+    """The kernels one config 4b ``find_gt(DESCENT_GT)`` with its count
+    puts on the card, from a trace in this process (up to TRACE_TRIES
+    traces while one records no kernel), for the descent phase's check.
+    The scan path takes it on its own column: late in a full run, after
+    the serial and sv phases, the profiler records no device event (PERF.md,
+    open questions)."""
+    sc = tbm.SparseVectorScanner()
+    for retries in range(TRACE_TRIES):
+        names = device_kernels(lambda: sc.find_gt(sv, DESCENT_GT).count())
+        if names:
+            break
+        trace_retry_pause("config 4b find_gt + count")
+    log(f"scan: config 4b find_gt + count put these kernels on the card: "
+        f"{short_kernel_names(names)}; empty traces before this one: "
+        f"{retries}")
+    return names
+
+
+def descent_phase(tbm, device, card, sv, vals, nm, find_gt_names):
     """Phase 9b.  (1) On descent_column's mixed-block columns on the card
     (uint32 nullable and not, int16 nullable, uint64), every descent of
     descent_queries, from the column's universe and from a D-GAP plane,
@@ -2838,8 +3028,9 @@ def descent_phase(tbm, device, card, sv, vals, nm):
     before and read just after: find_gt(DESCENT_GT) with its count, then
     find_ge / lt / le and find_range against numpy (the path's launches).
     One find_gt with its count is one sv_descent and one K3 launch, its
-    trace sv_descent_kernel and block_counts_kernel and no other kernel,
-    its result equal in every part to the K1 chain's.  (3) A sharded
+    trace (``find_gt_names``, taken by ``find_gt_trace`` on the same
+    column) sv_descent_kernel and block_counts_kernel and no other
+    kernel, its result equal in every part to the K1 chain's.  (3) A sharded
     find_gt on SHARDS shards is one descent_rows launch per shard and no
     K1.  Returns (the path's launches, ms)."""
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -2893,26 +3084,9 @@ def descent_phase(tbm, device, card, sv, vals, nm):
     check(one == {"sv_descent": 1, "block_counts": 1},
           f"config 4b find_gt + count launched {one}, not one sv_descent "
           f"and one K3")
-    for retries in range(TRACE_TRIES):
-        names = device_kernels(lambda: sc.find_gt(sv, DESCENT_GT).count())
-        if names:
-            break
-        trace_retry_pause("descent: config 4b find_gt + count")
-    if names:
-        log(f"descent: config 4b find_gt + count put these kernels on the "
-            f"card: {short_kernel_names(names)}; empty traces before this "
-            f"one: {retries}")
-    else:
-        # the profiler has lost every device event of a trace late in the
-        # run (PERF.md, open questions); the check then rests on a trace
-        # of the same entry point on the same column taken in a separate
-        # interpreter, which is not this run's trace
-        names = fresh_find_gt_trace()
-        log(f"descent: NOT CHECKED IN THIS RUN: all {TRACE_TRIES} traces "
-            f"of config 4b find_gt + count in this process recorded no "
-            f"device event; the kernel check below is of a separate "
-            f"interpreter's trace (--trace-find-gt), not of this run: "
-            f"{short_kernel_names(names)}")
+    check(bool(find_gt_names), f"config 4b find_gt + count: all "
+          f"{TRACE_TRIES} traces of it recorded no device event")
+    names = find_gt_names
     check(len(names) == 2 and sum("sv_descent_kernel" in x for x in names)
           == 1 and sum("block_counts_kernel" in x for x in names) == 1,
           "config 4b find_gt + count: one sv_descent_kernel, one "
@@ -5014,8 +5188,9 @@ def rs_timings(rng, device, card, flush, out):
     i = torch.from_numpy(rng.integers(0, v.size, n)).to(device)
     sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
     rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
-    st = rs._select_tables()
+    st, rt = rs._select_tables(), rs._rank_tables()
     flat = plain.flat_tables(rs.pool, rs.gwc)
+    frank = plain.flat_rank_tables(rs.gwc, flat.wsp)
     # which queries reach a BIT block, and the words their waves need
     s_bit = rs._seg[torch.searchsorted(rs._cum0_dev, q), plain.CLS] \
         == C.CLS_BIT
@@ -5039,7 +5214,7 @@ def rs_timings(rng, device, card, flush, out):
              lambda: plain.rs_select(*sargs, q, rs.total),
              16 * n + tables + _nbytes(rs._cum0_dev, key_cum),
              int((s_words + 5)[s_bit].sum()), s_bit, s_pos),
-            (("rs_rank", "cell1_1M"), lambda: ck.rs_rank(*rargs, i),
+            (("rs_rank", "cell1_1M"), lambda: ck.rs_rank(*rargs, i, rt),
              lambda: plain.rs_rank(*rargs, i),
              16 * n + tables + _nbytes(rs._nb_dev, key_end),
              int(r_words[r_bit].sum()), r_bit, i),
@@ -5049,7 +5224,7 @@ def rs_timings(rng, device, card, flush, out):
              12 * n + _nbytes(rs.gwc), int((f_words + 5).sum()), every,
              f_pos),
             (("rs_rank", "flat_1M"),
-             lambda: ck.rank_flat(rs.pool, rs.gwc, rel),
+             lambda: ck.rank_flat(rs.pool, rs.gwc, rel, frank),
              lambda: plain.rank_flat(rs.pool, rs.gwc, rel),
              16 * n + _nbytes(rs.gwc), int((((rel & 1023) >> 5) + 1).sum()),
              every, rel)):
@@ -5152,7 +5327,8 @@ def descent_timings(rng, device, card, flush, out):
 
 def gap_timings(rng, device, card, flush, out):
     """gap_expand over the GAP_BLOCKS blocks of a store drawn as
-    bvsetalgebra_rank_select's; gap_compress's two launches over
+    bvsetalgebra_rank_select's, and over both stores' in one pair launch
+    (as an operation on two such vectors); gap_compress's two launches over
     GAP_PAIRS AND rows of two such stores, and its whole call (both
     launches, the scan and the scalar sync between them).  Bounds: the
     bytes read and written once, at the card's memory rate."""
@@ -5168,6 +5344,16 @@ def gap_timings(rng, device, card, flush, out):
            lambda: blockops.gap_expand(*ma, every), None, nbytes, 0, 0)
     out["gap_expand", "cell1_768"].update(rows=GAP_BLOCKS,
                                           runs=int(sa.offs[-1]))
+    # one pair launch: both stores' blocks, as an operation expands them
+    both = torch.cat([every, every])
+    nbytes = (4 * int(sa.offs[-1] + sb.offs[-1])
+              + 2 * GAP_BLOCKS * (8 + 1 + 4 + 8192))
+    record(out, ("gap_expand", "cell1_pair"), card, flush,
+           lambda: ck.gap_expand_pair(ma, mb, both, GAP_BLOCKS),
+           lambda: blockops.gap_expand_pair(ma, mb, both, GAP_BLOCKS), None,
+           nbytes, 0, 0)
+    out["gap_expand", "cell1_pair"].update(
+        rows=2 * GAP_BLOCKS, runs=int(sa.offs[-1] + sb.offs[-1]))
     rows = (ck.gap_expand(*ma, every)[:GAP_PAIRS]
             & ck.gap_expand(*mb, every)[:GAP_PAIRS])
     ends, offs, first = ck.gap_compress(rows)
@@ -5441,38 +5627,6 @@ def probe_and_build():
     return device, card
 
 
-def find_gt_trace_main():
-    """``--trace-find-gt``: config 4b's column on the card (as the scan
-    path builds it) and the kernels one ``find_gt`` with its count puts
-    there, traced in this process; prints one JSON line
-    ``{"names": [...]}``.  The kernels are built already."""
-    import bitmagic_tpu_torch as tbm
-    device = torch.device("cuda")
-    _, vals, nm = config4b_values()
-    sv = tbm.SparseVector.from_array(vals, nullable=True, null_mask=nm,
-                                     device=device)
-    names = []
-    for _ in range(TRACE_TRIES):
-        names = device_kernels(
-            lambda: tbm.scanner.find_gt(sv, DESCENT_GT).count())
-        if names:
-            break
-        time.sleep(1.0)
-    print(json.dumps({"names": names}))
-    return 0
-
-
-def fresh_find_gt_trace():
-    """The kernel names of ``find_gt_trace_main`` in a fresh interpreter
-    (which ends before this returns)."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--trace-find-gt"], capture_output=True, text=True,
-                       timeout=600)
-    check(r.returncode == 0, f"--trace-find-gt exited {r.returncode}: "
-          f"{r.stderr[-2000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])["names"]
-
-
 def descent_main():
     """``--descent``: phases 1-2, then the descent's checks alone: its
     kernels against their plain versions, the descent phase on config 4b's
@@ -5493,7 +5647,8 @@ def descent_main():
         f"{len(errs)} cases")
     _, vals, nm = config4b_values()
     sv = tbm.SparseVector.from_array(vals, null_mask=nm, device=device)
-    launches, times = descent_phase(tbm, device, card, sv, vals, nm)
+    launches, times = descent_phase(tbm, device, card, sv, vals, nm,
+                                    find_gt_trace(tbm, sv))
     log(f"descent: launches {launches}; phase ms {json.dumps(times)}")
     out = {}
     flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
@@ -5518,8 +5673,6 @@ def main():
         return single_query_main(sys.argv[2])
     if sys.argv[1:2] == ["--descent"]:
         return descent_main()
-    if sys.argv[1:2] == ["--trace-find-gt"]:
-        return find_gt_trace_main()
     sys.path.insert(0, ROOT)
     import bitmagic_tpu_torch as tbm
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -5620,6 +5773,7 @@ def main():
                 lambda: steady(tbm, *state))
         if path == "scan":
             sv = state[1]
+            find_gt_names = find_gt_trace(tbm, sv)
         del state
     search_launches = {k: path_launches["agg"][k] + path_launches["scan"][k]
                        for k in KERNELS}
@@ -5676,7 +5830,7 @@ def main():
     # 9b. the descent phase: the ordered searches' descent in one launch
     t0 = time.perf_counter()
     descent_launches, descent_times = descent_phase(tbm, device, card, sv,
-                                                    vals, nm)
+                                                    vals, nm, find_gt_names)
     log(f"descent: passed in {time.perf_counter() - t0:.1f} s; launches "
         f"{descent_launches}; phase ms {json.dumps(descent_times)}")
 
@@ -5763,7 +5917,8 @@ def main():
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"),
-                  gap_expand=("cell1_768",), gap_compress=("cell1_400",),
+                  gap_expand=("cell1_768", "cell1_pair"),
+                  gap_compress=("cell1_400",),
                   sv_gather=("cell3",), sv_transpose=("16M_20",),
                   rs_select=("cell1_1M", "flat_1M"),
                   rs_rank=("cell1_1M", "flat_1M"),

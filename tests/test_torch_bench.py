@@ -467,18 +467,29 @@ def test_the_set_algebra_path_needs_the_gap_kernels():
 def test_gap_kernel_bytes(stepped, monkeypatch):
     """The GAP kernels' bytes per step, counted from the built stores,
     equal what one step hands the wrappers: gap_expand's selected blocks
-    with their run ends in the stores' mirrors, gap_compress's rows and the
-    run ends of the stores it returns (13 and 4 calls)."""
+    with their run ends in the stores' mirrors (a pair of stores per
+    launch but in shift_right), gap_compress's rows and the run ends of
+    the stores it returns (7 and 4 calls)."""
     cell, ans, _ = stepped[SET]
     seen = {"gap_expand": [], "gap_compress": []}
-    expand, compress = ck.gap_expand, ck.gap_compress
+    expand, pair = ck.gap_expand, ck.gap_expand_pair
+    compress = ck.gap_compress
 
-    def rec_expand(ends, offs, first, sel):
+    def expand_bytes(offs, sel):
         o = offs.to(torch.int64)
         s = sel.to(torch.int64)
-        runs = int((o[s + 1] - o[s]).sum())
-        seen["gap_expand"].append(4 * runs + (9 + ROW) * s.numel())
+        return 4 * int((o[s + 1] - o[s]).sum()) + (9 + ROW) * s.numel()
+
+    def rec_expand(ends, offs, first, sel):
+        seen["gap_expand"].append(expand_bytes(offs, sel))
         return expand(ends, offs, first, sel)
+
+    def rec_pair(mirror_a, mirror_b, sel, k_a):
+        seen["gap_expand"].append(sum(
+            expand_bytes(m[1], s) for m, s in ((mirror_a, sel[:k_a]),
+                                               (mirror_b, sel[k_a:]))
+            if s.numel()))
+        return pair(mirror_a, mirror_b, sel, k_a)
 
     def rec_compress(rows):
         ends, offs, first = out = compress(rows)
@@ -489,9 +500,10 @@ def test_gap_kernel_bytes(stepped, monkeypatch):
         return out
 
     monkeypatch.setattr(ck, "gap_expand", rec_expand)
+    monkeypatch.setattr(ck, "gap_expand_pair", rec_pair)
     monkeypatch.setattr(ck, "gap_compress", rec_compress)
     again = cell.step(bt.Step(CPU))
-    assert len(seen["gap_expand"]) == 13
+    assert len(seen["gap_expand"]) == 7
     assert len(seen["gap_compress"]) == len(bt.OPS)
     got = cell.kernel_bytes(again)
     assert got["gap_expand"] == sum(seen["gap_expand"])

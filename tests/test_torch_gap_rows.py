@@ -250,10 +250,10 @@ def test_result_store_equals_gap_binary_op(vectors, op):
     small = (ta._gaps.n_runs()[sa] + tb._gaps.n_runs()[sb]
              <= tbv._GAP_MERGE_MAX_RUNS)
     assert small.sum() == 7 and (~small).sum() == 1
-    a_desc = tbv.descriptor(ta._pool, np.full(small.sum(), -1),
-                            np.zeros(small.sum(), bool), ta._gaps, sa[small])
-    b_desc = tbv.descriptor(tb._pool, np.full(small.sum(), -1),
-                            np.zeros(small.sum(), bool), tb._gaps, sb[small])
+    none, no = np.full(small.sum(), -1), np.zeros(small.sum(), bool)
+    a_desc, b_desc = tbv.descriptor_pair(
+        (ta._pool, none, no, ta._gaps, sa[small]),
+        (tb._pool, none, no, tb._gaps, sb[small]))
     out, _ = ck.binary_op_digest(op, a_desc, b_desc)
     got = compress_rows(out)
     want = tgs.gap_binary_op(op, ta._gaps, sa[small], tb._gaps, sb[small])
@@ -298,3 +298,113 @@ def test_gap_only_pairs_reach_k2(vectors, monkeypatch):
     tbm.distance_operation(ta, tb, METRICS)
     assert seen == [(int((ta._struct.cls == C.CLS_GAP).sum()),
                      int((tb._struct.cls == C.CLS_GAP).sum()))]
+
+
+# ---------------------------------------------------------------------------
+# one gap_expand launch per operand pair
+# ---------------------------------------------------------------------------
+def _pair_stores(case):
+    """Two stores and the blocks a pair expansion selects from each:
+    ``both`` (repeats, every edge row), ``a_empty`` / ``b_empty`` (one
+    side selects nothing), ``above_top_level`` (blocks of more runs than
+    the default top GAP level's 1280: 1281, 3000 and 65536)."""
+    rng = np.random.default_rng(31)
+    a = edge_rows(rng)
+    b = np.stack([run_row(rng, int(n)) for n in rng.integers(1, 1280, 9)]
+                 + [run_row(rng, 1280), run_row(rng, 1, 1)])
+    if case == "above_top_level":
+        b = np.stack([run_row(rng, 1281), run_row(rng, 3000),
+                      np.full(2048, 0x55555555, np.uint32), b[0]])
+    sa, sb = GapStore.from_dense(a), GapStore.from_dense(b)
+    ia = np.asarray([8, 0, 3, 3, 1, 7, len(a) - 1])
+    ib = np.arange(len(b))[::-1]
+    if case == "a_empty":
+        ia = ia[:0]
+    if case == "b_empty":
+        ib = ib[:0]
+    return (a, sa, ia), (b, sb, ib)
+
+
+@pytest.mark.parametrize("case", ["both", "a_empty", "b_empty",
+                                  "above_top_level"])
+def test_gap_expand_pair_equals_two_expansions(case):
+    """The pair form's plain route: a's rows, then b's, equal to two
+    single expansions, to ``GapStore.to_dense`` of the port and of the
+    JAX package, and to the words the stores were built from."""
+    from bitmagic_tpu.core.gapstore import GapStore as JaxGapStore
+    (wa, sa, ia), (wb, sb, ib) = _pair_stores(case)
+    if case == "above_top_level":
+        assert np.diff(sb.offs)[:3].min() > 1280
+    sel = torch.from_numpy(np.concatenate([ia, ib]).astype(np.int32))
+    got = ck.gap_expand_pair(sa.device_arrays("cpu") if ia.size else None,
+                             sb.device_arrays("cpu") if ib.size else None,
+                             sel, ia.size)
+    assert got.shape == (ia.size + ib.size, 2048) and got.dtype == torch.int32
+    singles = [ck.gap_expand(*s.device_arrays("cpu"),
+                             torch.from_numpy(i.astype(np.int32)))
+               for s, i in ((sa, ia), (sb, ib))]
+    assert torch.equal(got, torch.cat(singles))
+    host = blockops.to_host_words(got)
+    want = np.concatenate([wa[ia], wb[ib]])
+    np.testing.assert_array_equal(host, want)
+    jax_rows = [np.asarray(JaxGapStore(s.ends.copy(), s.offs.copy(),
+                                       s.first.copy()).to_dense(i))
+                .reshape(-1, 2048) for s, i in ((sa, ia), (sb, ib))]
+    np.testing.assert_array_equal(host, np.concatenate(jax_rows))
+
+
+def _counting_expansions(monkeypatch):
+    calls = {"gap_expand": 0, "gap_expand_pair": 0}
+    for name in calls:
+        real = getattr(ck, name)
+
+        def spy(*a, _real=real, _name=name):
+            calls[_name] += 1
+            return _real(*a)
+        monkeypatch.setattr(ck, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("sides", ["both", "a_only", "b_only", "neither"])
+def test_descriptor_pair_expands_in_one_call(vectors, sides, monkeypatch):
+    """``operand_args_pair`` gives each operand the rows of its own
+    ``operand_args`` with one pair expansion, whichever side holds D-GAP
+    blocks; its aux halves are one tensor's."""
+    from bitmagic_tpu_torch.core import blocks as tblocks
+    _, (ta, tb) = vectors
+    nb = np.union1d(ta._struct.nb, tb._struct.nb)
+    pick = {"both": nb, "a_only": np.asarray([9, 16]),
+            "b_only": np.asarray([11, 15]), "neither": np.asarray([0, 40])}
+    blocks = pick[sides]
+    want = [blockops.gather_rows(*tblocks.operand_args(v, blocks))
+            for v in (ta, tb)]
+    calls = _counting_expansions(monkeypatch)
+    da, db = tblocks.operand_args_pair(ta, tb, blocks)
+    assert calls == {"gap_expand": 0, "gap_expand_pair": 1}
+    for d, w in zip((da, db), want):
+        assert torch.equal(blockops.gather_rows(*d), w)
+    ka, kb = da[3].shape[0], db[3].shape[0]
+    assert (ka > 0) == (sides in ("both", "a_only"))
+    assert (kb > 0) == (sides in ("both", "b_only"))
+    if ka and kb:
+        assert db[3].data_ptr() == da[3].data_ptr() + ka * 8192
+
+
+def test_cell1_step_expands_in_seven_calls(monkeypatch):
+    """One step of bvsetalgebra_rank_select (bench_torch.py, cut to 24
+    blocks) makes seven expansions: a pair each in count_and, the four
+    operations and distance_operation, and A's alone in shift_right."""
+    import bench_torch as bt
+    name = "bvsetalgebra_rank_select"
+    w, cfg = bt.load_workload(name)
+    sizes = dict(cfg["sizes"], blocks_per_vector=24,
+                 bits_per_vector=24 * bt.BLOCK_BITS,
+                 row_bytes_per_vector=24 * bt.ROW, select_queries=1000,
+                 rank_queries=1000)
+    cell = bt.TRAFFIC[w["traffic"]](7, sizes)
+    cell.build(torch.device("cpu"))
+    assert all((v._struct.cls == C.CLS_GAP).any() for v in (cell.a, cell.b))
+    calls = _counting_expansions(monkeypatch)
+    answers = cell.step(bt.Step(torch.device("cpu")))
+    assert calls == {"gap_expand_pair": 6, "gap_expand": 1}
+    bt.check_answers("cut cell 1", answers, cell.oracle())

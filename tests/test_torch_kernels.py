@@ -512,6 +512,46 @@ def test_gap_rows_kernels(dev, rng, n):
     assert ck.launches["gap_compress"] == 2
 
 
+GAP_CASES = ["edges", "one_row", "top_level", "above_top_level", "pair",
+             "pair_a_empty", "pair_b_empty"]
+
+
+@pytest.mark.parametrize("name", GAP_CASES)
+def test_gap_expand_cases(dev, name):
+    """gap_expand's pair launch over chip_smoke.gap_cases (1-run blocks,
+    runs ending on bits 31 / 32 of a word and on 65534, 1280 runs (the
+    default top GAP level) and above it, two stores, either side empty)
+    against its plain version: one launch each."""
+    import chip_smoke as cs
+    cases = cs.gap_cases(np.random.default_rng(14), dev)
+    assert [c[0] for c in cases] == GAP_CASES
+    args = dict((c[0], c[1:]) for c in cases)[name]
+    got = ck.gap_expand_pair(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blockops.gap_expand_pair(*args))
+    assert ck.launches["gap_expand"] == 1
+
+
+def test_cell1_step_launches_seven_gap_expands(dev):
+    """One step of bvsetalgebra_rank_select (bench_torch.py, cut to 24
+    blocks) on the card: seven gap_expand launches (a pair each in
+    count_and, the four operations and distance_operation, A's alone in
+    shift_right), its answers against the cell's oracle."""
+    import bench_torch as bt
+    w, cfg = bt.load_workload("bvsetalgebra_rank_select")
+    sizes = dict(cfg["sizes"], blocks_per_vector=24,
+                 bits_per_vector=24 * bt.BLOCK_BITS,
+                 row_bytes_per_vector=24 * bt.ROW, select_queries=1000,
+                 rank_queries=1000)
+    cell = bt.TRAFFIC[w["traffic"]](7, sizes)
+    cell.build(dev)
+    n0 = ck.launches["gap_expand"]
+    answers = cell.step(bt.Step(dev))
+    torch.cuda.synchronize()
+    assert ck.launches["gap_expand"] - n0 == 7
+    bt.check_answers("cut cell 1", answers, cell.oracle())
+
+
 def test_gap_routes_on_card_match_cpu(dev, rng, monkeypatch):
     """GAP x GAP, GAP x FULL and GAP x ZERO pairs through the four ops and
     distance_operation on the card give the CPU's state and answers, and
@@ -696,9 +736,32 @@ def test_rs_select_cases(dev, select_indices, vec):
         assert torch.equal(got, plain.select_flat(rs.pool, rs.gwc, g))
 
 
+@pytest.mark.parametrize("vec", SELECT_VECTORS)
+def test_rs_rank_cases(dev, select_indices, vec):
+    """rs_rank over chip_smoke.rank_cases of each index (one launch per
+    case, one id among them; the wide index stages only a sample of nb)
+    and rank_flat over its pool (one offset among them) against the plain
+    versions."""
+    import chip_smoke as cs
+    rs = select_indices[vec]
+    rng = np.random.default_rng(15)
+    errs = []
+
+    def cmp(name, got, want):
+        torch.cuda.synchronize()
+        errs.append(bool(torch.equal(got, want)))
+
+    cs.rank_cases_vs_plain(rs, rng, cmp)
+    assert errs and all(errs)
+    n_cases = len(cs.rank_cases(rs, rng))
+    assert ck.launches["rs_rank"] == n_cases + (2 if rs.pool.shape[0]
+                                                else 0)
+
+
 def test_sharded_select_flat(dev, select_indices):
-    """select_flat per shard of an 8-shard ShardedRSIndex on one card
-    against its plain version; the index's batch against numpy."""
+    """select_flat and rank_flat per shard of an 8-shard ShardedRSIndex
+    on one card against their plain versions; the index's batches against
+    numpy."""
     import chip_smoke as cs
     rng = np.random.default_rng(10)
     bv, words = cs.rs_cell_vector(tbm, rng, dev)
@@ -733,7 +796,7 @@ def test_rs_select_kernels(dev, rng):
     got = ck.rs_select(*sargs, q, total, rs._select_tables())
     torch.cuda.synchronize()
     assert torch.equal(got, plain.rs_select(*sargs, q, total))
-    got = ck.rs_rank(*rargs, i)
+    got = ck.rs_rank(*rargs, i, rs._rank_tables())
     torch.cuda.synchronize()
     assert torch.equal(got, plain.rs_rank(*rargs, i))
     g = torch.from_numpy(rng.integers(1, int(rs.gwc[-1]) + 1, 50000).astype(
@@ -744,7 +807,8 @@ def test_rs_select_kernels(dev, rng):
     assert torch.equal(got, plain.select_flat(rs.pool, rs.gwc, g))
     rel = torch.from_numpy(rng.integers(0, rs.pool.shape[0] * 65536,
                                         50000)).to(dev)
-    got = ck.rank_flat(rs.pool, rs.gwc, rel)
+    got = ck.rank_flat(rs.pool, rs.gwc, rel,
+                       plain.flat_rank_tables(rs.gwc, flat.wsp))
     torch.cuda.synchronize()
     assert torch.equal(got, plain.rank_flat(rs.pool, rs.gwc, rel))
     assert ck.launches["rs_select"] == ck.launches["rs_rank"] == 2

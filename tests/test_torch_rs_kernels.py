@@ -115,7 +115,9 @@ def test_rank_in_rows_and_rank_flat_match_jax(kind):
     rel = slots.astype(np.int64) * BPB + bits
     before = np.concatenate([[0], np.cumsum(np.bitwise_count(words).sum(
         1, dtype=np.int64))])[slots]
-    for fn in (tsel.rank_flat, ck.rank_flat):
+    flat = tsel.flat_rank_tables(gwc, tsel.wave_sectors(tp))
+    for fn in (tsel.rank_flat,
+               lambda *a: ck.rank_flat(*a, flat)):
         got = fn(tp, gwc, torch.from_numpy(rel))
         assert got.dtype == torch.int64
         np.testing.assert_array_equal(got.numpy(), before + want)
@@ -207,9 +209,10 @@ def test_rs_wrappers_take_the_plain_route_on_cpu_tensors():
                        tsel.rs_select(*args, q, tr.total))
     ids = torch.arange(-5, tv.size + 5, 1009, dtype=torch.int64)
     args = (tr._seg, tr._nb_dev, runs, tr.pool, tr.gwc)
-    assert torch.equal(ck.rs_rank(*args, ids), tsel.rs_rank(*args, ids))
+    assert torch.equal(ck.rs_rank(*args, ids, tr._rank_tables()),
+                       tsel.rs_rank(*args, ids))
     with pytest.raises(ValueError, match="devices"):
-        ck.rs_rank(*args, ids.to("meta"))
+        ck.rs_rank(*args, ids.to("meta"), tr._rank_tables())
 
 
 @pytest.fixture(scope="module")
@@ -403,3 +406,237 @@ def test_select_staging_plan(shape):
     assert (stride, s_sel, s_gws, s_gcs) == expect
     f_stride, f_bytes = ck._flat_staging(W // 8)
     assert f_bytes <= budget and (f_stride == 1) == (4 * W // 8 <= budget)
+
+
+# ---------------------------------------------------------------------------
+# rs_rank's tables (ops/select.rank_tables): each record decodes to the
+# segment row it is built from, and the kernel's steps over them (mirrored
+# here in numpy, index for index, under the launch's staging plan) give
+# what the plain version and the JAX package give
+# ---------------------------------------------------------------------------
+def _rank_index(kind):
+    """A port RSIndex on the CPU: ``_index_of``'s kinds; ``cell``: cell
+    1's shape (1536 blocks, 768 of them D-GAP of 1-256 runs); ``big_nb``:
+    30,000 one-bit D-GAP blocks (nb past the staging budget, so staged as
+    a sample; no pool); ``many_runs``: seven 65536-run D-GAP blocks and
+    a BIT one (the run-end samples past the budget)."""
+    import chip_smoke as cs
+    rng = np.random.default_rng(23)
+    if kind == "cell":
+        bv, _ = cs.rs_cell_vector(tbm, rng, "cpu")
+        return bv.build_rs_index()
+    if kind == "big_nb":
+        n = 30_000
+        ids = np.arange(n) * BPB + rng.integers(0, BPB, n)
+        return tbm.BitVector.from_indices(ids, n * BPB, strategy=C.BM_GAP,
+                                          device="cpu").build_rs_index()
+    if kind == "many_runs":
+        levels = tbm.config.gap_levels
+        try:
+            tbm.config.gap_levels = (128, 256, 512, BPB + 8)
+            words = np.full((8, 2048), 0x55555555, np.uint32)
+            words[3] = rng.integers(0, 2**32, 2048, dtype=np.uint64)
+            bv = tbm.BitVector.from_words(words.ravel(), device="cpu")
+            bv.optimize()
+        finally:
+            tbm.config.gap_levels = levels
+        return bv.build_rs_index()
+    return _index_of(kind)
+
+
+def _pool_rank(pool, wrk, wave, bit):
+    """rs_select.cu pool_rank: the wave's wrk entry (the ones before it,
+    its sector prefix) and the masked popcount of the one sector holding
+    the bit."""
+    k, wi = bit >> 8, (bit >> 5) & 7
+    sec = pool.reshape(-1, 32)[wave, 8 * k:8 * k + 8].astype(np.int64)
+    before, e = (int(x) for x in wrk[wave])
+    n = 0 if k == 0 else (e >> (10 * (k - 1))) & 1023
+    n += int(np.bitwise_count(sec[:wi]).sum())
+    n += bin(int(sec[wi]) & ((2 << (bit & 31)) - 1)).count("1")
+    return before + n
+
+
+def _kernel_rs_rank(rs, ids):
+    """rs_select.cu rs_rank_kernel over ``rs``'s tables, step for step,
+    with the staging plan its launch gets (cuda_kernels._rank_staging)."""
+    t = rs._rank_tables()
+    nb = rs._nb_dev.numpy()
+    ec = rs._gap_runs()[0].numpy().astype(np.int64)
+    rec, ges = t.rec.numpy(), t.ges.numpy().astype(np.int64)
+    pool = rs.pool.numpy().view(np.uint32)
+    wrk = t.wrk.numpy()
+    m, R = nb.size, ec.shape[0]
+    S, _, stage_ges, _ = ck._rank_staging(m, R)
+    smp = nb[np.minimum(np.arange(-(-m // S)) * S + S - 1, m - 1)]
+    out = []
+    for q in ids.tolist():
+        blk, bit = q >> 16, q & 0xFFFF
+        J = int(np.searchsorted(smp, blk, side="right"))
+        if J == smp.size:
+            s = m
+        else:
+            lo, hi = J * S, min(J * S + S - 1, m - 1)
+            s = lo + int(np.searchsorted(nb[lo:hi], blk, side="right"))
+        x, word = int(rec[s, 0]), int(rec[s, 1])
+        route, pay = word & 3, word >> 2
+        b0 = int(nb[s - 1]) if s else 0
+        if s == 0 or (blk >= pay if route == tsel.ROUTE_FULL
+                      else blk != b0):
+            out.append(int(rec[s + 1, 0]))
+            continue
+        if route == tsel.ROUTE_FULL:
+            x += q - (b0 << 16) + 1
+        elif route == tsel.ROUTE_GAP:
+            lo = pay & 0x7FFFFFFF
+            hi = lo + ((pay >> 31) & 0x1FFFF)
+            if stage_ges:
+                jlo, jhi = lo >> 3, hi >> 3
+                w = 8 * (jlo + int(np.searchsorted(ges[jlo:jhi], bit)))
+                s0, s1 = max(w, lo), min(w + 8, hi)
+                r = s0 + int((ec[s0:s1, 0] < bit).sum())
+                assert r < s1
+            else:
+                r = lo + int(np.searchsorted(ec[lo:hi - 1, 0], bit))
+            end, ones = ec[r]
+            x += ones - (end - bit) if ((pay >> 48) ^ (r - lo)) & 1 else ones
+        elif route == tsel.ROUTE_BIT:
+            wave = (pay & (2**30 - 1)) * 64 + (bit >> 10)
+            x += _pool_rank(pool, wrk, wave, bit & 1023) - (pay >> 30)
+        out.append(x)
+    return np.asarray(out, np.int64)
+
+
+def _rank_ids(rs, rng, n=3000):
+    """Ids at every segment's edges, in zero blocks, past the vector, at
+    2^31 + bits and negative, then uniform ones."""
+    nb = rs.nb.astype(np.int64)
+    end = nb + rs.span
+    size = rs.size
+    edges = np.concatenate([nb << 16, (nb << 16) + 1, (end << 16) - 1,
+                            end << 16, [-1, -(2**40), 0, size - 1, size,
+                                        size + 5, 2**31 + 7, 2**40]])
+    return np.concatenate([edges, rng.integers(0, size, n)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["edge", "mix", "cell", "big_nb",
+                                  "many_runs", "full_only", "gap_only",
+                                  "bit_only"])
+def test_rank_tables_match_their_searches(kind):
+    rs = _rank_index(kind)
+    seg = rs._seg.numpy()
+    ec = rs._gap_runs()[0].numpy()
+    t = rs._rank_tables()
+    assert t is rs._rank_tables()
+    rec, ges = t.rec.numpy(), t.ges.numpy()
+    assert rec.shape == (seg.shape[0] + 1, 2)
+    gwc = rs.gwc.numpy()
+    np.testing.assert_array_equal(t.wrk.numpy(), np.stack(
+        [np.concatenate([[0], gwc[:-1]])[:gwc.size],
+         rs._select_tables().wsp.numpy()], 1).reshape(-1, 2))
+    np.testing.assert_array_equal(rec[:-1, 0], seg[:, tsel.CB])
+    assert rec[-1, 0] == rs.total and rec[-1, 1] == 0 and rec[0, 1] == 0
+    np.testing.assert_array_equal(ges, ec[7::8, 0])
+    route, pay = rec[:-1, 1] & 3, rec[:-1, 1] >> 2
+    cls = seg[:, tsel.CLS]
+    np.testing.assert_array_equal(
+        route, np.select([cls == C.CLS_FULL, (cls == C.CLS_BIT)
+                          & (rs.gwc.numel() > 0), (cls == C.CLS_GAP)
+                          & (ec.shape[0] > 0)], [1, 2, 3], 0))
+    full, bit, gap = route == 1, route == 2, route == 3
+    np.testing.assert_array_equal(pay[full], seg[full, tsel.END])
+    np.testing.assert_array_equal(pay[bit] & (2**30 - 1),
+                                  seg[bit, tsel.SLOT])
+    np.testing.assert_array_equal(pay[bit] >> 30, seg[bit, tsel.BEFORE])
+    first = pay[gap] & 0x7FFFFFFF
+    np.testing.assert_array_equal(first, seg[gap, tsel.GOFFS])
+    n_runs = (pay[gap] >> 31) & 0x1FFFF
+    np.testing.assert_array_equal(first + n_runs, np.append(
+        first[1:], ec.shape[0]) if first.size else first)
+    np.testing.assert_array_equal((pay[gap] >> 48) & 1,
+                                  (ec[first, 1] > 0).astype(np.int64)
+                                  if first.size else first)
+    assert ((pay[~(full | bit | gap)]) == 0).all()
+    # the kernel's steps, under its staging plan, against the plain version
+    rng = np.random.default_rng(24)
+    ids = _rank_ids(rs, rng)
+    want = tsel.rs_rank(rs._seg, rs._nb_dev, rs._gap_runs(), rs.pool,
+                        rs.gwc, torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(_kernel_rs_rank(rs, ids), want)
+    np.testing.assert_array_equal(rs.rank_batch(ids), want)
+    plan = ck._rank_staging(len(rs.nb), ec.shape[0])
+    if kind == "big_nb":
+        assert plan[0] > 1 and rs.pool.shape[0] == 0
+    if kind == "many_runs":
+        assert plan[2] == 0 and ec.shape[0] > 400_000
+
+
+@pytest.mark.parametrize("variant", ["all", "no_gap", "no_bit"])
+def test_rank_kernel_steps_match_jax(variant):
+    """The rs_rank kernel's steps (mirrored) on rs_edge_vector, and the
+    rank_flat kernel's over its pool, against the JAX RSIndex and
+    _rank_in_rows."""
+    parts = {"gap": variant != "no_gap", "bit": variant != "no_bit"}
+    jr = rs_edge_vector(jbm, **parts).build_rs_index()
+    tr = rs_edge_vector(tbm, "cpu", **parts).build_rs_index()
+    rng = np.random.default_rng(25)
+    ids = _rank_ids(tr, rng)
+    np.testing.assert_array_equal(_kernel_rs_rank(tr, ids),
+                                  jr.rank_batch(ids))
+    if not tr.pool.shape[0]:
+        return
+    words = tr.pool.numpy().view(np.uint32)
+    slots = rng.integers(0, words.shape[0], 2000).astype(np.int32)
+    bits = rng.integers(0, BPB, 2000).astype(np.int32)
+    want = np.asarray(jrs._rank_in_rows(jnp.asarray(words),
+                                        jnp.asarray(slots),
+                                        jnp.asarray(bits)))
+    before = np.concatenate([[0], np.cumsum(np.bitwise_count(words).sum(
+        1, dtype=np.int64))])[slots]
+    wrk = tsel.flat_rank_tables(tr.gwc, tsel.wave_sectors(tr.pool)).wrk
+    rel = slots.astype(np.int64) * BPB + bits
+    got = [_pool_rank(words, wrk.numpy(), r >> 10, r & 1023) for r in rel]
+    np.testing.assert_array_equal(got, before + want)
+
+
+def test_sharded_rank_flat_steps_match_jax(jmesh):
+    """The rank_flat kernel's step (mirrored) per shard of an 8-shard
+    ShardedRSIndex over its flat tables against the JAX ShardedRSIndex."""
+    rng = np.random.default_rng(26)
+    size = 16 * BPB + 333
+    ids = np.unique(np.concatenate([rng.integers(0, 4 * BPB, 30_000),
+                                    rng.integers(9 * BPB, 10 * BPB, 50),
+                                    [size - 1]])).astype(np.int64)
+    ji = jsh.ShardedBitVector.from_indices(ids, size, jmesh).build_rs_index()
+    ti = tsh.ShardedBitVector.from_indices(
+        ids, size, Mesh(["cpu"] * 8)).build_rs_index()
+    qs = np.concatenate([[0, size - 1, 5 * BPB, 9 * BPB], ids[:100],
+                         rng.integers(0, size, 2000)])
+    tgt = qs // ti.shard_span
+    got = []
+    for q, i in zip(qs.tolist(), tgt.tolist()):
+        rel = q - i * ti.shard_span
+        pool = ti.sbv.shards[i].numpy().view(np.uint32)
+        got.append(int(ti.before[i]) + _pool_rank(
+            pool, ti.rank_tables(i).wrk.numpy(), rel >> 10, rel & 1023))
+    np.testing.assert_array_equal(got, ji.rank_batch(qs))
+
+
+@pytest.mark.parametrize("shape", ["cell", "wide", "big_nb", "many_runs"])
+def test_rank_staging_plan(shape):
+    """The staging plan of an rs_rank launch over m segments and R D-GAP
+    runs: nb whole, or as a sample that fits RS_CUM_SAMPLE_BYTES when it
+    is past the budget; then rec and ges, each staged while the budget
+    lasts."""
+    m, R = {"cell": (1536, 98_000), "wide": (26_100, 600_000),
+            "big_nb": (30_000, 60_000), "many_runs": (8, 458_752)}[shape]
+    budget = ck.RS_STAGE_BYTES
+    stride, s_rec, s_ges, used = ck._rank_staging(m, R)
+    nb = ck._r16(8 * -(-m // stride))
+    assert (stride == 1) == (ck._r16(8 * m) <= budget)
+    assert stride == 1 or nb <= ck.RS_CUM_SAMPLE_BYTES
+    sizes = [ck._r16(16 * (m + 2)), ck._r16(4 * (R // 8))]
+    assert used == nb + s_rec * sizes[0] + s_ges * sizes[1] <= budget
+    expect = {"cell": (1, 1, 1), "wide": (7, 0, 0), "big_nb": (8, 0, 1),
+              "many_runs": (1, 1, 0)}[shape]
+    assert (stride, s_rec, s_ges) == expect

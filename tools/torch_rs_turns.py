@@ -24,15 +24,18 @@ route: the step of cell ``bvsetalgebra_rank_select`` (``bench_torch.py``,
     so a change in the set operations that follow one route's batches
     shows beside the batches' own.
 
-kernels (``--kernels PARENT``, instead of the two above): rs_select and
-    select_flat at ``chip_smoke.rs_timings``' shape (a vector drawn as the
-    cell's A, 1M uniform ranks) against the versions of the commit
-    unpacked at PARENT (its ``rs_select.cu``, built by
-    ``torch_gather_turns.build_old`` and called through its C interface),
-    parent, new, new, parent; then, per batch size from 1 to 1M, the
-    parent's and the new one.  Medians of 25 runs between CUDA events, L2
-    evicted before each (``chip_smoke.time_ms``); every answer must equal
-    the plain version's.
+kernels (``--kernels PARENT``, instead of the two above): rs_select,
+    select_flat, rs_rank and rank_flat at ``chip_smoke.rs_timings``' shape
+    (a vector drawn as the cell's A, 1M uniform ranks, ids and pool
+    offsets) against the versions of the commit unpacked at PARENT (its
+    ``rs_select.cu``, built by ``torch_gather_turns.build_old`` and called
+    through its C interface: the select kernels' as this tree's, the rank
+    kernels' ``bm_rs_rank(seg, nb, n_seg, runs, key_end, n_runs, pool,
+    gwc, n_waves, ids, n, out, stream)`` and ``bm_rank_flat(pool, gwc,
+    n_waves, rel, n, out, stream)``), parent, new, new, parent; then, per
+    batch size from 1 to 1M, the parent's and the new one.  Medians of 25
+    runs between CUDA events, L2 evicted before each
+    (``chip_smoke.time_ms``); every answer must equal the plain version's.
 
 Prints one JSON line per measurement, then the card's name and power
 limit.
@@ -73,7 +76,6 @@ class Answers:
 
     def on_card(self, what, route):
         rs, runs = self.rs, self.runs
-        mod = plain if route == "plain" else ck
         if what == "select" and route == "plain":
             return lambda q: plain.rs_select(rs._seg, rs._cum0_dev, runs,
                                              rs.pool, rs.gwc, q, rs.total)
@@ -82,8 +84,12 @@ class Answers:
             return lambda q: ck.rs_select(rs._seg, rs._cum0_dev, runs,
                                           rs.pool, rs.gwc, q, rs.total,
                                           tables)
-        return lambda q: mod.rs_rank(rs._seg, rs._nb_dev, runs, rs.pool,
-                                     rs.gwc, q)
+        if route == "plain":
+            return lambda q: plain.rs_rank(rs._seg, rs._nb_dev, runs,
+                                           rs.pool, rs.gwc, q)
+        tables = rs._rank_tables()
+        return lambda q: ck.rs_rank(rs._seg, rs._nb_dev, runs, rs.pool,
+                                    rs.gwc, q, tables)
 
     def batch(self, what, route):
         """The host-to-host batch function of ``route``."""
@@ -164,81 +170,111 @@ BATCHES = (1, 64, 1024, 4096, 16384, 65536, 262144, 1_000_000)
 
 def kernel_turns(parent, dev):
     """The ``kernels`` measurement's JSON lines (module docstring)."""
-    import ctypes
-
     import chip_smoke as cs
     import bitmagic_tpu_torch as tbm
     from torch_gather_turns import VP, INT, LL, build_old, log_new_build
     log_new_build()
     lib = build_old(os.path.join(parent, "bitmagic_tpu_torch", "ops",
                                  "csrc"), ("rs_select.cu",))["rs_select.cu"]
-    old_sel, old_flat = lib.bm_rs_select, lib.bm_select_flat
-    old_sel.argtypes = [VP, LL, VP, VP, VP, LL, VP, VP, LL, VP, LL, LL, VP,
-                        VP]
-    old_flat.argtypes = [VP, VP, LL, VP, LL, VP, VP]
-    old_sel.restype = old_flat.restype = INT
+    old = {name: getattr(lib, name) for name in
+           ("bm_rs_select", "bm_select_flat", "bm_rs_rank", "bm_rank_flat")}
+    for name in ("bm_rs_select", "bm_select_flat"):
+        old[name].argtypes = ck._SIGNATURES[name][1]
+    old["bm_rs_rank"].argtypes = [VP, VP, LL, VP, VP, LL, VP, VP, LL, VP,
+                                  LL, VP, VP]
+    old["bm_rank_flat"].argtypes = [VP, VP, LL, VP, LL, VP, VP]
+    for f in old.values():
+        f.restype = INT
     rng = np.random.default_rng(cs.SEED + 21)
     v, _ = cs.rs_cell_vector(tbm, rng, dev)
     rs = v.build_rs_index()
     runs, tables = rs._gap_runs(), rs._select_tables()
+    rtables = rs._rank_tables()
+    ftables = plain.flat_tables(rs.pool, rs.gwc)
+    frank = plain.flat_rank_tables(rs.gwc, ftables.wsp)
     sargs = (rs._seg, rs._cum0_dev, runs, rs.pool, rs.gwc)
+    rargs = (rs._seg, rs._nb_dev, runs, rs.pool, rs.gwc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     flush = torch.empty(128 * 2**20, dtype=torch.int32, device=dev)
     card = bt.card_line()
+    p = lambda t: t.data_ptr()  # noqa: E731
+    W, R = rs.gwc.shape[0], runs[0].shape[0]
 
-    def parent_select(q):
-        out = torch.empty_like(q)
-        err = old_sel(rs._seg.data_ptr(), rs._seg.shape[0],
-                      rs._cum0_dev.data_ptr(), runs[0].data_ptr(),
-                      runs[2].data_ptr(), runs[0].shape[0],
-                      rs.pool.data_ptr(), rs.gwc.data_ptr(),
-                      rs.gwc.shape[0], q.data_ptr(), q.shape[0], rs.total,
-                      out.data_ptr(), stream)
-        cs.check(err == 0, f"parent rs_select: CUDA error {err}")
+    def parent(name, out_n, *args):
+        out = torch.empty(out_n, dtype=torch.int64, device=dev)
+        err = old[name](*args[:-1], p(out), *args[-1], stream)
+        cs.check(err == 0, f"parent {name}: CUDA error {err}")
         return out
 
-    def parent_flat(g):
-        out = torch.empty(g.shape[0], dtype=torch.int64, device=dev)
-        err = old_flat(rs.pool.data_ptr(), rs.gwc.data_ptr(),
-                       rs.gwc.shape[0], g.data_ptr(), g.shape[0],
-                       out.data_ptr(), stream)
-        cs.check(err == 0, f"parent select_flat: CUDA error {err}")
-        return out
+    new = {"rs_select": lambda q: ck.rs_select(*sargs, q, rs.total, tables),
+           "select_flat": lambda g: ck.select_flat(rs.pool, rs.gwc, g,
+                                                   ftables),
+           "rs_rank": lambda i: ck.rs_rank(*rargs, i, rtables),
+           "rank_flat": lambda r: ck.rank_flat(rs.pool, rs.gwc, r, frank)}
+    for fn, q in zip(new.values(), (torch.ones(1, dtype=torch.int64,
+                                               device=dev),
+                                    torch.ones(1, dtype=torch.int32,
+                                               device=dev),
+                                    torch.zeros(1, dtype=torch.int64,
+                                                device=dev),
+                                    torch.zeros(1, dtype=torch.int64,
+                                                device=dev))):
+        fn(q)                   # each tables object's staging plan, set
+    olds = {
+        "rs_select": lambda q: parent(
+            "bm_rs_select", q.shape[0], p(rs._cum0_dev), rs._seg.shape[0],
+            p(tables.sel), p(runs[0]), p(tables.gcs), R, p(rs.pool),
+            p(rs.gwc), p(tables.gws), p(tables.wsp), W, p(q), q.shape[0],
+            rs.total, tables.staging[1]),
+        "select_flat": lambda g: parent(
+            "bm_select_flat", g.shape[0], p(rs.pool), p(rs.gwc),
+            p(ftables.gws), p(ftables.wsp), W, p(g), g.shape[0],
+            ftables.staging[1]),
+        "rs_rank": lambda i: parent(
+            "bm_rs_rank", i.shape[0], p(rs._seg), p(rs._nb_dev),
+            rs._nb_dev.shape[0], p(runs[0]), p(runs[1]), R, p(rs.pool),
+            p(rs.gwc), W, p(i), i.shape[0], ()),
+        "rank_flat": lambda r: parent(
+            "bm_rank_flat", r.shape[0], p(rs.pool), p(rs.gwc), W, p(r),
+            r.shape[0], ())}
+    plain_of = {"rs_select": lambda q: plain.rs_select(*sargs, q, rs.total),
+                "select_flat": lambda g: plain.select_flat(rs.pool, rs.gwc,
+                                                           g),
+                "rs_rank": lambda i: plain.rs_rank(*rargs, i),
+                "rank_flat": lambda r: plain.rank_flat(rs.pool, rs.gwc, r)}
 
-    sel = {"parent": parent_select,
-           "new": lambda q: ck.rs_select(*sargs, q, rs.total, tables)}
-    ftables = plain.flat_tables(rs.pool, rs.gwc)
-    flat = {"parent": parent_flat,
-            "new": lambda g: ck.select_flat(rs.pool, rs.gwc, g, ftables)}
-    plain_of = {id(sel): lambda q: plain.rs_select(*sargs, q, rs.total),
-                id(flat): lambda g: plain.select_flat(rs.pool, rs.gwc, g)}
+    def queries(what, n):
+        if what == "rs_select":
+            x = rng.integers(1, rs.total + 1, n)
+        elif what == "select_flat":
+            x = rng.integers(1, int(rs.gwc[-1]) + 1, n).astype(np.int32)
+        elif what == "rs_rank":
+            x = rng.integers(0, v.size, n)
+        else:
+            x = rng.integers(0, rs.pool.shape[0] * cs.BPB, n)
+        return torch.from_numpy(x).to(dev)
 
-    def queries(fns, n):
-        if fns is sel:
-            return torch.from_numpy(rng.integers(1, rs.total + 1, n)).to(dev)
-        return torch.from_numpy(rng.integers(
-            1, int(rs.gwc[-1]) + 1, n).astype(np.int32)).to(dev)
-
-    def timed(fns, q, name):
-        got = fns[name](q)
+    def timed(what, q, name):
+        fn = (olds if name == "parent" else new)[what]
+        got = fn(q)
         torch.cuda.synchronize()
-        cs.check(torch.equal(got, plain_of[id(fns)](q)),
-                 f"{name} equals the plain version")
-        return cs.time_ms(lambda: fns[name](q), flush)
+        cs.check(torch.equal(got, plain_of[what](q)),
+                 f"{name} {what} equals the plain version")
+        return cs.time_ms(lambda: fn(q), flush)
 
     lines = []
-    for what, fns in (("rs_select", sel), ("select_flat", flat)):
-        q = queries(fns, cs.N_QUERIES)
+    for what in new:
+        q = queries(what, cs.N_QUERIES)
         ms = {"parent": [], "new": []}
         for name in ("parent", "new", "new", "parent"):
-            ms[name].append(timed(fns, q, name))
+            ms[name].append(timed(what, q, name))
         lines.append({"measure": "turns", "kernel": what,
                       "queries": cs.N_QUERIES, "ms": ms, "card": card})
         for n in BATCHES:
-            q = queries(fns, n)
+            q = queries(what, n)
             lines.append({"measure": "batch", "kernel": what, "queries": n,
-                          "ms": {"parent": timed(fns, q, "parent"),
-                                 "new": timed(fns, q, "new")},
+                          "ms": {"parent": timed(what, q, "parent"),
+                                 "new": timed(what, q, "new")},
                           "card": card})
     return lines
 

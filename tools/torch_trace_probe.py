@@ -23,8 +23,10 @@ own traces, which chip_smoke logs).  Arms:
                      vector (``chip_smoke.rs_cell_vector``)
     sv_phase         ``chip_smoke.sv_phase`` as the full run runs it just
                      before the descent phase's traces
-    descent_phase    ``chip_smoke.descent_phase`` (its own traces of
-                     ``find_gt`` are the full run's empty ones)
+    descent_phase    ``chip_smoke.find_gt_trace`` then
+                     ``chip_smoke.descent_phase``, which checks that
+                     trace (where the full run took its empty ones until
+                     the scan path took it)
     sv_then_descent  the two phases in the full run's order
     sessions         300 profiler sessions of the tiny op (how many of
                      them came back empty is reported as ``arm_empty``)
@@ -76,6 +78,14 @@ PREFIX = {"kernels_prefix": ("kernels", "sv", "descent"),
           "main_serial_nosv": ("main", "serial", "descent")}
 
 
+def descent(tbm, device, card, sv, vals, nm):
+    """The descent phase on config 4b's column ``sv``, with the trace of
+    its ``find_gt`` taken just before it."""
+    import chip_smoke as cs
+    cs.descent_phase(tbm, device, card, sv, vals, nm,
+                     cs.find_gt_trace(tbm, sv))
+
+
 def run_arm(arm, tries):
     """One arm in this interpreter (its root first on sys.path) -> the
     counts of empty traces."""
@@ -109,7 +119,7 @@ def run_arm(arm, tries):
     elif arm in ("sv_phase", "sv_then_descent"):
         cs.sv_phase(tbm, device, card, sv, vals, nm)
     if arm in ("descent_phase", "sv_then_descent"):
-        cs.descent_phase(tbm, device, card, sv, vals, nm)
+        descent(tbm, device, card, sv, vals, nm)
     elif arm == "sessions":
         arm_empty = sum(not cs.device_kernels(lambda: (x * 3).sum())
                         for _ in range(300))
@@ -127,7 +137,7 @@ def run_arm(arm, tries):
             cs.sv_phase(tbm, device, card, sv, vals, nm)
         else:
             try:
-                cs.descent_phase(tbm, device, card, sv, vals, nm)
+                descent(tbm, device, card, sv, vals, nm)
             except AssertionError as e:       # reported, then traced on
                 phase_error = str(e)
     torch.cuda.synchronize()
