@@ -34,7 +34,7 @@ from ..ops import blockops
 from ..ops import cuda_kernels as ck
 from ..ops.bitops import popcount, u32_to_i32
 from ..ops.blockops import full_block_np, to_device_words
-from .blocks import (RUN_MIN, Structure, descriptor_pair,
+from .blocks import (RUN_MIN, Structure, descent_codes, descriptor_pair,
                      operand_args, plan_binary, plane_table, points_in_runs,
                      runs_clip, runs_diff, runs_intersect, runs_normalize,
                      runs_overlap_bits, runs_subtract_points, runs_union,
@@ -1740,7 +1740,7 @@ def descent(table, uni: BitVector, steps, want_eq=True):
     blocks = np.union1d(table.blocks, ust.nb)
     if blocks.size:
         gt_rows, _, eq_rows, _, cls = ck.sv_descent(
-            table, *descent_args(uni, steps, blocks), want_eq)
+            table, *descent_args(table, uni, steps, blocks), want_eq)
         cls = cls.cpu().numpy().reshape(2, -1)
     else:                      # FULL runs only: nothing for the kernel
         gt_rows = eq_rows = blockops.zero_pool(0, dev)
@@ -1751,14 +1751,22 @@ def descent(table, uni: BitVector, steps, want_eq=True):
     return gt, _descent_result(blocks, cls[1], eq_rows, eq_runs, uni._size)
 
 
-def descent_args(uni: BitVector, steps, blocks):
-    """sv_descent's arguments after the column's plane table: the
-    universe's one-plane table, the block ids (uploaded with it), the
-    steps' table rows and the value's bits (bit i: step i's)."""
+def descent_args(table, uni: BitVector, steps, blocks):
+    """sv_descent's arguments after the column's plane table ``table``:
+    the universe's one-plane table, the walked blocks' entry codes
+    int32[K, len(steps) + 1] (``blocks.descent_codes`` of the sorted
+    block ids ``blocks``, uploaded with the universe's table), the steps'
+    table rows and the value's bits (bit i: step i's)."""
+    rows = [r for r, _, _ in steps]
+    codes = descent_codes(table, rows, uni._struct, blocks)
+    words = np.concatenate([codes.ravel(), np.zeros(codes.size % 2,
+                                                    np.int32)])
     utable = plane_table([(-1, uni._struct, uni._pool, uni._gaps)],
-                         uni._device, blocks)
+                         uni._device, words.view(np.int64))
     bits = sum(bit << i for i, (_, bit, _) in enumerate(steps))
-    return utable, utable.extra, [r for r, _, _ in steps], bits
+    dev_codes = utable.extra.view(torch.int32)[:codes.size].view(
+        codes.shape)
+    return utable, dev_codes, rows, bits
 
 
 def _descent_result(blocks, cls, rows, runs, size) -> BitVector:

@@ -29,7 +29,7 @@ import torch
 
 from ..constants import CLS_BIT, CLS_FULL, CLS_GAP, SET_BLOCK_SIZE
 from ..ops import cuda_kernels as ck
-from ..ops.blockops import (DIR_ZERO, PLANE_COLS, PlaneTable,
+from ..ops.blockops import (DIR_RUN, DIR_ZERO, PLANE_COLS, PlaneTable,
                             gather_rows)
 
 # symbolic per-block operand state used during planning
@@ -488,11 +488,12 @@ def operand_args_pair(a, b, blocklist: np.ndarray):
 
 
 def plane_directory(nbs, ents, runs):
-    """The block directory of planes given by their sorted block ids
+    """The host block directory of planes given by their sorted block ids
     ``nbs``, entry codes ``ents`` and FULL runs ``runs`` (int64[k, 2]
     each): the sorted breakpoints and int32[breakpoints + 1, P], row ``r``
     holding every plane's code for the blocks with ``r`` breakpoints at or
-    below them (``blockops.PlaneTable``)."""
+    below them (``blockops.PlaneTable``), ``DIR_RUN`` inside a FULL run
+    (the device directory writes -1 there, as for a FULL entry)."""
     P = len(nbs)
     pts = np.unique(np.concatenate(
         [np.zeros(0, np.int64)] + [x for nb in nbs for x in (nb, nb + 1)]
@@ -504,9 +505,49 @@ def plane_directory(nbs, ents, runs):
             cover = np.zeros(rows + 1, np.int64)
             np.add.at(cover, np.searchsorted(pts, runs[p][:, 0]) + 1, 1)
             np.add.at(cover, np.searchsorted(pts, runs[p][:, 1]) + 1, -1)
-            d[np.cumsum(cover)[:rows] > 0, p] = -1
+            d[np.cumsum(cover)[:rows] > 0, p] = DIR_RUN
         d[np.searchsorted(pts, nbs[p]) + 1, p] = ents[p]
     return pts, d
+
+
+def entry_codes(st: Structure) -> np.ndarray:
+    """int32 entry code of each of a structure's blocks ``st.nb``: its
+    pool row (BIT), -1 (FULL) or -2 - g (D-GAP block g of its store)."""
+    ent = np.where(st.cls == CLS_BIT, st.slots(), -1)
+    return np.where(st.cls == CLS_GAP, -2 - st.gslots(), ent).astype(
+        np.int32)
+
+
+def block_codes(st: Structure, blocks) -> np.ndarray:
+    """int32 code of one plane at the sorted block ids ``blocks`` by
+    searches of its block ids and FULL runs: its entry code
+    (``entry_codes``), ``DIR_RUN`` inside a FULL run, else ``DIR_ZERO``."""
+    blocks = np.asarray(blocks, np.int64)
+    code = np.full(blocks.shape, DIR_ZERO, np.int32)
+    runs = st.runs.reshape(-1, 2)
+    if runs.shape[0]:               # the last run starting at or before
+        k = np.searchsorted(runs[:, 0], blocks, side="right") - 1
+        code[(k >= 0) & (blocks < runs[np.maximum(k, 0), 1])] = DIR_RUN
+    if st.nb.size:
+        pos = np.minimum(np.searchsorted(st.nb, blocks), st.nb.size - 1)
+        hit = st.nb[pos] == blocks
+        code[hit] = entry_codes(st)[pos[hit]]
+    return code
+
+
+def descent_codes(table: PlaneTable, rows, uni: Structure, blocks):
+    """sv_descent's codes of the walked blocks ``blocks`` (sorted ids):
+    int32[K, len(rows) + 1], column i the code of the column's plane of
+    table row ``rows[i]`` (from the host directory: one search for every
+    plane) and the last column the universe's (``block_codes``).  A code
+    is a pool row (BIT), -1 (a FULL entry), ``DIR_RUN`` (inside a FULL
+    run), -2 - g (D-GAP block g) or ``DIR_ZERO``."""
+    blocks = np.asarray(blocks, np.int64)
+    codes = np.empty((blocks.size, len(rows) + 1), np.int32)
+    r = np.searchsorted(table.host_bps, blocks, side="right")
+    codes[:, :-1] = table.host_dir.take(r, axis=0).take(rows, axis=1)
+    codes[:, -1] = block_codes(uni, blocks)
+    return codes
 
 
 def plane_table(planes, device, extra=None) -> PlaneTable:
@@ -526,10 +567,8 @@ def plane_table(planes, device, extra=None) -> PlaneTable:
                                                  and store is None):
             raise ValueError("plane_table: structure and storage disagree")
         mirror = store.device_arrays(device) if store is not None else None
-        ent = np.where(is_bit, st.slots(), -1)
-        ent = np.where(is_gap, -2 - st.gslots(), ent)
         nbs.append(st.nb)
-        ents.append(ent.astype(np.int32))
+        ents.append(entry_codes(st))
         runs.append(st.runs.reshape(-1, 2))
         pools.append(pool)
         gaps.append(mirror)
@@ -539,7 +578,8 @@ def plane_table(planes, device, extra=None) -> PlaneTable:
                    pool.data_ptr(), *gap_ptrs, bit)
         nb_off += st.nb.size
         run_off += st.runs.shape[0]
-    pts, dirs = plane_directory(nbs, ents, runs)
+    pts, host_dir = plane_directory(nbs, ents, runs)
+    dirs = np.where(host_dir == DIR_RUN, np.int32(-1), host_dir)
 
     def words(a):                   # int32 -> int64 words, zero padded
         return np.concatenate([a.ravel(), np.zeros(a.size % 2, np.int32)]
@@ -566,4 +606,5 @@ def plane_table(planes, device, extra=None) -> PlaneTable:
         blocks=np.unique(np.concatenate([np.zeros(0, np.int64), *nbs])),
         bps=buf[at[4]:at[5]], dir=int32s(5, dirs.size).view(pts.size + 1, P),
         bit_rows=int((dirs >= 0).any(axis=1).sum()) if P else 0,
+        host_bps=pts, host_dir=host_dir,
         extra=buf[at[6]:at[7]] if extra.size else None)

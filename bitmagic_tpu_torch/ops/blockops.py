@@ -568,6 +568,9 @@ PLANE_COLS = ("nb_off", "nb_len", "run_off", "run_len", "pool", "ends",
 # the block directory's code of a plane with no bit in an interval (its
 # other codes are ``ent``'s: pool row >= 0, -1 FULL, -2 - g D-GAP block g)
 DIR_ZERO = -(1 << 31)
+# the host directory's code of a block inside a FULL run, which the device
+# directory writes as -1 like a FULL entry (the descent tells them apart)
+DIR_RUN = DIR_ZERO + 1
 
 
 @dataclasses.dataclass
@@ -591,7 +594,10 @@ class PlaneTable:
     (int32[B + 1, P]) holds every plane's entry code for the blocks ``b``
     with ``r`` breakpoints at or below ``b`` (row 0: before the first;
     ``DIR_ZERO`` where the plane has no bit there, -1 inside a FULL run).
-    ``bit_rows`` counts the rows with a BIT entry."""
+    ``bit_rows`` counts the rows with a BIT entry.  ``host_bps`` and
+    ``host_dir`` are the directory on the host, with ``DIR_RUN`` where
+    ``dir`` has -1 for a block inside a FULL run (a FULL entry stays -1):
+    ``core/blocks.descent_codes`` reads them."""
     meta: np.ndarray
     table: torch.Tensor
     nb: torch.Tensor
@@ -603,6 +609,8 @@ class PlaneTable:
     bps: torch.Tensor
     dir: torch.Tensor
     bit_rows: int
+    host_bps: np.ndarray
+    host_dir: np.ndarray
     extra: torch.Tensor | None = None
 
 
@@ -693,25 +701,17 @@ GAP_MERGE_MAX_RUNS = 4096
 _DESCENT_OPS = {"and": and_blocks, "or": or_blocks, "sub": sub_blocks}
 
 
-def _descent_operand(t: PlaneTable, p, blocks):
-    """Plane ``p`` of a plane table at the sorted block ids ``blocks``:
+def _descent_operand(t: PlaneTable, p, code):
+    """Plane ``p`` of a plane table at the walked blocks whose entry
+    codes in it are ``code`` int32[K] (``core/blocks.descent_codes``):
     ``(class int64[K], rows int32[K, 2048], runs int64[K])``, the run
     count of its D-GAP blocks."""
-    o, n, ro, rn = (int(x) for x in t.meta[p, :4])
-    dev, k = blocks.device, blocks.shape[0]
-    cls = torch.zeros(k, dtype=_I64, device=dev)
-    idx = torch.zeros(k, dtype=_I64, device=dev)
-    if rn:                          # the last run starting at or before
-        rs = t.runs[ro:ro + rn]
-        i = torch.searchsorted(rs[:, 0].contiguous(), blocks, right=True) - 1
-        cls[(i >= 0) & (blocks < rs[i.clamp(min=0), 1])] = _DR
-    if n:
-        nb = t.nb[o:o + n]
-        pos = torch.searchsorted(nb, blocks).clamp(max=n - 1)
-        e = t.ent[o:o + n][pos].to(_I64)
-        kind = torch.where(e >= 0, _DB, torch.where(e == -1, _DF, _DG))
-        cls = torch.where(nb[pos] == blocks, kind, cls)
-        idx = torch.where(e >= 0, e, -2 - e)
+    code = code.to(_I64)
+    k, dev = code.shape[0], code.device
+    cls = torch.where(code >= 0, _DB, torch.where(
+        code == -1, _DF, torch.where(code == DIR_RUN, _DR, torch.where(
+            code == DIR_ZERO, _DZ, _DG))))
+    idx = torch.where(code >= 0, code, -2 - code)
     rows = zero_pool(k, dev)
     rows[(cls == _DF) | (cls == _DR)] = -1
     bit = cls == _DB
@@ -770,25 +770,26 @@ def _descent_pair(op, a, b):
     return cls, x, runs
 
 
-def sv_descent(table: PlaneTable, utable: PlaneTable, blocks, rows, bits,
+def sv_descent(table: PlaneTable, utable: PlaneTable, codes, rows, bits,
                want_eq=True):
-    """The MSB-first descent over the sorted block ids ``blocks`` int64[K]
-    (plain version of kernel sv_descent): eq starts as the universe (the
-    one plane of ``utable``) and gt empty; step i takes plane ``rows[i]``
-    of ``table`` and bit i of ``bits``, a 1 making ``eq &= p``, a 0
-    ``gt |= eq & p; eq -= p``.  Each step keeps per block the class the
-    port's set operation would give it (``_descent_pair``).  ->
-    ``(gt int32[K, 2048], its digest int32[K, 64], eq, its digest (both
-    None without want_eq), classes uint8[2K]: gt's, then eq's)``."""
-    k = blocks.shape[0]
-    eq = _descent_operand(utable, 0, blocks)
-    gt = (torch.zeros(k, dtype=_I64, device=blocks.device),
-          zero_pool(k, blocks.device),
-          torch.zeros(k, dtype=_I64, device=blocks.device))
+    """The MSB-first descent over K walked blocks given by their entry
+    codes ``codes`` int32[K, len(rows) + 1] (``core/blocks.descent_codes``:
+    column i step i's plane of ``table``, the last the universe's) (plain
+    version of kernel sv_descent): eq starts as the universe (the one
+    plane of ``utable``) and gt empty; step i takes plane ``rows[i]`` of
+    ``table`` and bit i of ``bits``, a 1 making ``eq &= p``, a 0 ``gt |= eq
+    & p; eq -= p``.  Each step keeps per block the class the port's set
+    operation would give it (``_descent_pair``).  -> ``(gt int32[K,
+    2048], its digest int32[K, 64], eq, its digest (both None without
+    want_eq), classes uint8[2K]: gt's, then eq's)``."""
+    k, dev = codes.shape[0], codes.device
+    eq = _descent_operand(utable, 0, codes[:, len(rows)])
+    gt = (torch.zeros(k, dtype=_I64, device=dev), zero_pool(k, dev),
+          torch.zeros(k, dtype=_I64, device=dev))
     for i, r in enumerate(rows):
         if bool((eq[0] == _DZ).all()):    # nothing changes any more
             break
-        p = _descent_operand(table, r, blocks)
+        p = _descent_operand(table, r, codes[:, i])
         if (bits >> i) & 1:
             eq = _descent_pair("and", eq, p)
         else:

@@ -15,44 +15,71 @@
 // sv_descent, the structured form.  The planes arrive as the column's
 // plane table (core/blocks.plane_table, layout in sv_planes.cu), the
 // universe as a one-plane table of the same layout, the steps as table
-// rows with the value's bits, and the blocks to walk as sorted block ids:
-// every block that holds an entry in a plane or in the universe.  Every
-// other block lies in FULL runs or is absent, and the host resolves it by
-// interval algebra.  One CTA of 256 threads walks one block.  It looks up
-// the block's class in every step's plane first (the steps' binary
-// searches in parallel, into shared memory), then keeps gt and eq of its
-// block in registers (two 16-byte vectors a thread) with the class that
-// the port's set operation would give each after every step
-// (core/bitvector._binary, core/blocks.plan_binary): absent, FULL, inside
-// a FULL run, BIT, or D-GAP with its run count.  The classes follow the
-// set operation's rules: the FULL / absent algebra, the D-GAP
-// pass-throughs (FULL & GAP is the GAP block, FULL - GAP its complement,
-// ...), GAP x GAP pairs of at most 4096 runs in all merged (absent when
-// zero, FULL when all ones, else D-GAP), every other pair a BIT row, even
-// a zero one.  A BIT plane row is one coalesced read, a D-GAP block is
-// decoded from its store's mirror as gap_expand does.  A block whose eq
-// becomes absent stops there: no later step changes it.  The kernel
-// writes the block's gt row (and eq's where the caller asks) with its
-// wave digest as K1 does, and both final classes; the host builds the
-// result vectors from them (BIT rows as they are, D-GAP rows re-encoded
-// by gap_compress).
+// rows with the value's bits, and the walked blocks as their entry codes
+// (core/blocks.descent_codes): per block one int32 a step and one for the
+// universe, from the plane table's block directory -- a pool row (BIT),
+// -1 (a FULL entry), kDirRun (inside a FULL run), -2 - g (D-GAP block g)
+// or kDirZero.  The walked blocks are every block that the planes or the
+// universe hold an entry for; every other block lies in FULL runs or is
+// absent, and the host resolves it by interval algebra.  One CTA of 256
+// threads walks one block.  It keeps gt and eq of its block in registers
+// (two 16-byte vectors a thread) with the class that the port's set
+// operation would give each after every step (core/bitvector._binary,
+// core/blocks.plan_binary): absent, FULL, inside a FULL run, BIT, or
+// D-GAP with its run count.  The classes follow the set operation's
+// rules: the FULL / absent algebra, the D-GAP pass-throughs (FULL & GAP
+// is the GAP block, FULL - GAP its complement, ...), GAP x GAP pairs of
+// at most 4096 runs in all merged (absent when zero, FULL when all ones,
+// else D-GAP), every other pair a BIT row, even a zero one.  A D-GAP
+// operand is decoded from its store's mirror, a thread's words by a
+// binary search of the block's ends and a walk.  A block whose eq becomes
+// absent stops there: no later step changes it.  The kernel writes the
+// block's gt row (and eq's where the caller asks) with its wave digest as
+// K1 does, and both final classes; the host builds the result vectors
+// from them (BIT rows as they are, D-GAP rows re-encoded by
+// gap_compress).
 //
 // descent_rows, the dense form: one shard's stack int32[K, n_blocks,
 // 2048] (sharded_sv's layout), the universe a row (ANDed with the sign row
 // or its complement in modes 2 and 1), the steps stack rows (-1: a zero
-// plane).  One CTA per block row.
+// plane).
 //
 // Bound on this card: the bytes, each stepped plane's BIT rows (and D-GAP
-// runs) and the universe's read once, the results written once.  Both
-// kernels issue the loads of the next step's row before the current
-// step's logic, so a CTA keeps two rows in flight.
+// runs) and the universe's read once, the results written once.  What the
+// design does about it:
+// * sv_descent: a block's codes are one load, so a CTA knows every step's
+//   operand after one round trip (the first port searched each plane's
+//   block ids and FULL runs, a chain of ~20 dependent loads, first).  Its
+//   thread 0 then streams the BIT rows, in step order, into a ring of up
+//   to kMaxStages 8 KiB shared-memory stages by cp.async.bulk (TMA), one
+//   mbarrier a stage, refilling a stage as soon as its row is read: up to
+//   32 KiB a CTA in flight, where the first port kept one row (8 stages
+//   measured no faster than 4, 2 hardly slower; PERF.md).  A step
+//   costs few instructions: the block classes of a pair come from a
+//   table, the all-zero / all-ones votes run only for a GAP x GAP merge,
+//   the ring's stage and phase are a mask and a shift.  cell 3's 245
+//   blocks run in one wave.
+// * descent_rows: the descent is elementwise, so a thread owns one
+//   16-byte vector of the shard's rows and loads every step's vector of
+//   it kBatch steps at a time, the next batch's loads issued before this
+//   one's logic (8 measured ahead of 4, 16 and all 32 at once: more
+//   steps in registers cost warps an SM), and CTAs of 64 threads (an
+//   eighth of a row each) fill the card from a 31-row shard (248 CTAs)
+//   up; the first port ran a CTA per row with one row in flight.
 #include "bm_common.cuh"
 
 namespace {
 
 constexpr int kMaxSteps = 64;
+constexpr int kMaxStages = 4;            // sv_descent's ring
+constexpr int kRowBytes = bm::kBlockWords * 4;
+constexpr int kRowsThreads = 64;         // descent_rows' CTAs
+constexpr int kBatch = 8;                // descent_rows' steps a batch
 constexpr int kMergeMaxRuns = 4096;   // core/bitvector._GAP_MERGE_MAX_RUNS
 constexpr unsigned kAll = 0xFFFFFFFFu;
+// entry codes without a row (blockops.DIR_ZERO, blockops.DIR_RUN)
+constexpr int32_t kDirZero = INT32_MIN;
+constexpr int32_t kDirRun = INT32_MIN + 1;
 
 // a block's class (blockops.DESCENT_CLASSES), and kMerge: a GAP x GAP
 // pair whose content decides
@@ -89,40 +116,13 @@ __device__ __forceinline__ uint4 op4(int op, uint4 a, uint4 b) {
   return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
 }
 
-// Class of block ``blk`` in plane ``p`` and its pool row (kBit) or store
-// index (kGap).
-__device__ int2 lookup(const bm::Plane& p, const int64_t* __restrict__ nb,
-                       const int32_t* __restrict__ ent,
-                       const int64_t* __restrict__ runs, int64_t blk) {
-  const int64_t* b = nb + p.nb_off;
-  int64_t lo = 0;
-  int64_t hi = p.nb_len;
-  while (lo < hi) {                      // first entry >= blk
-    const int64_t mid = (lo + hi) >> 1;
-    if (b[mid] < blk) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  if (lo < p.nb_len && b[lo] == blk) {
-    const int32_t e = ent[p.nb_off + lo];
-    if (e >= 0) return make_int2(kBit, e);
-    if (e == -1) return make_int2(kFull, 0);
-    return make_int2(kGap, -2 - e);
-  }
-  const int64_t* rs = runs + 2 * p.run_off;
-  lo = 0;
-  hi = p.run_len;
-  while (lo < hi) {                      // first run starting after blk
-    const int64_t mid = (lo + hi) >> 1;
-    if (rs[2 * mid] <= blk) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return make_int2(lo > 0 && blk < rs[2 * (lo - 1) + 1] ? kRun : kZero, 0);
+// Class of an entry code and its pool row (kBit) or store index (kGap).
+__device__ __forceinline__ int2 decode(int32_t e) {
+  if (e >= 0) return make_int2(kBit, e);
+  if (e == -1) return make_int2(kFull, 0);
+  if (e == kDirRun) return make_int2(kRun, 0);
+  if (e == kDirZero) return make_int2(kZero, 0);
+  return make_int2(kGap, -2 - e);
 }
 
 // Bits lo..hi of a word, 0 <= lo <= hi <= 31.
@@ -131,8 +131,7 @@ __device__ __forceinline__ uint32_t span_mask(int lo, int hi) {
 }
 
 // Words bit0 / 32 .. + 3 of D-GAP block g of the plane's store: the run
-// holding bit0 by a binary search of the block's ends, then a walk
-// (gap_rows.cu gap_expand).
+// holding bit0 by a binary search of the block's ends, then a walk.
 __device__ uint4 gap_vec(const bm::Plane& p, int g, int bit0) {
   const int r0 = __ldg(p.offs + g);
   int lo = r0;
@@ -172,60 +171,129 @@ __device__ uint4 gap_vec(const bm::Plane& p, int g, int bit0) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ const uint4* row_of(const bm::Plane& p, int r) {
-  return reinterpret_cast<const uint4*>(p.pool) +
-         static_cast<size_t>(r) * bm::kBlockVec;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The operand of class ``cls`` (BIT rows come from ``pre``, loaded ahead).
-__device__ __forceinline__ State operand(const bm::Plane& p, int cls,
-                                         int idx,
-                                         const uint4 (&pre)[bm::kVecPerThread]) {
-  State s;
-  s.cls = cls;
-  s.runs = cls == kGap ? __ldg(p.offs + idx + 1) - __ldg(p.offs + idx) : 0;
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(kRowBytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];"
+               :: "r"(dst), "l"(src), "r"(kRowBytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 "
+                 "p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+                 : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// The ring of staged BIT rows of one CTA: copy q (the q-th BIT operand in
+// the order universe, step 0, step 1, ...) lands in stage q % stages and
+// completes phase q / stages of that stage's mbarrier; stages is a power
+// of two (2^shift), so both are a mask and a shift.  Only thread 0
+// issues.
+struct Ring {
+  uint4* rows;                  // stages x kBlockVec vectors
+  uint64_t* bars;
+  int stages;
+  int shift;
+  int n_copies;
+  const int* slot;              // slot (step, or n: the universe) of copy q
+  const bm::Plane* sp;
+  const int* idx;               // pool row of each slot
+
+  __device__ __forceinline__ void issue(int q) const {
+    const int s = slot[q];
+    const int b = q & (stages - 1);
+    bulk_load(smem_addr(rows + b * bm::kBlockVec),
+              sp[s].pool + static_cast<size_t>(idx[s]) * bm::kBlockWords,
+              smem_addr(bars + b));
+  }
+
+  __device__ __forceinline__ void wait(int q) const {
+    bar_wait(smem_addr(bars + (q & (stages - 1))),
+             static_cast<uint32_t>(q >> shift) & 1u);
+  }
+
+  // This thread's vectors of copy q, then the stage refilled with copy
+  // q + stages (the CTA's barrier: every thread has read the stage).
+  __device__ __forceinline__ void take(int q,
+                                       uint4 (&v)[bm::kVecPerThread]) const {
+    wait(q);
+    const int b = q & (stages - 1);
+    const uint4* r = rows + b * bm::kBlockVec;
+#pragma unroll
+    for (int j = 0; j < bm::kVecPerThread; ++j) {
+      v[j] = r[threadIdx.x + j * bm::kThreads];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && q + stages < n_copies) issue(q + stages);
+  }
+};
+
+// The operand of slot s; a BIT row is copy q of the ring.
+__device__ __forceinline__ State operand(const Ring& ring, int cls, int idx,
+                                         int q, int s) {
+  State st;
+  st.cls = cls;
+  st.runs = 0;
+  if (cls == kBit) {
+    ring.take(q, st.v);
+    return st;
+  }
+  const bm::Plane& p = ring.sp[s];
+  if (cls == kGap) st.runs = __ldg(p.offs + idx + 1) - __ldg(p.offs + idx);
 #pragma unroll
   for (int j = 0; j < bm::kVecPerThread; ++j) {
-    if (cls == kBit) {
-      s.v[j] = pre[j];
-    } else if (cls == kGap) {
-      s.v[j] = gap_vec(p, idx, (threadIdx.x + j * bm::kThreads) * 128);
+    if (cls == kGap) {
+      st.v[j] = gap_vec(p, idx, (threadIdx.x + j * bm::kThreads) * 128);
     } else {
-      s.v[j] = fill(cls == kFull || cls == kRun ? kAll : 0u);
+      st.v[j] = fill(cls == kFull || cls == kRun ? kAll : 0u);
     }
   }
-  return s;
+  return st;
 }
 
+// pair_class's rules as a table: per op, [class of a][class of b] -> the
+// class of a OP b, or kPassA / kPassB (the D-GAP block of a / of b, or
+// its complement, with its run count), or kGapGap (merged when the pair
+// has at most kMergeMaxRuns runs in all, else a BIT row).
+enum : int { kPassA = 8, kPassB = 9, kGapGap = 10 };
+__constant__ uint8_t kPairTable[3][5][5] = {
+    {{0, 0, 0, 0, 0}, {0, 1, 1, 3, 9}, {0, 1, 2, 3, 9}, {0, 3, 3, 3, 3},
+     {0, 8, 8, 3, 10}},                                  // and
+    {{0, 1, 2, 3, 9}, {1, 1, 2, 1, 1}, {2, 2, 2, 2, 2}, {3, 1, 2, 3, 3},
+     {8, 1, 2, 3, 10}},                                  // or
+    {{0, 0, 0, 0, 0}, {1, 0, 0, 3, 9}, {2, 0, 0, 3, 9}, {3, 0, 0, 3, 3},
+     {8, 0, 0, 3, 10}}};                                 // sub
+
 // Class of a OP b from the operands' classes; ``runs``: the result's run
-// count where it is a D-GAP pass-through.
+// count where it is a D-GAP pass-through.  The set operation's rules:
+// and: run & run is a run, anything & absent absent, FULL & FULL FULL,
+// GAP & FULL the GAP block; or: a run absorbs, absent | absent absent,
+// FULL absorbs, GAP | absent the GAP block; sub: run - absent a run,
+// absent - x and x - FULL absent, FULL - absent FULL, GAP - absent the
+// GAP block, FULL - GAP its complement; GAP x GAP merged or BIT; every
+// other pair BIT.
 __device__ __forceinline__ int pair_class(int op, int sa, int sb, int na,
                                           int nb, int& runs) {
-  const bool ra = sa == kRun, rb = sb == kRun;
-  const bool za = sa == kZero, zb = sb == kZero;
-  const bool fa = ra || sa == kFull, fb = rb || sb == kFull;
-  const bool ga = sa == kGap, gb = sb == kGap;
-  if (op == kAnd) {
-    if (ra && rb) return kRun;
-    if (za || zb) return kZero;
-    if (fa && fb) return kFull;
-    if (ga && fb) { runs = na; return kGap; }
-    if (fa && gb) { runs = nb; return kGap; }
-  } else if (op == kOr) {
-    if (ra || rb) return kRun;
-    if (za && zb) return kZero;
-    if (fa || fb) return kFull;
-    if (ga && zb) { runs = na; return kGap; }
-    if (za && gb) { runs = nb; return kGap; }
-  } else {
-    if (ra && zb) return kRun;
-    if (za || fb) return kZero;
-    if (fa && zb) return kFull;
-    if (ga && zb) { runs = na; return kGap; }
-    if (fa && gb) { runs = nb; return kGap; }   // the complement of b
+  const int c = kPairTable[op][sa][sb];
+  if (c < kPassA) return c;
+  if (c == kPassA) {
+    runs = na;
+    return kGap;
   }
-  if (ga && gb) return na + nb <= kMergeMaxRuns ? kMerge : kBit;
-  return kBit;
+  if (c == kPassB) {
+    runs = nb;
+    return kGap;
+  }
+  return na + nb <= kMergeMaxRuns ? kMerge : kBit;
 }
 
 // 1 + the bit changes along the row (GapStore.n_runs of its canonical
@@ -266,15 +334,16 @@ __device__ __forceinline__ State apply(int op, const State& a, const State& b,
   State r;
   r.runs = 0;
   r.cls = pair_class(op, a.cls, b.cls, a.runs, b.runs, r.runs);
-  bool nz = false;
-  bool ones = true;
 #pragma unroll
-  for (int j = 0; j < bm::kVecPerThread; ++j) {
-    r.v[j] = op4(op, a.v[j], b.v[j]);
-    nz |= (r.v[j].x | r.v[j].y | r.v[j].z | r.v[j].w) != 0u;
-    ones &= (r.v[j].x & r.v[j].y & r.v[j].z & r.v[j].w) == kAll;
-  }
+  for (int j = 0; j < bm::kVecPerThread; ++j) r.v[j] = op4(op, a.v[j], b.v[j]);
   if (r.cls == kMerge) {
+    bool nz = false;
+    bool ones = true;
+#pragma unroll
+    for (int j = 0; j < bm::kVecPerThread; ++j) {
+      nz |= (r.v[j].x | r.v[j].y | r.v[j].z | r.v[j].w) != 0u;
+      ones &= (r.v[j].x & r.v[j].y & r.v[j].z & r.v[j].w) == kAll;
+    }
     if (!__syncthreads_or(nz)) {
       r.cls = kZero;
     } else if (__syncthreads_and(ones)) {
@@ -308,34 +377,56 @@ __device__ __forceinline__ void store_row(const uint4 (&v)[bm::kVecPerThread],
   }
 }
 
-__device__ __forceinline__ void load_row(const uint4* row,
-                                         uint4 (&v)[bm::kVecPerThread]) {
-#pragma unroll
-  for (int j = 0; j < bm::kVecPerThread; ++j) {
-    v[j] = bm::load_once(row + threadIdx.x + j * bm::kThreads);
-  }
-}
-
-__global__ void __launch_bounds__(bm::kThreads)
+__global__ void __launch_bounds__(bm::kThreads, 2)
 sv_descent_kernel(const int64_t* __restrict__ table,
-                  const int64_t* __restrict__ nb,
-                  const int32_t* __restrict__ ent,
-                  const int64_t* __restrict__ runs,
                   const int64_t* __restrict__ utable,
-                  const int64_t* __restrict__ unb,
-                  const int32_t* __restrict__ uent,
-                  const int64_t* __restrict__ uruns,
-                  const int64_t* __restrict__ blocks, int k, Steps steps,
-                  uint4* __restrict__ gt_out, int32_t* __restrict__ gt_dig,
-                  uint4* __restrict__ eq_out, int32_t* __restrict__ eq_dig,
+                  const int32_t* __restrict__ codes, int k, Steps steps,
+                  int shift, uint4* __restrict__ gt_out,
+                  int32_t* __restrict__ gt_dig, uint4* __restrict__ eq_out,
+                  int32_t* __restrict__ eq_dig,
                   uint8_t* __restrict__ cls_out) {
-  // the steps' planes, then the universe's; each one's class at this block
+  extern __shared__ __align__(128) uint4 ring_rows[];   // stages rows
+  __shared__ __align__(8) uint64_t bars[kMaxStages];
+  // slot s < n: step s's plane; slot n: the universe's
   __shared__ bm::Plane sp[kMaxSteps + 1];
   __shared__ int s_cls[kMaxSteps + 1];
   __shared__ int s_idx[kMaxSteps + 1];
+  __shared__ int s_copy[kMaxSteps + 1];  // a BIT slot's copy in the ring
+  __shared__ int s_slot[kMaxSteps + 1];  // the slot of each copy
+  __shared__ int s_copies;
   __shared__ uint32_t tail[bm::kBlockVec];
   __shared__ int part[bm::kWarps];
   const int n = steps.n;
+  const int stages = 1 << shift;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < stages; ++j) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(bars + j)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < 32) {
+    // warp 0: the block's codes, one load; copies in the order universe,
+    // step 0, step 1, ... (the order the descent reads them)
+    const int32_t* c = codes + static_cast<size_t>(blockIdx.x) * (n + 1);
+    const int lane = threadIdx.x;
+    int before = 0;
+    for (int o0 = 0; o0 <= n; o0 += 32) {
+      const int o = o0 + lane;
+      const int s = o == 0 ? n : o - 1;
+      const int2 d = o <= n ? decode(__ldg(c + s)) : make_int2(kZero, 0);
+      const unsigned bit = __ballot_sync(kAll, d.x == kBit);
+      if (o <= n) {
+        const int q = before + __popc(bit & ((1u << lane) - 1u));
+        s_cls[s] = d.x;
+        s_idx[s] = d.y;
+        s_copy[s] = q;
+        if (d.x == kBit) s_slot[q] = s;
+      }
+      before += __popc(bit);
+    }
+    if (lane == 0) s_copies = before;
+  }
   int64_t* raw = reinterpret_cast<int64_t*>(sp);
   for (int j = threadIdx.x; j < (n + 1) * bm::kPlaneCols; j += blockDim.x) {
     const int s = j / bm::kPlaneCols;
@@ -345,32 +436,22 @@ sv_descent_kernel(const int64_t* __restrict__ table,
                    : utable[c];
   }
   __syncthreads();
-  const int64_t blk = blocks[blockIdx.x];
-  if (threadIdx.x <= n) {
-    const int s = threadIdx.x;
-    const int2 r = s < n ? lookup(sp[s], nb, ent, runs, blk)
-                         : lookup(sp[n], unb, uent, uruns, blk);
-    s_cls[s] = r.x;
-    s_idx[s] = r.y;
+  const Ring ring{ring_rows, bars, stages, shift, s_copies, s_slot, sp,
+                  s_idx};
+  if (threadIdx.x == 0) {
+    const int first = min(ring.n_copies, stages);
+    for (int q = 0; q < first; ++q) ring.issue(q);
   }
-  __syncthreads();
-  uint4 pre[bm::kVecPerThread];
-  if (s_cls[n] == kBit) load_row(row_of(sp[n], s_idx[n]), pre);
-  State eq = operand(sp[n], s_cls[n], s_idx[n], pre);
+  State eq = operand(ring, s_cls[n], s_idx[n], s_copy[n], n);
+  int taken = s_cls[n] == kBit ? 1 : 0;
   State gt;
   gt.cls = kZero;
   gt.runs = 0;
 #pragma unroll
   for (int j = 0; j < bm::kVecPerThread; ++j) gt.v[j] = fill(0u);
-  if (n > 0 && s_cls[0] == kBit) load_row(row_of(sp[0], s_idx[0]), pre);
   for (int i = 0; i < n && eq.cls != kZero; ++i) {
-    uint4 cur[bm::kVecPerThread];
-#pragma unroll
-    for (int j = 0; j < bm::kVecPerThread; ++j) cur[j] = pre[j];
-    if (i + 1 < n && s_cls[i + 1] == kBit) {
-      load_row(row_of(sp[i + 1], s_idx[i + 1]), pre);
-    }
-    const State p = operand(sp[i], s_cls[i], s_idx[i], cur);
+    const State p = operand(ring, s_cls[i], s_idx[i], s_copy[i], i);
+    taken += s_cls[i] == kBit ? 1 : 0;
     if ((steps.bits >> i) & 1ull) {
       eq = apply(kAnd, eq, p, tail, part);
     } else {
@@ -384,60 +465,68 @@ sv_descent_kernel(const int64_t* __restrict__ table,
   if (threadIdx.x == 0) {
     cls_out[blockIdx.x] = static_cast<uint8_t>(gt.cls);
     cls_out[k + blockIdx.x] = static_cast<uint8_t>(eq.cls);
+    // a block that stopped early: the copies still in flight land before
+    // the CTA leaves its shared memory
+    const int issued = min(ring.n_copies, taken + stages);
+    for (int q = taken; q < issued; ++q) ring.wait(q);
   }
 }
 
-__global__ void __launch_bounds__(bm::kThreads)
+// This thread's vectors v of steps i0 .. i0 + kBatch - 1 (a zero plane,
+// or past n: zero).
+__device__ __forceinline__ void load_batch(uint4 (&p)[kBatch],
+                                           const uint4* stack,
+                                           int64_t plane_vecs, int64_t v,
+                                           const int* rows, int i0, int n) {
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int i = i0 + j;
+    const int r = i < n ? rows[i] : -1;
+    p[j] = r >= 0 ? bm::load_once(stack + r * plane_vecs + v) : fill(0u);
+  }
+}
+
+__global__ void __launch_bounds__(kRowsThreads)
 descent_rows_kernel(const uint4* __restrict__ stack, int64_t plane_vecs,
                     const uint4* __restrict__ uni,
                     const uint4* __restrict__ sign, int mode, Steps steps,
                     uint4* __restrict__ gt_out, uint4* __restrict__ eq_out) {
   __shared__ int s_rows[kMaxSteps];
   const int n = steps.n;
-  if (threadIdx.x < n) s_rows[threadIdx.x] = steps.rows[threadIdx.x];
-  __syncthreads();
-  const size_t base = static_cast<size_t>(blockIdx.x) * bm::kBlockVec;
-  uint4 eq[bm::kVecPerThread];
-  uint4 gt[bm::kVecPerThread];
-  load_row(uni + base, eq);
-  if (mode != 0) {
-    uint4 s[bm::kVecPerThread];
-    load_row(sign + base, s);
-#pragma unroll
-    for (int j = 0; j < bm::kVecPerThread; ++j) {
-      eq[j] = op4(mode == 2 ? kAnd : kSub, eq[j], s[j]);
-    }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s_rows[i] = steps.rows[i];
   }
-#pragma unroll
-  for (int j = 0; j < bm::kVecPerThread; ++j) gt[j] = fill(0u);
-  uint4 pre[bm::kVecPerThread];
-  if (n > 0 && s_rows[0] >= 0) load_row(stack + s_rows[0] * plane_vecs + base,
-                                        pre);
-  for (int i = 0; i < n; ++i) {
-    uint4 p[bm::kVecPerThread];
-#pragma unroll
-    for (int j = 0; j < bm::kVecPerThread; ++j) {
-      p[j] = s_rows[i] >= 0 ? pre[j] : fill(0u);
+  __syncthreads();
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kRowsThreads +
+                    threadIdx.x;
+  if (v >= plane_vecs) return;
+  uint4 eq = bm::load_once(uni + v);
+  if (mode != 0) eq = op4(mode == 2 ? kAnd : kSub, eq, bm::load_once(sign + v));
+  uint4 gt = fill(0u);
+  uint4 p[kBatch], q[kBatch];            // this batch and the next
+  load_batch(p, stack, plane_vecs, v, s_rows, 0, n);
+  for (int i0 = 0; i0 < n; i0 += kBatch) {
+    if (i0 + kBatch < n) {
+      load_batch(q, stack, plane_vecs, v, s_rows, i0 + kBatch, n);
     }
-    if (i + 1 < n && s_rows[i + 1] >= 0) {
-      load_row(stack + s_rows[i + 1] * plane_vecs + base, pre);
-    }
-    const bool one = (steps.bits >> i) & 1ull;
 #pragma unroll
-    for (int j = 0; j < bm::kVecPerThread; ++j) {
-      if (one) {
-        eq[j] = op4(kAnd, eq[j], p[j]);
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j;
+      if (i >= n) break;
+      if ((steps.bits >> i) & 1ull) {
+        eq = op4(kAnd, eq, p[j]);
       } else {
-        gt[j] = op4(kOr, gt[j], op4(kAnd, eq[j], p[j]));
-        eq[j] = op4(kSub, eq[j], p[j]);
+        gt = op4(kOr, gt, op4(kAnd, eq, p[j]));
+        eq = op4(kSub, eq, p[j]);
       }
     }
-  }
+    if (i0 + kBatch < n) {
 #pragma unroll
-  for (int j = 0; j < bm::kVecPerThread; ++j) {
-    gt_out[base + threadIdx.x + j * bm::kThreads] = gt[j];
-    eq_out[base + threadIdx.x + j * bm::kThreads] = eq[j];
+      for (int j = 0; j < kBatch; ++j) p[j] = q[j];
+    }
   }
+  gt_out[v] = gt;
+  eq_out[v] = eq;
 }
 
 int steps_of(const int* rows, int n, unsigned long long bits, int lo, int hi,
@@ -452,22 +541,23 @@ int steps_of(const int* rows, int n, unsigned long long bits, int lo, int hi,
   return 0;
 }
 
+bm::LaunchCache g_descent;
+
 }  // namespace
 
-// The structured descent over k >= 1 sorted block ids ``blocks`` int64[k]:
-// the column's plane table (table int64[n_planes, 9], nb, ent, runs), the
-// universe's one-plane table (utable int64[1, 9], unb, uent, uruns), the
-// steps' plane rows ``rows`` (host int32[n_steps], n_steps <= 64, in
-// descent order) with the value's bit of step i at bit i of ``bits``.
-// Writes gt int32[k, 2048] and gt_dig int32[k, 64]; eq and eq_dig the same
-// when eq is not null; cls uint8[2 k]: gt's classes, then eq's.  Returns
-// the CUDA error of the launch (0 = launched).
-extern "C" int bm_sv_descent(const void* table, int n_planes, const void* nb,
-                             const void* ent, const void* runs,
-                             const void* utable, const void* unb,
-                             const void* uent, const void* uruns,
-                             const void* blocks, long long k,
-                             const int* rows, int n_steps,
+// The structured descent over k >= 1 walked blocks, given by their entry
+// codes ``codes`` int32[k, n_steps + 1] (step i's plane in column i, the
+// universe's in column n_steps): the column's plane table (table
+// int64[n_planes, 9]), the universe's one-plane table (utable int64[1,
+// 9]), the steps' plane rows ``rows`` (host int32[n_steps], n_steps <=
+// 64, in descent order) with the value's bit of step i at bit i of
+// ``bits``.  Writes gt int32[k, 2048] and gt_dig int32[k, 64]; eq and
+// eq_dig the same when eq is not null; cls uint8[2 k]: gt's classes, then
+// eq's.  The BIT rows are read by cp.async.bulk: pools 16-byte aligned.
+// Returns the CUDA error of the launch (0 = launched).
+extern "C" int bm_sv_descent(const void* table, int n_planes,
+                             const void* utable, const void* codes,
+                             long long k, const int* rows, int n_steps,
                              unsigned long long bits, void* gt, void* gt_dig,
                              void* eq, void* eq_dig, void* cls,
                              void* stream) {
@@ -476,13 +566,17 @@ extern "C" int bm_sv_descent(const void* table, int n_planes, const void* nb,
       steps_of(rows, n_steps, bits, 0, n_planes, &st) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  sv_descent_kernel<<<static_cast<unsigned>(k), bm::kThreads, 0,
+  int shift = 0;                         // stages: 2^shift >= n_steps + 1
+  while ((1 << shift) < n_steps + 1 && (1 << shift) < kMaxStages) ++shift;
+  const int smem = (1 << shift) * kRowBytes;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int err = bm::allow_smem(sv_descent_kernel, smem, g_descent, dev);
+  if (err) return err;
+  sv_descent_kernel<<<static_cast<unsigned>(k), bm::kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(table), static_cast<const int64_t*>(nb),
-      static_cast<const int32_t*>(ent), static_cast<const int64_t*>(runs),
-      static_cast<const int64_t*>(utable), static_cast<const int64_t*>(unb),
-      static_cast<const int32_t*>(uent), static_cast<const int64_t*>(uruns),
-      static_cast<const int64_t*>(blocks), static_cast<int>(k), st,
+      static_cast<const int64_t*>(table), static_cast<const int64_t*>(utable),
+      static_cast<const int32_t*>(codes), static_cast<int>(k), st, shift,
       static_cast<uint4*>(gt), static_cast<int32_t*>(gt_dig),
       static_cast<uint4*>(eq), static_cast<int32_t*>(eq_dig),
       static_cast<uint8_t*>(cls));
@@ -501,14 +595,16 @@ extern "C" int bm_descent_rows(const void* stack, int n_stack_rows,
                                int n_steps, unsigned long long bits, void* gt,
                                void* eq, void* stream) {
   Steps st;
-  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL || mode < 0 || mode > 2 ||
-      (mode != 0 && sign == nullptr) ||
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL / bm::kBlockVec || mode < 0 ||
+      mode > 2 || (mode != 0 && sign == nullptr) ||
       steps_of(rows, n_steps, bits, -1, n_stack_rows, &st) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  descent_rows_kernel<<<static_cast<unsigned>(n_blocks), bm::kThreads, 0,
+  const long long vecs = n_blocks * bm::kBlockVec;
+  descent_rows_kernel<<<static_cast<unsigned>(vecs / kRowsThreads),
+                        kRowsThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(stack), n_blocks * bm::kBlockVec,
+      static_cast<const uint4*>(stack), vecs,
       static_cast<const uint4*>(uni), static_cast<const uint4*>(sign), mode,
       st, static_cast<uint4*>(gt), static_cast<uint4*>(eq));
   return static_cast<int>(cudaGetLastError());

@@ -59,11 +59,17 @@
 // sv_transpose: values (uint32 where every value fits 32 bits, else
 // uint64) -> the plane word image uint32[n_slices, n_words], word w of
 // plane s holding bit s of values 32w .. 32w + 31, LSB first; values past
-// n read as 0.  A warp owns 32 words (1024 values): each lane loads 32
-// values of it (one coalesced load per word), then for each slice 32
-// ballots give the slice's 32 words, lane j keeping word j, and the warp
-// stores them in one coalesced 128-byte write.  Bound: the values read
-// once and the image written once.
+// n read as 0.  Bound: the values read once and the image written once.
+// A warp owns 32 words (1024 values).  Its lanes load the values with
+// coalesced 16-byte loads into the warp's tile of shared memory, each
+// lane's 32 values a row padded by 16 bytes (so neither the stores by
+// consecutive 16-byte chunks nor the reads by row meet a bank twice in a
+// quarter-warp); lane j then reads its row, the 32 values of word j, and
+// transposes the 32 x 32 bit matrix in its registers (transpose32: five
+// stages of masked swaps, about 10 instructions a value where the first
+// port's ballots took about 5 a value and slice), and the warp stores
+// each slice's 32 words as one 128-byte line.  8-byte values go as two
+// halves: slices 0-31 from the low words, 32-63 from the high ones.
 #include "bm_common.cuh"
 
 namespace {
@@ -83,8 +89,9 @@ constexpr int kChunkIds = 8192;            // most ids of an answer chunk
 constexpr int kStageBps = 4096;            // breakpoints held in smem
 constexpr int kStageHist = 4096;           // row counts held in smem
 constexpr int32_t kDirZero = INT32_MIN;
-constexpr int kTransposeThreads = 256;
+constexpr int kTransposeThreads = 128;
 constexpr int kTransposeWarps = kTransposeThreads / 32;
+constexpr int kTilePad = 4;                // words after each lane's row
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
 struct GatherArgs {
@@ -594,29 +601,109 @@ sv_gather_kernel_answer(GatherArgs a) {
   }
 }
 
+// One stage of the 32 x 32 bit transpose: for each k with bit J clear,
+// the high J bits of every 2J-bit group of a[k] swap with the low J bits
+// of the same group of a[k + J].
+template <int J, uint32_t M>
+__device__ __forceinline__ void transpose_stage(uint32_t (&a)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if ((k & J) == 0) {
+      const uint32_t t = ((a[k] >> J) ^ a[k + J]) & M;
+      a[k] ^= t << J;
+      a[k + J] ^= t;
+    }
+  }
+}
+
+// a[j] bit s -> a[s] bit j.
+__device__ __forceinline__ void transpose32(uint32_t (&a)[32]) {
+  transpose_stage<16, 0x0000FFFFu>(a);
+  transpose_stage<8, 0x00FF00FFu>(a);
+  transpose_stage<4, 0x0F0F0F0Fu>(a);
+  transpose_stage<2, 0x33333333u>(a);
+  transpose_stage<1, 0x55555555u>(a);
+}
+
+// Slices s0 .. min(n_slices, s0 + 32) - 1 of word w from a[s - s0].
+__device__ __forceinline__ void store_slices(const uint32_t (&a)[32], int s0,
+                                             int n_slices, int64_t n_words,
+                                             int64_t w,
+                                             uint32_t* __restrict__ out) {
+  if (w >= n_words) return;
+#pragma unroll
+  for (int s = 0; s < 32; ++s) {
+    if (s0 + s < n_slices) out[(s0 + s) * n_words + w] = a[s];
+  }
+}
+
+// T: uint32_t or unsigned long long.  ``aligned``: vals is 16-byte
+// aligned (else every value is loaded alone).
 template <typename T>
 __global__ void __launch_bounds__(kTransposeThreads)
 sv_transpose_kernel(const T* __restrict__ vals, int64_t n, int n_slices,
-                    int64_t n_words, uint32_t* __restrict__ out) {
+                    int64_t n_words, int aligned, uint32_t* __restrict__ out) {
+  constexpr int kPer = 16 / sizeof(T);           // values a 16-byte chunk
+  constexpr int kRow = 32 * sizeof(T) / 4;       // words of a lane's values
+  constexpr int kChunks = 32 * kRow / 4;         // chunks of a warp's tile
+  constexpr int kStride = kRow + kTilePad;
+  extern __shared__ __align__(16) uint32_t tiles[];
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint32_t* tile = tiles + warp * 32 * kStride;
   const int64_t w0 = (static_cast<int64_t>(blockIdx.x) * kTransposeWarps +
-                      (threadIdx.x >> 5)) * 32;
+                      warp) * 32;
   if (w0 >= n_words) return;             // the whole warp leaves
-  T x[32];
+  const int64_t v0 = w0 * 32;
+  uint4 c[kChunks / 32];                 // every load in flight first
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {         // value 32 (w0 + j) + lane
-    const int64_t v = (w0 + j) * 32 + lane;
-    x[j] = v < n ? vals[v] : T(0);
-  }
-  const int64_t w = w0 + lane;
-  for (int s = 0; s < n_slices; ++s) {
-    uint32_t word = 0u;
+  for (int k = 0; k < kChunks / 32; ++k) {
+    const int64_t v = v0 + static_cast<int64_t>(lane + 32 * k) * kPer;
+    if (aligned && v + kPer <= n) {
+      c[k] = __ldg(reinterpret_cast<const uint4*>(vals + v));
+    } else {
+      union {
+        uint4 vec;
+        T e[kPer];
+      } u;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const uint32_t b = __ballot_sync(kAll, (x[j] >> s) & 1u);
-      if (lane == j) word = b;
+      for (int i = 0; i < kPer; ++i) u.e[i] = v + i < n ? vals[v + i] : T(0);
+      c[k] = u.vec;
     }
-    if (w < n_words) out[static_cast<int64_t>(s) * n_words + w] = word;
+  }
+#pragma unroll
+  for (int k = 0; k < kChunks / 32; ++k) {
+    const int q = lane + 32 * k;         // chunk q: row q / (kRow / 4)
+    const int r = q / (kRow / 4);
+    *reinterpret_cast<uint4*>(tile + r * kStride + 4 * (q % (kRow / 4))) =
+        c[k];
+  }
+  __syncwarp();
+  const uint32_t* row = tile + lane * kStride;
+  const int64_t w = w0 + lane;
+  uint32_t a[32];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4 x = *reinterpret_cast<const uint4*>(row + 4 * j);
+      a[4 * j] = x.x;
+      a[4 * j + 1] = x.y;
+      a[4 * j + 2] = x.z;
+      a[4 * j + 3] = x.w;
+    }
+    transpose32(a);
+    store_slices(a, 0, n_slices, n_words, w, out);
+  } else {
+    for (int half = 0; half < 2 && 32 * half < n_slices; ++half) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {     // two values a chunk: lo, hi
+        const uint4 x = *reinterpret_cast<const uint4*>(row + 4 * j);
+        a[2 * j] = half ? x.y : x.x;
+        a[2 * j + 1] = half ? x.w : x.z;
+      }
+      transpose32(a);
+      store_slices(a, 32 * half, n_slices, n_words, w, out);
+    }
   }
 }
 
@@ -721,16 +808,19 @@ extern "C" int bm_sv_transpose(const void* vals, long long n,
   const long long blocks = (n_words + words_per_cta - 1) / words_per_cta;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int aligned = reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  // a warp's tile: 32 rows of its values' words and the padding
+  const int smem = kTransposeWarps * 32 * (8 * value_bytes + kTilePad) * 4;
   if (value_bytes == 4) {
     sv_transpose_kernel<uint32_t><<<static_cast<unsigned>(blocks),
-                                    kTransposeThreads, 0, st>>>(
-        static_cast<const uint32_t*>(vals), n, n_slices, n_words,
+                                    kTransposeThreads, smem, st>>>(
+        static_cast<const uint32_t*>(vals), n, n_slices, n_words, aligned,
         static_cast<uint32_t*>(out));
   } else {
     sv_transpose_kernel<unsigned long long><<<static_cast<unsigned>(blocks),
-                                              kTransposeThreads, 0, st>>>(
+                                              kTransposeThreads, smem, st>>>(
         static_cast<const unsigned long long*>(vals), n, n_slices, n_words,
-        static_cast<uint32_t*>(out));
+        aligned, static_cast<uint32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

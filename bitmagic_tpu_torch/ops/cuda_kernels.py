@@ -138,8 +138,8 @@ _SIGNATURES = {
                     _INT, _INT, _INT, _LL, _VP]),
     "bm_rank_flat": ("rs_select.cu", [_VP, _VP, _LL, _VP, _LL, _VP, _VP]),
     "bm_sv_descent": ("sv_descent.cu",
-                      [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _LL, _IP, _INT, _ULL, _VP, _VP, _VP, _VP, _VP, _VP]),
+                      [_VP, _INT, _VP, _VP, _LL, _IP, _INT, _ULL, _VP, _VP,
+                       _VP, _VP, _VP, _VP]),
     "bm_descent_rows": ("sv_descent.cu",
                         [_VP, _INT, _LL, _VP, _VP, _INT, _IP, _INT, _ULL,
                          _VP, _VP, _VP]),
@@ -982,26 +982,30 @@ def _steps(what, rows, bits, lo, hi):
     return (ctypes.c_int * max(len(rows), 1))(*rows), len(rows)
 
 
-def sv_descent(table, utable, blocks, rows, bits, want_eq=True):
-    """The MSB-first descent of a column's ordered search over the sorted
-    block ids ``blocks`` int64[K], in one launch: ``table`` the column's
-    plane table, ``utable`` the universe's one-plane table (both
-    ``core/blocks.plane_table``), step i the plane of table row
+def sv_descent(table, utable, codes, rows, bits, want_eq=True):
+    """The MSB-first descent of a column's ordered search over K walked
+    blocks, in one launch: ``table`` the column's plane table, ``utable``
+    the universe's one-plane table (both ``core/blocks.plane_table``),
+    ``codes`` int32[K, len(rows) + 1] the blocks' entry codes
+    (``core/blocks.descent_codes``), step i the plane of table row
     ``rows[i]`` with bit i of ``bits`` (``blockops.sv_descent`` has the
     semantics).  -> ``(gt int32[K, 2048], its digest int32[K, 64], eq, its
     digest (None without want_eq), classes uint8[2K])``."""
-    tensors = (blocks, *_table_tensors(table), *_table_tensors(utable))
+    tensors = (codes, *_table_tensors(table), *_table_tensors(utable))
     if not _on_cuda(*tensors):
-        return blockops.sv_descent(table, utable, blocks, rows, bits,
+        return blockops.sv_descent(table, utable, codes, rows, bits,
                                    want_eq)
     dev = _one_device("sv_descent", tensors)
-    _check(blocks, "sv_descent: blocks", _I64, align=8)
     _check_table(table, "sv_descent: table")
     _check_table(utable, "sv_descent: universe")
     if utable.meta.shape[0] != 1:
         raise ValueError("sv_descent: the universe is a one-plane table")
     steps, n = _steps("sv_descent", rows, bits, 0, table.meta.shape[0])
-    k = blocks.shape[0]
+    _check(codes, "sv_descent: codes", _I32, (n + 1,), align=4)
+    if any(p.numel() and p.data_ptr() % 16 for p in (*table.pools,
+                                                     *utable.pools)):
+        raise ValueError("sv_descent: pools must be 16-byte aligned")
+    k = codes.shape[0]
     gt = torch.empty((k, SET_BLOCK_SIZE), dtype=_I32, device=dev)
     gt_dig = torch.empty((k, BLOCK_WAVES), dtype=_I32, device=dev)
     eq = torch.empty_like(gt) if want_eq else None
@@ -1009,11 +1013,9 @@ def sv_descent(table, utable, blocks, rows, bits, want_eq=True):
     cls = torch.empty(2 * k, dtype=torch.uint8, device=dev)
     if k:
         _launch("bm_sv_descent", "sv_descent", dev, _ptr(table.table),
-                table.meta.shape[0], _ptr(table.nb), _ptr(table.ent),
-                _ptr(table.runs), _ptr(utable.table), _ptr(utable.nb),
-                _ptr(utable.ent), _ptr(utable.runs), _ptr(blocks), k, steps,
-                n, bits, _ptr(gt), _ptr(gt_dig), _ptr(eq), _ptr(eq_dig),
-                _ptr(cls))
+                table.meta.shape[0], _ptr(utable.table), _ptr(codes), k,
+                steps, n, bits, _ptr(gt), _ptr(gt_dig), _ptr(eq),
+                _ptr(eq_dig), _ptr(cls))
     return gt, gt_dig, eq, eq_dig, cls
 
 

@@ -46,7 +46,9 @@ only when every phase passed):
               column and 2.8M ids grouped over it, its directory too large
               for shared memory; 65 planes staged 24 rows at a time), each
               on the route its size gives it,
-              sv_transpose over 1 to 64 slices of 4- and 8-byte values;
+              sv_transpose over 1 to 64 slices of 4- and 8-byte values
+              (n of 1, 31, 33, 1023 and 1025 too, and views not 16-byte
+              aligned);
               rs_select and rs_rank and their flat forms (select_flat,
               rank_flat) at bvsetalgebra_rank_select's shapes (1536
               blocks, 768 of them D-GAP of 1 to 256 runs, 1M uniform
@@ -66,7 +68,9 @@ only when every phase passed):
               sv_descent over columns with BIT, FULL-run, absent and 1-3000
               run D-GAP blocks (GAP pairs of 4096 and 4097 runs) from
               their universe and from a D-GAP plane, with and without eq,
-              and descent_rows in its three modes with zero planes;
+              and over descent_ring_columns (one step, 64 steps, blocks
+              that stop early), and descent_rows in its three modes with
+              zero planes, at 29, 31 and 245 rows and up to 64 steps;
  4. main    — the benchmark's configs 1-2 through the entry points: two
               100.6M-bit vectors (1536 blocks) mixing BIT, GAP and FULL-run
               blocks; AND/OR/XOR/SUB, count(), distance_operation and
@@ -260,11 +264,12 @@ only when every phase passed):
               launches over 400 rows (and its whole
               call, with the scalar sync between them); sv_gather at
               column_range_gather's shape (16M rows, 1M ids) and
-              sv_transpose at 16M values and 20 slices; rs_select and
+              sv_transpose at 16M values and 20 slices (also with L2
+              clean) and at 16M 8-byte values and 64 slices; rs_select and
               rs_rank at bvsetalgebra_rank_select's shape (1M queries) and
               in their flat forms; sv_descent at column_range_gather's
               shape (20 steps over 245 blocks) and descent_rows at one
-              shard of it; the floor of a timed launch; K3 after a flush
+              shard of it, each also with L2 clean; the floor of a timed launch; K3 after a flush
               that leaves L2 clean.
 
 Each path (4, 5, 6, 7, 8, 9b, 10, 12, 13, 14, each group of 9 and 11, each leg
@@ -805,16 +810,26 @@ def sv_kernels_vs_plain(rng, device, cmp):
               f"{'grouped' if grouped else 'direct'} route")
         cmp("sv_gather", ck.sv_gather(ids, table),
             blockops.sv_gather(ids, table))
+    # ragged tails (n short of a word and of a warp's 1024 values), both
+    # value widths, 1 to 64 slices, and values not 16-byte aligned
     for n, n_slices, dt in ((32 * 999 + 5, 1, torch.int32),
                             (32 * 999 + 5, 32, torch.int32),
                             (SV_GATHER_IDS + 3, SV_BITS, torch.int32),
                             (32 * 999 + 5, 33, torch.int64),
-                            (SV_GATHER_IDS + 3, 64, torch.int64)):
+                            (SV_GATHER_IDS + 3, 64, torch.int64),
+                            (SV_GATHER_IDS + 3, SV_BITS, torch.int64),
+                            *((m, s, dt) for m in (1, 31, 33, 1023, 1025)
+                              for s, dt in ((1, torch.int32),
+                                            (20, torch.int32),
+                                            (32, torch.int32),
+                                            (33, torch.int64),
+                                            (64, torch.int64)))):
         info = torch.iinfo(dt)
         vals = torch.from_numpy(rng.integers(
-            info.min, info.max, n, endpoint=True)).to(dt).to(device)
-        cmp("sv_transpose", ck.sv_transpose(vals, n_slices),
-            blockops.sv_transpose(vals, n_slices))
+            info.min, info.max, n + 1, endpoint=True)).to(dt).to(device)
+        for v in (vals[:n], vals[1:]):
+            cmp("sv_transpose", ck.sv_transpose(v, n_slices),
+                blockops.sv_transpose(v, n_slices))
 
 
 def rs_cell_vector(tbm, rng, device):
@@ -1228,6 +1243,27 @@ def descent_queries(bits):
                    0x5A5A5A5A5A5A5A5A % (1 << bits)})
 
 
+def descent_ring_columns(tbm, rng, device):
+    """Columns for sv_descent's ring of staged rows -> [(name, column,
+    n_bits, query)]: one step; 64 steps of BIT rows (the ring wraps eight
+    times); and blocks whose eq empties early, block 3 at its first step
+    (planes 4-19 absent there) and block 2 at plane 5 (absent there) after
+    14 BIT steps, with the copies of later steps still in flight."""
+    u = rng.integers(0, 2**64, 3 * BPB + 5, dtype=np.uint64)
+    u[:4] = [0, 2**64 - 1, 2**63, 1]
+    wide = tbm.SparseVector.from_array(u, device=device)
+    v = rng.integers(0, 1 << 20, 4 * BPB + 9).astype(np.uint32)
+    v[2 * BPB:3 * BPB] &= ~np.uint32(1 << 5)
+    v[3 * BPB:4 * BPB] &= np.uint32(0xF)
+    v[:2] = (1 << 20) - 1
+    early = tbm.SparseVector.from_array(v, device=device)
+    early.optimize()
+    return [("one step", early, 1, 1), ("one step, 0-bit", early, 1, 0),
+            ("64 steps", wide, 64, int(u[7])),
+            ("early stop", early, 20, 0xFFFFF),
+            ("early stop, 0-bits", early, 20, 0xF0020)]
+
+
 def descent_kernels_vs_plain(rng, device, cmp):
     """sv_descent over descent_column's columns (uint32 nullable and not,
     int16 nullable; the column's universe and a D-GAP plane as universe;
@@ -1248,13 +1284,21 @@ def descent_kernels_vs_plain(rng, device, cmp):
             for q in descent_queries(bits):
                 table, steps, _ = sc._descent_steps(c, q, bits)
                 blocks = np.union1d(table.blocks, uni._struct.nb)
-                args = descent_args(uni, steps, blocks)
+                args = descent_args(table, uni, steps, blocks)
                 for want_eq in (True, False):
                     got = ck.sv_descent(table, *args, want_eq)
                     want = blockops.sv_descent(table, *args, want_eq)
                     for g, w in zip(got, want):
                         if w is not None:
                             cmp("sv_descent", g, w)
+    for _, c, n_bits, q in descent_ring_columns(tbm, rng, device):
+        uni = _universe(c)
+        table, steps, _ = sc._descent_steps(c, q, n_bits)
+        args = descent_args(table, uni, steps,
+                            np.union1d(table.blocks, uni._struct.nb))
+        for g, w in zip(ck.sv_descent(table, *args),
+                        blockops.sv_descent(table, *args)):
+            cmp("sv_descent", g, w)
     n, k = 29, 24
     stack = _rand_pool(rng, k * n, device).reshape(k, n, 2048)
     stack[3] = 0
@@ -1267,6 +1311,20 @@ def descent_kernels_vs_plain(rng, device, cmp):
             want = blockops.descent_rows(stack, stack[23], rows, bits,
                                          stack[0], mode)
             for g, w in zip(got, want):
+                cmp("sv_descent", g, w)
+    # a shard of 31 rows and one of 245 under 64 steps (two batches of a
+    # thread's loads), zero planes among them
+    for n in (31, 245):
+        stack = _rand_pool(rng, 8 * n, device).reshape(8, n, 2048)
+        stack[2] = 0
+        rows = [int(r) for r in rng.integers(-1, 7, 64)]
+        bits = int(rng.integers(0, 2**63)) | 1 << 63
+        for mode in (0, 1, 2):
+            for g, w in zip(
+                    ck.descent_rows(stack, stack[7], rows, bits, stack[0],
+                                    mode),
+                    blockops.descent_rows(stack, stack[7], rows, bits,
+                                          stack[0], mode)):
                 cmp("sv_descent", g, w)
 
 
@@ -5056,12 +5114,14 @@ def time_ms(fn, flush, reps=25, clean=None):
     return float(np.median(ts))
 
 
-def record(out, key, card, flush, kern, plain, lib, nbytes, lops, popcs):
+def record(out, key, card, flush, kern, plain, lib, nbytes, lops, popcs,
+           clean=None):
     """Time ``kern``, its plain version and the library call (or None)
     into ``out[key]``, beside the bound: the larger of ``nbytes`` over the
     card's bandwidth and ``lops`` logic ops / ``popcs`` popcounts over
-    their peak rates."""
-    ms = time_ms(kern, flush)
+    their peak rates.  ``clean``: the kernel is timed with L2 left clean
+    (``time_ms``)."""
+    ms = time_ms(kern, flush, clean=clean)
     pms = time_ms(plain, flush, reps=5)
     lms = time_ms(lib, flush) if lib is not None else None
     bytes_ms = nbytes / card["peak_bw"] * 1e3
@@ -5251,8 +5311,10 @@ def sv_gather_bytes(table, n_ids) -> int:
 def sv_timings(rng, device, card, flush, out):
     """sv_gather at column_range_gather's shape (16M nullable values <
     2^20, every row assigned, SV_GATHER_IDS uniform ids) and sv_transpose
-    at config 4b's import (16M 4-byte values, 20 slices).  Bounds: the
-    bytes read and written once, at the card's memory rate."""
+    at config 4b's import (16M 4-byte values, 20 slices; also with L2
+    left clean, ``time_ms``) and over 16M 8-byte values x 64 slices.
+    Bounds: the bytes read and written once, at the card's memory
+    rate."""
     import bitmagic_tpu_torch as tbm
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
@@ -5273,6 +5335,21 @@ def sv_timings(rng, device, card, flush, out):
            lambda: ck.sv_transpose(d, SV_BITS),
            lambda: blockops.sv_transpose(d, SV_BITS), None,
            4 * SV_N + 4 * SV_BITS * n_words, 0, 0)
+    clean = torch.empty_like(flush)
+    record(out, ("sv_transpose", "16M_20_clean_l2"), card, flush,
+           lambda: ck.sv_transpose(d, SV_BITS),
+           lambda: blockops.sv_transpose(d, SV_BITS), None,
+           4 * SV_N + 4 * SV_BITS * n_words, 0, 0, clean=clean)
+    del clean
+    # 8-byte values over all 64 slices (a column with values past 2^32)
+    d = torch.from_numpy(rng.integers(0, 2**64, SV_N, dtype=np.uint64).view(
+        np.int64)).to(device)
+    check(torch.equal(ck.sv_transpose(d, 64), blockops.sv_transpose(d, 64)),
+          "sv_transpose of 16M 8-byte values x 64 slices = plain")
+    record(out, ("sv_transpose", "16M_64_8byte"), card, flush,
+           lambda: ck.sv_transpose(d, 64),
+           lambda: blockops.sv_transpose(d, 64), None,
+           8 * SV_N + 4 * 64 * n_words, 0, 0)
 
 
 def descent_timings(rng, device, card, flush, out):
@@ -5280,9 +5357,10 @@ def descent_timings(rng, device, card, flush, out):
     2^20, every row assigned; find_gt(DESCENT_GT): 20 steps over 245
     blocks, gt only) and descent_rows at one shard of the same column's
     SHARDS-shard stack; each first held bit for bit against its plain
-    version.  Bounds: the bytes read and written once
-    (``bench_torch.descent_bytes``; the dense form reads every stepped
-    row and the universe and writes gt and eq)."""
+    version; each also timed with L2 left clean (``time_ms``).  Bounds:
+    the bytes read and written once (``bench_torch.descent_bytes``; the
+    dense form reads every stepped row and the universe and writes gt and
+    eq)."""
     import bitmagic_tpu_torch as tbm
     from bench_torch import descent_bytes
     from bitmagic_tpu_torch.core.bitvector import descent_args
@@ -5295,7 +5373,7 @@ def descent_timings(rng, device, card, flush, out):
                                                  sv.n_slices)
     uni = sv.null_plane
     blocks = np.union1d(table.blocks, uni._struct.nb)
-    args = descent_args(uni, steps, blocks)
+    args = descent_args(table, uni, steps, blocks)
     for g, w in zip(ck.sv_descent(table, *args, False),
                     blockops.sv_descent(table, *args, False)):
         check(g is None and w is None or torch.equal(g, w),
@@ -5307,9 +5385,17 @@ def descent_timings(rng, device, card, flush, out):
            lambda: ck.sv_descent(table, *args, False),
            lambda: blockops.sv_descent(table, *args, False), None,
            descent_bytes(planes, uni, k), 4 * 2048 * k * len(steps), 0)
-    out["sv_descent", "cell3"].update(
-        blocks=k, steps=len(steps),
-        rows=sum(p._struct.n_rows() for p in planes) + uni._struct.n_rows())
+    clean = torch.empty_like(flush)
+    record(out, ("sv_descent", "cell3_clean_l2"), card, flush,
+           lambda: ck.sv_descent(table, *args, False),
+           lambda: blockops.sv_descent(table, *args, False), None,
+           descent_bytes(planes, uni, k), 4 * 2048 * k * len(steps), 0,
+           clean=clean)
+    for shape in ("cell3", "cell3_clean_l2"):
+        out["sv_descent", shape].update(
+            blocks=k, steps=len(steps),
+            rows=sum(p._struct.n_rows() for p in planes)
+            + uni._struct.n_rows())
     ssv = ShardedSparseVector.from_sparse_vector(sv, Mesh([device] * SHARDS))
     st = ssv.stack[0]
     rows, bits = blockops.descent_steps(list(range(ssv.n_eff)), DESCENT_GT)
@@ -5318,11 +5404,13 @@ def descent_timings(rng, device, card, flush, out):
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           "descent_rows at the shard's shape = plain")
     nb = st.shape[1]
-    record(out, ("sv_descent", "shard4b"), card, flush,
-           lambda: ck.descent_rows(st, st[ssv.UNI], rows, bits),
-           lambda: blockops.descent_rows(st, st[ssv.UNI], rows, bits), None,
-           (len(rows) + 3) * nb * 8192, 4 * 2048 * nb * len(rows), 0)
-    out["sv_descent", "shard4b"].update(blocks=nb, steps=len(rows))
+    for shape, c in (("shard4b", None), ("shard4b_clean_l2", clean)):
+        record(out, ("sv_descent", shape), card, flush,
+               lambda: ck.descent_rows(st, st[ssv.UNI], rows, bits),
+               lambda: blockops.descent_rows(st, st[ssv.UNI], rows, bits),
+               None, (len(rows) + 3) * nb * 8192, 4 * 2048 * nb * len(rows),
+               0, clean=c)
+        out["sv_descent", shape].update(blocks=nb, steps=len(rows))
 
 
 def gap_timings(rng, device, card, flush, out):
@@ -5919,10 +6007,13 @@ def main():
                   scan_eq=("config4", "config4b"),
                   gap_expand=("cell1_768", "cell1_pair"),
                   gap_compress=("cell1_400",),
-                  sv_gather=("cell3",), sv_transpose=("16M_20",),
+                  sv_gather=("cell3",),
+                  sv_transpose=("16M_20", "16M_20_clean_l2",
+                                "16M_64_8byte"),
                   rs_select=("cell1_1M", "flat_1M"),
                   rs_rank=("cell1_1M", "flat_1M"),
-                  sv_descent=("cell3", "shard4b"))
+                  sv_descent=("cell3", "cell3_clean_l2", "shard4b",
+                              "shard4b_clean_l2"))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
                     + RS_KERNELS else descent_launches[k]

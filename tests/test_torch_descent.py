@@ -203,6 +203,37 @@ def test_rsc_column():
     _check_ordered(j.dense, t.dense, [0, 100, 4095, int(vals[1])])
 
 
+def _entries_beside_runs(pkg, size):
+    """A vector of ``pkg`` with a FULL entry (block 1) two blocks from a
+    FULL run (blocks 3-35) and BIT blocks between and after them: the
+    complement of every 7th bit of blocks 0, 2 and 36."""
+    idx = np.concatenate([b * BPB + np.arange(0, BPB, 7) for b in (0, 2, 36)])
+    kw = {} if pkg is jbm else {"device": "cpu"}
+    v = pkg.BitVector.from_indices(idx, size, **kw)
+    v.invert()
+    return v
+
+
+@pytest.mark.parametrize("where", ["plane", "universe"])
+def test_full_entries_beside_runs(where):
+    """The descent's entry codes tell a FULL entry (-1) from a block inside
+    a FULL run (DIR_RUN), which the block directory writes alike: with
+    both in the top plane, and in the universe (the NULL plane) too, every
+    ordered search equals the JAX package's.  A 0-bit on the top plane
+    ANDs a FULL run of it with one of the universe at walked blocks 4-6,
+    which stays a run (an entry there would be a FULL block)."""
+    jsv, tsv = _int_column(np.uint32, where == "universe", 5)
+    for c, pkg in ((jsv, jbm), (tsv, tbm)):
+        c.planes[31] = _entries_beside_runs(pkg, c.size)
+        if where == "universe":
+            c.null_plane = _entries_beside_runs(pkg, c.size)
+    for p in (tsv.planes[31], tsv.null_plane if tsv.nullable else None):
+        st = (p or tsv.planes[31])._struct
+        assert C.CLS_FULL in st.cls and st.has_runs
+    _check_ordered(jsv, tsv, [0, 1 << 7, 0x7FFF_FF7F, 0x8000_0080,
+                              int(jsv.get(3 * BPB + 11)), 0xFFFF_FFFF])
+
+
 # ---------------------------------------------------------------------------
 # the fused descent against the port's own chain of set operations
 # ---------------------------------------------------------------------------

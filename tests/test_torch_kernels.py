@@ -851,7 +851,7 @@ def test_sv_descent_kernels(dev, rng):
         uni = _universe(c)
         for q in descent_queries(bits):
             table, steps, _ = sc._descent_steps(c, q, bits)
-            args = descent_args(uni, steps, np.union1d(table.blocks,
+            args = descent_args(table, uni, steps, np.union1d(table.blocks,
                                                        uni._struct.nb))
             got = ck.sv_descent(table, *args)
             torch.cuda.synchronize()
@@ -880,3 +880,83 @@ def test_sv_descent_kernels(dev, rng):
         ck.sv_descent(table, *args[:2], [0] * 65, 0)
     with pytest.raises(ValueError):
         ck.descent_rows(stack, stack[6], [8], 0)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1023, 1025, 32 * 999 + 5])
+@pytest.mark.parametrize("n_slices,width", [(1, 4), (20, 4), (32, 4), (1, 8),
+                                            (20, 8), (33, 8), (64, 8)])
+def test_sv_transpose_tails(dev, rng, n, n_slices, width):
+    """sv_transpose against its plain version where its warp tiles break:
+    n short of a word and of a warp's 1024 values, 4- and 8-byte values
+    (slices 32-63 from the high words), values 16-byte aligned and not."""
+    dt = torch.int32 if width == 4 else torch.int64
+    info = torch.iinfo(dt)
+    vals = torch.from_numpy(rng.integers(info.min, info.max, n + 1,
+                                         endpoint=True)).to(dt).to(dev)
+    for v in (vals[:n], vals[1:]):
+        got = ck.sv_transpose(v, n_slices)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), blockops.sv_transpose(v.cpu(),
+                                                            n_slices))
+    assert ck.launches["sv_transpose"] == 2
+
+
+RING_CASES = ["one step", "one step, 0-bit", "64 steps", "early stop",
+              "early stop, 0-bits"]
+
+
+@pytest.fixture(scope="module")
+def ring_columns():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    import chip_smoke as cs
+    cols = cs.descent_ring_columns(tbm, np.random.default_rng(23),
+                                   torch.device("cuda"))
+    return {name: rest for name, *rest in cols}
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_sv_descent_ring(dev, ring_columns, case):
+    """sv_descent against its plain version where its ring of staged rows
+    breaks: one step, 64 BIT steps (the ring wraps), blocks that stop
+    early with copies in flight; gt and eq with and without eq, and the
+    fused search against the chain of set operations in every part."""
+    from chip_smoke import descent_chain
+    from bitmagic_tpu_torch.core.bitvector import descent_args
+    from bitmagic_tpu_torch.sv.scanner import _universe
+    c, n_bits, q = ring_columns[case]
+    sc = tbm.SparseVectorScanner()
+    uni = _universe(c)
+    table, steps, _ = sc._descent_steps(c, q, n_bits)
+    args = descent_args(table, uni, steps,
+                        np.union1d(table.blocks, uni._struct.nb))
+    for want_eq in (True, False):
+        got = ck.sv_descent(table, *args, want_eq)
+        torch.cuda.synchronize()
+        for g, w in zip(got, blockops.sv_descent(table, *args, want_eq)):
+            assert (g is None and w is None) or torch.equal(g, w)
+    assert ck.launches["sv_descent"] == 2
+    fused = sc._cmp_unsigned(c, uni, q, n_bits)
+    for f, w in zip(fused, descent_chain(tbm, c.planes, uni, q, n_bits)):
+        _same_parts(f, w)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", [1, 31, 33, 245])
+def test_descent_rows_shapes(dev, rng, n, mode):
+    """descent_rows against its plain version at 1, 31 (a shard of 8 of
+    config 4b's column), 33 and 245 rows in each mode, over 6 and 64
+    steps (two batches of a thread's loads) with -1 rows and a zero
+    plane."""
+    stack = _pool(rng, 8 * n, dev).reshape(8, n, 2048)
+    stack[2] = 0
+    for rows, bits in (([5, -1, 2, 0, 3, 7], 0b100101),
+                       ([int(r) for r in rng.integers(-1, 8, 64)],
+                        int(rng.integers(0, 2**63)) | 1 << 63)):
+        got = ck.descent_rows(stack, stack[6], rows, bits, stack[1], mode)
+        torch.cuda.synchronize()
+        want = blockops.descent_rows(stack, stack[6], rows, bits, stack[1],
+                                     mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert ck.launches["sv_descent"] == 2

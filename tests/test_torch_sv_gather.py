@@ -217,10 +217,10 @@ def test_str_gather():
 # ---------------------------------------------------------------------------
 # the transpose: plain version against the JAX program, from_array's planes
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("n_slices", [1, 7, 20, 31, 32, 33, 50, 64])
-def test_transpose_plain_vs_jax(n_slices):
-    n = 32 * 37 + 13                # no multiple of 32
-    rng = np.random.default_rng(n_slices)
+def _transpose_vs_jax(n, n_slices, width, seed):
+    """The plain transpose of n values of ``width`` bytes (below 2 **
+    n_slices) against the JAX package's ``_transpose_kernel``."""
+    rng = np.random.default_rng(seed)
     u = rng.integers(0, 2**64, n, dtype=np.uint64)
     if n_slices < 64:
         u &= np.uint64((1 << n_slices) - 1)
@@ -230,10 +230,28 @@ def test_transpose_plain_vs_jax(n_slices):
     want = np.asarray(_transpose_kernel(
         (pad & np.uint64(0xFFFFFFFF)).astype(np.uint32),
         (pad >> np.uint64(32)).astype(np.uint32), n_slices, n_words))
-    vals = (u.astype(np.uint32).view(np.int32) if n_slices <= 32
+    vals = (u.astype(np.uint32).view(np.int32) if width == 4
             else u.view(np.int64))
     got = ck.sv_transpose(torch.from_numpy(vals), n_slices)
     np.testing.assert_array_equal(blockops.to_host_words(got), want)
+
+
+@pytest.mark.parametrize("n_slices", [1, 7, 20, 31, 32, 33, 50, 64])
+def test_transpose_plain_vs_jax(n_slices):
+    # no multiple of 32
+    _transpose_vs_jax(32 * 37 + 13, n_slices, 4 if n_slices <= 32 else 8,
+                      n_slices)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1023, 1025])
+@pytest.mark.parametrize("n_slices,width", [(1, 4), (20, 4), (32, 4), (1, 8),
+                                            (20, 8), (32, 8), (33, 8),
+                                            (64, 8)])
+def test_transpose_plain_vs_jax_tails(n, n_slices, width):
+    """The kernel's ragged tails (n short of a word and of a warp's 1024
+    values) and both value widths: 8-byte values at every slice count,
+    their slices 32-63 from the high words."""
+    _transpose_vs_jax(n, n_slices, width, 1000 * n + n_slices)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
@@ -372,6 +390,97 @@ def test_block_directory_matches_plane_searches(name):
         assert -1 in kinds and blockops.DIR_ZERO in kinds
     if name.startswith("gap"):
         assert any(k <= -2 and k != blockops.DIR_ZERO for k in kinds)
+
+
+def _lookup(nb, ent, runs, blocks):
+    """The per-plane search the descent's codes replace (the first
+    sv_descent kernel's lookup): an entry's code, else DIR_RUN inside a
+    FULL run, else DIR_ZERO."""
+    out = []
+    for b in blocks:
+        i = np.searchsorted(nb, b)
+        if i < nb.size and nb[i] == b:
+            out.append(int(ent[i]))
+            continue
+        j = np.searchsorted(runs[:, 0], b, side="right") - 1
+        out.append(blockops.DIR_RUN if j >= 0 and b < runs[j, 1]
+                   else blockops.DIR_ZERO)
+    return np.asarray(out, np.int64)
+
+
+def _with_entries_beside_runs(name):
+    """directory_columns' column, or for ``entries_beside_runs`` config
+    4b-like values whose plane 7 and NULL plane hold a FULL entry (block
+    1) beside a FULL run (blocks 3-35) and BIT blocks."""
+    if name != "entries_beside_runs":
+        return directory_columns(name)
+    t = build(column_values("bit", np.uint32, n=37 * BPB + 99, seed=40),
+              "some")[1]
+    idx = np.concatenate([b * BPB + np.arange(0, BPB, 7) for b in (0, 2, 36)])
+    for s in ("plane", "null"):
+        v = BitVector.from_indices(idx, t.size, device="cpu")
+        v.invert()
+        if s == "plane":
+            t.planes[7] = v
+        else:
+            t.null_plane = v
+    return t
+
+
+@pytest.mark.parametrize("name", ["bit-uint32", "gap-int64", "full-uint32",
+                                  "absent-int64", "runs", "planes65",
+                                  "empty_nullable", "entries_beside_runs"])
+def test_descent_codes_match_plane_searches(name):
+    """``blocks.descent_codes`` (the host directory, one search for every
+    plane) gives each walked block the code the per-plane searches give:
+    ``plane_entries``' directory code, with DIR_RUN where a block lies
+    inside a FULL run and is no entry (a FULL entry stays -1), and the
+    first kernel's lookup of the plane's ids, entries and runs; the
+    universe's column (its own FULL entries, runs, BIT and D-GAP blocks)
+    likewise.  The steps' rows may come in any order."""
+    from bitmagic_tpu_torch.core.blocks import descent_codes, entry_codes
+    from bitmagic_tpu_torch.sv.scanner import _universe
+    t = _with_entries_beside_runs(name)
+    table = t._plane_table()
+    P = table.meta.shape[0]
+    unis = [_universe(t)] + [p for p in t.planes if p is not None][:2]
+    edges = [table.host_bps] + [
+        np.concatenate([u._struct.nb, u._struct.runs.ravel()]) for u in unis]
+    pts = np.concatenate(edges + [np.arange(0, 40)])
+    blocks = np.unique(np.concatenate([pts - 1, pts, pts + 1]))
+    blocks = blocks[blocks >= 0]
+    rows = list(range(P))[::-1]
+    seen = set()
+    for uni in unis:
+        codes = descent_codes(table, rows, uni._struct, blocks)
+        assert codes.shape == (blocks.size, P + 1)
+        blk = torch.from_numpy(blocks)
+        for i, p in enumerate(rows):
+            o, n, ro, rn = (int(x) for x in table.meta[p, :4])
+            nb = table.nb[o:o + n].numpy()
+            want = blockops.plane_entries(table, p, blk).numpy()
+            want = np.where((want == -1) & ~np.isin(blocks, nb),
+                            blockops.DIR_RUN, want)
+            np.testing.assert_array_equal(codes[:, i], want,
+                                          err_msg=f"plane {p}")
+            np.testing.assert_array_equal(
+                codes[:, i], _lookup(nb, table.ent[o:o + n].numpy(),
+                                     table.runs[ro:ro + rn].numpy(),
+                                     blocks), err_msg=f"plane {p}")
+        ust = uni._struct
+        np.testing.assert_array_equal(
+            codes[:, -1], _lookup(ust.nb, entry_codes(ust),
+                                  ust.runs.reshape(-1, 2), blocks))
+        seen.update(int(c) for c in np.unique(codes))
+    if name in ("runs", "entries_beside_runs"):
+        assert {blockops.DIR_RUN, blockops.DIR_ZERO} <= seen
+    if name == "entries_beside_runs":
+        assert -1 in seen
+    if name.startswith("gap"):
+        assert any(c <= -2 and c not in (blockops.DIR_ZERO,
+                                         blockops.DIR_RUN) for c in seen)
+    # the device directory the gathers read keeps -1 for both
+    assert blockops.DIR_RUN not in np.unique(table.dir.numpy())
 
 
 @pytest.mark.parametrize("name", ["bit-int64", "runs", "empty_nullable"])
