@@ -91,7 +91,7 @@ KERNELS = {
     "gap_expand": ("gap_expand", CSRC + "gap_rows.cu",
                    ("gap_expand_kernel",)),
     "gap_compress": ("gap_compress", CSRC + "gap_rows.cu",
-                     ("gap_count_kernel", "gap_write_kernel")),
+                     ("gap_compress_kernel",)),
     "sv_gather": ("sv_gather", CSRC + "sv_planes.cu", ("sv_gather_kernel",)),
     "sv_transpose": ("sv_transpose", CSRC + "sv_planes.cu",
                      ("sv_transpose_kernel",)),
@@ -101,6 +101,8 @@ KERNELS = {
                 ("rs_rank_kernel", "rank_flat_kernel")),
     "sv_descent": ("sv_descent", CSRC + "sv_descent.cu",
                    ("sv_descent_kernel", "descent_rows_kernel")),
+    "shift_and_chain": ("B8", CSRC + "shift_chain.cu",
+                        ("shift_and_chain_kernel",)),
 }
 
 

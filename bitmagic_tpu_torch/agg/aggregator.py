@@ -78,13 +78,19 @@ def _operand_descs(vectors, blocklist):
     vector on ``blocklist`` (the per-vector ``core/blocks.operand_args``
     batched): the slot, FULL and aux-slot arrays of all K operands go up as
     one matrix each, and the expanded GAP rows of all operands share one
-    aux pool."""
+    aux pool.  A vector that repeats (a Bitap pattern's letter) is looked
+    up and expanded once, and its descriptor is the same tuple."""
     K, k = len(vectors), int(blocklist.size)
     slot = np.full((K, k), -1, np.int32)
     full = np.zeros((K, k), bool)
     aux_slot = np.full((K, k), -1, np.int32)
     aux_parts, n_aux = [], 0
+    first = {}
     for j, v in enumerate(vectors):
+        f = first.setdefault(id(v), j)
+        if f != j:
+            slot[j], full[j], aux_slot[j] = slot[f], full[f], aux_slot[f]
+            continue
         st, sl = v._struct.lookup(blocklist)
         slot[j] = np.where(st == _B, sl, -1)
         full[j] = st == _F
@@ -100,8 +106,9 @@ def _operand_descs(vectors, blocklist):
     aux = blockops.to_device_words(
         np.concatenate(aux_parts) if aux_parts
         else np.zeros((0, C.SET_BLOCK_SIZE), np.uint32), dev)
-    return [(v._pool, slot_d[j], full_d[j], aux, aux_slot_d[j])
-            for j, v in enumerate(vectors)]
+    descs = [(v._pool, slot_d[j], full_d[j], aux, aux_slot_d[j])
+             for j, v in enumerate(vectors)]
+    return [descs[first[id(v)]] for v in vectors]
 
 
 def _agg_kernel(n_and, n_sub, descs):
@@ -119,21 +126,13 @@ def _agg_any_kernel(n_and, n_sub, descs):
 
 def _shift_and_chain(first_mask, descs):
     """acc = rows0; acc = shift_up1(acc) & rows_k over the whole chain, in
-    plain PyTorch on the operands' device (bitmagic_tpu runs this as an
-    XLA scan, not a Pallas kernel).  The shift carries bits across words
-    and blocks by viewing the block list as one flat bit string;
-    ``first_mask`` (int32[n_blocks]) clears bit 0 of each block's first
-    word when its list predecessor is not its address predecessor."""
-    acc = blockops.gather_rows(*descs[0])
-    if len(descs) == 1:
-        return acc
-    for d in descs[1:]:
-        flat = acc.reshape(-1)
-        carry = torch.cat([flat.new_zeros(1), (flat[:-1] >> 31) & 1])
-        out = ((flat << 1) | carry).reshape(acc.shape)
-        out[:, 0] &= first_mask
-        acc = out & blockops.gather_rows(*d)
-    return acc
+    one launch of kernel B8 (``cuda_kernels.shift_and_chain``; its plain
+    closed form on the CPU; bitmagic_tpu runs this as an XLA scan, not a
+    Pallas kernel).  The shift carries bits across words and blocks by
+    viewing the block list as one flat bit string; ``first_mask``
+    (int32[n_blocks]) clears bit 0 of each block's first word when its
+    list predecessor is not its address predecessor."""
+    return ck.shift_and_chain(first_mask, descs)
 
 
 class OperationStatus(enum.IntEnum):
@@ -525,7 +524,11 @@ class Aggregator:
             v._flush()
         size = max(v.size for v in vectors)
         dev = vectors[0].device
-        flat = [v._flat_nb() for v in vectors]   # materialize runs once
+        # materialize runs once per vector (a letter repeats in a pattern)
+        distinct = {}
+        flat = [distinct[id(v)] if id(v) in distinct
+                else distinct.setdefault(id(v), v._flat_nb())
+                for v in vectors]
         nbs = [x for x in flat if len(x)]
         if not nbs or not len(flat[0]):
             return BitVector(size, device=dev)
@@ -533,7 +536,7 @@ class Aggregator:
                  (size - 1) >> C.SET_BLOCK_SHIFT)
         if len(vectors) - 1 <= C.BITS_PER_BLOCK:
             cand = None
-            for nbv in flat:
+            for nbv in distinct.values():
                 ext = np.union1d(nbv, nbv + 1)
                 cand = ext if cand is None else np.intersect1d(
                     cand, ext, assume_unique=True)

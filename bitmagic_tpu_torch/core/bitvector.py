@@ -1641,11 +1641,13 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
     for (sa, sb), act in _GAP_IDENT[op].items():
         ident[(st_a == sa) & (st_b == sb)] = act
     both_gap = (st_a == "g") & (st_b == "g") & (ident == "")
+    cap = 0               # the small pairs' summed runs bound their result's
     if both_gap.any():
         lens = (a._gaps.n_runs()[plan.a_gap[both_gap]]
                 + b._gaps.n_runs()[plan.b_gap[both_gap]])
         small = both_gap.copy()
         small[both_gap] = lens <= _GAP_MERGE_MAX_RUNS
+        cap = int(lens[lens <= _GAP_MERGE_MAX_RUNS].sum())
     else:
         small = both_gap
     dense = (ident == "") & ~small
@@ -1670,7 +1672,7 @@ def _binary(a: BitVector, b: BitVector, op: str) -> BitVector:
         n_dense = int(dense.sum())
         pool = out if n_dense == rows.size else out[:n_dense].clone()
         if small.any():
-            merged, zm, fm = compress_rows(out[n_dense:])
+            merged, zm, fm = compress_rows(out[n_dense:], cap)
             mpos = kpos[small]
             cls_all[mpos] = C.CLS_GAP
             cls_all[mpos[fm]] = C.CLS_FULL
@@ -1744,7 +1746,7 @@ def descent(table, uni: BitVector, steps, want_eq=True):
         cls = cls.cpu().numpy().reshape(2, -1)
     else:                      # FULL runs only: nothing for the kernel
         gt_rows = eq_rows = blockops.zero_pool(0, dev)
-        cls = np.zeros((2, 0), np.uint8)
+        cls = np.zeros((2, 0), np.int32)
     gt = _descent_result(blocks, cls[0], gt_rows, gt_runs, C.ID_MAX48)
     if not want_eq:
         return gt, None
@@ -1770,10 +1772,12 @@ def descent_args(table, uni: BitVector, steps, blocks):
 
 
 def _descent_result(blocks, cls, rows, runs, size) -> BitVector:
-    """A BitVector from sv_descent's rows and classes of ``blocks``: its
-    BIT rows taken as they are, its D-GAP rows re-encoded (canonical
-    D-GAP, as the set operations' stores), FULL runs from ``runs``."""
-    c = _DESCENT_CLS[cls]
+    """A BitVector from sv_descent's rows and classes of ``blocks`` (each
+    a class in bits 0-7 and a D-GAP result's run count above): its BIT
+    rows taken as they are, its D-GAP rows re-encoded (canonical D-GAP,
+    as the set operations' stores; the run counts sum to the exact total
+    they hand ``compress_rows``), FULL runs from ``runs``."""
+    c = _DESCENT_CLS[cls & 0xFF]
     keep = c != 255
     bit = np.flatnonzero(c == C.CLS_BIT)
     if bit.size == blocks.size:
@@ -1783,7 +1787,8 @@ def _descent_result(blocks, cls, rows, runs, size) -> BitVector:
     gap = np.flatnonzero(c == C.CLS_GAP)
     gaps = None
     if gap.size:
-        gaps = compress_rows(rows[torch.from_numpy(gap).to(rows.device)])[0]
+        gaps = compress_rows(rows[torch.from_numpy(gap).to(rows.device)],
+                             int((cls[gap] >> 8).sum()))[0]
     return BitVector._from_parts(Structure(blocks[keep], c[keep], runs),
                                  pool, size, gaps)
 

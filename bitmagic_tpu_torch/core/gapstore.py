@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..ops import blockops
 from ..ops import cuda_kernels as ck
 
 _I64 = np.int64
@@ -81,14 +82,18 @@ class GapStore:
         return m
 
     @classmethod
-    def from_device(cls, ends, offs, first) -> "GapStore":
-        """The host store of device arrays ``(ends int32, offs int32[n +
-        1], first uint8[n])`` (kernel gap_compress's output), in one
-        download."""
-        n = first.shape[0]
-        host = torch.cat([offs, first.to(torch.int32), ends]).cpu().numpy()
-        return cls(host[2 * n + 1:], host[:n + 1],
-                   host[n + 1:2 * n + 1].astype(np.uint8))
+    def from_packed(cls, buf, n) -> "GapStore":
+        """The host store of kernel gap_compress's packed buffer ``buf``
+        (int32[2n + 1 + cap]: offs, first, then at most ``cap`` run ends)
+        of ``n`` rows, in one download.  Raises RuntimeError where the
+        total run count exceeds ``cap``: the caller's bound was wrong."""
+        ends, offs, first = blockops.gap_unpack(buf.cpu(), n)
+        if int(offs[n]) > ends.shape[0]:
+            raise RuntimeError(f"gap_compress: {int(offs[n])} runs in {n} "
+                               f"rows exceed the caller's bound of "
+                               f"{ends.shape[0]}")
+        return cls(ends.numpy(), offs.numpy(),
+                   first.numpy().astype(np.uint8))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -391,13 +396,16 @@ def gap_binary_op(op: str, store_a: GapStore, sel_a, store_b: GapStore,
     return res, zero_mask, full_mask
 
 
-def compress_rows(rows):
+def compress_rows(rows, cap):
     """D-GAP store of dense rows int32[k, 2048] on any device, re-encoded
     there by kernel gap_compress (plain PyTorch on the CPU) and downloaded
-    once -> (store over the k rows, zero_mask bool[k], full_mask bool[k]),
-    the contract of ``gap_binary_op``: for the rows ``a OP b`` of the same
-    pairs both give the same store, since both are canonical D-GAP."""
-    store = GapStore.from_device(*ck.gap_compress(rows))
+    once; ``cap`` bounds the rows' total run count (a RuntimeError where
+    it does not) -> (store over the k rows, zero_mask bool[k], full_mask
+    bool[k]), the contract of ``gap_binary_op``: for the rows ``a OP b``
+    of the same pairs both give the same store, since both are canonical
+    D-GAP."""
+    store = GapStore.from_packed(ck.gap_compress(rows, cap),
+                                 rows.shape[0])
     one_run = store.n_runs() == 1
     return (store, one_run & (store.first == 0),
             one_run & (store.first == 1))

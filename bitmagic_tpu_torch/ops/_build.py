@@ -23,7 +23,8 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), os.pardir, "_build")
 BUILD_DIR = os.path.normpath(BUILD_DIR)
 SOURCES = ("block_counts.cu", "count_op.cu", "logical_op_digest.cu",
            "agg_sub.cu", "pipeline_counts.cu", "scan_eq.cu", "gap_rows.cu",
-           "sv_planes.cu", "rs_select.cu", "sv_descent.cu")
+           "sv_planes.cu", "rs_select.cu", "sv_descent.cu",
+           "shift_chain.cu")
 HEADERS = ("bm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,12 +1,12 @@
 """Block-level ops over dense pools ``int32[n_blocks, 2048]`` — plain
 PyTorch versions (port of ``bitmagic_tpu/ops/blockops.py``).
 
-These are the canonical semantics.  Eleven families also have a
+These are the canonical semantics.  Twelve families also have a
 hand-written Hopper kernel in ``cuda_kernels.py`` with the same signature:
 ``block_counts`` (and its total form), ``count_op`` / ``count_metrics``
-(and its total form), ``logical_op_digest`` /
-``binary_op_digest``, ``agg_and_sub`` (and its arena and batched forms),
-``pipeline_counts``, ``scan_eq``, the D-GAP conversions
+(and its total form), ``logical_op_digest`` / ``binary_op_digest``,
+``agg_and_sub`` (and its arena and batched forms), the Bitap chain
+``shift_and_chain``, ``pipeline_counts``, ``scan_eq``, the D-GAP conversions
 ``gap_expand`` (and its pair form) / ``gap_compress``, the
 SparseVector's multi-plane ``sv_gather`` and import ``sv_transpose``, and
 the ordered searches' slice descent ``sv_descent`` / ``descent_rows``.
@@ -401,6 +401,45 @@ def agg_and_sub_arena(n_and, n_sub, slots, pool):
     return agg_and_sub(n_and, arena_descriptors(n_and, slots, pool))[0]
 
 
+def shift_and_chain(first_mask, descs):
+    """Plain version of the Bitap chain (bitmagic_tpu ``_shift_and_chain``,
+    agg/aggregator.py:117: ``acc = rows_0``, then ``acc = shift_up1(acc) &
+    rows_j``, over the block list's rows as one flat bit string, the carry
+    into a block cleared where ``first_mask`` int32[n] has bit 0 clear) in
+    its closed form, which kernel shift_and_chain computes: with k
+    operands, flat bit p of the result is the AND over j of operand j's
+    bit ``p - (k - 1 - j)``, and a source bit before the run of adjacent
+    blocks that holds p (before the list, or across a block whose
+    ``first_mask`` marks it not adjacent) reads 0.  One shifted gather and
+    AND per operand -> int32[n, 2048]."""
+    if not descs:
+        raise ValueError("shift_and_chain: no operands")
+    n = _desc_cols(descs[0])
+    dev = descs[0][0].device
+    k = len(descs)
+    words = n * SET_BLOCK_SIZE
+    blk = torch.arange(n, dtype=_I64, device=dev)
+    start = (first_mask.to(_I64) & 1) == 0
+    if n:
+        start[0] = True
+    # first word of the run of adjacent blocks that holds each word
+    lo = torch.cummax(torch.where(start, blk, 0), 0)[0] * SET_BLOCK_SIZE
+    lo = lo.repeat_interleave(SET_BLOCK_SIZE)
+    x = torch.arange(words, dtype=_I64, device=dev)
+    acc = torch.full((words,), 0xFFFFFFFF, dtype=_I64, device=dev)
+    for j, d in enumerate(descs):
+        q, r = divmod(k - 1 - j, 32)
+        w = as_u32_int64(gather_rows(*d)).reshape(-1)
+
+        def src(y):
+            return torch.where(y >= lo, w[y.clamp(min=0)], 0)
+        v = src(x - q)
+        if r:
+            v = ((v << r) | (src(x - q - 1) >> (32 - r))) & 0xFFFFFFFF
+        acc &= v
+    return u32_to_i32(acc.reshape(n, SET_BLOCK_SIZE))
+
+
 def _checked_selectors(selectors) -> np.ndarray:
     sel = np.asarray(selectors)
     if sel.ndim != 2:
@@ -532,11 +571,16 @@ def gap_expand_pair(mirror_a, mirror_b, sel, k_a):
     return torch.cat(parts)
 
 
-def gap_compress(rows):
-    """D-GAP encoding of rows int32[n, 2048] -> ``(ends int32[total], offs
-    int32[n + 1], first uint8[n])``, as ``GapStore.from_dense``: a run ends
-    at each bit that differs from the bit after it, and at bit 65535."""
+def gap_compress(rows, cap):
+    """D-GAP encoding of rows int32[n, 2048], as ``GapStore.from_dense``,
+    packed into one int32[2n + 1 + cap] buffer: ``offs`` (n + 1), ``first``
+    (n, a word each), then the first ``min(total, cap)`` run ends (the
+    rest of the buffer 0).  A run ends at each bit that differs from the
+    bit after it, and at bit 65535.  ``offs[n]`` is the true total even
+    above ``cap`` (clamped to 2^31 - 1); ``gap_unpack`` and
+    ``GapStore.from_packed`` read the buffer."""
     n, dev = rows.shape[0], rows.device
+    cap = int(cap)
     w = as_u32_int64(rows)
     after = torch.zeros_like(w)
     after[:, :-1] = w[:, 1:] & 1
@@ -554,7 +598,22 @@ def gap_compress(rows):
     # each row before a run end adds its closing end before it
     ends[torch.arange(at.shape[0], device=dev) + (at >> 16)] = (
         at & (BITS_PER_BLOCK - 1)).to(_I32)
-    return ends, offs.to(_I32), (w[:, 0] & 1).to(torch.uint8)
+    buf = torch.zeros(2 * n + 1 + cap, dtype=_I32, device=dev)
+    buf[:n + 1] = offs.clamp(max=2**31 - 1).to(_I32)
+    buf[n + 1:2 * n + 1] = (w[:, 0] & 1).to(_I32)
+    kept = min(ends.shape[0], cap)
+    buf[2 * n + 1:2 * n + 1 + kept] = ends[:kept]
+    return buf
+
+
+def gap_unpack(buf, n):
+    """``(ends, offs, first)`` views of a packed ``gap_compress`` buffer
+    of ``n`` rows: ``ends`` the run ends written (at most ``cap``), the
+    part of the buffer that is defined."""
+    cap = buf.shape[0] - (2 * n + 1)
+    total = int(buf[n])
+    return (buf[2 * n + 1:2 * n + 1 + min(total, cap)], buf[:n + 1],
+            buf[n + 1:2 * n + 1])
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +840,8 @@ def sv_descent(table: PlaneTable, utable: PlaneTable, codes, rows, bits,
     & p; eq -= p``.  Each step keeps per block the class the port's set
     operation would give it (``_descent_pair``).  -> ``(gt int32[K,
     2048], its digest int32[K, 64], eq, its digest (both None without
-    want_eq), classes uint8[2K]: gt's, then eq's)``."""
+    want_eq), classes int32[2K]: gt's, then eq's, each a class in bits
+    0-7 and, for a D-GAP result, its run count above)``."""
     k, dev = codes.shape[0], codes.device
     eq = _descent_operand(utable, 0, codes[:, len(rows)])
     gt = (torch.zeros(k, dtype=_I64, device=dev), zero_pool(k, dev),
@@ -795,7 +855,7 @@ def sv_descent(table: PlaneTable, utable: PlaneTable, codes, rows, bits,
         else:
             gt = _descent_pair("or", gt, _descent_pair("and", eq, p))
             eq = _descent_pair("sub", eq, p)
-    cls = torch.cat([gt[0], eq[0]]).to(torch.uint8)
+    cls = torch.cat([gt[0] | (gt[2] << 8), eq[0] | (eq[2] << 8)]).to(_I32)
     if not want_eq:
         return gt[1], calc_digest(gt[1]), None, None, cls
     return gt[1], calc_digest(gt[1]), eq[1], calc_digest(eq[1]), cls

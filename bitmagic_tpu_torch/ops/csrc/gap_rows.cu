@@ -34,14 +34,33 @@
 // threads a row, and kept (PERF.md).
 // Bound: the 8 KiB written per row (the ends read are 4 B per run).
 //
-// gap_compress: two passes of one CTA per row, the rows read once each.
-// A transition word t = w ^ ((w >> 1) | (next word << 31)) has bit b set
-// where bit b differs from the bit after it, i.e. where a run ends.  The
-// count pass popcounts them (the row's run count less one) and records
-// bit 0; the caller scans the counts into offs; the write pass takes each
-// thread's offset from a scan over the CTA and writes its transitions'
-// positions in order, the last thread the closing end 65535.  Bound: the
-// 8 KiB read per row and the 4 B written per run end.
+// gap_compress: one single-pass launch, a chained scan with decoupled
+// look-back.  A transition word t = w ^ ((w >> 1) | (next word << 31))
+// has bit b set where bit b differs from the bit after it, i.e. where a
+// run ends.  A CTA of 256 threads takes a row ticket from a global
+// counter (not blockIdx.x, so it waits only on CTAs already running: the
+// rows far outnumber the CTAs the card holds), reads its row once (two
+// 16-byte loads a thread), popcounts its transitions and publishes the
+// row's run count as an aggregate flag word.  It then looks back over
+// the predecessors' flags, 512 a round (two coalesced loads a thread),
+// summing aggregates down to the nearest inclusive prefix, and
+// publishes the row's inclusive prefix; the CTA writes its run ends at
+// the exclusive prefix (each thread at its offset from a scan over the
+// CTA, the last thread the closing end 65535), its offs[i + 1] and
+// first[i].  A flag word is one 64-bit word (a status and a run count),
+// stored and read whole, so no fence orders it against other data.  The
+// counter and the flags are a scratch buffer of the call's, which the C
+// entry clears (one memset) before the launch.  The output is one packed
+// int32 buffer [offs (n + 1) | first (n, a word each) | ends (cap)],
+// which the host downloads in one copy (core/gapstore.GapStore
+// .from_packed): no scalar sync, no second pass.  ``cap`` bounds the
+// total that the caller knows (core/bitvector: the summed runs of a GAP x
+// GAP pair, the run counts sv_descent reports); nothing is written past
+// it, offs[n] always holds the true total (clamped to int32), and a
+// reader raises when it exceeds ``cap``.  Bound: the 8 KiB read per row
+// and the 4 B written per run end, offset and first.  The first port
+// made two launches (a count pass and a write pass reading every row
+// again) around a torch.cumsum and a scalar sync for the total.
 #include "bm_common.cuh"
 
 namespace {
@@ -159,43 +178,112 @@ __device__ __forceinline__ void transitions(const uint4* __restrict__ row,
   if (last) t[kWordsPerThread - 1] &= 0x7FFFFFFFu;
 }
 
-__global__ void __launch_bounds__(bm::kThreads)
-gap_count_kernel(const uint4* __restrict__ rows, int32_t* __restrict__ counts,
-                 uint8_t* __restrict__ first) {
-  __shared__ uint32_t head[bm::kThreads];
-  __shared__ uint32_t part[bm::kWarps];
-  uint32_t t[kWordsPerThread];
-  transitions(rows + static_cast<size_t>(blockIdx.x) * bm::kBlockVec, head,
-              t);
-  uint32_t c = 0u;
+// Flag words of the look-back (see the top of the file): a status in
+// bits 32-33 (0: not yet published, the memset's) and a run count,
+// saturated to 32 bits, below.
+constexpr unsigned long long kAgg = 1;         // the row's own run count
+constexpr unsigned long long kPre = 2;         // its inclusive prefix
+constexpr unsigned long long kValMax = 0xFFFFFFFFull;
+constexpr int kMaxI32 = 0x7FFFFFFF;
+
+__device__ __forceinline__ unsigned long long load_flag(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_flag(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long flag(unsigned long long status,
+                                                   long long v) {
+  const unsigned long long u = static_cast<unsigned long long>(v);
+  return (status << 32) | (u > kValMax ? kValMax : u);
+}
+
+__device__ __forceinline__ bool ready(unsigned long long f) {
+  return ((f >> 32) & 3u) != 0;
+}
+
+__device__ __forceinline__ int32_t clamp_i32(long long v) {
+  return static_cast<int32_t>(v > kMaxI32 ? kMaxI32 : v);
+}
+
+// The exclusive prefix of row ``row`` (>= 1), by the whole CTA: thread t
+// reads the flags of rows top - t and top - t - 256 (coalesced, the
+// nearest 512 rows a round) and polls, with a short sleep, until both
+// are published.  The nearest inclusive prefix ends the walk (a row
+// before 0 counts as a prefix of 0).  Every thread returns the same sum.
+__device__ long long look_back(const unsigned long long* flags, int row,
+                               unsigned* pre_mask, long long* part) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  long long excl = 0;
+  for (int top = row - 1 - t;; top -= 2 * bm::kThreads) {
+    const int far = top - bm::kThreads;
+    unsigned long long f0 = top >= 0 ? load_flag(flags + top) : flag(kPre, 0);
+    unsigned long long f1 = far >= 0 ? load_flag(flags + far) : flag(kPre, 0);
+    while (!ready(f0) || !ready(f1)) {
+      __nanosleep(32);
+      if (!ready(f0)) f0 = load_flag(flags + top);
+      if (!ready(f1)) f1 = load_flag(flags + far);
+    }
+    // the nearest prefix: offset t (f0) or t + 256 (f1) from row - 1
+    const unsigned p0 = __ballot_sync(0xFFFFFFFFu, ((f0 >> 32) & 3u) == kPre);
+    const unsigned p1 = __ballot_sync(0xFFFFFFFFu, ((f1 >> 32) & 3u) == kPre);
+    if (lane == 0) {
+      pre_mask[warp] = p0;
+      pre_mask[bm::kWarps + warp] = p1;
+    }
+    __syncthreads();
+    int stop = 2 * bm::kThreads;
 #pragma unroll
-  for (int j = 0; j < kWordsPerThread; ++j) c += __popc(t[j]);
-  c = __reduce_add_sync(0xFFFFFFFFu, c);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t s = 0u;
+    for (int w = 2 * bm::kWarps - 1; w >= 0; --w) {
+      if (pre_mask[w]) stop = 32 * w + __ffs(pre_mask[w]) - 1;
+    }
+    long long c = t <= stop ? static_cast<long long>(f0 & kValMax) : 0;
+    if (t + bm::kThreads <= stop) c += static_cast<long long>(f1 & kValMax);
 #pragma unroll
-    for (int i = 0; i < bm::kWarps; ++i) s += part[i];
-    counts[blockIdx.x] = static_cast<int32_t>(s);
-    first[blockIdx.x] = static_cast<uint8_t>(head[0] & 1u);
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xFFFFFFFFu, c, o);
+    if (lane == 0) part[warp] = c;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < bm::kWarps; ++w) excl += part[w];
+    if (stop < 2 * bm::kThreads) return excl;
+    __syncthreads();                  // pre_mask and part are read
   }
 }
 
-__global__ void __launch_bounds__(bm::kThreads)
-gap_write_kernel(const uint4* __restrict__ rows,
-                 const int32_t* __restrict__ offs,
-                 int32_t* __restrict__ ends) {
+// out int32[2n + 1 + cap] = [offs | first | ends]; scratch uint64[n + 1],
+// zeroed: the ticket counter, then the n flags.
+__global__ void __launch_bounds__(bm::kThreads, 8)
+gap_compress_kernel(const uint4* __restrict__ rows, int n, long long cap,
+                    int32_t* __restrict__ out,
+                    unsigned long long* __restrict__ scratch) {
   __shared__ uint32_t head[bm::kThreads];
   __shared__ int part[bm::kWarps];
+  __shared__ unsigned pre_mask[2 * bm::kWarps];
+  __shared__ long long sums[bm::kWarps];
+  __shared__ int s_row;
+  if (threadIdx.x == 0) {
+    s_row = static_cast<int>(atomicAdd(scratch, 1ull));
+  }
+  __syncthreads();
+  const int row = s_row;
+  unsigned long long* flags = scratch + 1;
   uint32_t t[kWordsPerThread];
-  transitions(rows + static_cast<size_t>(blockIdx.x) * bm::kBlockVec, head,
-              t);
+  transitions(rows + static_cast<size_t>(row) * bm::kBlockVec, head, t);
   int c = 0;
 #pragma unroll
   for (int j = 0; j < kWordsPerThread; ++j) c += __popc(t[j]);
-  // this thread's offset: an inclusive scan in the warp, then the warps
-  // before it
+  // this thread's offset in the row: an inclusive scan in the warp, then
+  // the warps before it
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int incl = c;
@@ -206,19 +294,39 @@ gap_write_kernel(const uint4* __restrict__ rows,
   }
   if (lane == 31) part[warp] = incl;
   __syncthreads();
-  int at = offs[blockIdx.x] + incl - c;
-  for (int i = 0; i < warp; ++i) at += part[i];
+  int before = incl - c;
+  int ends_in_row = 0;
+#pragma unroll
+  for (int i = 0; i < bm::kWarps; ++i) {
+    if (i < warp) before += part[i];
+    ends_in_row += part[i];
+  }
+  const long long runs = ends_in_row + 1;      // and the closing 65535
+  if (threadIdx.x == 0) {
+    store_flag(flags + row, flag(row == 0 ? kPre : kAgg, runs));
+  }
+  const long long base =
+      row == 0 ? 0 : look_back(flags, row, pre_mask, sums);
+  if (threadIdx.x == 0) {
+    if (row > 0) store_flag(flags + row, flag(kPre, base + runs));
+    out[row + 1] = clamp_i32(base + runs);
+    out[n + 1 + row] = static_cast<int32_t>(head[0] & 1u);
+    if (row == 0) out[0] = 0;
+  }
+  int32_t* ends = out + 2 * static_cast<size_t>(n) + 1;
+  long long at = base + before;
   const int bit0 = threadIdx.x * kBitsPerThread;
 #pragma unroll
   for (int j = 0; j < kWordsPerThread; ++j) {
     uint32_t x = t[j];
     while (x) {
-      ends[at++] = bit0 + 32 * j + __ffs(x) - 1;
+      if (at < cap) ends[at] = bit0 + 32 * j + __ffs(x) - 1;
+      ++at;
       x &= x - 1u;
     }
   }
-  if (threadIdx.x == bm::kThreads - 1) {
-    ends[offs[blockIdx.x + 1] - 1] = kLastBit;
+  if (threadIdx.x == bm::kThreads - 1 && base + runs - 1 < cap) {
+    ends[base + runs - 1] = kLastBit;
   }
 }
 
@@ -247,24 +355,21 @@ extern "C" int bm_gap_expand(const void* ends_a, const void* offs_a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The count pass over rows int32[n, 2048]: counts int32[n] (run ends
-// before 65535 per row), first uint8[n] (bit 0 per row).  n >= 1.
-extern "C" int bm_gap_count(const void* rows, int n, void* counts,
-                            void* first, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  gap_count_kernel<<<n, bm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(rows), static_cast<int32_t*>(counts),
-      static_cast<uint8_t*>(first));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The write pass: ends int32[offs[n]] from offs int32[n + 1], offs[i + 1]
-// - offs[i] = counts[i] + 1.  n >= 1.
-extern "C" int bm_gap_write(const void* rows, int n, const void* offs,
-                            void* ends, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  gap_write_kernel<<<n, bm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(rows), static_cast<const int32_t*>(offs),
-      static_cast<int32_t*>(ends));
+// The packed D-GAP encoding of rows int32[n, 2048] into out int32[2n + 1
+// + cap] (offs, first, at most cap ends; see gap_compress_kernel).
+// scratch uint64[n + 1] is the call's: cleared here, on the stream,
+// before the launch.  n >= 1, cap >= 0.  Returns the CUDA error of the
+// memset or the launch (0 = launched).
+extern "C" int bm_gap_compress(const void* rows, int n, long long cap,
+                               void* out, void* scratch, void* stream) {
+  if (n <= 0 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (static_cast<size_t>(n) + 1) * sizeof(unsigned long long),
+      s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gap_compress_kernel<<<n, bm::kThreads, 0, s>>>(
+      static_cast<const uint4*>(rows), n, cap, static_cast<int32_t*>(out),
+      static_cast<unsigned long long*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

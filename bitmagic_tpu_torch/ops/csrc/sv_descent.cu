@@ -35,9 +35,10 @@
 // binary search of the block's ends and a walk.  A block whose eq becomes
 // absent stops there: no later step changes it.  The kernel writes the
 // block's gt row (and eq's where the caller asks) with its wave digest as
-// K1 does, and both final classes; the host builds the result vectors
-// from them (BIT rows as they are, D-GAP rows re-encoded by
-// gap_compress).
+// K1 does, and both final classes, each with a D-GAP result's run count
+// (the sum bounds gap_compress's output exactly); the host builds the
+// result vectors from them (BIT rows as they are, D-GAP rows re-encoded
+// by gap_compress).
 //
 // descent_rows, the dense form: one shard's stack int32[K, n_blocks,
 // 2048] (sharded_sv's layout), the universe a row (ANDed with the sign row
@@ -384,7 +385,7 @@ sv_descent_kernel(const int64_t* __restrict__ table,
                   int shift, uint4* __restrict__ gt_out,
                   int32_t* __restrict__ gt_dig, uint4* __restrict__ eq_out,
                   int32_t* __restrict__ eq_dig,
-                  uint8_t* __restrict__ cls_out) {
+                  int32_t* __restrict__ cls_out) {
   extern __shared__ __align__(128) uint4 ring_rows[];   // stages rows
   __shared__ __align__(8) uint64_t bars[kMaxStages];
   // slot s < n: step s's plane; slot n: the universe's
@@ -463,8 +464,9 @@ sv_descent_kernel(const int64_t* __restrict__ table,
   store_row(gt.v, gt_out, gt_dig);
   if (eq_out != nullptr) store_row(eq.v, eq_out, eq_dig);
   if (threadIdx.x == 0) {
-    cls_out[blockIdx.x] = static_cast<uint8_t>(gt.cls);
-    cls_out[k + blockIdx.x] = static_cast<uint8_t>(eq.cls);
+    // a class and, for a D-GAP result, its run count (0 for the rest)
+    cls_out[blockIdx.x] = gt.cls | (gt.runs << 8);
+    cls_out[k + blockIdx.x] = eq.cls | (eq.runs << 8);
     // a block that stopped early: the copies still in flight land before
     // the CTA leaves its shared memory
     const int issued = min(ring.n_copies, taken + stages);
@@ -552,8 +554,9 @@ bm::LaunchCache g_descent;
 // 9]), the steps' plane rows ``rows`` (host int32[n_steps], n_steps <=
 // 64, in descent order) with the value's bit of step i at bit i of
 // ``bits``.  Writes gt int32[k, 2048] and gt_dig int32[k, 64]; eq and
-// eq_dig the same when eq is not null; cls uint8[2 k]: gt's classes, then
-// eq's.  The BIT rows are read by cp.async.bulk: pools 16-byte aligned.
+// eq_dig the same when eq is not null; cls int32[2 k]: gt's classes, then
+// eq's, each class | a D-GAP result's run count << 8.  The BIT rows are
+// read by cp.async.bulk: pools 16-byte aligned.
 // Returns the CUDA error of the launch (0 = launched).
 extern "C" int bm_sv_descent(const void* table, int n_planes,
                              const void* utable, const void* codes,
@@ -579,7 +582,7 @@ extern "C" int bm_sv_descent(const void* table, int n_planes,
       static_cast<const int32_t*>(codes), static_cast<int>(k), st, shift,
       static_cast<uint4*>(gt), static_cast<int32_t*>(gt_dig),
       static_cast<uint4*>(eq), static_cast<int32_t*>(eq_dig),
-      static_cast<uint8_t*>(cls));
+      static_cast<int32_t*>(cls));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,9 @@ binary_op_digest                                    bitvector.py:43 (_binary_ker
 agg_and_sub,           B4 agg_sub.cu                pallas_kernels.py:270,
 agg_and_sub_arena,                                  aggregator.py:80/108/875
 agg_and_sub_batch
+shift_and_chain        B8 shift_chain.cu            agg/aggregator.py:117
+                                                    (_shift_and_chain, a
+                                                    jitted XLA scan)
 pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
 scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
 gap_expand,            gap_rows.cu                  no TPU kernel: the host
@@ -76,7 +79,7 @@ launches = {"block_counts": 0, "count_op": 0, "logical_op_digest": 0,
             "agg_and_sub": 0, "pipeline_counts": 0, "scan_eq": 0,
             "gap_expand": 0, "gap_compress": 0, "sv_gather": 0,
             "sv_transpose": 0, "rs_select": 0, "rs_rank": 0,
-            "sv_descent": 0}
+            "sv_descent": 0, "shift_and_chain": 0}
 # most planes B5 stages per CTA (pipeline_counts.cu: 100 KiB of shared
 # memory at 256 bytes per plane and tile)
 PIPELINE_MAX_PLANES = 400
@@ -121,8 +124,9 @@ _SIGNATURES = {
     "bm_gap_expand": ("gap_rows.cu",
                       [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
                        _VP]),
-    "bm_gap_count": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
-    "bm_gap_write": ("gap_rows.cu", [_VP, _INT, _VP, _VP, _VP]),
+    "bm_gap_compress": ("gap_rows.cu", [_VP, _INT, _LL, _VP, _VP, _VP]),
+    "bm_shift_and_chain": ("shift_chain.cu",
+                           [_VP, _INT, _VP, _INT, _VP, _VP]),
     "bm_sv_gather": ("sv_planes.cu",
                      [_VP, _LL, _VP, _INT, _VP, _LL, _VP, _INT, _VP, _VP,
                       _VP, _VP]),
@@ -364,7 +368,13 @@ def _descriptor_rows(descs, k):
     (agg_sub.cu: 7 x 8 bytes each, ints in the low half).  ``slot``,
     ``full``, ``aux`` and ``aux_slot`` may be None."""
     table = np.zeros((len(descs), 7), np.int64)
-    for j, (pool, slot, full, aux, aux_slot) in enumerate(descs):
+    done = {}                       # a repeated descriptor is checked once
+    for j, desc in enumerate(descs):
+        if id(desc) in done:
+            table[j] = table[done[id(desc)]]
+            continue
+        done[id(desc)] = j
+        pool, slot, full, aux, aux_slot = desc
         name = f"operand {j}"
         _rows(pool, f"{name}.pool")
         if slot is None and pool.shape[0] < k:
@@ -460,6 +470,34 @@ def agg_and_sub_batch(descs, index, offs, n_and, rows=True, counts=False):
         _launch("bm_agg_and_sub", "agg_and_sub", device, _ptr(buf), req_ptr,
                 V, 0, 0, 0, k, _ptr(out), _ptr(cnt))
     return out, cnt
+
+
+# ---------------------------------------------------------------------------
+# B8: the Bitap chain of combine_shift_right_and in one launch
+# ---------------------------------------------------------------------------
+def shift_and_chain(first_mask, descs):
+    """The Bitap chain over K gather descriptors ``(pool, slot, full, aux,
+    aux_slot)`` aligned on a block list of n blocks (``first_mask``
+    int32[n]: bit 0 clear where a block is not its list predecessor's
+    address successor) -> int32[n, 2048]: ``acc = rows_0``, then ``acc =
+    shift_up1(acc) & rows_j`` over the list as one flat bit string, in
+    the closed form of ``blockops.shift_and_chain``.  One launch."""
+    if not descs:
+        raise ValueError("shift_and_chain: no operands")
+    if not _on_cuda(first_mask, *(t for d in descs for t in d)):
+        return blockops.shift_and_chain(first_mask, descs)
+    n = blockops._desc_cols(descs[0])
+    dev = descs[0][0].device
+    _check(first_mask, "shift_and_chain: first_mask", _I32, align=4)
+    if first_mask.shape[0] != n:
+        raise ValueError(f"shift_and_chain: first_mask has "
+                         f"{first_mask.shape[0]} entries for {n} blocks")
+    out = torch.empty((n, SET_BLOCK_SIZE), dtype=_I32, device=dev)
+    if n:
+        table = _descriptor_table(descs, n, dev)
+        _launch("bm_shift_and_chain", "shift_and_chain", dev, _ptr(table),
+                len(descs), _ptr(first_mask), n, _ptr(out))
+    return out
 
 
 def _batch_table(descs, index, offs, n_and, k, device):
@@ -628,28 +666,34 @@ def _gap_expand(mirror_a, mirror_b, sel, k_a):
     return out
 
 
-def gap_compress(rows):
-    """D-GAP encoding of rows int32[n, 2048] -> ``(ends int32[total], offs
-    int32[n + 1], first uint8[n])`` on the rows' device, as
-    ``GapStore.from_dense``.  Two launches (the count pass, then the write
-    pass at the offsets the counts scan to) and one scalar sync between
-    them for the total."""
+def gap_compress(rows, cap):
+    """D-GAP encoding of rows int32[n, 2048], as ``GapStore.from_dense``,
+    into one packed int32[2n + 1 + cap] buffer on the rows' device:
+    ``offs`` (n + 1, ``offs[n]`` the true total), ``first`` (n, a word
+    each), then the run ends, at most ``cap`` of them (past the total the
+    buffer is undefined; ``blockops.gap_unpack``).  ``cap`` is the
+    caller's upper bound on the total run count; ``GapStore.from_packed``
+    raises where the total exceeds it.  One launch (after a memset of its
+    scratch), no scalar sync."""
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"gap_compress: cap {cap} < 0")
     if not _on_cuda(rows):
-        return blockops.gap_compress(rows)
+        return blockops.gap_compress(rows, cap)
     _rows(rows, "rows")
     n, dev = rows.shape[0], rows.device
-    counts = torch.empty(n, dtype=_I32, device=dev)
-    first = torch.empty(n, dtype=torch.uint8, device=dev)
-    offs = torch.zeros(n + 1, dtype=_I32, device=dev)
+    if 2 * n + 1 + cap >= 2**31:
+        raise ValueError(f"gap_compress: {n} rows and cap {cap} exceed "
+                         f"an int32 buffer")
+    out = torch.empty(2 * n + 1 + cap, dtype=_I32, device=dev)
     if not n:
-        return torch.empty(0, dtype=_I32, device=dev), offs, first
-    _launch("bm_gap_count", "gap_compress", dev, _ptr(rows), n,
-            _ptr(counts), _ptr(first))
-    offs[1:] = torch.cumsum(counts + 1, 0, dtype=_I32)
-    ends = torch.empty(int(offs[-1]), dtype=_I32, device=dev)
-    _launch("bm_gap_write", "gap_compress", dev, _ptr(rows), n, _ptr(offs),
-            _ptr(ends))
-    return ends, offs, first
+        out[:1] = 0
+        return out
+    # the ticket counter and the look-back flags, cleared by the C entry
+    scratch = torch.empty(n + 1, dtype=_I64, device=dev)
+    _launch("bm_gap_compress", "gap_compress", dev, _ptr(rows), n, cap,
+            _ptr(out), _ptr(scratch))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -990,7 +1034,8 @@ def sv_descent(table, utable, codes, rows, bits, want_eq=True):
     (``core/blocks.descent_codes``), step i the plane of table row
     ``rows[i]`` with bit i of ``bits`` (``blockops.sv_descent`` has the
     semantics).  -> ``(gt int32[K, 2048], its digest int32[K, 64], eq, its
-    digest (None without want_eq), classes uint8[2K])``."""
+    digest (None without want_eq), classes int32[2K]: a class | a D-GAP
+    result's run count << 8)``."""
     tensors = (codes, *_table_tensors(table), *_table_tensors(utable))
     if not _on_cuda(*tensors):
         return blockops.sv_descent(table, utable, codes, rows, bits,
@@ -1010,7 +1055,7 @@ def sv_descent(table, utable, codes, rows, bits, want_eq=True):
     gt_dig = torch.empty((k, BLOCK_WAVES), dtype=_I32, device=dev)
     eq = torch.empty_like(gt) if want_eq else None
     eq_dig = torch.empty_like(gt_dig) if want_eq else None
-    cls = torch.empty(2 * k, dtype=torch.uint8, device=dev)
+    cls = torch.empty(2 * k, dtype=_I32, device=dev)
     if k:
         _launch("bm_sv_descent", "sv_descent", dev, _ptr(table.table),
                 table.meta.shape[0], _ptr(utable.table), _ptr(codes), k,

@@ -32,6 +32,10 @@ only when every phase passed):
               at bvsetalgebra_rank_select's shapes (768 D-GAP blocks of 1
               to 256 runs expanded, 400 AND rows re-encoded) and on edge
               rows (1-run blocks, lone bits at 0 and 65535, 65536 runs),
+              gap_compress over compress_cases (20,000 rows, more CTAs
+              than the card holds, for its look-back; rows of 65536 runs;
+              cap equal to the total, above and below it), each store
+              equal to GapStore.from_dense's,
               gap_expand's pair launch (two stores' blocks in one launch)
               over gap_cases (1-run blocks, runs ending on bits 31 and 32
               of a word and on 65534, 1280 runs, the default top GAP
@@ -208,10 +212,16 @@ only when every phase passed):
               card, each printing the lines it prints on the CPU (apart
               from the mesh's device list and sample 22's wall times), with
               its wall seconds and launches; then B8, the Bitap chain
-              (combine_shift_right_and) at samples/06's shape and at
-              config-1 width (4 occurrence vectors of a 100.7M-base text;
-              16- and 32-letter patterns) against a numpy Bitap, with host
-              wall ms, device busy ms and launches per call;
+              (combine_shift_right_and, one shift_and_chain launch a
+              call) at samples/06's shape and at config-1 width (4
+              occurrence vectors of a 100.7M-base text; 16- and 32-letter
+              patterns), and over chains of 33, 34 and 65 operands on a
+              block list with gaps and of 65538 operands on a contiguous
+              one (bitap_chains), each against a numpy Bitap and the
+              kernel bit for bit against its plain version, with host
+              wall ms, device busy ms and launches per call; the kernel's
+              ms at config-1 width (L2 dirty and clean) beside its two
+              bounds;
 15. tools   — the four BLOB tools of tools_torch/ in this process on the
               card, each leg with its seconds and launches: svutil over
               config 4b's live values (16M) to sv and RSC BLOBs (MB/s;
@@ -260,9 +270,9 @@ only when every phase passed):
               before each launch), beside the bound from bytes and integer
               operations: K2 and K3 also at config 1's own shapes and in
               their total forms; gap_expand over 768 blocks and in one
-              pair launch over two stores' 1536, gap_compress's two
-              launches over 400 rows (and its whole
-              call, with the scalar sync between them); sv_gather at
+              pair launch over two stores' 1536, gap_compress's launch
+              over 400 rows (and its whole call, and compress_rows with
+              its download, against the plain version's); sv_gather at
               column_range_gather's shape (16M rows, 1M ids) and
               sv_transpose at 16M values and 20 slices (also with L2
               clean) and at 16M 8-byte values and 64 slices; rs_select and
@@ -386,6 +396,11 @@ KERNELS = {
         replaces="bitmagic_tpu/sv/scanner.py:210 (_cmp_unsigned's chain "
                  "of set operations; with parallel/sharded_sv.py:1182 "
                  "_descent_prog and :1208 _float_gt_prog, jitted XLA)"),
+    # the Bitap chain of combine_shift_right_and
+    "shift_and_chain": dict(
+        source="bitmagic_tpu_torch/ops/csrc/shift_chain.cu",
+        replaces="bitmagic_tpu/agg/aggregator.py:117 (_shift_and_chain, "
+                 "jitted XLA lax.scan)"),
 }
 FIRST_SLICE = ("block_counts", "count_op", "logical_op_digest")
 # the D-GAP kernels the main path's set ops and metrics launch
@@ -676,14 +691,78 @@ def gap_kernels_vs_plain(rng, device, cmp):
         cmp("gap_expand", ck.gap_expand_pair(*args),
             blockops.gap_expand_pair(*args))
     rows = ra[:GAP_PAIRS] & ck.gap_expand(*mb, every)[:GAP_PAIRS]
-    for r in (rows, gap_edge_rows(device)):
-        for g, w in zip(ck.gap_compress(r), blockops.gap_compress(r)):
-            cmp("gap_compress", g, w)
-    back = GapStore.from_device(*ck.gap_compress(rows))
-    want = GapStore.from_dense(blockops.to_host_words(rows))
-    for key in ("ends", "offs", "first"):
-        check(np.array_equal(getattr(back, key), getattr(want, key)),
-              f"gap_compress {key} equals GapStore.from_dense")
+    cases = [("cell1_400", rows, None, None),
+             ("edges", gap_edge_rows(device), None, None)]
+    for name, r, cap, store in cases + compress_cases(rng, device):
+        if store is None:
+            store = GapStore.from_dense(blockops.to_host_words(r))
+        total, n = int(store.offs[-1]), r.shape[0]
+        cap = total if cap is None else cap
+        caps = [cap] if name.startswith("cap") else [cap, cap + 257]
+        if name == "cap_below":
+            caps.append(0)
+        for cap in caps:
+            n0 = ck.launches["gap_compress"]
+            buf = ck.gap_compress(r, cap)
+            sync()
+            check(ck.launches["gap_compress"] == n0 + 1,
+                  f"gap_compress {name}: one launch")
+            for g, w in zip(blockops.gap_unpack(buf, n), blockops.gap_unpack(
+                    blockops.gap_compress(r, cap), n)):
+                cmp("gap_compress", g, w)
+            if cap < total:
+                try:
+                    GapStore.from_packed(buf, n)
+                except RuntimeError:
+                    continue
+                check(False, f"gap_compress {name}: a total above cap "
+                             f"raises")
+            back = GapStore.from_packed(buf, n)
+            for key in ("ends", "offs", "first"):
+                check(np.array_equal(getattr(back, key),
+                                     getattr(store, key)),
+                      f"gap_compress {name} {key} equals "
+                      f"GapStore.from_dense")
+
+
+def random_gap_store(rng, n, runs_max):
+    """A D-GAP store of ``n`` blocks, each of 1 to ``runs_max`` runs (run
+    ends drawn uniform in [0, 65535), repeats dropped), drawn in bulk."""
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    m = rng.integers(1, runs_max + 1, n)
+    row = np.repeat(np.arange(n, dtype=np.int64), m - 1)
+    key = np.unique(row * BPB + rng.integers(0, BPB - 1, row.size))
+    r = key >> 16
+    cuts = np.bincount(r, minlength=n)
+    offs = np.concatenate([[0], np.cumsum(cuts + 1)])
+    ends = np.full(int(offs[-1]), BPB - 1, np.int64)
+    first_cut = np.concatenate([[0], np.cumsum(cuts)])[:-1]
+    ends[offs[r] + np.arange(key.size) - first_cut[r]] = key & (BPB - 1)
+    return GapStore(ends, offs, rng.integers(0, 2, n).astype(np.uint8))
+
+
+def compress_cases(rng, device):
+    """gap_compress's risky inputs, each (name, rows int32[n, 2048] on
+    ``device``, cap, the store they encode to): 20,000 rows of 1 to 256
+    runs (more CTAs than the card holds at once: the look-back waits on
+    rows still running), rows of 65536 runs, one row, and cap at the total
+    (``cap_total``) and below it (``cap_below``)."""
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    out = []
+    for name, store in (
+            ("rows_20000", random_gap_store(rng, 20_000, GAP_RUNS_MAX)),
+            ("runs_65536", GapStore.from_dense(np.stack(
+                [np.full(2048, w, np.uint32)
+                 for w in (0x55555555, 0xAAAAAAAA) * 4]))),
+            ("one_row", random_gap_store(rng, 1, 3000)),
+            ("cap_total", random_gap_store(rng, 400, GAP_RUNS_MAX)),
+            ("cap_below", random_gap_store(rng, 400, GAP_RUNS_MAX))):
+        sel = torch.arange(store.n_blocks, dtype=torch.int32, device=device)
+        rows = ck.gap_expand(*store.device_arrays(device), sel)
+        total = int(store.offs[-1])
+        out.append((name, rows, total - (name == "cap_below"), store))
+    return out
 
 
 def sv_columns(tbm, rng, device):
@@ -4396,8 +4475,8 @@ def samples_phase(tbm, device, card, n_blocks=N_BLOCKS):
     require_launches("samples phase", total, ("logical_op_digest",
                                               "block_counts", "agg_and_sub",
                                               "pipeline_counts"))
-    bitap_timing(tbm, device, card, n_blocks)
-    return total
+    b8 = bitap_timing(tbm, device, card, n_blocks)
+    return total, b8
 
 
 def bitap_oracle(codes, pat) -> np.ndarray:
@@ -4409,48 +4488,291 @@ def bitap_oracle(codes, pat) -> np.ndarray:
     return np.flatnonzero(hit) + (m - 1)
 
 
+# B8's chains beside the DNA texts: operands over a block list with gaps,
+# and one chain longer than a block's bits over a contiguous list
+CHAIN_BLOCKS = (0, 1, 2, 4, 5, 8, 9, 10, 13)
+CHAIN_SIZE = 15 * BPB
+CHAIN_KS = (33, 34, 65)
+LONG_CHAIN = 65538
+
+
+def chain_holes(rng, n):
+    """uint32[2048]: a block of ones with ``n`` holes of 1 to 40 bits."""
+    bits = np.ones(BPB, bool)
+    for p, w in zip(rng.integers(0, BPB, n), rng.integers(1, 41, n)):
+        bits[p:p + w] = False
+    return image(bits)
+
+
+def gapped_chain(tbm, rng, k, device):
+    """``k`` operand vectors of CHAIN_SIZE bits over CHAIN_BLOCKS (the
+    list has gaps): each block the block's base row (ones with 40 holes)
+    less 3 holes of its own, blocks 5 and 13 absent in one operand in ten,
+    block 9 all ones in one in five; every third operand optimized (D-GAP
+    and FULL blocks), the rest BIT rows."""
+    base = {b: chain_holes(rng, 40) for b in CHAIN_BLOCKS}
+    vecs = []
+    for j in range(k):
+        words = np.zeros((CHAIN_SIZE // BPB, 2048), np.uint32)
+        for b in CHAIN_BLOCKS:
+            if b in (5, 13) and rng.random() < 0.1:
+                continue
+            words[b] = (0xFFFFFFFF if b == 9 and rng.random() < 0.2
+                        else base[b] & chain_holes(rng, 3))
+        v = tbm.BitVector.from_words(words.ravel(), CHAIN_SIZE,
+                                     device=device)
+        if j % 3 == 0:
+            v.optimize()
+        vecs.append(v)
+    return vecs
+
+
+def long_chain(tbm, device):
+    """LONG_CHAIN operands: three 3-block vectors repeated, ones but for
+    holes at bit 0 and at the end of block 1 (and one more in two of
+    them), so that block 1 keeps windows of 65538 clean bits; the chain
+    takes a contiguous block list (agg/aggregator.py's long-chain
+    route), and its shifts reach two blocks back."""
+    vecs = []
+    for extra in ((), (100,), (3 * BPB - 600,)):
+        bits = np.ones(3 * BPB, bool)
+        bits[[0, 2 * BPB - 1, *extra]] = False
+        vecs.append(tbm.BitVector.from_words(image(bits), 3 * BPB,
+                                             device=device))
+    return [vecs[j % 3] for j in range(LONG_CHAIN)]
+
+
+def chain_words_oracle(images):
+    """The Bitap chain in numpy, step by step over word images of one
+    address space: acc = images[0], then acc = shift_up1(acc) & images[j]
+    (the carry across words; bits past the end dropped)."""
+    acc = images[0].copy()
+    one = np.uint32(1)
+    for img in images[1:]:
+        carry = np.concatenate([np.zeros(1, np.uint32), acc[:-1] >> 31])
+        acc = ((acc << one) | carry) & img
+    return acc
+
+
+def bitap_chains(tbm, device):
+    """(name, operand vectors, numpy Bitap words) of the chains of
+    CHAIN_KS operands over a block list with gaps and of LONG_CHAIN over
+    a contiguous one."""
+    rng = np.random.default_rng(SEED + 43)
+    out = []
+    for k in CHAIN_KS:
+        vecs = gapped_chain(tbm, rng, k, device)
+        out.append((f"k{k}_gaps", vecs, chain_words_oracle(
+            [v.to_words().ravel() for v in vecs])))
+    vecs = long_chain(tbm, device)
+    images = {id(v): v.to_words().ravel() for v in vecs[:3]}
+    out.append((f"k{LONG_CHAIN}_contiguous", vecs, chain_words_oracle(
+        [images[id(v)] for v in vecs])))
+    return out
+
+
+def sample06_case(tbm, device):
+    """samples/06's occurrence vectors of "ACGG" and the numpy Bitap's
+    ends."""
+    text = "ACGTACGTTTACGGACGTACGT" * 1000
+    codes = np.frombuffer(text.encode(), np.uint8)
+    occ = {c: tbm.BitVector.from_indices(
+        np.flatnonzero(codes == ord(c)), len(text) + 1, device=device)
+        for c in "ACGT"}
+    return ([occ[c] for c in "ACGG"],
+            bitap_oracle(codes, [ord(c) for c in "ACGG"]))
+
+
+def chain_args(tbm, vecs):
+    """``(first_mask, descs)``, the arguments combine_shift_right_and
+    hands kernel B8 for ``vecs`` (its one chain), and its result."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    real, seen = ck.shift_and_chain, []
+
+    def keep(first_mask, descs):
+        seen.append((first_mask, descs))
+        return real(first_mask, descs)
+    ck.shift_and_chain = keep
+    try:
+        res = tbm.Aggregator().combine_shift_right_and(vecs)
+    finally:
+        ck.shift_and_chain = real
+    check(len(seen) == 1, "combine_shift_right_and runs one chain")
+    return seen[0], res
+
+
+def bitap_kernel_cases(tbm, device):
+    """(name, (first_mask, descs)) of B8 at samples/06's shape and over
+    ``bitap_chains`` (the card test's cases)."""
+    cases = [("sample06_ACGG", sample06_case(tbm, device)[0])]
+    cases += [(name, vecs) for name, vecs, _ in bitap_chains(tbm, device)]
+    return [(name, chain_args(tbm, vecs)[0]) for name, vecs in cases]
+
+
+def b8_sources(desc, n):
+    """Where each of the n blocks of one B8 descriptor ``(pool, slot,
+    full, aux, aux_slot)`` reads its row: ``(tensor address, row)``
+    int64[n] each, the address -1 where no row is read (a FULL or absent
+    block)."""
+    pool, slot, full, aux, aux_slot = desc
+    row = (np.arange(n) if slot is None
+           else slot.cpu().numpy().astype(np.int64))
+    on = (row >= 0) & (pool.shape[0] > 0)
+    if full is not None:
+        on &= ~full.cpu().numpy().astype(bool)
+    ptr = np.where(on, pool.data_ptr(), -1)
+    if aux is not None and aux.shape[0]:
+        a = aux_slot.cpu().numpy().astype(np.int64)
+        ptr = np.where(a >= 0, aux.data_ptr(), ptr)
+        row = np.where(a >= 0, a, row)
+    return ptr, row
+
+
+def b8_bytes(first_mask, descs):
+    """The bytes kernel B8 must move: ``(every distinct operand row read
+    once and the result written once, the same at its early exit)``.
+    Operands that repeat a vector (a pattern's repeated letter) share
+    their rows, so a row counts once however many operands read it.  The
+    exit is replayed in numpy: per 128-word slice of a result row, the
+    operands are taken in groups of four up to the one whose vote finds
+    the slice zero, and each distinct row's 512 B slice at that position
+    counts once if an operand reads it while the slice is alive."""
+    from bitmagic_tpu_torch.ops import blockops
+    k = len(descs)
+    n = first_mask.shape[0]
+    fm = first_mask.cpu().numpy()
+    start = (fm & 1) == 0
+    start[0] = True
+    lo = np.maximum.accumulate(np.where(start, np.arange(n), 0)) * 2048
+    lo = np.repeat(lo, 2048)
+    x = np.arange(n * 2048)
+    acc = np.full(n * 2048, 0xFFFFFFFF, np.uint64)
+    alive = np.ones(n * 16, bool)
+    sources = {}
+    rows = []
+    for j, desc in enumerate(descs):
+        if id(desc) not in sources:
+            sources[id(desc)] = (b8_sources(desc, n), blockops.to_host_words(
+                blockops.gather_rows(*desc)).ravel().astype(np.uint64))
+        (ptr, row), w = sources[id(desc)]
+        q, r = divmod(k - 1 - j, 32)
+
+        def src(y):
+            return np.where(y >= lo, w[np.maximum(y, 0)], 0)
+        v = src(x - q)
+        if r:
+            v = ((v << np.uint64(r)) | (src(x - q - 1) >> np.uint64(32 - r))
+                 ) & np.uint64(0xFFFFFFFF)
+        acc &= v
+        s = np.flatnonzero(alive & np.repeat(ptr >= 0, 16))
+        rows.append(np.stack([ptr[s // 16], row[s // 16], s % 16]))
+        if j % 4 == 3:
+            alive &= (acc.reshape(-1, 128) != 0).any(axis=1)
+    every = np.concatenate([np.stack(b8_sources(d, n)) for d in descs], 1)
+    every = every[:, every[0] >= 0]
+    distinct = np.unique(every, axis=1).shape[1]
+    read = np.unique(np.concatenate(rows, 1), axis=1).shape[1]
+    return (distinct + n) * 8192, read * 512 + n * 8192
+
+
 def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
-    """B8: ``combine_shift_right_and`` (the Bitap chain, plain PyTorch) at
-    samples/06's shape and at config-1 width (4 occurrence vectors of a
-    seeded 100.7M-base text, 1536 blocks each, BITAP_PATTERNS letters),
-    each result against a numpy Bitap; host wall ms, device busy ms and
-    launches per call (the six kernels' counters and the device kernels
-    in a profiler trace)."""
+    """B8: ``combine_shift_right_and`` (one shift_and_chain launch a call)
+    at samples/06's shape, at config-1 width (4 occurrence vectors of a
+    seeded 100.7M-base text, 1536 blocks each, BITAP_PATTERNS letters) and
+    over ``bitap_chains``: each result against a numpy Bitap, the kernel
+    against its plain version bit for bit on the arguments the call hands
+    it; host wall ms, device busy ms and launches per call.  The kernel at
+    config-1 width through its C interface (L2 dirty and clean) beside its
+    bounds: every distinct operand row read once and the result written
+    once, and the bytes its early exit leaves (``b8_bytes``).  -> (launches of
+    the calls, each counted from 0, {(kernel, shape): timing}, (cases
+    held against the plain version, their max abs err))."""
+    from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     agg = tbm.Aggregator()
-    text = "ACGTACGTTTACGGACGTACGT" * 1000
-    codes6 = np.frombuffer(text.encode(), np.uint8)
-    occ6 = {c: tbm.BitVector.from_indices(
-        np.flatnonzero(codes6 == ord(c)), len(text) + 1, device=device)
-        for c in "ACGT"}
     rng = np.random.default_rng(SEED + 41)
     n = n_blocks * BPB
     codes = rng.integers(0, 4, n).astype(np.uint8)
     occ = [tbm.BitVector.from_words(image(codes == c), n, device=device)
            for c in range(4)]
-    cases = [("sample06_ACGG", [occ6[c] for c in "ACGG"],
-              bitap_oracle(codes6, [ord(c) for c in "ACGG"]))]
+    cases = [("sample06_ACGG", *sample06_case(tbm, device), None)]
     for m in BITAP_PATTERNS:
         p = int(rng.integers(0, n - m))
         pat = codes[p:p + m]
         cases.append((f"config1_{m}", [occ[c] for c in pat],
-                      bitap_oracle(codes, pat)))
-    for what, vecs, want in cases:
+                      bitap_oracle(codes, pat), None))
+    cases += [(name, vecs, None, words)
+              for name, vecs, words in bitap_chains(tbm, device)]
+    launches = {k: 0 for k in KERNELS}
+    args = {}
+    err = 0
+    for what, vecs, want, words in cases:
         ck.reset_launches()
+        t0 = time.perf_counter()
         res = agg.combine_shift_right_and(vecs)
-        launches = {k: v for k, v in ck.launches.items() if v}
-        check(np.array_equal(res.indices(), want),
-              f"B8 {what}: Bitap ends against numpy")
-        wall, busy, top = device_busy(
-            lambda: agg.combine_shift_right_and(vecs))
-        kernels = device_kernels(lambda: agg.combine_shift_right_and(vecs))
-        log(json.dumps({"b8": what, "operands": len(vecs),
-                        "blocks": vecs[0]._struct.nb.size, "hits":
-                        int(want.size), "host_wall_ms": round(wall, 3),
-                        "device_busy_ms": round(busy, 4),
-                        "counted_launches": launches,
-                        "device_kernels_per_call": len(kernels),
-                        "device_ms_by_kernel": top, "card": card["smi"]}))
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: v for k, v in ck.launches.items() if v}
+        for k, v in counted.items():
+            launches[k] += v
+        check(counted.get("shift_and_chain") == 1,
+              f"B8 {what}: one shift_and_chain launch a call, counted "
+              f"{counted}")
+        if want is not None:
+            check(np.array_equal(res.indices(), want),
+                  f"B8 {what}: Bitap ends against numpy")
+        else:
+            check(np.array_equal(res.to_words().ravel(), words),
+                  f"B8 {what}: Bitap words against numpy")
+        (fm, descs), _ = chain_args(tbm, vecs)
+        got = ck.shift_and_chain(fm, descs)
+        sync()
+        plain = blockops.shift_and_chain(fm, descs)
+        err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
+                           .abs().max()))
+        check(torch.equal(got, plain), f"B8 {what}: kernel = plain version")
+        args[what] = (fm, descs)
+        line = {"b8": what, "operands": len(vecs),
+                "blocks": int(fm.shape[0]), "hit_bits": int(
+                    want.size if want is not None
+                    else np.bitwise_count(words).sum()),
+                "first_call_wall_ms": round(first_ms, 3),
+                "counted_launches": counted, "card": card["smi"]}
+        if len(vecs) < LONG_CHAIN:
+            wall, busy, top = device_busy(
+                lambda: agg.combine_shift_right_and(vecs))
+            kernels = device_kernels(lambda: agg.combine_shift_right_and(
+                vecs))
+            line.update(host_wall_ms=round(wall, 3),
+                        device_busy_ms=round(busy, 4),
+                        device_kernels_per_call=len(kernels),
+                        device_ms_by_kernel=top)
+        log(json.dumps(line))
+    out = {}
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
+    clean = torch.empty_like(flush)
+    for m in BITAP_PATTERNS[::-1]:
+        fm, descs = args[f"config1_{m}"]
+        nb = fm.shape[0]
+        table = ck._descriptor_table(descs, nb, device)
+        res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
+
+        def launch(table=table, fm=fm, res=res, k=len(descs), nb=nb):
+            ck._launch("bm_shift_and_chain", "shift_and_chain", device,
+                       ck._ptr(table), k, ck._ptr(fm), nb, ck._ptr(res))
+        nbytes, exit_bytes = b8_bytes(fm, descs)
+        for shape, c in ((f"config1_{m}", None),
+                         (f"config1_{m}_clean_l2", clean)):
+            record(out, ("shift_and_chain", shape), card, flush, launch,
+                   lambda fm=fm, descs=descs: blockops.shift_and_chain(
+                       fm, descs), None, nbytes, 0, 0, clean=c)
+            t = out["shift_and_chain", shape]
+            t.update(operands=len(descs), blocks=nb,
+                     exit_bytes=exit_bytes,
+                     exit_bound_ms=exit_bytes / card["peak_bw"] * 1e3)
+            log(json.dumps({"kernel": "shift_and_chain", "shape": shape,
+                            **t, "card": card["smi"]}))
+    return launches, out, (len(cases), err)
 
 
 # ---------------------------------------------------------------------------
@@ -5416,10 +5738,12 @@ def descent_timings(rng, device, card, flush, out):
 def gap_timings(rng, device, card, flush, out):
     """gap_expand over the GAP_BLOCKS blocks of a store drawn as
     bvsetalgebra_rank_select's, and over both stores' in one pair launch
-    (as an operation on two such vectors); gap_compress's two launches over
-    GAP_PAIRS AND rows of two such stores, and its whole call (both
-    launches, the scan and the scalar sync between them).  Bounds: the
-    bytes read and written once, at the card's memory rate."""
+    (as an operation on two such vectors); gap_compress's launch over
+    GAP_PAIRS AND rows of two such stores (into a prepared buffer), its
+    whole call, and ``compress_rows`` (the call and
+    the download; host wall, median of 21) against the same through the
+    plain version.  Bounds: the bytes read and written once, at the card's
+    memory rate."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     sa, sb = gap_stores(rng)
@@ -5444,28 +5768,44 @@ def gap_timings(rng, device, card, flush, out):
         rows=2 * GAP_BLOCKS, runs=int(sa.offs[-1] + sb.offs[-1]))
     rows = (ck.gap_expand(*ma, every)[:GAP_PAIRS]
             & ck.gap_expand(*mb, every)[:GAP_PAIRS])
-    ends, offs, first = ck.gap_compress(rows)
-    counts = torch.empty(GAP_PAIRS, dtype=torch.int32, device=device)
+    from bitmagic_tpu_torch.core import gapstore
     n = GAP_PAIRS
+    # the pairs' summed runs: the bound _binary hands gap_compress
+    cap = int(sa.n_runs()[:n].sum() + sb.n_runs()[:n].sum())
+    buf = ck.gap_compress(rows, cap)
+    scratch = torch.empty(n + 1, dtype=torch.int64, device=device)
 
-    def two_launches():
-        ck._launch("bm_gap_count", "gap_compress", device, rows.data_ptr(),
-                   n, counts.data_ptr(), first.data_ptr())
-        ck._launch("bm_gap_write", "gap_compress", device, rows.data_ptr(),
-                   n, offs.data_ptr(), ends.data_ptr())
+    def one_launch():           # the memset and the kernel, no allocation
+        ck._launch("bm_gap_compress", "gap_compress", device, ck._ptr(rows),
+                   n, cap, ck._ptr(buf), ck._ptr(scratch))
 
-    total = ends.shape[0]
+    def median_ms(fn, reps=21):
+        fn()
+        sync()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    total = int(buf[n])
     nbytes = n * 8192 + 4 * total + 4 * (n + 1) + n
-    record(out, ("gap_compress", "cell1_400"), card, flush, two_launches,
-           lambda: blockops.gap_compress(rows), None, nbytes, 0, 0)
+    record(out, ("gap_compress", "cell1_400"), card, flush, one_launch,
+           lambda: blockops.gap_compress(rows, cap), None, nbytes, 0, 0)
     out["gap_compress", "cell1_400"].update(
-        rows=n, runs=total,
-        call_ms=time_ms(lambda: ck.gap_compress(rows), flush))
+        rows=n, runs=total, cap=cap,
+        call_ms=time_ms(lambda: ck.gap_compress(rows, cap), flush),
+        compress_rows_ms=median_ms(lambda: gapstore.compress_rows(rows,
+                                                                  cap)),
+        compress_rows_plain_ms=median_ms(
+            lambda: gapstore.GapStore.from_packed(
+                blockops.gap_compress(rows, cap), n)))
     # what the kernels replace: the host's run-domain merge of the pairs
     # and its metric sweep over them, the host expansion of every block
     # and the host encoding of the pairs' rows (best host ms of 5 after a
     # warm-up)
-    from bitmagic_tpu_torch.core import gapstore
     pairs, blocks = np.arange(n), np.arange(GAP_BLOCKS)
     host_rows = blockops.to_host_words(rows)
     out["gap_host_ms"] = {
@@ -5946,7 +6286,12 @@ def main():
     del a, b, bits, sv, vals, nm
 
     # 14. the samples phase: the 24 port samples on the card, then B8
-    samples_launches = samples_phase(tbm, device, card)
+    samples_launches, (b8_launches, b8_times, b8_cmp) = samples_phase(
+        tbm, device, card)
+    # B8 is held against its plain version in its own runs (bitap_timing)
+    cases["shift_and_chain"], err["shift_and_chain"] = b8_cmp
+    log(f"kernels: shift_and_chain bit-identical to its plain version: "
+        f"{b8_cmp[0]} cases, max abs err {b8_cmp[1]}")
 
     # 15. the tools phase: svutil, range_idx, lnkutil and inv_list
     tools_launches = tools_phase(tbm, card)
@@ -5996,6 +6341,7 @@ def main():
                     "numpy that gap_expand and gap_compress replace, at "
                     "bvsetalgebra_rank_select's shapes"}))
     tm.update(search_timings(device, card))
+    tm.update(b8_times)
     kernels = []
     shapes = {k: (N_BLOCKS, SCALE_BLOCKS) for k in FIRST_SLICE}
     shapes["block_counts"] += ("1536_clean_l2", "16384_clean_l2",
@@ -6013,11 +6359,14 @@ def main():
                   rs_select=("cell1_1M", "flat_1M"),
                   rs_rank=("cell1_1M", "flat_1M"),
                   sv_descent=("cell3", "cell3_clean_l2", "shard4b",
-                              "shard4b_clean_l2"))
+                              "shard4b_clean_l2"),
+                  shift_and_chain=("config1_32", "config1_32_clean_l2",
+                                   "config1_16", "config1_16_clean_l2"))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
                     + RS_KERNELS else descent_launches[k]
-                    if k == "sv_descent" else search_launches[k])
+                    if k == "sv_descent" else b8_launches[k]
+                    if k == "shift_and_chain" else search_launches[k])
         for shape in shapes[k]:
             t = tm[(k, shape)]
             log(json.dumps({"kernel": k, "shape": shape, **{
@@ -6028,8 +6377,11 @@ def main():
                                   "rows_total", "singles_ms",
                                   "popcounts_per_word_pair",
                                   "planes_staged", "planes_total", "runs",
-                                  "call_ms", "ids", "planes", "queries",
-                                  "bit_queries", "blocks", "steps")
+                                  "call_ms", "compress_rows_ms",
+                                  "compress_rows_plain_ms", "ids", "planes",
+                                  "queries", "bit_queries", "blocks",
+                                  "steps", "operands", "exit_bytes",
+                                  "exit_bound_ms")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
         t = tm[(k, shapes[k][0])]
@@ -6068,8 +6420,14 @@ def main():
                              "here")
         if k == "gap_compress":
             entry["call_ms"] = t["call_ms"]
-            entry["note"] = ("two launches per call (count pass, write "
-                             "pass); ms is both, call_ms the whole call")
+            entry["note"] = ("one launch per call (after a memset of its "
+                             "scratch); call_ms the whole call")
+        if k == "shift_and_chain":
+            entry["exit_bound_ms"] = t["exit_bound_ms"]
+            entry["note"] = ("launches: one per combine_shift_right_and call "
+                             "of the B8 runs (samples phase); bound_ms every "
+                             "distinct operand row read once, exit_bound_ms "
+                             "the bytes its early exit leaves")
         kernels.append(entry)
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(nvidia_smi("name,power.limit"))

@@ -35,6 +35,7 @@ from bitmagic_tpu.parallel import sharded as jsh
 from bitmagic_tpu.sv.scanner import scanner as jscanner
 from bitmagic_tpu_torch import constants as C
 from bitmagic_tpu_torch.core.gapstore import GapStore
+from bitmagic_tpu_torch.ops import blockops
 from bitmagic_tpu_torch.ops import cuda_kernels as ck
 
 torch.set_num_threads(1)
@@ -491,10 +492,11 @@ def test_gap_kernel_bytes(stepped, monkeypatch):
             if s.numel()))
         return pair(mirror_a, mirror_b, sel, k_a)
 
-    def rec_compress(rows):
-        ends, offs, first = out = compress(rows)
+    def rec_compress(rows, cap):
+        out = compress(rows, cap)
         n = rows.shape[0]
-        assert offs.shape[0] == n + 1 and int(offs[-1]) == ends.numel()
+        ends, offs, _ = blockops.gap_unpack(out, n)
+        assert int(offs[-1]) == ends.numel() <= cap
         seen["gap_compress"].append(n * ROW + 4 * ends.numel()
                                     + 4 * (n + 1) + n)
         return out
@@ -596,8 +598,7 @@ def test_layer_metrics_of_three_traces():
     for busy, k3 in ((30, 8), (10, 4), (20, 6)):
         events = [_ev("bench:step", 0, 100, H),
                   _ev("block_counts_kernel", 10, 10 + k3, D),
-                  _ev("gap_count_kernel", 40, 41, D),
-                  _ev("gap_write_kernel", 50, 51, D),
+                  _ev("gap_compress_kernel", 40, 42, D),
                   _ev("memcpy", 60, 60 + busy - k3 - 2, D)]
         traces.append(bt.breakdown(events, D))
     got = bt.layer_metrics(traces, 0.075)
@@ -609,9 +610,8 @@ def test_layer_metrics_of_three_traces():
     assert got["host_only_ms"]["value"] == pytest.approx(0.055)
     assert got["host_only_ms"]["step_ms"] == 0.075
     assert all(m["n"] == 3 and m["unit"] == "ms" for m in got.values())
-    # both of gap_compress's device functions are its, once each
-    assert traces[0]["kernel_ms"]["gap_compress"] == pytest.approx(
-        [0.001, 0.001])
+    # gap_compress's one device function is its
+    assert traces[0]["kernel_ms"]["gap_compress"] == pytest.approx([0.002])
 
 
 def test_short_steps_trace_more():

@@ -44,6 +44,7 @@ BPB = C.BITS_PER_BLOCK
 DATA_BLOCKS = 6              # blocks 0-3 random, 4-5 D-GAP patterns
 SIZE = 37 * BPB + 99         # descent_column's: a 32-block FULL run fits
 GAP_LEVELS = (128, 256, 512, 4096)
+DESCENT_GAP = blockops.DESCENT_CLASSES.index("gap")
 tsc = tbm.scanner
 
 
@@ -123,6 +124,35 @@ def test_the_merge_bound_decides_the_block_class():
     _same((uni & tsv.planes[31]) & tsv.planes[30], eq)
     cls = dict(zip(eq._struct.nb.tolist(), eq._struct.cls.tolist()))
     assert (cls[4], cls[5]) == (C.CLS_GAP, C.CLS_BIT)
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+def test_classes_carry_the_d_gap_run_counts(nullable):
+    """sv_descent's class words (plain version): a D-GAP result's word
+    holds its exact run count above the class, which ``descent`` sums
+    into gap_compress's bound; every other class holds 0 there."""
+    from bitmagic_tpu_torch.core.bitvector import descent_args
+    from bitmagic_tpu_torch.core.gapstore import GapStore
+    from bitmagic_tpu_torch.sv.scanner import _universe as t_universe
+    jsv, tsv = _int_column(np.uint32, nullable, 7)
+    uni = t_universe(tsv)
+    seen = 0
+    for value in _queries(jsv, np.uint32):
+        table, steps, _ = tsc._descent_steps(tsv, value, 32)
+        if not steps:
+            continue
+        blocks = np.union1d(table.blocks, uni._struct.nb)
+        gt, _, eq, _, cls = blockops.sv_descent(
+            table, *descent_args(table, uni, steps, blocks))
+        assert cls.dtype == torch.int32 and cls.shape == (2 * blocks.size,)
+        rows = blockops.to_host_words(torch.cat([gt, eq]))
+        kind, runs = cls.numpy() & 0xFF, cls.numpy() >> 8
+        gap = np.flatnonzero(kind == DESCENT_GAP)
+        assert not runs[kind != DESCENT_GAP].any()
+        want = GapStore.from_dense(rows[gap]).n_runs() if gap.size else []
+        assert np.array_equal(runs[gap], want)
+        seen += gap.size
+    assert seen
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64,

@@ -91,22 +91,75 @@ def test_gap_expand_plain_equals_to_dense(rows):
                                       store.to_dense(sel))
 
 
-def test_gap_compress_plain_equals_from_dense(rows):
-    want = GapStore.from_dense(rows)
-    ends, offs, first = ck.gap_compress(as_torch(rows))
-    assert (ends.dtype, offs.dtype, first.dtype) == (
-        torch.int32, torch.int32, torch.uint8)
+def _compress_case(case, rows):
+    """Rows of one ``gap_compress`` case: the edge rows, no row, one row,
+    400 rows drawn as bvsetalgebra_rank_select's (1 to 256 runs), rows of
+    one run (zero, full) and rows of 65536 runs."""
+    rng = np.random.default_rng(17)
+    if case == "edges":
+        return rows
+    if case == "empty":
+        return np.zeros((0, 2048), np.uint32)
+    if case == "one_row":
+        return run_row(rng, 200)[None]
+    if case == "rows_400":
+        return np.stack([run_row(rng, int(n))
+                         for n in rng.integers(1, 257, 400)])
+    if case == "one_run":
+        return np.stack([np.zeros(2048, np.uint32),
+                         np.full(2048, 0xFFFFFFFF, np.uint32)])
+    return np.stack([np.full(2048, w, np.uint32)
+                     for w in (0x55555555, 0xAAAAAAAA)])
+
+
+@pytest.mark.parametrize("above", [0, 1000], ids=["cap_total",
+                                                  "cap_above"])
+@pytest.mark.parametrize("case", ["edges", "empty", "one_row", "rows_400",
+                                  "one_run", "runs_65536"])
+def test_gap_compress_plain_equals_from_dense(rows, case, above):
+    """The plain packed buffer (offs, first a word each, then the run
+    ends) of every case, with ``cap`` the total or above it, read back by
+    ``GapStore.from_packed``, equals ``GapStore.from_dense``."""
+    words = _compress_case(case, rows)
+    n = words.shape[0]
+    want = GapStore.from_dense(words)
+    total = int(want.offs[-1])
+    if case == "runs_65536":
+        assert list(want.n_runs()) == [BPB, BPB]
+    buf = ck.gap_compress(as_torch(words), total + above)
+    assert buf.dtype == torch.int32 and buf.shape == (2 * n + 1 + total
+                                                      + above,)
+    ends, offs, first = blockops.gap_unpack(buf, n)
     np.testing.assert_array_equal(ends.numpy(), want.ends)
     np.testing.assert_array_equal(offs.numpy(), want.offs)
     np.testing.assert_array_equal(first.numpy(), want.first)
-    store, zm, fm = compress_rows(as_torch(rows))
+    got = GapStore.from_packed(buf, n)
+    for key in ("ends", "offs", "first"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
+    store, zm, fm = compress_rows(as_torch(words), total + above)
     for key in ("ends", "offs", "first"):
         np.testing.assert_array_equal(getattr(store, key),
                                       getattr(want, key))
-    np.testing.assert_array_equal(np.flatnonzero(zm), [0])
-    np.testing.assert_array_equal(np.flatnonzero(fm), [1])
-    empty = ck.gap_compress(torch.zeros((0, 2048), dtype=torch.int32))
-    assert [t.numel() for t in empty] == [0, 1, 0]
+    if case == "edges":
+        np.testing.assert_array_equal(np.flatnonzero(zm), [0])
+        np.testing.assert_array_equal(np.flatnonzero(fm), [1])
+
+
+def test_gap_compress_cap_below_total_raises(rows):
+    """A ``cap`` below the total: the buffer holds the first ``cap`` run
+    ends and the true total in ``offs[n]``, and reading it raises."""
+    want = GapStore.from_dense(rows)
+    n, total = rows.shape[0], int(want.offs[-1])
+    buf = ck.gap_compress(as_torch(rows), total - 5)
+    ends, offs, _ = blockops.gap_unpack(buf, n)
+    assert int(offs[n]) == total
+    np.testing.assert_array_equal(ends.numpy(), want.ends[:total - 5])
+    with pytest.raises(RuntimeError, match="exceed"):
+        GapStore.from_packed(buf, n)
+    with pytest.raises(RuntimeError, match="exceed"):
+        compress_rows(as_torch(rows), total - 1)
+    with pytest.raises(ValueError):
+        ck.gap_compress(as_torch(rows), -1)
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -119,8 +172,9 @@ def test_gap_round_trip_random_stores(seed):
     got = ck.gap_expand(*store.device_arrays("cpu"),
                         torch.from_numpy(sel.astype(np.int32)))
     np.testing.assert_array_equal(blockops.to_host_words(got), words[sel])
-    back = GapStore.from_device(*ck.gap_compress(got))
     sub = store.subset(sel)
+    back = GapStore.from_packed(ck.gap_compress(got, int(sub.offs[-1])),
+                                sel.size)
     for key in ("ends", "offs", "first"):
         np.testing.assert_array_equal(getattr(back, key), getattr(sub, key))
 
@@ -255,7 +309,8 @@ def test_result_store_equals_gap_binary_op(vectors, op):
         (ta._pool, none, no, ta._gaps, sa[small]),
         (tb._pool, none, no, tb._gaps, sb[small]))
     out, _ = ck.binary_op_digest(op, a_desc, b_desc)
-    got = compress_rows(out)
+    cap = int((ta._gaps.n_runs()[sa] + tb._gaps.n_runs()[sb])[small].sum())
+    got = compress_rows(out, cap)
     want = tgs.gap_binary_op(op, ta._gaps, sa[small], tb._gaps, sb[small])
     for key in ("ends", "offs", "first"):
         np.testing.assert_array_equal(getattr(got[0], key),

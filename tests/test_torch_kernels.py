@@ -13,6 +13,7 @@ import torch
 import bitmagic_tpu_torch as tbm
 from bitmagic_tpu_torch import constants as C
 from bitmagic_tpu_torch import interop
+from bitmagic_tpu_torch.core.gapstore import GapStore
 from bitmagic_tpu_torch.ops import blockops
 from bitmagic_tpu_torch.ops import cuda_kernels as ck
 
@@ -495,7 +496,6 @@ def _run_rows(rng, n):
 
 @pytest.mark.parametrize("n", [1, 40, 768])
 def test_gap_rows_kernels(dev, rng, n):
-    from bitmagic_tpu_torch.core.gapstore import GapStore
     words = _run_rows(rng, n)
     store = GapStore.from_dense(words)
     sel = rng.permutation(words.shape[0]).astype(np.int32)
@@ -505,11 +505,71 @@ def test_gap_rows_kernels(dev, rng, n):
     assert torch.equal(got.cpu(), blockops.gap_expand(
         *store.device_arrays("cpu"), torch.from_numpy(sel)))
     assert np.array_equal(blockops.to_host_words(got), words[sel])
-    for g, w in zip(ck.gap_compress(got), blockops.gap_compress(got.cpu())):
+    total = int(store.offs[-1])
+    for cap in (total, total + 100, total - 3):
+        buf = ck.gap_compress(got, cap)
         torch.cuda.synchronize()
-        assert torch.equal(g.cpu(), w)
+        want = blockops.gap_compress(got.cpu(), cap)
+        for g, w in zip(blockops.gap_unpack(buf.cpu(), got.shape[0]),
+                        blockops.gap_unpack(want, got.shape[0])):
+            assert torch.equal(g, w)
+    back = GapStore.from_packed(ck.gap_compress(got, total), got.shape[0])
+    want = store.subset(sel)
+    for key in ("ends", "offs", "first"):
+        assert np.array_equal(getattr(back, key), getattr(want, key))
     assert ck.launches["gap_expand"] == 1
-    assert ck.launches["gap_compress"] == 2
+    # one launch a call
+    assert ck.launches["gap_compress"] == 4
+
+
+def test_gap_compress_cases(dev):
+    """gap_compress over ``chip_smoke.compress_cases`` (20,000 rows, more
+    CTAs than the card holds at once, for the look-back; rows of 65536
+    runs; cap equal to the total, above it and below it) against its
+    plain version and ``GapStore.from_dense``: one launch each."""
+    import chip_smoke as cs
+    for name, rows, cap, store in cs.compress_cases(
+            np.random.default_rng(15), dev):
+        n0 = ck.launches["gap_compress"]
+        buf = ck.gap_compress(rows, cap)
+        torch.cuda.synchronize()
+        assert ck.launches["gap_compress"] == n0 + 1
+        n = rows.shape[0]
+        want = blockops.gap_compress(rows, cap)
+        for g, w in zip(blockops.gap_unpack(buf, n),
+                        blockops.gap_unpack(want, n)):
+            assert torch.equal(g, w), name
+        if cap >= int(store.offs[-1]):
+            back = GapStore.from_packed(buf, n)
+            for key in ("ends", "offs", "first"):
+                assert np.array_equal(getattr(back, key),
+                                      getattr(store, key)), name
+        else:
+            with pytest.raises(RuntimeError):
+                GapStore.from_packed(buf, n)
+
+
+@pytest.fixture(scope="module")
+def b8_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    import chip_smoke as cs
+    return dict(cs.bitap_kernel_cases(tbm, torch.device("cuda")))
+
+
+@pytest.mark.parametrize("case", ["sample06_ACGG", "k33_gaps", "k34_gaps",
+                                  "k65_gaps", "k65538_contiguous"])
+def test_shift_and_chain_kernel(dev, b8_cases, case):
+    """B8 (``shift_and_chain``) over ``chip_smoke.bitap_kernel_cases``
+    (samples/06's chain, chains of 33, 34 and 65 operands over a block
+    list with gaps, 65538 over a contiguous one) against its plain
+    version, bit for bit: one launch a call."""
+    first_mask, descs = b8_cases[case]
+    ck.reset_launches()
+    got = ck.shift_and_chain(first_mask, descs)
+    torch.cuda.synchronize()
+    assert ck.launches["shift_and_chain"] == 1
+    assert torch.equal(got, blockops.shift_and_chain(first_mask, descs))
 
 
 GAP_CASES = ["edges", "one_row", "top_level", "above_top_level", "pair",

@@ -8,14 +8,14 @@ parent commit's, in turns, on one NVIDIA card.
 
 The parent's ``bitmagic_tpu_torch/ops/csrc/sv_planes.cu`` and
 ``sv_descent.cu`` are built with its own ``bm_common.cuh`` and the port's
-nvcc flags, and called through their C interfaces: ``bm_sv_transpose``
-(unchanged), ``bm_sv_descent`` of the per-plane searches (the plane
-tables' nb, ent and runs, and the walked block ids) and
-``bm_descent_rows`` (unchanged).  This tree's kernels are called
-through their C interfaces too, on the same inputs (no wrapper's host
-work in the timed span).  Each side is first held bit for bit against
-the plain version at every shape it is timed at.  Times are
-medians of 25 runs between CUDA events, L2 evicted before each
+nvcc flags, and called through their C interfaces with this tree's
+arguments: ``bm_sv_transpose``, ``bm_sv_descent`` (the walked blocks'
+entry codes; its classes a byte each, where this tree's are int32 with a
+D-GAP result's run count above) and ``bm_descent_rows``.  This tree's
+kernels are called through their C interfaces too, on the same inputs
+(no wrapper's host work in the timed span).  Each side is first held bit
+for bit against the plain version at every shape it is timed at.  Times
+are medians of 25 runs between CUDA events, L2 evicted before each
 (``chip_smoke.time_ms``), in turns (parent, new, new, parent; with
 ``--variants``, each further tree between new and its mirror): ``ms``
 after the eviction's memset alone, as ``chip_smoke.py`` times every
@@ -55,11 +55,9 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import bench_torch as bt  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 import bitmagic_tpu_torch as tbm  # noqa: E402
-from bitmagic_tpu_torch.core.blocks import plane_table  # noqa: E402
 from bitmagic_tpu_torch.core.bitvector import descent_args  # noqa: E402
 from bitmagic_tpu_torch.ops import _build  # noqa: E402
 from bitmagic_tpu_torch.ops import blockops  # noqa: E402
-from bitmagic_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from torch_gather_turns import (INT, LL, VP, build_old,  # noqa: E402
                                 peak_bw, stream)
 
@@ -169,38 +167,15 @@ def descent_arm(sides, dev, rng, flush, clean, bw):
     utable, codes, rows, bits = args
     c_rows = (INT * len(rows))(*rows)
     k = blocks.size
-    # the parent's arguments: the universe's table with the block ids
-    old_u = plane_table([(-1, uni._struct, uni._pool, uni._gaps)], dev,
-                        blocks)
 
-    def outputs():
-        return (torch.empty((k, 2048), dtype=torch.int32, device=dev),
-                torch.empty((k, 64), dtype=torch.int32, device=dev),
-                torch.empty(2 * k, dtype=torch.uint8, device=dev))
-
-    def parent_side(lib):
-        f = c_fn(lib, "bm_sv_descent",
-                 [VP, INT, VP, VP, VP, VP, VP, VP, VP, VP, LL, IP, INT, ULL,
-                  VP, VP, VP, VP, VP, VP])
-
-        def run():
-            gt, dig, cls = outputs()
-            t, u = table, old_u
-            call(f, "parent sv_descent", t.table.data_ptr(),
-                 t.meta.shape[0], t.nb.data_ptr(), t.ent.data_ptr(),
-                 t.runs.data_ptr(), u.table.data_ptr(), u.nb.data_ptr(),
-                 u.ent.data_ptr(), ck._ptr(u.runs), u.extra.data_ptr(), k,
-                 c_rows, len(rows), bits, gt.data_ptr(), dig.data_ptr(),
-                 None, None, cls.data_ptr())
-            return gt, dig, None, None, cls
-        return run
-
-    def variant_side(lib):
+    def side(lib, cls_dtype):
         f = c_fn(lib, "bm_sv_descent",
                  [VP, INT, VP, VP, LL, IP, INT, ULL, VP, VP, VP, VP, VP])
 
         def run():
-            gt, dig, cls = outputs()
+            gt = torch.empty((k, 2048), dtype=torch.int32, device=dev)
+            dig = torch.empty((k, 64), dtype=torch.int32, device=dev)
+            cls = torch.empty(2 * k, dtype=cls_dtype, device=dev)
             call(f, "sv_descent", table.table.data_ptr(), table.meta.shape[0],
                  utable.table.data_ptr(), codes.data_ptr(), k, c_rows,
                  len(rows), bits, gt.data_ptr(), dig.data_ptr(), None, None,
@@ -208,10 +183,13 @@ def descent_arm(sides, dev, rng, flush, clean, bw):
             return gt, dig, None, None, cls
         return run
 
-    fns = {"parent": parent_side(sides["parent"]["sv_descent.cu"])}
-    fns.update({k: variant_side(v["sv_descent.cu"])
-                for k, v in sides.items() if k != "parent"})
-    fns = checked(fns, blockops.sv_descent(table, *args, False))
+    want = blockops.sv_descent(table, *args, False)
+    # the parent's classes: a byte each, the class alone
+    old = (*want[:4], (want[4] & 0xFF).to(torch.uint8))
+    fns = checked({"parent": side(sides["parent"]["sv_descent.cu"],
+                                  torch.uint8)}, old)
+    fns.update(checked({k: side(v["sv_descent.cu"], torch.int32)
+                        for k, v in sides.items() if k != "parent"}, want))
     planes = [sv.planes[int(table.meta[r, -1])] for r in rows]
     nbytes = bt.descent_bytes(planes, uni, k)
     lines = [{"measure": "sv_descent", "shape": "cell3", "blocks": k,
