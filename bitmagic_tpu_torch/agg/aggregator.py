@@ -31,7 +31,7 @@ import torch
 
 from .. import constants as C
 from ..core.bitvector import BitVector
-from ..core.blocks import _B, _F, _G, Structure, expand_gap_operand
+from ..core.blocks import _B, _F, _G, Structure
 from ..ops import blockops
 from ..ops import cuda_kernels as ck
 
@@ -73,42 +73,61 @@ def _or_blocklist(structs):
         ((s.materialized().nb if s.has_runs else s.nb) for s in structs))
 
 
+def _union_sorted(a, b):
+    """``np.union1d`` of two sorted arrays of unique ids, by one sort (no
+    hash of the values)."""
+    c = np.concatenate([a, b])
+    c.sort()
+    keep = np.ones(c.size, bool)
+    keep[1:] = c[1:] != c[:-1]
+    return c[keep]
+
+
 def _operand_descs(vectors, blocklist):
     """Gather descriptors ``(pool, slot, full, aux, aux_slot)`` of every
     vector on ``blocklist`` (the per-vector ``core/blocks.operand_args``
-    batched): the slot, FULL and aux-slot arrays of all K operands go up as
-    one matrix each, and the expanded GAP rows of all operands share one
-    aux pool.  A vector that repeats (a Bitap pattern's letter) is looked
-    up and expanded once, and its descriptor is the same tuple."""
-    K, k = len(vectors), int(blocklist.size)
-    slot = np.full((K, k), -1, np.int32)
-    full = np.zeros((K, k), bool)
-    aux_slot = np.full((K, k), -1, np.int32)
-    aux_parts, n_aux = [], 0
+    batched): a vector that repeats (a Bitap pattern's letter) is looked
+    up once and its descriptor is the same tuple; the slot, aux-slot and
+    FULL rows of the distinct vectors go up in one copy, and the GAP
+    blocks of all of them are expanded on the device by one
+    ``gap_expand_many`` launch into one aux tensor that their descriptors
+    share (``aux`` and ``aux_slot`` None for a vector with no GAP block on
+    the list)."""
     first = {}
-    for j, v in enumerate(vectors):
-        f = first.setdefault(id(v), j)
-        if f != j:
-            slot[j], full[j], aux_slot[j] = slot[f], full[f], aux_slot[f]
-            continue
-        st, sl = v._struct.lookup(blocklist)
-        slot[j] = np.where(st == _B, sl, -1)
-        full[j] = st == _F
-        rows, a_sl = expand_gap_operand(v._gaps, np.where(st == _G, sl, -1))
-        if rows.shape[0]:
-            aux_parts.append(rows)
-            aux_slot[j] = np.where(a_sl >= 0, a_sl + n_aux, -1)
-            n_aux += rows.shape[0]
+    for v in vectors:
+        first.setdefault(id(v), v)
+    distinct = list(first.values())
+    D, k = len(distinct), int(blocklist.size)
+    ints = np.full((2, D, k), -1, np.int32)         # slot, aux_slot
+    full = np.zeros((D, k), bool)
     dev = vectors[0].device
-    slot_d = torch.from_numpy(slot).to(dev)
-    full_d = torch.from_numpy(full).to(dev)
-    aux_slot_d = torch.from_numpy(aux_slot).to(dev)
-    aux = blockops.to_device_words(
-        np.concatenate(aux_parts) if aux_parts
-        else np.zeros((0, C.SET_BLOCK_SIZE), np.uint32), dev)
-    descs = [(v._pool, slot_d[j], full_d[j], aux, aux_slot_d[j])
-             for j, v in enumerate(vectors)]
-    return [descs[first[id(v)]] for v in vectors]
+    mirrors, sel, gapped, n_aux = [], [], [], 0
+    for i, v in enumerate(distinct):
+        st, sl = v._struct.lookup(blocklist)
+        ints[0, i] = np.where(st == _B, sl, -1)
+        full[i] = st == _F
+        gap = st == _G
+        if gap.any():
+            used = np.unique(sl[gap])
+            ints[1, i] = np.where(gap, np.searchsorted(
+                used, np.where(gap, sl, used[0])) + n_aux, -1)
+            mirrors.append(v._gaps.device_arrays(dev))
+            sel.append(used)
+            gapped.append(i)
+            n_aux += used.size
+    aux = ck.gap_expand_many(mirrors, sel) if mirrors else None
+    host = np.concatenate([ints.view(np.uint8).ravel(),
+                           full.view(np.uint8).ravel()])
+    buf = torch.empty(host.size, dtype=torch.uint8, device=dev)
+    buf.copy_(torch.from_numpy(host))
+    ints_d = buf[:ints.nbytes].view(torch.int32).view(2, D, k)
+    full_d = buf[ints.nbytes:].view(torch.bool).view(D, k)
+    gapped = set(gapped)
+    descs = {id(v): (v._pool, ints_d[0, i], full_d[i],
+                     aux if i in gapped else None,
+                     ints_d[1, i] if i in gapped else None)
+             for i, v in enumerate(distinct)}
+    return [descs[id(v)] for v in vectors]
 
 
 def _agg_kernel(n_and, n_sub, descs):
@@ -537,10 +556,10 @@ class Aggregator:
         if len(vectors) - 1 <= C.BITS_PER_BLOCK:
             cand = None
             for nbv in distinct.values():
-                ext = np.union1d(nbv, nbv + 1)
+                ext = _union_sorted(nbv, nbv + 1)
                 cand = ext if cand is None else np.intersect1d(
                     cand, ext, assume_unique=True)
-            blocklist = np.union1d(cand, cand - 1)
+            blocklist = _union_sorted(cand - 1, cand)
             blocklist = blocklist[(blocklist >= 0) & (blocklist <= hi)]
         else:
             # chains longer than one block's bits can drift further: keep

@@ -402,25 +402,20 @@ def gather_operand(pool, slot, full, aux=None, aux_slot=None):
     return gather_rows(pool, slot, full, aux, aux_slot)
 
 
-def expand_gap_operand(store, gap_slots: np.ndarray, device=None):
+def expand_gap_operand(store, gap_slots: np.ndarray, device):
     """Transient dense rows for the GAP blocks referenced by ``gap_slots``
-    (-1 = not GAP).  Returns (aux rows [k, 2048], aux_slot[n]) where
-    aux_slot maps each input position to its row in aux (or -1).  The
-    batched gap_convert_to_bitset (src/bmfunc.h:5223): with ``device``
-    None the rows are host uint32 words, else int32 rows on ``device``
-    built there by kernel gap_expand from the store's mirror."""
+    (-1 = not GAP).  Returns (aux rows int32[k, 2048] on ``device``,
+    aux_slot[n]) where aux_slot maps each input position to its row in aux
+    (or -1).  The batched gap_convert_to_bitset (src/bmfunc.h:5223), built
+    on the device by kernel gap_expand from the store's mirror."""
     gap_slots = np.asarray(gap_slots, np.int64)
     used = np.unique(gap_slots[gap_slots >= 0])
     if used.size == 0 or store is None:
-        rows = (np.zeros((0, SET_BLOCK_SIZE), np.uint32) if device is None
-                else torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
-                                 device=device))
+        rows = torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
+                           device=device)
         return rows, np.full(gap_slots.shape, -1, np.int64)
-    if device is None:
-        rows = store.to_dense(used)
-    else:
-        rows = ck.gap_expand(*store.device_arrays(device), torch.from_numpy(
-            used.astype(np.int32)).to(device))
+    rows = ck.gap_expand(*store.device_arrays(device), torch.from_numpy(
+        used.astype(np.int32)).to(device))
     pos = np.searchsorted(used, np.maximum(gap_slots, 0))
     aux_slot = np.where(gap_slots >= 0, pos, -1)
     return rows, aux_slot.astype(np.int64)

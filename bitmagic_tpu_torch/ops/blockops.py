@@ -401,6 +401,102 @@ def agg_and_sub_arena(n_and, n_sub, slots, pool):
     return agg_and_sub(n_and, arena_descriptors(n_and, slots, pool))[0]
 
 
+# B8's chain grouped by operand vector: a Bitap pattern's letters repeat,
+# so its k operands are a few distinct vectors, each with a set of shifts.
+# CHAIN_SPAN: the most word shifts q one segment of a vector covers (its
+# 32-bit shift masks, one per q, fit one warp's lanes; shift_chain.cu)
+CHAIN_SPAN = 32
+
+
+def chain_groups(descs):
+    """B8's ``k`` operands grouped by identity (a repeated letter is the
+    same descriptor tuple): ``(vecs, offs int64[D + 1], shifts int64[k])``,
+    the D distinct descriptors with the most shifts first (ties in order of
+    first use), vector i's shifts ``s_j = k - 1 - j`` ascending in
+    ``shifts[offs[i]:offs[i + 1]]``.  Each operand's shift appears once."""
+    k = len(descs)
+    first, vecs = {}, []
+    g = np.empty(k, np.int64)
+    for j, d in enumerate(descs):
+        i = first.get(id(d))
+        if i is None:
+            i = first[id(d)] = len(vecs)
+            vecs.append(d)
+        g[j] = i
+    counts = np.bincount(g, minlength=len(vecs))
+    order = np.argsort(-counts, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    s = k - 1 - np.arange(k, dtype=np.int64)
+    shifts = s[np.lexsort((s, rank[g]))]
+    offs = np.zeros(len(vecs) + 1, np.int64)
+    np.cumsum(counts[order], out=offs[1:])
+    return [vecs[i] for i in order], offs, shifts
+
+
+def chain_segments(offs, shifts):
+    """Kernel shift_and_chain's plan of ``chain_groups``' CSR: each vector's
+    shifts ``s = 32 q + r`` cut into segments of word shifts ``q`` that lie
+    in one aligned span of CHAIN_SPAN -> ``(segs int32[m, 4], masks
+    uint32[...], deep)``: a segment's vector, its lowest ``q`` (``qa``),
+    its count of masks ``nq`` and the offset of its masks, mask ``i``
+    holding bit ``r`` for each shift ``32 (qa + i) + r``; segments in
+    vector order, ``qa`` ascending within a vector; ``deep`` the lowest
+    list-block offset any segment's window reaches (its first word
+    ``-ceil4(qa + nq)`` relative to the output row)."""
+    vec = np.repeat(np.arange(offs.size - 1), np.diff(offs))
+    q, r = shifts >> 5, shifts & 31
+    key = vec * (1 << 40) + q // CHAIN_SPAN
+    start = np.flatnonzero(np.concatenate([[True], key[1:] != key[:-1]]))
+    end = np.append(start[1:], key.size)
+    qa, nq = q[start], q[end - 1] - q[start] + 1
+    moff = np.zeros(start.size, np.int64)
+    np.cumsum(nq[:-1], out=moff[1:])
+    seg = np.repeat(np.arange(start.size), end - start)
+    masks = np.zeros(int(nq.sum()), np.uint32)
+    np.bitwise_or.at(masks, moff[seg] + q - qa[seg],
+                     np.left_shift(np.uint32(1), r.astype(np.uint32)))
+    segs = np.stack([vec[start], qa, nq, moff], 1).astype(np.int32)
+    deep = int(-((int((qa + nq).max()) + 3) // 4 * 4) // SET_BLOCK_SIZE)
+    return segs, masks, deep
+
+
+def chain_and(first_mask, vecs, offs, shifts):
+    """The Bitap chain's closed form over ``chain_groups``' grouping: the
+    AND over the distinct vectors ``vecs`` of the AND over each one's
+    shifts (in any order of the vectors) -> int32[n, 2048].  Per vector
+    its rows are gathered once, and per word shift ``q`` the two source
+    words ``w[x - q]`` and ``w[x - q - 1]`` once; each shift ``32 q + r``
+    then takes ``(w[x - q] << r) | (w[x - q - 1] >> (32 - r))``, kernel
+    shift_and_chain's funnel shift."""
+    n = _desc_cols(vecs[0])
+    dev = vecs[0][0].device
+    words = n * SET_BLOCK_SIZE
+    blk = torch.arange(n, dtype=_I64, device=dev)
+    start = (first_mask.to(_I64) & 1) == 0
+    if n:
+        start[0] = True
+    # first word of the run of adjacent blocks that holds each word
+    lo = torch.cummax(torch.where(start, blk, 0), 0)[0] * SET_BLOCK_SIZE
+    # each word's distance from that run's first word
+    run = (torch.arange(words, dtype=_I64, device=dev)
+           - lo.repeat_interleave(SET_BLOCK_SIZE))
+    acc = torch.full((words,), 0xFFFFFFFF, dtype=_I64, device=dev)
+    for v, d in enumerate(vecs):
+        w = as_u32_int64(gather_rows(*d)).reshape(-1)
+
+        def src(q):              # word x - q, 0 before x's run
+            up = torch.zeros_like(w)
+            up[q:] = w[:max(words - q, 0)]
+            return torch.where(run >= q, up, 0)
+        s = np.asarray(shifts[offs[v]:offs[v + 1]])
+        for q in np.unique(s >> 5).tolist():
+            pair = (src(q) << 32) | src(q + 1)
+            for r in (s[(s >> 5) == q] & 31).tolist():
+                acc &= (pair >> (32 - r)) & 0xFFFFFFFF
+    return u32_to_i32(acc.reshape(n, SET_BLOCK_SIZE))
+
+
 def shift_and_chain(first_mask, descs):
     """Plain version of the Bitap chain (bitmagic_tpu ``_shift_and_chain``,
     agg/aggregator.py:117: ``acc = rows_0``, then ``acc = shift_up1(acc) &
@@ -410,34 +506,12 @@ def shift_and_chain(first_mask, descs):
     operands, flat bit p of the result is the AND over j of operand j's
     bit ``p - (k - 1 - j)``, and a source bit before the run of adjacent
     blocks that holds p (before the list, or across a block whose
-    ``first_mask`` marks it not adjacent) reads 0.  One shifted gather and
-    AND per operand -> int32[n, 2048]."""
+    ``first_mask`` marks it not adjacent) reads 0.  The operands are
+    grouped as the kernel groups them (``chain_groups``, ``chain_and``)
+    -> int32[n, 2048]."""
     if not descs:
         raise ValueError("shift_and_chain: no operands")
-    n = _desc_cols(descs[0])
-    dev = descs[0][0].device
-    k = len(descs)
-    words = n * SET_BLOCK_SIZE
-    blk = torch.arange(n, dtype=_I64, device=dev)
-    start = (first_mask.to(_I64) & 1) == 0
-    if n:
-        start[0] = True
-    # first word of the run of adjacent blocks that holds each word
-    lo = torch.cummax(torch.where(start, blk, 0), 0)[0] * SET_BLOCK_SIZE
-    lo = lo.repeat_interleave(SET_BLOCK_SIZE)
-    x = torch.arange(words, dtype=_I64, device=dev)
-    acc = torch.full((words,), 0xFFFFFFFF, dtype=_I64, device=dev)
-    for j, d in enumerate(descs):
-        q, r = divmod(k - 1 - j, 32)
-        w = as_u32_int64(gather_rows(*d)).reshape(-1)
-
-        def src(y):
-            return torch.where(y >= lo, w[y.clamp(min=0)], 0)
-        v = src(x - q)
-        if r:
-            v = ((v << r) | (src(x - q - 1) >> (32 - r))) & 0xFFFFFFFF
-        acc &= v
-    return u32_to_i32(acc.reshape(n, SET_BLOCK_SIZE))
+    return chain_and(first_mask, *chain_groups(descs))
 
 
 def _checked_selectors(selectors) -> np.ndarray:
@@ -568,6 +642,20 @@ def gap_expand_pair(mirror_a, mirror_b, sel, k_a):
     if not parts:
         return torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
                            device=sel.device)
+    return torch.cat(parts)
+
+
+def gap_expand_many(mirrors, sel):
+    """Dense rows of several stores' D-GAP blocks: ``gap_expand`` of
+    blocks ``sel[i]`` (host int array) of ``mirrors[i]``, one store after
+    another."""
+    dev = mirrors[0][0].device
+    parts = [gap_expand(*m, torch.from_numpy(np.asarray(s, np.int64)
+                                             .ravel()).to(dev))
+             for m, s in zip(mirrors, sel) if np.asarray(s).size]
+    if not parts:
+        return torch.zeros((0, SET_BLOCK_SIZE), dtype=torch.int32,
+                           device=dev)
     return torch.cat(parts)
 
 

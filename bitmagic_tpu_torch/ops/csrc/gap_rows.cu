@@ -16,7 +16,10 @@
 //
 // gap_expand: one CTA of 128 threads per selected block; one launch
 // expands a pair of operands' blocks from their two mirrors (CTA i < k_a:
-// mirror a, else mirror b), into one tensor whose first k_a rows are a's.
+// mirror a, else mirror b), into one tensor whose first k_a rows are a's;
+// its many-store form (the aggregator's operands, kTable) reads each
+// row's (store, block) and then that store's mirror from a table, one
+// round trip more.
 // The first port had every thread binary-search the block's ends in
 // global memory for its first bit, then walk them: a chain of ~12
 // dependent L2 loads per thread, which was the launch, not the 8 KiB it
@@ -80,17 +83,28 @@ constexpr int kRowThreads = 128;                        // gap_expand's CTA
 constexpr int kRowVec = bm::kBlockVec / kRowThreads;    // 4 vectors a thread
 constexpr int kRowWarps = kRowThreads / 32;
 
-// Row i of the output (see the top of the file).  A vector's carry is the
-// parity of the marks in the chunks before it (every warp) and before it
-// in its own chunk (the warps before, then the lanes before: a ballot
-// each).
+// Row i of the output (see the top of the file): block sel[i] of mirror
+// a (i < k_a) or of mirror b; with kTable, block sel[2i + 1] of mirror
+// table[sel[2i]] (a, b and k_a unused).  A vector's carry is the parity
+// of the marks in the chunks before it (every warp) and before it in its
+// own chunk (the warps before, then the lanes before: a ballot each).
+template <bool kTable>
 __global__ void __launch_bounds__(kRowThreads)
-gap_expand_kernel(Mirror a, Mirror b, const int32_t* __restrict__ sel,
-                  int k_a, uint4* __restrict__ out) {
+gap_expand_kernel(Mirror a, Mirror b, const Mirror* __restrict__ table,
+                  const int32_t* __restrict__ sel, int k_a,
+                  uint4* __restrict__ out) {
   __shared__ uint4 tog[bm::kBlockVec];            // 8 KiB of marks
   __shared__ uint32_t warp_par[kRowVec][kRowWarps];
-  const Mirror m = static_cast<int>(blockIdx.x) < k_a ? a : b;
-  const int blk = sel[blockIdx.x];
+  Mirror m;
+  int blk;
+  if (kTable) {
+    const int2 r = reinterpret_cast<const int2*>(sel)[blockIdx.x];
+    m = table[r.x];
+    blk = r.y;
+  } else {
+    m = static_cast<int>(blockIdx.x) < k_a ? a : b;
+    blk = sel[blockIdx.x];
+  }
   const int r0 = __ldg(m.offs + blk);
   const int r1 = __ldg(m.offs + blk + 1) - 1;     // the last run: no mark
   const uint32_t v0 = __ldg(m.first + blk);
@@ -350,8 +364,24 @@ extern "C" int bm_gap_expand(const void* ends_a, const void* offs_a,
   const Mirror b{static_cast<const int32_t*>(ends_b),
                  static_cast<const int32_t*>(offs_b),
                  static_cast<const uint8_t*>(first_b)};
-  gap_expand_kernel<<<k, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, static_cast<const int32_t*>(sel), k_a, static_cast<uint4*>(out));
+  gap_expand_kernel<false>
+      <<<k, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          a, b, nullptr, static_cast<const int32_t*>(sel), k_a,
+          static_cast<uint4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out int32[k, 2048]: row i = block rows[2i + 1] of the store whose
+// mirror is mirrors[rows[2i]] (three pointers each: ends, offs, first;
+// 8-byte aligned, as rows).  Returns the CUDA error of the launch.
+extern "C" int bm_gap_expand_many(const void* mirrors, const void* rows,
+                                  int k, void* out, void* stream) {
+  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Mirror none{nullptr, nullptr, nullptr};
+  gap_expand_kernel<true>
+      <<<k, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          none, none, static_cast<const Mirror*>(mirrors),
+          static_cast<const int32_t*>(rows), 0, static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,8 @@ pipeline_counts        B5 pipeline_counts.cu        pallas_kernels.py:428
 scan_eq                B6 scan_eq.cu                pallas_kernels.py:310
 gap_expand,            gap_rows.cu                  no TPU kernel: the host
 gap_expand_pair,                                    GAP merges gapstore.py:313
-gap_compress                                        and :375
+gap_expand_many,                                    and :375
+gap_compress
 sv_gather              sv_planes.cu                 sv/sparse_vector.py:70
                                                     (_gather_decode_kernel)
 sv_transpose           sv_planes.cu                 sv/sparse_vector.py:53
@@ -124,9 +125,10 @@ _SIGNATURES = {
     "bm_gap_expand": ("gap_rows.cu",
                       [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
                        _VP]),
+    "bm_gap_expand_many": ("gap_rows.cu", [_VP, _VP, _INT, _VP, _VP]),
     "bm_gap_compress": ("gap_rows.cu", [_VP, _INT, _LL, _VP, _VP, _VP]),
     "bm_shift_and_chain": ("shift_chain.cu",
-                           [_VP, _INT, _VP, _INT, _VP, _VP]),
+                           [_VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP]),
     "bm_sv_gather": ("sv_planes.cu",
                      [_VP, _LL, _VP, _INT, _VP, _LL, _VP, _INT, _VP, _VP,
                       _VP, _VP]),
@@ -481,7 +483,8 @@ def shift_and_chain(first_mask, descs):
     int32[n]: bit 0 clear where a block is not its list predecessor's
     address successor) -> int32[n, 2048]: ``acc = rows_0``, then ``acc =
     shift_up1(acc) & rows_j`` over the list as one flat bit string, in
-    the closed form of ``blockops.shift_and_chain``.  One launch."""
+    the closed form of ``blockops.shift_and_chain``.  Repeated descriptors
+    (the same tuple) are one vector with several shifts.  One launch."""
     if not descs:
         raise ValueError("shift_and_chain: no operands")
     if not _on_cuda(first_mask, *(t for d in descs for t in d)):
@@ -494,10 +497,32 @@ def shift_and_chain(first_mask, descs):
                          f"{first_mask.shape[0]} entries for {n} blocks")
     out = torch.empty((n, SET_BLOCK_SIZE), dtype=_I32, device=dev)
     if n:
-        table = _descriptor_table(descs, n, dev)
-        _launch("bm_shift_and_chain", "shift_and_chain", dev, _ptr(table),
-                len(descs), _ptr(first_mask), n, _ptr(out))
+        buf, args = _chain_plan(descs, n, dev)
+        _launch("bm_shift_and_chain", "shift_and_chain", dev, *args,
+                _ptr(first_mask), n, _ptr(out))
     return out
+
+
+def _chain_plan(descs, n, device):
+    """The one upload of a shift_and_chain launch: per segment of
+    ``blockops.chain_segments`` (vector, qa, nq, mask offset) and its
+    vector's descriptor row (``_descriptor_rows`` of
+    ``blockops.chain_groups``' distinct descriptors), 80 bytes each, then
+    the shift masks -> ``(buffer on device, (the segments' address, their
+    count, the masks' address, the deepest block offset))``, the C entry's
+    first arguments.  The buffer points into the descriptors' tensors:
+    keep both alive while a launch may read them."""
+    vecs, offs, shifts = blockops.chain_groups(descs)
+    segs, masks, deep = blockops.chain_segments(offs, shifts)
+    recs = np.zeros((segs.shape[0], 10), np.int64)
+    recs[:, :2] = segs.view(np.int64)
+    recs[:, 2:9] = _descriptor_rows(vecs, n)[segs[:, 0]]
+    if masks.size % 2:
+        masks = np.append(masks, np.uint32(0))
+    buf = torch.from_numpy(np.concatenate(
+        [recs.ravel(), masks.view(np.int64)])).to(device)
+    base = buf.data_ptr()
+    return buf, (base, segs.shape[0], base + recs.nbytes, deep)
 
 
 def _batch_table(descs, index, offs, n_and, k, device):
@@ -635,6 +660,56 @@ def gap_expand_pair(mirror_a, mirror_b, sel, k_a):
         return blockops.gap_expand_pair(mirror_a, mirror_b, sel, k_a)
     _one_device("gap_expand_pair", tensors)
     return _gap_expand(mirror_a, mirror_b, sel, k_a)
+
+
+def gap_expand_many(mirrors, sel):
+    """Dense rows int32[k, 2048] of several stores' D-GAP blocks in one
+    launch: blocks ``sel[i]`` (host int array) of ``mirrors[i]`` (a
+    ``GapStore.device_arrays``), the stores' rows one after another in
+    that order."""
+    if len(mirrors) != len(sel):
+        raise ValueError(f"gap_expand_many: {len(sel)} selections for "
+                         f"{len(mirrors)} mirrors")
+    tensors = tuple(t for m in mirrors for t in m)
+    if not tensors:
+        raise ValueError("gap_expand_many: no mirror")
+    if not _on_cuda(*tensors):
+        return blockops.gap_expand_many(mirrors, sel)
+    dev = _one_device("gap_expand_many", tensors)
+    buf, args = _expand_many_plan(mirrors, sel, dev)
+    out = torch.empty((args[-1], SET_BLOCK_SIZE), dtype=_I32, device=dev)
+    if args[-1]:
+        _launch("bm_gap_expand_many", "gap_expand", dev, *args, _ptr(out))
+    return out
+
+
+def _expand_many_plan(mirrors, sel, device):
+    """The one upload of a gap_expand_many launch: the mirrors' table
+    (three pointers each), then each row's (store, block) -> ``(buffer on
+    device, (the table's address, the rows' address, the row count))``,
+    the C entry's first arguments (None for the buffer and the addresses
+    where no row is selected).  The table points into the mirrors: keep
+    them alive while a launch may read it."""
+    sizes = [int(np.asarray(x).size) for x in sel]
+    k = sum(sizes)
+    if not k:
+        return None, (None, None, 0)
+    table = np.zeros((len(mirrors), 3), np.int64)
+    for i, (ends, offs, first) in enumerate(mirrors):
+        for t, name, dt in ((ends, "ends", _I32), (offs, "offs", _I32),
+                            (first, "first", torch.uint8)):
+            _check(t, f"gap_expand_many: {name}", dt, align=t.element_size())
+        if offs.shape[0] != first.shape[0] + 1:
+            raise ValueError("gap_expand_many: offs must have one entry "
+                             "more than first")
+        table[i] = (_ptr(ends), _ptr(offs), _ptr(first))
+    rows = np.empty((k, 2), np.int32)
+    rows[:, 0] = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    rows[:, 1] = np.concatenate([np.asarray(x).ravel() for x in sel])
+    buf = torch.from_numpy(np.concatenate(
+        [table.ravel(), rows.view(np.int64).ravel()])).to(device)
+    base = buf.data_ptr()
+    return buf, (base, base + table.nbytes, k)
 
 
 def _gap_expand(mirror_a, mirror_b, sel, k_a):

@@ -37,6 +37,7 @@ only when every phase passed):
               cap equal to the total, above and below it), each store
               equal to GapStore.from_dense's,
               gap_expand's pair launch (two stores' blocks in one launch)
+              and its many-store launch (the aggregator's operands)
               over gap_cases (1-run blocks, runs ending on bits 31 and 32
               of a word and on 65534, 1280 runs, the default top GAP
               level, and above it: 1281, 3000 and 65536, either side
@@ -214,14 +215,16 @@ only when every phase passed):
               its wall seconds and launches; then B8, the Bitap chain
               (combine_shift_right_and, one shift_and_chain launch a
               call) at samples/06's shape and at config-1 width (4
-              occurrence vectors of a 100.7M-base text; 16- and 32-letter
-              patterns), and over chains of 33, 34 and 65 operands on a
-              block list with gaps and of 65538 operands on a contiguous
-              one (bitap_chains), each against a numpy Bitap and the
+              occurrence vectors of a 100.7M-base text, 16- and 32-letter
+              patterns; a 100.7M-symbol text over 20 letters, a 32-letter
+              pattern), and over chains of 33, 34 and 65 operands on a
+              block list with gaps, of 65538 and 131075 operands on a
+              contiguous one and of 40 whose first vector zeroes every
+              row (bitap_chains), each against a numpy Bitap and the
               kernel bit for bit against its plain version, with host
               wall ms, device busy ms and launches per call; the kernel's
-              ms at config-1 width (L2 dirty and clean) beside its two
-              bounds;
+              ms at the three config-1-width shapes (L2 dirty and clean)
+              beside its bound, the smaller of its two byte counts;
 15. tools   — the four BLOB tools of tools_torch/ in this process on the
               card, each leg with its seconds and launches: svutil over
               config 4b's live values (16M) to sv and RSC BLOBs (MB/s;
@@ -688,8 +691,20 @@ def gap_kernels_vs_plain(rng, device, cmp):
     cases = gap_cases(rng, device)
     check(tuple(c[0] for c in cases) == GAP_CASES, "gap cases by name")
     for name, *args in cases:
-        cmp("gap_expand", ck.gap_expand_pair(*args),
-            blockops.gap_expand_pair(*args))
+        pair = ck.gap_expand_pair(*args)
+        cmp("gap_expand", pair, blockops.gap_expand_pair(*args))
+        # the many-store form over the same stores and blocks
+        m_a, m_b, sel, k_a = args
+        sel = sel.cpu().numpy()
+        parts = [(m, x) for m, x in ((m_a, sel[:k_a]), (m_b, sel[k_a:]))
+                 if x.size]
+        many = [m for m, _ in parts], [x for _, x in parts]
+        cmp("gap_expand", ck.gap_expand_many(*many), pair)
+    # three stores, one of them twice, in one launch
+    many = [ma, mb, ma], [np.arange(GAP_BLOCKS), some.cpu().numpy(),
+                          np.asarray([5, 0, 5])]
+    cmp("gap_expand", ck.gap_expand_many(*many),
+        blockops.gap_expand_many(*many))
     rows = ra[:GAP_PAIRS] & ck.gap_expand(*mb, every)[:GAP_PAIRS]
     cases = [("cell1_400", rows, None, None),
              ("edges", gap_edge_rows(device), None, None)]
@@ -3941,6 +3956,11 @@ SAMPLE_TIMED = {"22_wide_ranges_48bit.py": ("set_range(0, 2^47-1): ",
                                             "invert() @ 2^48     : ")}
 SAMPLE_CARD_ONLY = {"07_sharded_scaling.py": "make_mesh() over "}
 BITAP_PATTERNS = (16, 32)       # B8 at config-1 width: pattern lengths
+# B8's low-reuse shape at config-1 width: a text over 20 letters (a
+# protein alphabet) and a 32-letter pattern drawn from it
+PROTEIN_LETTERS, PROTEIN_PATTERN = 20, 32
+# B8's timed shapes (bitap_timing), each also with L2 left clean
+B8_SHAPES = ("config1_32", "config1_16", "protein_32")
 
 
 def capi_ok(capi, ret, what):
@@ -4494,6 +4514,11 @@ CHAIN_BLOCKS = (0, 1, 2, 4, 5, 8, 9, 10, 13)
 CHAIN_SIZE = 15 * BPB
 CHAIN_KS = (33, 34, 65)
 LONG_CHAIN = 65538
+# a chain whose shifts reach three blocks back (a row's windows span list
+# blocks b - 3 .. b), and one whose first vector in the kernel's order
+# zeroes every row (ZERO_CHAIN operands, half of them that vector)
+WIDE_CHAIN = 2 * BPB + 3
+ZERO_CHAIN = 40
 
 
 def chain_holes(rng, n):
@@ -4542,6 +4567,38 @@ def long_chain(tbm, device):
     return [vecs[j % 3] for j in range(LONG_CHAIN)]
 
 
+def wide_chain(tbm, device):
+    """WIDE_CHAIN operands over three 5-block vectors repeated on a
+    contiguous list (the long-chain route): each vector ones but for bit 0
+    and one hole of its own in block 2, 3 or 4, so that the result keeps
+    about a third of the bits past 131074; the second and third optimized
+    (FULL and D-GAP blocks).  A row's deepest shifts read three blocks
+    back, before the list for rows 0-2."""
+    vecs = []
+    for i, hole in enumerate((2 * BPB + 7, 3 * BPB + 100, 4 * BPB + 5000)):
+        bits = np.ones(5 * BPB, bool)
+        bits[[0, hole]] = False
+        v = tbm.BitVector.from_words(image(bits), 5 * BPB, device=device)
+        if i:
+            v.optimize()
+        vecs.append(v)
+    return [vecs[j % 3] for j in range(WIDE_CHAIN)]
+
+
+def zero_chain(tbm, rng, device):
+    """ZERO_CHAIN operands over CHAIN_BLOCKS (a list with gaps): the first
+    half one vector of alternating bits, so that its two adjacent shifts
+    zero every row at the kernel's first segment (it has the most shifts),
+    so that every CTA stops after its first copy; the rest three
+    ``gapped_chain`` vectors."""
+    words = np.zeros((CHAIN_SIZE // BPB, 2048), np.uint32)
+    words[list(CHAIN_BLOCKS)] = 0x55555555
+    alt = tbm.BitVector.from_words(words.ravel(), CHAIN_SIZE, device=device)
+    rest = gapped_chain(tbm, rng, 3, device)
+    half = ZERO_CHAIN // 2
+    return [alt] * half + [rest[j % 3] for j in range(ZERO_CHAIN - half)]
+
+
 def chain_words_oracle(images):
     """The Bitap chain in numpy, step by step over word images of one
     address space: acc = images[0], then acc = shift_up1(acc) & images[j]
@@ -4556,18 +4613,23 @@ def chain_words_oracle(images):
 
 def bitap_chains(tbm, device):
     """(name, operand vectors, numpy Bitap words) of the chains of
-    CHAIN_KS operands over a block list with gaps and of LONG_CHAIN over
-    a contiguous one."""
+    CHAIN_KS operands over a block list with gaps, of LONG_CHAIN and
+    WIDE_CHAIN over a contiguous one, and of ZERO_CHAIN whose first
+    vector zeroes every row."""
     rng = np.random.default_rng(SEED + 43)
     out = []
     for k in CHAIN_KS:
         vecs = gapped_chain(tbm, rng, k, device)
         out.append((f"k{k}_gaps", vecs, chain_words_oracle(
             [v.to_words().ravel() for v in vecs])))
-    vecs = long_chain(tbm, device)
-    images = {id(v): v.to_words().ravel() for v in vecs[:3]}
-    out.append((f"k{LONG_CHAIN}_contiguous", vecs, chain_words_oracle(
-        [images[id(v)] for v in vecs])))
+    for k, vecs in ((LONG_CHAIN, long_chain(tbm, device)),
+                    (WIDE_CHAIN, wide_chain(tbm, device))):
+        images = {id(v): v.to_words().ravel() for v in vecs[:3]}
+        out.append((f"k{k}_contiguous", vecs, chain_words_oracle(
+            [images[id(v)] for v in vecs])))
+    vecs = zero_chain(tbm, rng, device)
+    out.append((f"k{ZERO_CHAIN}_first_zero", vecs, chain_words_oracle(
+        [v.to_words().ravel() for v in vecs])))
     return out
 
 
@@ -4629,64 +4691,111 @@ def b8_sources(desc, n):
 
 
 def b8_bytes(first_mask, descs):
-    """The bytes kernel B8 must move: ``(every distinct operand row read
-    once and the result written once, the same at its early exit)``.
+    """The bytes kernel B8 moves: ``(every distinct operand row read once
+    and the result written once, the same at its early exit)``.
     Operands that repeat a vector (a pattern's repeated letter) share
     their rows, so a row counts once however many operands read it.  The
-    exit is replayed in numpy: per 128-word slice of a result row, the
-    operands are taken in groups of four up to the one whose vote finds
-    the slice zero, and each distinct row's 512 B slice at that position
-    counts once if an operand reads it while the slice is alive."""
+    exit is replayed in numpy in the kernel's own order
+    (``blockops.chain_groups`` / ``chain_segments``): a row's CTA needs a
+    segment's window (shift_chain.cu's ``window``) while its AND is not
+    zero, up to and including the segment that zeroes it; each 16-byte
+    vector of an operand row counts once however many windows need it,
+    FULL, absent and before-the-run blocks not at all."""
     from bitmagic_tpu_torch.ops import blockops
-    k = len(descs)
     n = first_mask.shape[0]
+    vecs, offs, shifts = blockops.chain_groups(descs)
+    segs = blockops.chain_segments(offs, shifts)[0]
     fm = first_mask.cpu().numpy()
     start = (fm & 1) == 0
     start[0] = True
-    lo = np.maximum.accumulate(np.where(start, np.arange(n), 0)) * 2048
-    lo = np.repeat(lo, 2048)
+    blk = np.arange(n)
+    run = np.maximum.accumulate(np.where(start, blk, 0))
+    lo = np.repeat(run * 2048, 2048)
     x = np.arange(n * 2048)
     acc = np.full(n * 2048, 0xFFFFFFFF, np.uint64)
-    alive = np.ones(n * 16, bool)
-    sources = {}
-    rows = []
-    for j, desc in enumerate(descs):
-        if id(desc) not in sources:
-            sources[id(desc)] = (b8_sources(desc, n), blockops.to_host_words(
-                blockops.gather_rows(*desc)).ravel().astype(np.uint64))
-        (ptr, row), w = sources[id(desc)]
-        q, r = divmod(k - 1 - j, 32)
+    alive = np.ones(n, bool)
+    srcs = [b8_sources(d, n)[0] for d in vecs]
+    words = {}
+    need = np.zeros((len(vecs), n, 512), bool)
+    for v, qa, nq, _ in segs.tolist():
+        ws = -((qa + nq + 3) // 4 * 4)
+        we = 2048 - qa // 4 * 4
+        o = ws // 2048
+        split = (o + 1) * 2048
+        for off, w0, w1 in ((o, ws - o * 2048, min(we, split) - o * 2048),
+                            (o + 1, 0, we - split)):
+            if w1 <= w0:
+                continue
+            p = blk + off
+            p = p[alive & (p >= run)]
+            need[v, p[srcs[v][p] >= 0], w0 // 4:w1 // 4] = True
+        if v not in words:
+            words[v] = blockops.to_host_words(blockops.gather_rows(
+                *vecs[v])).ravel().astype(np.uint64)
+        w = words[v]
 
         def src(y):
             return np.where(y >= lo, w[np.maximum(y, 0)], 0)
-        v = src(x - q)
-        if r:
-            v = ((v << np.uint64(r)) | (src(x - q - 1) >> np.uint64(32 - r))
-                 ) & np.uint64(0xFFFFFFFF)
-        acc &= v
-        s = np.flatnonzero(alive & np.repeat(ptr >= 0, 16))
-        rows.append(np.stack([ptr[s // 16], row[s // 16], s % 16]))
-        if j % 4 == 3:
-            alive &= (acc.reshape(-1, 128) != 0).any(axis=1)
-    every = np.concatenate([np.stack(b8_sources(d, n)) for d in descs], 1)
+        s = shifts[offs[v]:offs[v + 1]]
+        for q in range(qa, qa + nq):
+            rs = s[(s >> 5) == q] & 31
+            if rs.size == 0:
+                continue
+            pair = (src(x - q) << np.uint64(32)) | src(x - q - 1)
+            for r in rs.tolist():
+                acc &= (pair >> np.uint64(32 - r)) & np.uint64(0xFFFFFFFF)
+        alive &= (acc.reshape(n, 2048) != 0).any(axis=1)
+    every = np.concatenate([np.stack(b8_sources(d, n)) for d in vecs], 1)
     every = every[:, every[0] >= 0]
     distinct = np.unique(every, axis=1).shape[1]
-    read = np.unique(np.concatenate(rows, 1), axis=1).shape[1]
-    return (distinct + n) * 8192, read * 512 + n * 8192
+    return (distinct + n) * 8192, int(need.sum()) * 16 + n * 8192
+
+
+def protein_case(tbm, device, n_blocks=N_BLOCKS):
+    """B8's low-reuse shape at config-1 width: a seeded text of n_blocks x
+    65536 symbols over PROTEIN_LETTERS letters and a PROTEIN_PATTERN-letter
+    pattern drawn from it -> (operand vectors, numpy Bitap ends)."""
+    rng = np.random.default_rng(SEED + 44)
+    n = n_blocks * BPB
+    codes = rng.integers(0, PROTEIN_LETTERS, n).astype(np.uint8)
+    p = int(rng.integers(0, n - PROTEIN_PATTERN))
+    pat = codes[p:p + PROTEIN_PATTERN]
+    occ = {int(c): tbm.BitVector.from_words(image(codes == c), n,
+                                            device=device)
+           for c in np.unique(pat)}
+    return [occ[int(c)] for c in pat], bitap_oracle(codes, pat)
+
+
+def b8_launcher(device, fm, descs):
+    """A launch of kernel B8 through its C interface on the arguments
+    ``combine_shift_right_and`` handed it (``fm``, ``descs``), its host
+    plan made once: ``(launch, result rows)``."""
+    from bitmagic_tpu_torch.ops import cuda_kernels as ck
+    nb = fm.shape[0]
+    buf, args = ck._chain_plan(descs, nb, device)
+    res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
+
+    def launch(buf=buf, descs=descs):
+        ck._launch("bm_shift_and_chain", "shift_and_chain", device, *args,
+                   ck._ptr(fm), nb, ck._ptr(res))
+    return launch, res
 
 
 def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
     """B8: ``combine_shift_right_and`` (one shift_and_chain launch a call)
     at samples/06's shape, at config-1 width (4 occurrence vectors of a
-    seeded 100.7M-base text, 1536 blocks each, BITAP_PATTERNS letters) and
-    over ``bitap_chains``: each result against a numpy Bitap, the kernel
-    against its plain version bit for bit on the arguments the call hands
-    it; host wall ms, device busy ms and launches per call.  The kernel at
-    config-1 width through its C interface (L2 dirty and clean) beside its
-    bounds: every distinct operand row read once and the result written
-    once, and the bytes its early exit leaves (``b8_bytes``).  -> (launches of
-    the calls, each counted from 0, {(kernel, shape): timing}, (cases
-    held against the plain version, their max abs err))."""
+    seeded 100.7M-base text, 1536 blocks each, BITAP_PATTERNS letters; and
+    ``protein_case``'s 20-letter text) and over ``bitap_chains``: each
+    result against a numpy Bitap, the kernel against its plain version bit
+    for bit on the arguments the call hands it; host wall ms, device busy
+    ms and launches per call.  The kernel at B8_SHAPES through its C
+    interface (L2 dirty and clean) beside its bound: the bytes it must
+    move, the smaller of every distinct operand row read once with the
+    result written once and the bytes its early exit leaves
+    (``b8_bytes``), each also reported alone.  ->
+    (launches of the calls, each counted from 0, {(kernel, shape):
+    timing}, (cases held against the plain version, their max abs
+    err))."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     agg = tbm.Aggregator()
@@ -4701,10 +4810,12 @@ def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
         pat = codes[p:p + m]
         cases.append((f"config1_{m}", [occ[c] for c in pat],
                       bitap_oracle(codes, pat), None))
+    cases.append((f"protein_{PROTEIN_PATTERN}",
+                  *protein_case(tbm, device, n_blocks), None))
     cases += [(name, vecs, None, words)
               for name, vecs, words in bitap_chains(tbm, device)]
     launches = {k: 0 for k in KERNELS}
-    args = {}
+    args, plain_rows = {}, {}
     err = 0
     for what, vecs, want, words in cases:
         ck.reset_launches()
@@ -4732,7 +4843,9 @@ def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
                            .abs().max()))
         check(torch.equal(got, plain), f"B8 {what}: kernel = plain version")
         args[what] = (fm, descs)
+        plain_rows[what] = plain
         line = {"b8": what, "operands": len(vecs),
+                "distinct": len({id(v) for v in vecs}),
                 "blocks": int(fm.shape[0]), "hit_bits": int(
                     want.size if want is not None
                     else np.bitwise_count(words).sum()),
@@ -4751,26 +4864,28 @@ def bitap_timing(tbm, device, card, n_blocks=N_BLOCKS):
     out = {}
     flush = torch.empty(128 * 2**20, dtype=torch.int32, device=device)
     clean = torch.empty_like(flush)
-    for m in BITAP_PATTERNS[::-1]:
-        fm, descs = args[f"config1_{m}"]
-        nb = fm.shape[0]
-        table = ck._descriptor_table(descs, nb, device)
-        res = torch.empty((nb, 2048), dtype=torch.int32, device=device)
-
-        def launch(table=table, fm=fm, res=res, k=len(descs), nb=nb):
-            ck._launch("bm_shift_and_chain", "shift_and_chain", device,
-                       ck._ptr(table), k, ck._ptr(fm), nb, ck._ptr(res))
-        nbytes, exit_bytes = b8_bytes(fm, descs)
-        for shape, c in ((f"config1_{m}", None),
-                         (f"config1_{m}_clean_l2", clean)):
-            record(out, ("shift_and_chain", shape), card, flush, launch,
+    for shape in B8_SHAPES:
+        fm, descs = args[shape]
+        launch, rows = b8_launcher(device, fm, descs)
+        launch()
+        sync()
+        check(torch.equal(rows, plain_rows[shape]),
+              f"B8 {shape}: the timed launch = plain version")
+        row_bytes, exit_bytes = b8_bytes(fm, descs)
+        for name, c in ((shape, None), (f"{shape}_clean_l2", clean)):
+            record(out, ("shift_and_chain", name), card, flush, launch,
                    lambda fm=fm, descs=descs: blockops.shift_and_chain(
-                       fm, descs), None, nbytes, 0, 0, clean=c)
-            t = out["shift_and_chain", shape]
-            t.update(operands=len(descs), blocks=nb,
+                       fm, descs), None, min(row_bytes, exit_bytes), 0, 0,
+                   clean=c)
+            t = out["shift_and_chain", name]
+            t.update(operands=len(descs), blocks=int(fm.shape[0]),
+                     distinct=len({id(d) for d in descs}),
+                     distinct_row_bytes=row_bytes,
+                     distinct_row_bound_ms=row_bytes / card["peak_bw"]
+                     * 1e3,
                      exit_bytes=exit_bytes,
                      exit_bound_ms=exit_bytes / card["peak_bw"] * 1e3)
-            log(json.dumps({"kernel": "shift_and_chain", "shape": shape,
+            log(json.dumps({"kernel": "shift_and_chain", "shape": name,
                             **t, "card": card["smi"]}))
     return launches, out, (len(cases), err)
 
@@ -5738,7 +5853,8 @@ def descent_timings(rng, device, card, flush, out):
 def gap_timings(rng, device, card, flush, out):
     """gap_expand over the GAP_BLOCKS blocks of a store drawn as
     bvsetalgebra_rank_select's, and over both stores' in one pair launch
-    (as an operation on two such vectors); gap_compress's launch over
+    (as an operation on two such vectors) and in one many-store launch
+    (as the aggregator's operands); gap_compress's launch over
     GAP_PAIRS AND rows of two such stores (into a prepared buffer), its
     whole call, and ``compress_rows`` (the call and
     the download; host wall, median of 21) against the same through the
@@ -5765,6 +5881,27 @@ def gap_timings(rng, device, card, flush, out):
            lambda: blockops.gap_expand_pair(ma, mb, both, GAP_BLOCKS), None,
            nbytes, 0, 0)
     out["gap_expand", "cell1_pair"].update(
+        rows=2 * GAP_BLOCKS, runs=int(sa.offs[-1] + sb.offs[-1]))
+    # the many-store launch over the same blocks (the aggregator's form),
+    # its table of mirrors and rows uploaded once: one round trip more a
+    # CTA than the pair launch
+    many = [ma, mb], [np.arange(GAP_BLOCKS)] * 2
+    buf, args = ck._expand_many_plan(*many, device)
+    many_rows = torch.empty((2 * GAP_BLOCKS, 2048), dtype=torch.int32,
+                            device=device)
+
+    def many_launch(buf=buf):
+        ck._launch("bm_gap_expand_many", "gap_expand", device, *args,
+                   ck._ptr(many_rows))
+    many_launch()
+    sync()
+    check(torch.equal(many_rows,
+                      ck.gap_expand_pair(ma, mb, both, GAP_BLOCKS)),
+          "gap_expand: the timed many-store launch = the pair launch")
+    record(out, ("gap_expand", "cell1_pair_many"), card, flush, many_launch,
+           lambda: blockops.gap_expand_many(*many), None,
+           nbytes + 2 * GAP_BLOCKS * 4 + 2 * 24, 0, 0)
+    out["gap_expand", "cell1_pair_many"].update(
         rows=2 * GAP_BLOCKS, runs=int(sa.offs[-1] + sb.offs[-1]))
     rows = (ck.gap_expand(*ma, every)[:GAP_PAIRS]
             & ck.gap_expand(*mb, every)[:GAP_PAIRS])
@@ -6351,7 +6488,7 @@ def main():
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"),
-                  gap_expand=("cell1_768", "cell1_pair"),
+                  gap_expand=("cell1_768", "cell1_pair", "cell1_pair_many"),
                   gap_compress=("cell1_400",),
                   sv_gather=("cell3",),
                   sv_transpose=("16M_20", "16M_20_clean_l2",
@@ -6360,8 +6497,9 @@ def main():
                   rs_rank=("cell1_1M", "flat_1M"),
                   sv_descent=("cell3", "cell3_clean_l2", "shard4b",
                               "shard4b_clean_l2"),
-                  shift_and_chain=("config1_32", "config1_32_clean_l2",
-                                   "config1_16", "config1_16_clean_l2"))
+                  shift_and_chain=tuple(
+                      x for shape in B8_SHAPES
+                      for x in (shape, f"{shape}_clean_l2")))
     for k, meta in KERNELS.items():
         launches = (main_launches[k] if k in FIRST_SLICE + GAP_ROWS
                     + RS_KERNELS else descent_launches[k]
@@ -6380,7 +6518,9 @@ def main():
                                   "call_ms", "compress_rows_ms",
                                   "compress_rows_plain_ms", "ids", "planes",
                                   "queries", "bit_queries", "blocks",
-                                  "steps", "operands", "exit_bytes",
+                                  "steps", "operands", "distinct",
+                                  "distinct_row_bytes",
+                                  "distinct_row_bound_ms", "exit_bytes",
                                   "exit_bound_ms")
                 if x in t}, "main_path_launches": launches,
                 "card": card["smi"]}))
@@ -6423,11 +6563,14 @@ def main():
             entry["note"] = ("one launch per call (after a memset of its "
                              "scratch); call_ms the whole call")
         if k == "shift_and_chain":
+            entry["distinct_row_bound_ms"] = t["distinct_row_bound_ms"]
             entry["exit_bound_ms"] = t["exit_bound_ms"]
             entry["note"] = ("launches: one per combine_shift_right_and call "
-                             "of the B8 runs (samples phase); bound_ms every "
-                             "distinct operand row read once, exit_bound_ms "
-                             "the bytes its early exit leaves")
+                             "of the B8 runs (samples phase); bound_ms the "
+                             "smaller of distinct_row_bound_ms (every "
+                             "distinct operand row read once) and "
+                             "exit_bound_ms (the bytes its early exit "
+                             "leaves in the kernel's order)")
         kernels.append(entry)
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(nvidia_smi("name,power.limit"))

@@ -408,6 +408,33 @@ def test_gap_expand_pair_equals_two_expansions(case):
     np.testing.assert_array_equal(host, np.concatenate(jax_rows))
 
 
+@pytest.mark.parametrize("case", ["both", "a_empty", "b_empty",
+                                  "above_top_level"])
+def test_gap_expand_many_equals_single_expansions(case):
+    """The many-store form's plain route (the aggregator's operands): the
+    pair case's two stores and a's again, one after another, equal to
+    single expansions, to the words the stores were built from and to the
+    JAX package's ``GapStore.to_dense``."""
+    from bitmagic_tpu.core.gapstore import GapStore as JaxGapStore
+    (wa, sa, ia), (wb, sb, ib) = _pair_stores(case)
+    stores = [(wa, sa, ia), (wb, sb, ib), (wa, sa, ia[::-1][:3])]
+    got = ck.gap_expand_many([s.device_arrays("cpu") for _, s, _ in stores],
+                             [i for _, _, i in stores])
+    k = sum(i.size for _, _, i in stores)
+    assert got.shape == (k, 2048) and got.dtype == torch.int32
+    singles = [ck.gap_expand(*s.device_arrays("cpu"),
+                             torch.from_numpy(i.astype(np.int32)))
+               for _, s, i in stores]
+    assert torch.equal(got, torch.cat(singles))
+    host = blockops.to_host_words(got)
+    np.testing.assert_array_equal(
+        host, np.concatenate([w[i] for w, _, i in stores]))
+    jax_rows = [np.asarray(JaxGapStore(s.ends.copy(), s.offs.copy(),
+                                       s.first.copy()).to_dense(i))
+                .reshape(-1, 2048) for _, s, i in stores if i.size]
+    np.testing.assert_array_equal(host, np.concatenate(jax_rows))
+
+
 def _counting_expansions(monkeypatch):
     calls = {"gap_expand": 0, "gap_expand_pair": 0}
     for name in calls:

@@ -558,11 +558,14 @@ def b8_cases():
 
 
 @pytest.mark.parametrize("case", ["sample06_ACGG", "k33_gaps", "k34_gaps",
-                                  "k65_gaps", "k65538_contiguous"])
+                                  "k65_gaps", "k65538_contiguous",
+                                  "k131075_contiguous", "k40_first_zero"])
 def test_shift_and_chain_kernel(dev, b8_cases, case):
     """B8 (``shift_and_chain``) over ``chip_smoke.bitap_kernel_cases``
     (samples/06's chain, chains of 33, 34 and 65 operands over a block
-    list with gaps, 65538 over a contiguous one) against its plain
+    list with gaps, 65538 and 131075 over a contiguous one, the last
+    reading three blocks back, and 40 whose first vector zeroes every row,
+    so that every CTA stops after its first copy) against its plain
     version, bit for bit: one launch a call."""
     first_mask, descs = b8_cases[case]
     ck.reset_launches()
@@ -590,6 +593,27 @@ def test_gap_expand_cases(dev, name):
     torch.cuda.synchronize()
     assert torch.equal(got, blockops.gap_expand_pair(*args))
     assert ck.launches["gap_expand"] == 1
+
+
+@pytest.mark.parametrize("name", GAP_CASES)
+def test_gap_expand_many_cases(dev, name):
+    """gap_expand's many-store launch over the stores and blocks of
+    chip_smoke.gap_cases: one launch, bit for bit the pair launch's rows
+    and its plain version."""
+    import chip_smoke as cs
+    cases = dict((c[0], c[1:]) for c in cs.gap_cases(
+        np.random.default_rng(cs.SEED + 1), dev))
+    m_a, m_b, sel, k_a = cases[name]
+    sel = sel.cpu().numpy()
+    parts = [(m, x) for m, x in ((m_a, sel[:k_a]), (m_b, sel[k_a:]))
+             if x.size]
+    mirrors, sels = [m for m, _ in parts], [x for _, x in parts]
+    ck.reset_launches()
+    got = ck.gap_expand_many(mirrors, sels)
+    torch.cuda.synchronize()
+    assert ck.launches["gap_expand"] == 1
+    assert torch.equal(got, blockops.gap_expand_many(mirrors, sels))
+    assert torch.equal(got, ck.gap_expand_pair(*cases[name]))
 
 
 def test_cell1_step_launches_seven_gap_expands(dev):

@@ -11,8 +11,14 @@ and AND).  The same operands go to both: k in {1, 2, 17, 32, 33, 34, 64,
 BIT, FULL (an entry or a FULL run), D-GAP and absent blocks over a block
 list with gaps, rows mostly ones with holes drawn with numpy from a fixed
 seed so that the chains keep bits; the result's state and ids must be
-identical.  The kernel itself is held against the plain version on the
-card (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
+identical.  Both the kernel and the plain version group the operands by
+vector (``blockops.chain_groups`` / ``chain_segments``): the tests also
+take 17-65 operands interleaved over 3-4 vectors, check that the
+grouping holds each operand's shift exactly once, that the vectors may
+come in any order, and that ``_operand_descs`` expands D-GAP blocks on
+the vectors' device equal to the host expansion.  The kernel itself is
+held against the plain version on the card
+(``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 
 Tolerance: exact equality (bits).
 """
@@ -166,3 +172,128 @@ def test_repeated_operands_against_jax(k):
     assert_same_state(want, got)
     np.testing.assert_array_equal(got.indices(), want.indices())
     assert got.count() > 0
+
+
+@pytest.mark.parametrize("k,n_vec", [(17, 3), (33, 4), (65, 3), (65, 4)])
+def test_interleaved_vectors_against_jax(k, n_vec):
+    """``k`` operands interleaved over ``n_vec`` vectors (each a mix of
+    BIT, D-GAP, FULL entries or a FULL run and absent blocks over a list
+    with gaps), in a seeded order where no vector's operands are
+    contiguous: the kernel's grouping by vector leaves the JAX package's
+    state and ids."""
+    js, ts = operands(n_vec, 500 + k + n_vec)
+    pick = (np.arange(k) + np.random.default_rng(k).integers(0, 2, k)) \
+        % n_vec
+    want = jagg_mod.aggregator.combine_shift_right_and([js[i] for i in pick])
+    got = tagg_mod.aggregator.combine_shift_right_and([ts[i] for i in pick])
+    assert_same_state(want, got)
+    np.testing.assert_array_equal(got.indices(), want.indices())
+    assert got.count() > 0
+
+
+def _decode(segs, masks):
+    """{vector: sorted shifts} that kernel shift_and_chain's segments and
+    masks hold."""
+    out = {}
+    for v, qa, nq, moff in segs.tolist():
+        for i in range(nq):
+            m = int(masks[moff + i])
+            out.setdefault(v, []).extend(32 * (qa + i) + r for r in range(32)
+                                         if m >> r & 1)
+    return {v: sorted(s) for v, s in out.items()}
+
+
+@pytest.mark.parametrize("k,n_vec", [(1, 1), (33, 4), (65, 3), (2100, 5)])
+def test_chain_grouping_holds_each_shift_once(k, n_vec):
+    """``chain_groups`` puts each operand's shift ``k - 1 - j`` exactly
+    once under its vector (the vector with the most shifts first), and
+    ``chain_segments`` covers the same shifts, each segment within one
+    aligned span of CHAIN_SPAN word shifts, ``deep`` the deepest window's
+    block offset."""
+    rng = np.random.default_rng(k)
+    base = [(torch.zeros((0, 2048), dtype=torch.int32),
+             torch.full((3,), -1, dtype=torch.int32), None, None, None)
+            for _ in range(n_vec)]
+    pick = rng.integers(0, n_vec, k)
+    descs = [base[i] for i in pick]
+    vecs, offs, shifts = blockops.chain_groups(descs)
+    assert sorted(shifts.tolist()) == list(range(k))
+    counts = np.diff(offs)
+    assert (np.diff(counts) <= 0).all()
+    for i, d in enumerate(vecs):
+        mine = [k - 1 - j for j in range(k) if descs[j] is d]
+        assert shifts[offs[i]:offs[i + 1]].tolist() == sorted(mine)
+    segs, masks, deep = blockops.chain_segments(offs, shifts)
+    assert _decode(segs, masks) == {
+        i: shifts[offs[i]:offs[i + 1]].tolist() for i in range(len(vecs))}
+    qa, nq = segs[:, 1], segs[:, 2]
+    assert ((qa // blockops.CHAIN_SPAN)
+            == ((qa + nq - 1) // blockops.CHAIN_SPAN)).all()
+    assert (masks[segs[:, 3]] != 0).all()
+    deepest = (k - 1) // 32 + 1           # the deepest window's words
+    assert deep == -((deepest + 3) // 4 * 4) // C.SET_BLOCK_SIZE
+
+
+@pytest.mark.parametrize("k", (17, 65))
+def test_shuffled_vector_order_same_rows(k):
+    """The AND over the distinct vectors takes them in any order: the
+    grouped closed form with its vectors permuted gives the same rows,
+    and those rows are the JAX scan's."""
+    js, ts = operands(4, 900 + k)
+    pick = np.random.default_rng(k).integers(0, 4, k)
+    blocklist = np.asarray(BLOCKS, np.int64)
+    adj = np.concatenate([[False], blocklist[1:] == blocklist[:-1] + 1])
+    first_mask = np.where(adj | (np.arange(blocklist.size) == 0),
+                          np.uint32(0xFFFFFFFF), np.uint32(0xFFFFFFFE))
+    fm = torch.from_numpy(first_mask.view(np.int32))
+    vecs, offs, shifts = blockops.chain_groups(
+        tagg_mod._operand_descs([ts[i] for i in pick], blocklist))
+    rows = blockops.chain_and(fm, vecs, offs, shifts)
+    perm = np.random.default_rng(k + 1).permutation(len(vecs))
+    parts = [shifts[offs[i]:offs[i + 1]] for i in perm]
+    p_offs = np.concatenate([[0], np.cumsum([p.size for p in parts])])
+    shuffled = blockops.chain_and(fm, [vecs[i] for i in perm], p_offs,
+                                  np.concatenate(parts))
+    assert torch.equal(shuffled, rows)
+    jpick = [js[i] for i in pick]
+    want = np.asarray(jagg_mod._shift_and_chain(
+        k, jnp.asarray(first_mask),
+        *jagg_mod._operand_args(jpick, blocklist)))
+    np.testing.assert_array_equal(blockops.to_host_words(rows),
+                                  want.reshape(-1, 2048))
+
+
+def test_operand_descs_expand_gap_rows_on_the_device(monkeypatch):
+    """``_operand_descs`` expands the D-GAP blocks of all distinct vectors
+    by one ``gap_expand_many`` call on the vectors' device, a store per
+    vector that has them (no aux for a vector without), and every
+    descriptor's aux rows equal the host expansion ``GapStore.to_dense``
+    of its D-GAP blocks; a repeated vector shares its descriptor."""
+    _, ts = operands(4, 77)
+    vectors = [ts[0], ts[1], ts[0], ts[2], ts[3], ts[1]]
+    blocklist = np.asarray(BLOCKS, np.int64)
+    calls = []
+    real = ck.gap_expand_many
+
+    def spy(mirrors, sel):
+        calls.append(len(mirrors))
+        return real(mirrors, sel)
+    monkeypatch.setattr(ck, "gap_expand_many", spy)
+    descs = tagg_mod._operand_descs(vectors, blocklist)
+    assert descs[0] is descs[2] and descs[1] is descs[5]
+    with_gap = 0
+    for v, d in zip(vectors[:2] + vectors[3:5], descs[:2] + descs[3:5]):
+        st, sl = v._struct.lookup(blocklist)
+        gap = st == tagg_mod._G
+        with_gap += bool(gap.any())
+        pool, slot, full, aux, aux_slot = d
+        assert (aux is None) == (aux_slot is None) == (not gap.any())
+        if gap.any():
+            assert aux.device == v._pool.device
+            a_sl = aux_slot.numpy()
+            assert ((a_sl >= 0) == gap).all()
+            np.testing.assert_array_equal(
+                blockops.to_host_words(aux[torch.from_numpy(
+                    a_sl[gap].astype(np.int64))]),
+                v._gaps.to_dense(sl[gap]))
+    assert with_gap >= 2 and calls == [with_gap]
