@@ -1,12 +1,12 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a).
 //
-// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K1-K3
+// A block row is 2048 32-bit words = 8 KiB = 512 16-byte vectors.  K2, K3
 // and B6 give one CTA of 256 threads to one row: each thread moves two
 // 16-byte vectors, neighbouring threads on neighbouring addresses, so a
 // warp's load is 512 contiguous bytes.  They read each input byte once and
 // write each output byte once; they are bound by device memory bandwidth,
-// not by the popcount / logic instructions.  B4 and B5 cut rows
-// differently (agg_sub.cu, pipeline_counts.cu).
+// not by the popcount / logic instructions.  K1, B4 and B5 cut rows
+// differently (logical_op_digest.cu, agg_sub.cu, pipeline_counts.cu).
 //
 // Words arrive as the int32 storage of PyTorch tensors and are treated as
 // uint32_t: the bits are the reference's uint32 words.

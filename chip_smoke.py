@@ -5526,14 +5526,23 @@ def multihost_phase(tbm, card, device="cuda:0"):
 # ---------------------------------------------------------------------------
 # phase 21: timing
 # ---------------------------------------------------------------------------
-def time_ms(fn, flush, reps=25, clean=None):
+# clock cycles a timed run is held back after the flush: about 1 ms on an
+# H100 at 1980 MHz, longer than the host thread's usual stalls
+HOLD_CYCLES = 2_000_000
+
+
+def time_ms(fn, flush, reps=25, clean=None, samples=None,
+            hold=HOLD_CYCLES):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up.
-    Before each run a 512 MiB memset evicts the 50 MB L2 and keeps the
+    Before each run a 512 MiB memset evicts the 50 MB L2, and a kernel
+    that spins ``hold`` clock cycles and touches no memory keeps the
     stream busy while the host enqueues the run, so the events bracket the
-    device work and not the host's launch overhead.  The memset leaves L2
-    full of dirty lines, which the run's reads write back; with ``clean``
-    (a second buffer) a read-only pass over it follows the memset and
-    leaves L2 holding clean lines instead."""
+    device work and not the host's launch overhead, nor a stall of the
+    host thread that outlasts the memset.  The memset leaves L2 full of
+    dirty lines, which the run's reads write back; with ``clean`` (a
+    second buffer) a read-only pass over it follows the memset and leaves
+    L2 holding clean lines instead.  ``samples``: a list that receives
+    each run's time."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -5541,6 +5550,8 @@ def time_ms(fn, flush, reps=25, clean=None):
         flush.zero_()
         if clean is not None:
             clean.max()
+        if hold:
+            torch.cuda._sleep(hold)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -5548,6 +5559,8 @@ def time_ms(fn, flush, reps=25, clean=None):
         e.record()
         e.synchronize()
         ts.append(s.elapsed_time(e))
+    if samples is not None:
+        samples.extend(ts)
     return float(np.median(ts))
 
 
@@ -5579,11 +5592,23 @@ def desc_rows_read(desc) -> int:
     return int(on_aux.sum()) + int(on_pool.sum())
 
 
+def k1_same_as_plain(kern, plain, what):
+    """K1 bit-identical to its plain version, rows and digests, for each
+    op."""
+    for op in OPS:
+        got, want = kern(op), plain(op)
+        sync()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"logical_op_digest at {what}, {op}: kernel against plain")
+
+
 def timings(device, card, cfg1):
     """K1-K3 at 1536 and 16384 rows; K3 and K2 at config 1's own shapes
     (``cfg1``: A's pool and the descriptors distance_operation hands K2),
-    per block and in total form; the floor of a timed launch; K3 at 1536
-    and 16384 rows after a flush that leaves L2 clean."""
+    per block and in total form, and K1's gather form over those
+    descriptors; the floor of a timed launch; K3 and K1 at 1536 and 16384
+    rows, and K1's gather form, after a flush that leaves L2 clean.  Each
+    K1 case is checked bit-identical to its plain version first."""
     from bitmagic_tpu_torch.ops import blockops
     from bitmagic_tpu_torch.ops import cuda_kernels as ck
     rng = np.random.default_rng(SEED + 4)
@@ -5623,6 +5648,17 @@ def timings(device, card, cfg1):
         t = out["block_counts", n]
         out["block_counts", f"{n}_clean_l2"] = dict(
             t, ms=ms, plain_ms=None, gb_per_s=t["bytes"] / (ms * 1e-3) / 1e9)
+        # K1 with L2 left clean, its library call beside it
+        k1_same_as_plain(lambda op: ck.logical_op_digest(op, a, b),
+                         lambda op: blockops.logical_op_digest(op, a, b),
+                         f"{n} aligned rows")
+        ms = time_ms(lambda: ck.logical_op_digest("and", a, b), flush,
+                     clean=clean)
+        t = out["logical_op_digest", n]
+        out["logical_op_digest", f"{n}_clean_l2"] = dict(
+            t, ms=ms, plain_ms=None, gb_per_s=t["bytes"] / (ms * 1e-3) / 1e9,
+            library_ms=time_ms(lambda: torch.bitwise_and(a, b), flush,
+                               clean=clean))
         del clean
         del a, b
     # config 1's shapes: count() on A's pool; distance_operation's 7
@@ -5651,6 +5687,20 @@ def timings(device, card, cfg1):
                    None, nbytes, 0, n_popc * k * 2048)
             out["count_op", form + ms_name].update(
                 rows=k, rows_read=reads, popcounts_per_word_pair=n_popc)
+    # K1's gather form over the same descriptors: the rows read, the
+    # result rows and digests written, the descriptors read once
+    k1_same_as_plain(lambda op: ck.binary_op_digest(op, da, db),
+                     lambda op: blockops.binary_op_digest(op, da, db),
+                     "config 1's descriptors")
+    clean = torch.empty_like(flush)
+    for key, cl in (("config1_gather", None),
+                    ("config1_gather_clean_l2", clean)):
+        record(out, ("logical_op_digest", key), card, flush,
+               lambda: ck.binary_op_digest("and", da, db),
+               lambda: blockops.binary_op_digest("and", da, db), None,
+               reads * row + k * (row + 256) + 2 * k * 9, 0, 0, clean=cl)
+        out["logical_op_digest", key].update(rows=k, rows_read=reads)
+    del clean
     gap_timings(rng, device, card, flush, out)
     sv_timings(rng, device, card, flush, out)
     rs_timings(rng, device, card, flush, out)
@@ -6485,6 +6535,9 @@ def main():
                                "config1_A", "total_1536", "total_config1_A")
     shapes["count_op"] += ("config1_7", "config1_1", "total_config1_7",
                            "total_config1_1")
+    shapes["logical_op_digest"] += ("1536_clean_l2", "16384_clean_l2",
+                                    "config1_gather",
+                                    "config1_gather_clean_l2")
     shapes.update(agg_and_sub=("config3", "config4b", "config3_batch64"),
                   pipeline_counts=("config4b", "config3"),
                   scan_eq=("config4", "config4b"),

@@ -178,6 +178,80 @@ def test_gather_rows_vs_gather_operand(pools, rng):
 
 
 # ---------------------------------------------------------------------------
+# K1's edges: one, two and 133 rows, results whose first and last waves
+# are zero, all-zero and all-one rows, every source kind mixed
+# ---------------------------------------------------------------------------
+EDGE_ROWS = [1, 2, 133]
+
+
+def _edge_pair(rng, k):
+    """Operands of ``k`` rows: random words, row 0's first and last waves
+    zero on both sides (so in every result), then (where k allows) a row
+    zero on both sides, one all ones on both, one all ones against zero
+    and one holding a lone bit in its last wave."""
+    a, b = (rng.integers(0, 2**32, (k, 2048), dtype=np.uint64)
+            .astype(np.uint32) for _ in range(2))
+    for p in (a, b):
+        p[0, :32] = 0
+        p[0, -32:] = 0
+    for i, (x, y) in enumerate(((0, 0), (0xFFFFFFFF, 0xFFFFFFFF),
+                                (0xFFFFFFFF, 0)), start=1):
+        if i < k:
+            a[i], b[i] = x, y
+    if k > 4:
+        a[4] = 0
+        a[4, 2047] = 0x80000000
+    return a, b
+
+
+def _edge_descriptors(rng, k, one_pool):
+    """Descriptors of ``k`` rows over the edge rows: pool rows, aux rows,
+    FULL rows and absent rows (slot -1) on both sides, each kind forced
+    into the first rows; ``one_pool``: both operands on one pool."""
+    pa, pb = _edge_pair(rng, 7)
+    if one_pool:
+        pb = pa
+    aux = _edge_pair(rng, 3)[0]
+    descs = []
+    for side, pool in enumerate((pa, pb)):
+        slot = rng.integers(-1, pool.shape[0], k)
+        full = rng.random(k) < 0.15
+        aux_slot = np.where(rng.random(k) < 0.25, rng.integers(0, 3, k), -1)
+        # row 0: pool row 0 on both sides; row 1: FULL / aux; row 2:
+        # absent / pool row 1
+        forced = [(0, False, -1), (-1, True, -1) if side else (5, False, 2),
+                  (1, False, -1) if side else (-1, False, -1)]
+        for i, (s, f, x) in enumerate(forced[:k]):
+            slot[i], full[i], aux_slot[i] = s, f, x
+        descs.append((pool, slot, full, aux, aux_slot))
+    return descs
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("k", EDGE_ROWS)
+def test_logical_op_digest_edges_vs_pallas(rng, k, op):
+    a, b = _edge_pair(rng, k)
+    want, want_dig = pk.logical_op_digest_pallas(op, jnp.asarray(a),
+                                                 jnp.asarray(b))
+    out, dig = ck.logical_op_digest(op, _t(a), _t(b))
+    np.testing.assert_array_equal(_u(out), np.asarray(want))
+    np.testing.assert_array_equal(dig.numpy(), np.asarray(want_dig))
+    assert not dig[0, 0] and not dig[0, -1]
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("case", ["mixed", "one_pool"])
+@pytest.mark.parametrize("k", EDGE_ROWS)
+def test_binary_op_digest_edges_vs_binary_kernel(rng, k, case, op):
+    da, db = _edge_descriptors(rng, k, case == "one_pool")
+    want = np.asarray(jbv._binary_kernel(op, *_jdesc(da), *_jdesc(db)))
+    out, dig = ck.binary_op_digest(op, _tdesc(da), _tdesc(db))
+    np.testing.assert_array_equal(_u(out), want)
+    np.testing.assert_array_equal(
+        dig.numpy(), np.asarray(jops.calc_digest(jnp.asarray(want))))
+
+
+# ---------------------------------------------------------------------------
 # the other plain block ops vs blockops
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["block_counts", "wave_counts",

@@ -110,6 +110,63 @@ def test_gather_fused_kernels(dev, rng, with_aux, pool_rows):
         "block_counts": 0, "count_op": 2, "logical_op_digest": 4}
 
 
+# ---------------------------------------------------------------------------
+# K1 at its edges: row counts on both sides of its warp split (4096 rows),
+# every source kind mixed, both operands on one pool, results whose first
+# and last waves are zero, all-zero and all-one rows; each op against the
+# plain version on the same card tensors, one launch a call
+# ---------------------------------------------------------------------------
+K1_EDGE_ROWS = [1, 2, 133, 16385]
+
+
+def _k1_pool(rng, n, dev):
+    """``_pool``'s rows (1 zero, 2 all ones, 3 with zero waves) with row
+    0's first and last waves zero."""
+    p = _pool(rng, n, dev)
+    p[0, :32] = 0
+    p[0, -32:] = 0
+    return p
+
+
+def _k1_check(call, plain):
+    for op in OPS:
+        out, dig = call(op)
+        want, want_dig = plain(op)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), op
+        assert torch.equal(dig, want_dig), op
+    assert ck.launches["logical_op_digest"] == len(OPS)
+
+
+@pytest.mark.parametrize("k", K1_EDGE_ROWS)
+def test_k1_aligned_edges(dev, rng, k):
+    a, b = _k1_pool(rng, k, dev), _k1_pool(rng, k, dev)
+    if k > 4:
+        b[4] = a[4]                     # xor and sub give a zero row
+    _k1_check(lambda op: ck.logical_op_digest(op, a, b),
+              lambda op: blockops.logical_op_digest(op, a, b))
+    dig = ck.logical_op_digest("or", a, b)[1]
+    assert not dig[0, 0] and not dig[0, -1]
+
+
+@pytest.mark.parametrize("one_pool", [False, True])
+@pytest.mark.parametrize("k", K1_EDGE_ROWS)
+def test_k1_gather_edges(dev, rng, k, one_pool):
+    pa = _k1_pool(rng, 7, dev)
+    pb = pa if one_pool else _k1_pool(rng, 5, dev)
+    da = _desc(rng, pa, k, dev, True)
+    db = _desc(rng, pb, k, dev, True)
+    # the first rows take each kind: a pool row 0 / pool row 0, an aux row
+    # / FULL, absent / pool row 1 (all zero), FULL / aux row
+    kinds = (((0, False, -1), (0, False, -1)), ((5, False, 2), (-1, True, -1)),
+             ((-1, False, -1), (1, False, -1)), ((3, True, -1), (2, False, 0)))
+    for i, pair in enumerate(kinds[:k]):
+        for (slot, full, aux_slot), d in zip(pair, (da, db)):
+            d[1][i], d[2][i], d[4][i] = slot, full, aux_slot
+    _k1_check(lambda op: ck.binary_op_digest(op, da, db),
+              lambda op: blockops.binary_op_digest(op, da, db))
+
+
 def test_bitvector_on_card_matches_cpu(dev, rng):
     ids_a = rng.integers(0, 40 * 65536, 200000)
     ids_b = np.concatenate([rng.integers(0, 40 * 65536, 200000),
